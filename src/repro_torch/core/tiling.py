@@ -1,0 +1,153 @@
+"""Tile legality and hardware specs for the port's planner.
+
+Two specs live here:
+
+* :class:`TpuSpec` / ``TPU_V5E`` — a copy of the reference's TPU description,
+  kept as *data*: fed to the port's search it must return exactly the
+  reference's plans (``tests/test_torch_dse.py``).  No kernel of the port
+  runs under it.
+* :class:`GpuSpec` / ``H100`` — what the port plans against.  Its limits are
+  the CUDA kernels' own: the GEMM tiles they are compiled for, the threads
+  of a block, and the shared memory a block may take.
+
+:class:`MatmulBlock` is one GEMM tile (bm, bn, bk) under either spec.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Union
+
+__all__ = [
+    "GpuSpec",
+    "H100",
+    "MatmulBlock",
+    "TPU_V5E",
+    "TpuSpec",
+    "Spec",
+    "ceil_div",
+    "clamp_block",
+]
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class TpuSpec:
+    """Per-chip TPU description (data only: the parity target of the DSE)."""
+
+    name: str = "tpu_v5e"
+    peak_bf16_flops: float = 197e12
+    hbm_bw: float = 819e9
+    ici_bw: float = 50e9
+    vmem_bytes: int = 64 * 1024 * 1024
+    mxu_dim: int = 128
+    lane: int = 128
+    sublane: int = 8
+
+
+TPU_V5E = TpuSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuSpec:
+    """One NVIDIA Hopper card as the port's kernels see it.
+
+    ``gemm_tiles`` are the (bm, bn, bk) tiles ``csrc/matmul.cu`` is compiled
+    for, each run by ``gemm_threads`` threads; ``conv_taus`` the output-
+    channel slices ``csrc/conv2d.cu`` takes.  Rates are NVIDIA's dense
+    published peaks for the SXM part at its 700 W limit.
+    """
+
+    name: str = "h100_sxm"
+    sms: int = 132
+    smem_per_block: int = 232_448
+    threads_per_block: int = 1024
+    hbm_bw: float = 3.35e12
+    peak_f32_flops: float = 67e12
+    peak_int8_ops: float = 1979e12
+    gemm_tiles: tuple = ((16, 64, 16), (64, 64, 16), (128, 128, 16))
+    gemm_threads: int = 256
+    conv_taus: tuple = (8, 16, 32, 64, 128, 256)
+    conv_threads: int = 256
+
+
+H100 = GpuSpec()
+
+Spec = Union[TpuSpec, GpuSpec]
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulBlock:
+    """One GEMM tile: ``bm`` rows x ``bn`` columns of output, ``bk`` deep per
+    step of the reduction loop."""
+
+    bm: int = 512
+    bn: int = 512
+    bk: int = 512
+
+    def vmem_bytes(self, in_dtype_bytes: int = 2, acc_bytes: int = 4) -> int:
+        # TPU model: double-buffered x/w/out tiles + the f32 accumulator
+        x = self.bm * self.bk * in_dtype_bytes * 2
+        w = self.bk * self.bn * in_dtype_bytes * 2
+        acc = self.bm * self.bn * acc_bytes
+        out = self.bm * self.bn * in_dtype_bytes * 2
+        return x + w + acc + out
+
+    def smem_bytes(self) -> int:
+        """Shared memory of ``csrc/matmul.cu`` at this tile: the x and w
+        tiles of one k-step, widened to 4 bytes each."""
+        return (self.bm * self.bk + self.bk * self.bn) * 4
+
+    def aligned(self, spec: TpuSpec = TPU_V5E) -> bool:
+        return (
+            self.bm % spec.sublane == 0
+            and self.bn % spec.lane == 0
+            and self.bk % spec.lane == 0
+        )
+
+    def mxu_efficiency(self, spec: TpuSpec = TPU_V5E) -> float:
+        def frac(dim: int) -> float:
+            return dim / (ceil_div(dim, spec.mxu_dim) * spec.mxu_dim)
+
+        return frac(self.bm) * frac(self.bn) * frac(self.bk)
+
+    def arithmetic_intensity(self, in_dtype_bytes: int = 2) -> float:
+        flops = 2 * self.bm * self.bn * self.bk
+        bytes_moved = (self.bm * self.bk + self.bk * self.bn) * in_dtype_bytes
+        return flops / bytes_moved
+
+    def legal(self, m: int, n: int, k: int, spec: Spec = TPU_V5E) -> bool:
+        if isinstance(spec, GpuSpec):
+            return (
+                (self.bm, self.bn, self.bk) in spec.gemm_tiles
+                and self.smem_bytes() <= spec.smem_per_block
+                and spec.gemm_threads <= spec.threads_per_block
+            )
+        return (
+            self.aligned(spec)
+            and self.vmem_bytes() <= spec.vmem_bytes
+            and self.bm <= max(m, spec.sublane)
+            and self.bn <= max(n, spec.lane)
+            and self.bk <= max(k, spec.lane)
+        )
+
+
+def clamp_block(m: int, n: int, k: int, block: MatmulBlock,
+                spec: TpuSpec = TPU_V5E) -> MatmulBlock:
+    """Shrink a block to fit a (possibly small) problem, keeping TPU
+    alignment.  GPU tiles are fixed at compile time and are not clamped."""
+    if isinstance(spec, GpuSpec):
+        return block
+
+    def shrink(dim: int, b: int, gran: int) -> int:
+        b = min(b, max(gran, math.ceil(dim / gran) * gran))
+        return max(gran, b - b % gran)
+
+    return MatmulBlock(
+        bm=shrink(m, block.bm, spec.sublane),
+        bn=shrink(n, block.bn, spec.lane),
+        bk=shrink(k, block.bk, spec.lane),
+    )

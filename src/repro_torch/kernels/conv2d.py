@@ -1,0 +1,304 @@
+"""Direct NHWC convolution, float and fixed point: CUDA kernel wrappers +
+plain versions.
+
+Replaces ``repro/kernels/conv2d.py:conv2d_pallas`` (kernel ``_conv_kernel``),
+``conv2d_q16_pallas`` (kernel ``_conv_q16_kernel``) and their manual-DMA
+regime ``_conv_dma_call`` (kernel ``_conv_dma_kernel``).  Both wrappers
+launch ``csrc/conv2d.cu``, whose header says what bounds it on an H100 and
+what its design does about that.
+
+The reference's three input regimes map onto one kernel:
+
+* a GPU block always stages exactly its own tile's input window, one Cin
+  chunk at a time, so ``halo_mode="dma"`` launches the kernel with the
+  plan's (tile_rows, tile_cols) as each block's output tile;
+* ``"two_block"`` (row tiles at full width) is the same kernel with
+  (tile_rows, Wo) tiles, and keeps the reference's legality rule and error
+  (``stride·tile_rows ≥ kh``);
+* an untiled plan leaves the tile to the kernel: one pass of
+  :func:`~repro_torch.core.dse.gpu_conv_subtile` pixels per block.
+
+Zero fill past the image stands in for the reference's explicit pad, which
+is exact for both numerics, so the direct route never materialises a padded
+copy.  A tile, τ or Cin chunk the kernel cannot take raises; nothing is
+reshaped silently.  The wrappers run the plain versions for CPU tensors, and
+only for those.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.dse import (
+    gpu_conv_max_chunk,
+    gpu_conv_smem,
+    gpu_conv_subtile,
+)
+from repro_torch.core.quantization import Q2_14, QFormat
+from repro_torch.core.tiling import H100, ceil_div
+
+from . import _build
+from ._common import on_cpu, ptr, require_contiguous, stream_of
+from .matmul_q16 import check_shifts
+from .ref import conv2d_fused_ref, conv_taps_i32, q16_epilogue
+
+__all__ = [
+    "ConvLaunch",
+    "conv2d_cuda",
+    "conv2d_plain",
+    "conv2d_q16_cuda",
+    "conv2d_q16_plain",
+    "conv_launch_geometry",
+    "halo_mode_for",
+    "launch",
+    "launch_q16",
+]
+
+_BITS = {torch.int8: 8, torch.int16: 16}
+
+
+def halo_mode_for(tile_rows: int, tile_cols: int, ho: int, wo: int,
+                  halo_mode: str) -> str:
+    """Validate/normalize the tiled regime of a (tile_rows, tile_cols) pair
+    (the reference's ``_halo_mode_for``): "untiled", "two_block" or "dma"."""
+    row_tiled = 0 < tile_rows < ho
+    col_tiled = 0 < tile_cols < wo
+    if not (row_tiled or col_tiled):
+        return "untiled"
+    if col_tiled and halo_mode != "dma":
+        raise ValueError(
+            f"tile_cols={tile_cols} requires halo_mode='dma' (the two-block "
+            f"scheme only tiles output rows), got {halo_mode!r}"
+        )
+    if halo_mode == "dma":
+        return "dma"
+    if halo_mode in ("two_block", "none"):
+        return "two_block"
+    raise ValueError(f"unknown halo_mode {halo_mode!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvLaunch:
+    """Everything the kernel is launched with, checked against its limits."""
+
+    geom: tuple  # the 18 ints of csrc/conv2d.cu's ConvGeom, in order
+    ho: int
+    wo: int
+    smem_bytes: int
+
+
+def _pow2_ceil(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def conv_launch_geometry(
+    x_shape, w_shape, *, stride: int, padding: int, tau: int, cin_chunk: int,
+    tile_rows: int, tile_cols: int, halo_mode: str,
+) -> ConvLaunch:
+    """Resolve and check one direct-conv launch: τ (capped at the smallest
+    compiled τ covering Cout, as the reference caps it at Cout), the Cin
+    chunk (0 = the largest that fits shared memory), and each block's output
+    tile from the regime."""
+    n, h, wd, cin = x_shape
+    kh, kw, cin2, cout = w_shape
+    if cin != cin2:
+        raise ValueError(f"input has {cin} channels, weights expect {cin2}")
+    if stride < 1 or padding < 0:
+        raise ValueError(f"bad stride {stride} / padding {padding}")
+    ho = (h + 2 * padding - kh) // stride + 1
+    wo = (wd + 2 * padding - kw) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"empty conv output {ho}x{wo}")
+    tau = min(tau, _pow2_ceil(max(cout, 8)))
+    if tau not in H100.conv_taus:
+        raise ValueError(f"conv kernel takes tau in {H100.conv_taus}, got {tau}")
+    sub_h, sub_w = gpu_conv_subtile(tau)
+    limit = H100.smem_per_block
+    if cin_chunk == 0:
+        cin_chunk = gpu_conv_max_chunk(kh, kw, stride, tau, cin, limit)
+    if not 1 <= cin_chunk <= cin:
+        raise ValueError(f"Cin chunk {cin_chunk} outside [1, {cin}] (or no "
+                         f"chunk fits {limit} bytes of shared memory)")
+    smem = gpu_conv_smem(kh, kw, stride, tau, cin_chunk)
+    if smem > limit:
+        raise ValueError(f"Cin chunk {cin_chunk} at tau {tau} needs {smem} bytes "
+                         f"of shared memory, over the {limit} a block has")
+    mode = halo_mode_for(tile_rows, tile_cols, ho, wo, halo_mode)
+    if mode == "untiled":
+        th, tw = sub_h, sub_w
+    elif mode == "two_block":
+        th, tw = tile_rows, wo
+        if stride * th < kh:
+            raise ValueError(
+                f"tile_rows={th} too small: stride*tile_rows ({stride * th}) must "
+                f"cover the {kh}-row tap window for the two-block halo scheme"
+            )
+    else:
+        th = tile_rows if 0 < tile_rows < ho else ho
+        tw = tile_cols if 0 < tile_cols < wo else wo
+    geom = (n, h, wd, cin, kh, kw, stride, padding, ho, wo, cout, tau,
+            cin_chunk, th, tw, ceil_div(wo, tw), sub_h, sub_w)
+    return ConvLaunch(geom, ho, wo, smem)
+
+
+def _check_operands(x, w, bias, dtypes):
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(f"conv wants NHWC x and (K, K, Cin, Cout) w, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    if bias is not None and tuple(bias.shape) != (w.shape[3],):
+        raise ValueError(f"bias must be ({w.shape[3]},), got {tuple(bias.shape)}")
+
+
+def _geom_arg(geom: tuple):
+    arr = (ctypes.c_int * len(geom))(*geom)
+    return arr, ctypes.cast(arr, ctypes.c_void_p)
+
+
+# ---------------------------------------------------------------------------
+# float
+# ---------------------------------------------------------------------------
+
+
+def conv2d_plain(x, w, bias=None, *, stride: int = 1, padding: int = 0,
+                 relu: bool = False, qout: Optional[QFormat] = None) -> torch.Tensor:
+    """K² tap GEMMs with an f32 accumulator, then bias -> ReLU -> fake-quant
+    (the reference's ``conv2d_fused_ref``)."""
+    return conv2d_fused_ref(x, w, bias, stride=stride, padding=padding,
+                            relu=relu, qout=qout)
+
+
+def launch(lib, x, w, bias, out, geo: ConvLaunch, *, relu: bool,
+           qout: Optional[QFormat], device: int, stream) -> None:
+    """One call of the float C entry point on prepared, checked operands."""
+    keep, geom = _geom_arg(geo.geom)
+    rc = lib.conv2d_launch(
+        ptr(x), ptr(w), ptr(bias), ptr(out), geom, int(relu),
+        int(qout is not None), qout.scale if qout else 1.0,
+        qout.min_val if qout else 0.0, qout.max_val if qout else 0.0,
+        device, stream,
+    )
+    del keep
+    _build.check(lib, rc, "conv2d")
+
+
+def conv2d_cuda(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    stride: int = 1,
+    padding: int = 0,
+    tau: int = 64,
+    cin_chunk: int = 0,
+    relu: bool = False,
+    qout: Optional[QFormat] = None,
+    tile_rows: int = 0,
+    tile_cols: int = 0,
+    halo_mode: str = "two_block",
+) -> torch.Tensor:
+    """NHWC conv, any stride and zero padding.  x: (N,H,W,Cin) f32,
+    w: (K,K,Cin,Cout) f32 -> (N,Ho,Wo,Cout) f32; ``bias`` (Cout,), ``relu``
+    and ``qout`` fused into the write-back."""
+    _check_operands(x, w, bias, (torch.float32,))
+    geo = conv_launch_geometry(
+        x.shape, w.shape, stride=stride, padding=padding, tau=tau,
+        cin_chunk=cin_chunk, tile_rows=tile_rows, tile_cols=tile_cols,
+        halo_mode=halo_mode,
+    )
+    if on_cpu(x, w, bias):
+        return conv2d_plain(x, w, bias, stride=stride, padding=padding,
+                            relu=relu, qout=qout)
+    bias32 = None if bias is None else bias.to(torch.float32).contiguous()
+    require_contiguous(x=x, w=w)
+    out = torch.empty((x.shape[0], geo.ho, geo.wo, w.shape[3]),
+                      dtype=torch.float32, device=x.device)
+    launch(_build.library("conv2d"), x, w, bias32, out, geo, relu=relu,
+           qout=qout, device=x.device.index, stream=stream_of(x))
+    _build.launches["conv2d"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fixed point
+# ---------------------------------------------------------------------------
+
+
+def conv2d_q16_plain(xq, wq, bias=None, *, stride: int = 1, padding: int = 0,
+                     shift: int, bias_shift: int, raw_min: int, raw_max: int,
+                     out_dtype: torch.dtype, relu: bool = False) -> torch.Tensor:
+    """Exact int32-wrapping tap-loop accumulation, then the q16 epilogue."""
+    acc = conv_taps_i32(xq, wq, stride=stride, padding=padding)
+    return q16_epilogue(acc, bias, bias_shift=bias_shift, relu=relu,
+                        shift=shift, raw_min=raw_min, raw_max=raw_max,
+                        out_dtype=out_dtype)
+
+
+def launch_q16(lib, xq, wq, bias, out, geo: ConvLaunch, *, relu: bool,
+               shift: int, bias_shift: int, raw_min: int, raw_max: int,
+               device: int, stream) -> None:
+    """One call of the fixed-point C entry point on prepared operands."""
+    keep, geom = _geom_arg(geo.geom)
+    rc = lib.conv2d_q16_launch(
+        ptr(xq), _BITS[xq.dtype], ptr(wq), _BITS[wq.dtype], ptr(bias), ptr(out),
+        _BITS[out.dtype], geom, int(relu), shift, bias_shift, raw_min, raw_max,
+        device, stream,
+    )
+    del keep
+    _build.check(lib, rc, "conv2d_q16")
+
+
+def conv2d_q16_cuda(
+    xq: torch.Tensor,
+    wq: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    stride: int = 1,
+    padding: int = 0,
+    tau: int = 64,
+    cin_chunk: int = 0,
+    relu: bool = False,
+    fmt: QFormat = Q2_14,
+    shift: Optional[int] = None,
+    bias_shift: Optional[int] = None,
+    tile_rows: int = 0,
+    tile_cols: int = 0,
+    halo_mode: str = "two_block",
+) -> torch.Tensor:
+    """Fixed-point NHWC conv on int16 / int8 raws (mixed widths allowed),
+    written onto ``fmt``'s rung; ``shift`` / ``bias_shift`` as in
+    :func:`~repro_torch.kernels.matmul_q16.matmul_q16_cuda`.  Every tiling is
+    bit-identical: integer accumulation is exact in any order."""
+    _check_operands(xq, wq, bias, (torch.int8, torch.int16))
+    if bias is not None and bias.dtype not in (torch.int8, torch.int16):
+        raise TypeError(f"bias must hold int8 or int16 raws, got {bias.dtype}")
+    shift = fmt.frac_bits if shift is None else shift
+    bias_shift = fmt.frac_bits if bias_shift is None else bias_shift
+    check_shifts(shift, bias_shift)
+    geo = conv_launch_geometry(
+        xq.shape, wq.shape, stride=stride, padding=padding, tau=tau,
+        cin_chunk=cin_chunk, tile_rows=tile_rows, tile_cols=tile_cols,
+        halo_mode=halo_mode,
+    )
+    if on_cpu(xq, wq, bias):
+        return conv2d_q16_plain(xq, wq, bias, stride=stride, padding=padding,
+                                shift=shift, bias_shift=bias_shift,
+                                raw_min=fmt.raw_min, raw_max=fmt.raw_max,
+                                out_dtype=fmt.storage_dtype, relu=relu)
+    bias32 = None if bias is None else bias.to(torch.int32).contiguous()
+    require_contiguous(xq=xq, wq=wq)
+    out = torch.empty((xq.shape[0], geo.ho, geo.wo, wq.shape[3]),
+                      dtype=fmt.storage_dtype, device=xq.device)
+    launch_q16(_build.library("conv2d"), xq, wq, bias32, out, geo, relu=relu,
+               shift=shift, bias_shift=bias_shift, raw_min=fmt.raw_min,
+               raw_max=fmt.raw_max, device=xq.device.index, stream=stream_of(xq))
+    _build.launches["conv2d_q16"] += 1
+    return out

@@ -132,3 +132,11 @@ def assert_close(a, b, atol=1e-4, rtol=1e-4, msg=""):
         np.asarray(a, np.float32), np.asarray(b, np.float32),
         atol=atol, rtol=rtol, err_msg=msg,
     )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: runs the port's CUDA kernels on an NVIDIA card (skips without one); "
+        "select with `pytest -m gpu`",
+    )
