@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CNN main path on one NVIDIA card.
+"""Drive the PyTorch port's main paths on one NVIDIA card.
 
 Run from the root of a checkout::
 
@@ -9,12 +9,13 @@ Phases (each prints JSON lines; any failure raises and the run exits
 non-zero without its result line):
 
 1. the card: name, count, ``nvidia-smi`` name and power limit, versions, and
-   the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+   the build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all at once);
 2. each kernel held against its plain version on the same inputs at the
-   main path's shapes (floats at a stated tolerance, integers bit for bit),
+   main paths' shapes (floats at a stated tolerance, integers bit for bit),
    with its time, the plain version's, one PyTorch call's where there is
    one, and the least time the card could take (its bound);
-3. the main path: ``plan_cnn`` -> ``cnn_forward`` for LeNet, AlexNet and
+3. the CNN path: ``plan_cnn`` -> ``cnn_forward`` for LeNet, AlexNet and
    VGG16 at full width, batch 8, random weights and biases from a seed
    (each hidden layer fitted onto the activation grid), in float,
    grid-resident Q2.14 and a forced int8/int16 mix, with every kernel's
@@ -23,7 +24,18 @@ non-zero without its result line):
    logits to the same engine on the CPU (the kernels' plain versions), bit
    for bit, and that run shows how few of each layer's raws are clipped;
 4. the time, images/s and peak memory of one forward of each, and the
-   device time by kernel of VGG16's forwards (``torch.profiler``).
+   device time by kernel of VGG16's forwards (``torch.profiler``);
+5. the serving path: ``launch/serve.py:generate`` on qwen2-0.5b at full
+   width and depth (bf16, random weights from the seed), 4 prompts of 4096
+   tokens then 16 greedy tokens, in float on the ``cuda`` backend and
+   grid-resident after ``calibrate_policy``, each with the launch counts set
+   to 0 just before and read just after.  Each stream is replayed
+   teacher-forced through the same kernels and through the plain ``torch``
+   backend (float), and the logits are held to stated tolerances; the
+   grid-resident replay shows each layer's share of raws at the grid's
+   bounds and the island counts.  Then prefill tokens/s, decode ms/step,
+   peak memory, device time by kernel (``torch.profiler``), and one run of
+   ``serve.main`` at the reference's reduced CLI size.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -52,6 +64,7 @@ E2E_TOL = 2e-3
 HBM_BW = 3.35e12
 PEAK_F32 = 67e12
 PEAK_INT8 = 1979e12
+PEAK_BF16 = 989e12
 BATCH = 8
 SEED = 0
 #: He-style weight scale: keeps the activations O(1) through VGG16's ReLU
@@ -66,6 +79,24 @@ BIAS_STD = 0.1
 FIT_LIMIT = 0.5
 #: most share of a grid-resident layer's output raws allowed at its bounds
 MAX_CLIPPED_SHARE = 1e-3
+#: flash attention against its plain version: the reference's 2e-3 in f32
+#: (tests/test_kernels.py); bf16 outputs to one bf16 step
+FA_TOL = 2e-3
+FA_TOL_BF16 = 2 ** -7
+#: the serving main path: qwen2-0.5b, 4 prompts of 4096 tokens, 16 generated
+QWEN_ARCH = "qwen2-0.5b"
+QWEN_PROMPTS = 4
+QWEN_PROMPT_LEN = 4096
+QWEN_GEN = 16
+#: random QKV biases and norm scales, N(0, 0.1²), so both carry values
+QWEN_PARAM_STD = 0.1
+#: teacher-forced logits against the plain torch backend (float) on the same
+#: stream: max |Δ| / max |logit|, and the least argmax agreement; wherever
+#: the plain path's top-2 margin exceeds 2·max |Δ| the argmax must agree
+FLOAT_REL_TOL = 0.05
+FLOAT_ARGMAX = 0.75
+Q16_REL_TOL = 0.25
+Q16_ARGMAX = 0.5
 
 
 def emit(obj) -> None:
@@ -559,10 +590,10 @@ def phase_main_path(torch, dev):
                                       for i in range(len(qp[g])))})
             runs.append((net, numerics, tq, spec, qp, x, policy))
     launches = dict(_build.launches)
-    emit({"phase": "main_path_launches", **launches})
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    emit({"phase": "main_path_launches", "path": "cnn", **launches})
+    for name in ("matmul_fp", "matmul_q16", "conv2d", "conv2d_q16"):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the CNN path")
     return runs, launches
 
 
@@ -589,9 +620,6 @@ def phase_profile(torch, runs):
     """Device time by kernel over three VGG16 forwards of each numerics
     (torch.profiler's CUDA events), and the device's busy share of the
     window's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import cnn
 
     for net, numerics, tpl, spec, params, x, policy in runs:
@@ -600,26 +628,435 @@ def phase_profile(torch, runs):
         fwd = (lambda: cnn.cnn_forward(tpl, spec, params, x, policy=policy))
         fwd()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                fwd()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        by_name: dict = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                name = ev.name.split("(")[0][:90]
-                us, n = by_name.get(name, (0.0, 0))
-                by_name[name] = (us + ev.time_range.elapsed_us(), n + 1)
-        busy = sum(us for us, _ in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
         emit({"phase": "profile", "net": net, "numerics": numerics, "forwards": 3,
-              "wall_ms": wall_us / 1e3,
-              "device_busy_ms": busy / 1e3 if by_name else "not measured",
-              "device_busy_share": busy / wall_us if by_name else "not measured",
-              "top_kernels": [{"name": k, "ms": us / 1e3, "calls": n}
-                              for k, (us, n) in top]})
+              **profile_window(torch, lambda: [fwd() for _ in range(3)],
+                               groups=("conv", "gemm_kernel"))})
+
+
+# ---------------------------------------------------------------------------
+# phase 2, serving kernels: flash attention and the tied head's GEMM
+# ---------------------------------------------------------------------------
+
+
+def causal_pairs(sq: int, sk: int, q_offset: int) -> int:
+    """(row, col) pairs with col <= q_offset + row, col < sk."""
+    return sum(min(sk, q_offset + r + 1) for r in range(sq))
+
+
+def phase_kernels_serving(torch, dev, book: KernelBook):
+    import torch.nn.functional as F
+
+    from repro_torch.core import dse
+    from repro_torch.core.tiling import H100
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain
+    from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
+
+    fa_cases = [
+        # name, b, hq, hkv, sq, sk, d, causal, q_offset, dtype, block
+        ("MHA", 1, 4, 4, 64, 64, 32, True, 0, torch.float32, 32),
+        ("GQA", 2, 8, 2, 64, 64, 32, True, 0, torch.float32, 32),
+        ("MQA", 1, 4, 1, 128, 128, 64, True, 0, torch.float32, 32),
+        ("non-causal", 2, 4, 4, 64, 64, 32, False, 0, torch.float32, 32),
+        ("ragged Sq=96", 1, 2, 2, 96, 96, 32, True, 0, torch.float32, 32),
+        ("q_offset=48", 1, 2, 2, 16, 64, 32, True, 48, torch.float32, 16),
+        ("bf16 GQA", 2, 16, 2, 300, 300, 64, True, 0, torch.bfloat16, 256),
+        ("qwen2-0.5b prefill", QWEN_PROMPTS, 16, 2, QWEN_PROMPT_LEN, QWEN_PROMPT_LEN, 64,
+         True, 0, torch.float32, 1024),
+    ]
+    for i, (name, b, hq, hkv, sq, sk, d, causal, q_offset, dtype, blk) in enumerate(fa_cases):
+        # the model's layout: (B, S, H, D) memory, viewed as (B, H, S, D)
+        q = _randn(torch, (b, sq, hq, d), dev, 140 + i, 0.5).to(dtype).transpose(1, 2)
+        k = _randn(torch, (b, sk, hkv, d), dev, 150 + i, 0.5).to(dtype).transpose(1, 2)
+        v = _randn(torch, (b, sk, hkv, d), dev, 160 + i, 0.5).to(dtype).transpose(1, 2)
+        kw = dict(causal=causal, q_offset=q_offset)
+        got = ops.flash_attention(q, k, v, bq=blk, bk=blk, **kw)
+        want = flash_attention_plain(q, k, v, bk=blk, **kw)
+        torch.cuda.synchronize()
+        tol = FA_TOL if dtype == torch.float32 else FA_TOL_BF16
+        book.check("flash_attention", f"{name} q{tuple(q.shape)} kv{tuple(k.shape)} "
+                   f"{str(dtype)[6:]}", got, want, exact=False, tol=tol)
+        if name.startswith("qwen2"):
+            g = hq // hkv
+            qc = q.contiguous()  # the library call gets dense, expanded heads
+            ke = k.repeat_interleave(g, dim=1).contiguous()
+            ve = v.repeat_interleave(g, dim=1).contiguous()
+            out_bytes = nbytes(q)
+            book.timing(
+                "flash_attention",
+                f"{name} q{tuple(q.shape)} kv{tuple(k.shape)} f32 causal",
+                kernel_fn=lambda: ops.flash_attention(q, k, v, bq=blk, bk=blk, **kw),
+                plain_fn=lambda: flash_attention_plain(q, k, v, bk=blk, **kw),
+                library_fn=lambda: F.scaled_dot_product_attention(qc, ke, ve, is_causal=True),
+                library="F.scaled_dot_product_attention (f32, kv heads expanded, is_causal)",
+                nbytes_=nbytes(q, k, v) + out_bytes,
+                ops=4 * d * b * hq * causal_pairs(sq, sk, q_offset), peak=PEAK_F32)
+            del qc, ke, ve
+        del q, k, v, got, want
+
+    # the tied LM head reads the (vocab, d) table in place (transposed B)
+    vocab, dm = 151936, 896
+    for dtype, tol in ((torch.float32, GEMM_TOL), (torch.bfloat16, FA_TOL_BF16)):
+        x = _randn(torch, (QWEN_PROMPTS, dm), dev, 170).to(dtype)
+        table = _randn(torch, (vocab, dm), dev, 171, dm ** -0.5).to(dtype)
+        blk = dse.default_block_for(QWEN_PROMPTS, vocab, dm, H100)
+        got = matmul_fp_cuda(x, table.T, block=blk)
+        want = matmul_fp_plain(x, table.T)
+        torch.cuda.synchronize()
+        book.check("matmul_fp", f"tied head ({QWEN_PROMPTS},{dm})@embed.T({dm},{vocab}) "
+                   f"{str(dtype)[6:]} block={blk.bm}x{blk.bn}", got, want, exact=False,
+                   tol=tol)
+        if dtype == torch.bfloat16:
+            book.timing(
+                "matmul_fp", f"tied head ({QWEN_PROMPTS},{dm})@embed.T bf16 "
+                f"block={blk.bm}x{blk.bn}x{blk.bk}", record=False,
+                kernel_fn=lambda: matmul_fp_cuda(x, table.T, block=blk),
+                plain_fn=lambda: matmul_fp_plain(x, table.T),
+                library_fn=lambda: torch.matmul(x, table.T),
+                library="torch.matmul(x, embed.T) (cuBLAS, bf16)",
+                nbytes_=nbytes(x, table) + QWEN_PROMPTS * vocab * 2,
+                ops=2 * QWEN_PROMPTS * vocab * dm, peak=PEAK_BF16)
+        del x, table, got, want
+
+    # the prefill's widest GEMM (the MLP's gate / up), float and int16
+    m, k, n = QWEN_PROMPTS * QWEN_PROMPT_LEN, dm, 4864
+    blk = dse.default_block_for(m, n, k, H100)
+    x = _randn(torch, (m, k), dev, 172).to(torch.bfloat16)
+    w = _randn(torch, (k, n), dev, 173, k ** -0.5).to(torch.bfloat16)
+    book.timing(
+        "matmul_fp", f"qwen2 gate/up ({m},{k})@({k},{n}) bf16 block={blk.bm}x{blk.bn}x{blk.bk}",
+        record=False, kernel_fn=lambda: matmul_fp_cuda(x, w, block=blk),
+        plain_fn=lambda: matmul_fp_plain(x, w), library_fn=lambda: torch.matmul(x, w),
+        library="torch.matmul (cuBLAS, bf16)", nbytes_=nbytes(x, w) + m * n * 2,
+        ops=2 * m * n * k, peak=PEAK_BF16)
+    xq = _raws(torch, (m, k), torch.int16, dev, 174)
+    wq = _raws(torch, (k, n), torch.int16, dev, 175)
+    qkw = dict(block=blk, shift=20, bias_shift=0)
+    pkw = dict(shift=20, bias_shift=0, raw_min=-32768, raw_max=32767, out_dtype=torch.int16)
+    got = matmul_q16_cuda(xq, wq, **qkw)
+    want = matmul_q16_plain(xq, wq, **pkw)
+    torch.cuda.synchronize()
+    book.check("matmul_q16", f"qwen2 gate/up ({m},{k})@({k},{n}) int16", got, want,
+               exact=True)
+    book.timing(
+        "matmul_q16", f"qwen2 gate/up ({m},{k})@({k},{n}) int16 block={blk.bm}x{blk.bn}x{blk.bk}",
+        record=False, kernel_fn=lambda: matmul_q16_cuda(xq, wq, **qkw),
+        plain_fn=lambda: matmul_q16_plain(xq, wq, **pkw), library_fn=None,
+        library="none: no PyTorch call multiplies int16 matrices on CUDA",
+        nbytes_=nbytes(xq, wq) + m * n * 2, ops=2 * m * n * k, peak=PEAK_INT8 / 4)
+    del x, w, xq, wq, got, want
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving path (qwen2-0.5b)
+# ---------------------------------------------------------------------------
+
+
+def qwen_params(torch, dev, cfg):
+    """Random weights from the seed in the config's bf16, drawn on the card,
+    with N(0, 0.1²) QKV biases and norm scales (both are zero at init)."""
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = T.init_params(gen, cfg)
+    for blk in params["blocks"]:
+        leaves = [blk["attn"][n]["b"] for n in ("wq", "wk", "wv")]
+        leaves += [blk[n]["scale"] for n in ("norm", "ffn_norm")]
+        for t in leaves:
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev) * QWEN_PARAM_STD)
+    return params
+
+
+def teacher_forced(torch, tpl, cfg, params, prompts, stream, policy=None, islands=None):
+    """Per-step logits (B, gen, V) in f32 of the prefill and the decode steps
+    fed ``stream`` (the greedy tokens of a ``generate`` run).  ``islands``, a
+    list, receives each step's (quantize, dequantize) counts."""
+    from repro_torch.models import transformer as T
+
+    c = tpl.engine.counters
+
+    def step(fn):
+        q0, d0 = c["quantize_calls"], c["dequantize_calls"]
+        res = fn()
+        if islands is not None:
+            islands.append((c["quantize_calls"] - q0, c["dequantize_calls"] - d0))
+        return res
+
+    s, gen = prompts.shape[1], stream.shape[1]
+    logits, cache = step(lambda: T.prefill(tpl, cfg, params, prompts, cache_len=s + gen,
+                                           policy=policy))
+    out = [logits.float()]
+    for i in range(gen - 1):
+        logits, cache = step(lambda: T.decode_step(tpl, cfg, params, stream[:, i:i + 1],
+                                                   s + i, cache, policy=policy))
+        out.append(logits.float())
+    return torch.stack(out, dim=1)
+
+
+def compare_logits(torch, got, want, *, rel_tol, argmax_min, what):
+    """``got`` against the plain path's ``want`` on the same stream."""
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    agree = got.argmax(-1) == want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * diff
+    res = {"max_abs_diff": diff, "logit_absmax": scale, "rel_diff": diff / scale,
+           "rel_tol": rel_tol, "argmax_agreement": float(agree.float().mean()),
+           "argmax_min": argmax_min, "decisive_positions": int(decisive.sum()),
+           "decisive_agreement": float(agree[decisive].float().mean())
+           if bool(decisive.any()) else None}
+    if not (bool(torch.isfinite(got).all()) and diff / scale <= rel_tol
+            and res["argmax_agreement"] >= argmax_min and bool(agree[decisive].all())):
+        raise AssertionError(f"{what}: logits off the plain path: {res}")
+    return res
+
+
+class ClipProbe:
+    """While installed, records per layer the largest share of raws at the
+    grid's bounds over every QTensor an engine's ``quant`` / ``matmul``
+    returns (``head`` outside the layers), over prefill and decode alike."""
+
+    def __init__(self, eng, T, n_layers: int):
+        self.eng, self.T, self.n_layers = eng, T, n_layers
+        self.layer, self.shares = "head", {}
+
+    def __enter__(self):
+        from repro_torch.core.quantization import QTensor
+
+        def watch(orig):
+            def fn(*a, **kw):
+                out = orig(*a, **kw)
+                if isinstance(out, QTensor):
+                    r, f = out.raw, out.fmt
+                    share = float(((r == f.raw_max) | (r == f.raw_min)).float().mean())
+                    self.shares[self.layer] = max(self.shares.get(self.layer, 0.0), share)
+                return out
+            return fn
+
+        self.eng.quant = watch(self.eng.quant)
+        self.eng.matmul = watch(self.eng.matmul)
+        self._run_layer = self.T._run_layer
+        count = iter(range(10 ** 6))
+
+        def run_layer(*a, **kw):
+            self.layer = f"layer{next(count) % self.n_layers}"
+            try:
+                return self._run_layer(*a, **kw)
+            finally:
+                self.layer = "head"
+
+        self.T._run_layer = run_layer
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng.quant, self.eng.matmul
+        self.T._run_layer = self._run_layer
+
+
+def phase_serving(torch, dev):
+    """The serving main path, float and grid-resident; returns the runs for
+    the timing phase and the launches of each main-path window."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.template import default_template
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(QWEN_ARCH)
+    params = qwen_params(torch, dev, cfg)
+    prompts = synthetic_batch(SEED, 0, QWEN_PROMPTS, QWEN_PROMPT_LEN, cfg.vocab, device=dev)
+    tq = default_template("q16")
+    t0 = time.perf_counter()
+    cal = synthetic_batch(SEED + 1, 7, 2, QWEN_PROMPT_LEN, cfg.vocab, device=dev)
+    policy = T.calibrate_policy(tq, cfg, params, cal)
+    qp = T.quantize_params(tq, cfg, params, policy)
+    torch.cuda.synchronize()
+    emit({"phase": "serving_setup", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": f"{cfg.n_heads} padded to {cfg.eff_heads}",
+          "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab, "dtype": cfg.dtype,
+          "prompts": QWEN_PROMPTS, "prompt_len": QWEN_PROMPT_LEN, "gen": QWEN_GEN,
+          "calibrated_fmt": policy.fmt.name, "calibrate_and_quantize_s":
+          time.perf_counter() - t0,
+          "int16_weight_fmts": sorted({v.fmt.name for v in _qleaves(qp)})})
+    tf = default_template("cuda")
+    tplain = default_template("torch")
+    per_prefill = {"flash_attention": cfg.n_layers,
+                   "matmul_fp": 7 * cfg.n_layers + 1}
+    runs, windows = [], {}
+    for numerics, tpl, pol in (("float", tf, None), ("grid " + policy.fmt.name, tq, policy)):
+        kernel = "matmul_fp" if pol is None else "matmul_q16"
+        _build.reset_launches()
+        stream = generate(cfg, params, prompts, gen=QWEN_GEN, tpl=tpl, policy=pol)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        windows[numerics] = launches
+        emit({"phase": "serving_launches", "numerics": numerics, **launches})
+        want = {"flash_attention": cfg.n_layers,
+                kernel: QWEN_GEN * per_prefill["matmul_fp"]}
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{numerics}: {name} launched {launches[name]} times, "
+                                     f"want {n} (flash once per layer per prefill, never "
+                                     f"in decode)")
+        assert stream.shape == (QWEN_PROMPTS, QWEN_GEN)
+        # replay the stream teacher-forced through the same kernels (and, on
+        # the grid, count islands and clipped raws), then through the plain path
+        tree = params if pol is None else qp
+        eng = tpl.engine
+        islands = []
+        with ClipProbe(eng, T, cfg.n_layers) as probe:
+            got = teacher_forced(torch, tpl, cfg, tree, prompts, stream, pol, islands)
+        if not torch.equal(got.argmax(-1), stream):
+            raise AssertionError(f"{numerics}: the teacher-forced replay does not "
+                                 f"reproduce generate's greedy tokens")
+        extra = {}
+        if pol is not None:
+            law_p = T.q16_island_counts(cfg, mode="prefill")
+            law_d = T.q16_island_counts(cfg, mode="decode")
+            law = [(law_p["quantize"], law_p["dequantize"])]
+            law += [(law_d["quantize"], law_d["dequantize"])] * (QWEN_GEN - 1)
+            if islands != law:
+                raise AssertionError(f"island counts per step {islands} != "
+                                     f"q16_island_counts {law}")
+            seen = {"prefill": islands[0], "each decode step": sorted(set(islands[1:]))}
+            worst = max(probe.shares.values())
+            if worst > MAX_CLIPPED_SHARE:
+                raise AssertionError(f"{numerics}: raws at the grid's bounds: "
+                                     f"{probe.shares}")
+            extra = {"island_counts": seen, "island_law_prefill": law_p,
+                     "island_law_decode": law_d, "clipped_share_by_layer": probe.shares}
+        plain = teacher_forced(torch, tplain, cfg, params, prompts, stream)
+        res = compare_logits(
+            torch, got, plain, what=numerics,
+            rel_tol=FLOAT_REL_TOL if pol is None else Q16_REL_TOL,
+            argmax_min=FLOAT_ARGMAX if pol is None else Q16_ARGMAX)
+        emit({"phase": "serving_check", "numerics": numerics,
+              "vs": "torch backend, float, same stream", **res, **extra,
+              "sample_tokens": stream[0, :8].tolist()})
+        del got, plain
+        runs.append((numerics, tpl, pol))
+    return cfg, params, prompts, runs, windows
+
+
+def _qleaves(tree):
+    from repro_torch.core.quantization import QTensor
+
+    if isinstance(tree, QTensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _qleaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _qleaves(v)
+
+
+def profile_window(torch, fn, *, groups=("gemm_kernel", "flash_attention_kernel"),
+                   host_ops: bool = False) -> dict:
+    """``fn`` once under ``torch.profiler``: its wall time, the device's
+    busy time and share of it, device time by group (kernels whose name
+    holds the group's name; "other" is everything else, the PS-plane ops)
+    and the top kernels; with ``host_ops`` also the host ops with the most
+    self CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name.split("(")[0][:90]
+            us, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + ev.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    by_group = dict.fromkeys((*groups, "other"), 0.0)
+    for name, (us, _) in by_name.items():
+        by_group[next((g for g in groups if g in name), "other")] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    out = {"wall_ms": wall_ms,
+           "device_busy_ms": busy_ms if by_name else "not measured",
+           "device_busy_share": busy_ms / wall_ms if by_name else "not measured",
+           "device_ms_by_group": by_group,
+           "device_launches": sum(n for _, n in by_name.values()),
+           "top_kernels": [{"name": k, "ms": us / 1e3, "calls": n} for k, (us, n) in top]}
+    if host_ops:
+        avg = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+        out["top_host_ops"] = [{"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                                "calls": e.count} for e in avg]
+    return out
+
+
+def phase_serving_timing(torch, cfg, params, prompts, runs):
+    """Prefill tokens/s, decode ms/step and peak memory (CUDA events after
+    warm-up), then the device time by kernel of one prefill and of four
+    decode steps (``torch.profiler``)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+
+    s = prompts.shape[1]
+    emit({"phase": "clocks_before_serving_timing", "nvidia_smi": smi_clocks()})
+    for numerics, tpl, pol in runs:
+        tree = params if pol is None else T.quantize_params(tpl, cfg, params, pol)
+        clen = s + QWEN_GEN
+        prefill = (lambda: T.prefill(tpl, cfg, tree, prompts, cache_len=clen, policy=pol))
+        prefill_ms = time_ms(prefill, target_ms=1.0)
+        _, cache = prefill()
+        tok = prompts[:, -1:]
+
+        def decode(n=QWEN_GEN - 1):
+            c = cache
+            for i in range(n):
+                _, c = T.decode_step(tpl, cfg, tree, tok, s + i, c, policy=pol)
+
+        decode_ms = time_ms(decode, target_ms=1.0) / (QWEN_GEN - 1)
+        del cache
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        generate(cfg, params, prompts, gen=QWEN_GEN, tpl=tpl, policy=pol)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        emit({"phase": "serving_time", "numerics": numerics, "prompts": QWEN_PROMPTS,
+              "prompt_len": s, "gen": QWEN_GEN, "prefill_ms": prefill_ms,
+              "prefill_tokens_per_s": QWEN_PROMPTS * s / prefill_ms * 1e3,
+              "decode_ms_per_step": decode_ms,
+              "decode_tokens_per_s": QWEN_PROMPTS / decode_ms * 1e3,
+              "generate_s_host_clock": gen_s, "peak_mem_bytes": peak,
+              "resident_bytes_before": resident})
+
+        _, cache = prefill()
+        torch.cuda.synchronize()
+        emit({"phase": "serving_profile", "numerics": numerics, "window": "one prefill",
+              **profile_window(torch, prefill)})
+
+        def decode4():
+            c = cache
+            for i in range(4):
+                _, c = T.decode_step(tpl, cfg, tree, tok, s + i, c, policy=pol)
+
+        emit({"phase": "serving_profile", "numerics": numerics, "window": "4 decode steps",
+              **profile_window(torch, decode4, host_ops=True)})
+        del cache
+    emit({"phase": "clocks_after_serving_timing", "nvidia_smi": smi_clocks()})
+
+
+def phase_serve_cli(torch):
+    """``serve.main`` at the reference's reduced CLI size, on the card."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    out = serve.main(["--prompts", "2", "--prompt-len", "8", "--gen", "3"])
+    assert out.shape == (2, 3) and out.device.type == "cuda"
+    emit({"phase": "serve_cli", "argv": "--prompts 2 --prompt-len 8 --gen 3",
+          "tokens": out.tolist(), "seconds": time.perf_counter() - t0})
 
 
 KERNEL_META = {
@@ -631,6 +1068,8 @@ KERNEL_META = {
                "src/repro/kernels/conv2d.py:329"),
     "conv2d_q16": ("src/repro_torch/kernels/csrc/conv2d.cu",
                    "src/repro/kernels/conv2d.py:437"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:73"),
 }
 
 
@@ -654,17 +1093,30 @@ def main() -> int:
     phase_card(torch, dev)
     book = KernelBook()
     phase_kernels(torch, dev, book)
+    phase_kernels_serving(torch, dev, book)
     torch.cuda.empty_cache()
-    runs, launches = phase_main_path(torch, dev)
+    runs, cnn_launches = phase_main_path(torch, dev)
     phase_timing(torch, runs)
     phase_profile(torch, runs)
+    del runs
+    torch.cuda.empty_cache()
+    cfg, params, prompts, serving_runs, serving_windows = phase_serving(torch, dev)
+    phase_serving_timing(torch, cfg, params, prompts, serving_runs)
+    del params, serving_runs
+    torch.cuda.empty_cache()
+    phase_serve_cli(torch)
 
+    windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()}}
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         row = book.rows[name]
+        by_path = {path: w[name] for path, w in windows.items() if w[name]}
+        if not by_path:
+            raise AssertionError(f"kernel {name} was not launched on any main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": row["max_abs_err"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": row["library"], "shape": row["shape"], "checks": row["checks"],

@@ -41,9 +41,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 #: library name -> its CUDA source in csrc/
 SOURCES = {"matmul_fp": "matmul_fp.cu", "matmul_q16": "matmul_q16.cu",
-           "conv2d": "conv2d.cu"}
+           "conv2d": "conv2d.cu", "flash_attention": "flash_attention.cu"}
 #: every kernel a wrapper launches, by the name its launch count goes under
-KERNELS = ("matmul_fp", "matmul_q16", "conv2d", "conv2d_q16")
+KERNELS = ("matmul_fp", "matmul_q16", "conv2d", "conv2d_q16", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,7 +57,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "matmul_fp": {
         "matmul_fp_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _F, _F, _F, _I, _P],
+                             _I, _F, _F, _F, _I, _P],
     },
     "matmul_q16": {
         "matmul_q16_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -67,6 +67,10 @@ _SIGNATURES = {
         "conv2d_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P],
         "conv2d_q16_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                               _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _P, _I, _I, _F, _I, _P],
     },
 }
 

@@ -17,6 +17,12 @@
 // cores.  The small (16, 64) tile exists so that batch-8 FC layers spread
 // the weight read over more blocks.  No tensor cores: f32 stays f32 (the
 // reference holds it at 1e-4, which TF32 misses) and int16 has no MMA.
+//
+// TB (transposed B) reads w as an (n, k) row-major matrix: the tied LM head
+// multiplies by the (vocab, d) embedding table as it is stored, so no
+// transposed copy of the model's largest tensor is ever made.  Its w tile
+// is loaded along k and its shared-memory rows are padded by one element, so
+// the transposing store does not hit one bank.
 #pragma once
 
 #include "common.cuh"
@@ -24,13 +30,13 @@
 namespace repro {
 
 template <typename TX, typename TW, typename TS, typename TA, typename TO, typename Epi,
-          int BM, int BN, int BK, int TM, int TN>
+          int BM, int BN, int BK, int TM, int TN, bool TB>
 __global__ void __launch_bounds__(256)
     gemm_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TO* __restrict__ out,
                 int m, int n, int k, Epi epi) {
   static_assert((BM / TM) * (BN / TN) == 256, "256 threads per block");
   __shared__ TS xs[BK][BM];  // x tile, transposed: xs[kk][row]
-  __shared__ TS ws[BK][BN];
+  __shared__ TS ws[BK][BN + (TB ? 1 : 0)];
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
@@ -51,10 +57,12 @@ __global__ void __launch_bounds__(256)
       xs[c][r] = v;
     }
     for (int idx = tid; idx < BK * BN; idx += 256) {
-      const int r = idx / BN, c = idx % BN;
+      const int r = TB ? idx % BK : idx / BN, c = TB ? idx / BK : idx % BN;
       const int gr = k0 + r, gc = n0 + c;
       TS v = TS(0);
-      if (gr < k && gc < n) v = static_cast<TS>(widen(w[static_cast<size_t>(gr) * n + gc]));
+      if (gr < k && gc < n)
+        v = static_cast<TS>(widen(TB ? w[static_cast<size_t>(gc) * k + gr]
+                                     : w[static_cast<size_t>(gr) * n + gc]));
       ws[r][c] = v;
     }
     __syncthreads();
@@ -80,26 +88,27 @@ __global__ void __launch_bounds__(256)
 
 // Launch one of the compiled tiles; returns cudaGetLastError() or
 // REPRO_BAD_ARG for a tile that was not compiled.
-template <typename TX, typename TW, typename TS, typename TA, typename TO, typename Epi>
+template <typename TX, typename TW, typename TS, typename TA, typename TO, bool TB = false,
+          typename Epi>
 int launch_gemm(const void* x, const void* w, void* out, int m, int n, int k, int bm, int bn,
                 int bk, Epi epi, cudaStream_t stream) {
   const dim3 block(256);
   if ((n + 15) / 16 > 65535) return REPRO_BAD_ARG;
   if (bm == 16 && bn == 64 && bk == 16) {
     const dim3 grid((m + 15) / 16, (n + 63) / 64);
-    auto kfn = gemm_kernel<TX, TW, TS, TA, TO, Epi, 16, 64, 16, 1, 4>;
+    auto kfn = gemm_kernel<TX, TW, TS, TA, TO, Epi, 16, 64, 16, 1, 4, TB>;
     LAUNCH(kfn, grid, block, 0, stream,
            static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TO*>(out), m, n,
            k, epi);
   } else if (bm == 64 && bn == 64 && bk == 16) {
     const dim3 grid((m + 63) / 64, (n + 63) / 64);
-    auto kfn = gemm_kernel<TX, TW, TS, TA, TO, Epi, 64, 64, 16, 4, 4>;
+    auto kfn = gemm_kernel<TX, TW, TS, TA, TO, Epi, 64, 64, 16, 4, 4, TB>;
     LAUNCH(kfn, grid, block, 0, stream,
            static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TO*>(out), m, n,
            k, epi);
   } else if (bm == 128 && bn == 128 && bk == 16) {
     const dim3 grid((m + 127) / 128, (n + 127) / 128);
-    auto kfn = gemm_kernel<TX, TW, TS, TA, TO, Epi, 128, 128, 16, 8, 8>;
+    auto kfn = gemm_kernel<TX, TW, TS, TA, TO, Epi, 128, 128, 16, 8, 8, TB>;
     LAUNCH(kfn, grid, block, 0, stream,
            static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TO*>(out), m, n,
            k, epi);

@@ -6,7 +6,9 @@ GEMM of ``csrc/gemm.cuh``, which says what bounds it on an H100 and what
 its design does about that.
 
 ``matmul_fp_cuda`` launches the kernel for CUDA tensors and runs
-:func:`matmul_fp_plain` for CPU tensors, and only for those.
+:func:`matmul_fp_plain` for CPU tensors, and only for those.  A ``w`` that
+is the transposed view of a contiguous (n, k) matrix (``embed.T``, the tied
+LM head) is read in place by the kernel's transposed-B path, never copied.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from . import _build
 from ._common import on_cpu, ptr, require_contiguous, stream_of
 from .ref import matmul_fused_ref
 
-__all__ = ["matmul_fp_cuda", "matmul_fp_plain", "launch"]
+__all__ = ["matmul_fp_cuda", "matmul_fp_plain", "launch", "transposed"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,15 +36,21 @@ def matmul_fp_plain(x, w, bias=None, *, relu: bool = False,
     return matmul_fused_ref(x, w, bias, relu=relu, qout=qout)
 
 
+def transposed(w: torch.Tensor) -> bool:
+    """True for the (k, n) transposed view of a contiguous (n, k) matrix."""
+    return w.ndim == 2 and not w.is_contiguous() and w.t().is_contiguous()
+
+
 def launch(lib, x, w, bias, out, block: MatmulBlock, relu: bool,
            qout: Optional[QFormat], device: int, stream) -> None:
-    """One call of the C entry point on prepared, checked operands."""
+    """One call of the C entry point on prepared, checked operands (``w``
+    contiguous, or the transposed view of a contiguous matrix)."""
     m, k = x.shape
     n = w.shape[1]
     rc = lib.matmul_fp_launch(
         ptr(x), ptr(w), ptr(bias), ptr(out), m, n, k, _DTYPES[x.dtype],
-        block.bm, block.bn, block.bk, int(relu), int(qout is not None),
-        qout.scale if qout else 1.0, qout.min_val if qout else 0.0,
+        int(transposed(w)), block.bm, block.bn, block.bk, int(relu),
+        int(qout is not None), qout.scale if qout else 1.0, qout.min_val if qout else 0.0,
         qout.max_val if qout else 0.0, device, stream,
     )
     _build.check(lib, rc, "matmul_fp")
@@ -81,7 +89,9 @@ def matmul_fp_cuda(
     if on_cpu(x, w, bias):
         return matmul_fp_plain(x, w, bias, relu=relu, qout=qout)
     bias32 = None if bias is None else bias.to(torch.float32).contiguous()
-    require_contiguous(x=x, w=w)
+    require_contiguous(x=x)
+    if not transposed(w):
+        require_contiguous(w=w)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     launch(_build.library("matmul_fp"), x, w, bias32, out, block, relu, qout,
            x.device.index, stream_of(x))

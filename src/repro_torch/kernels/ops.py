@@ -1,9 +1,9 @@
 """Route wrappers around the CUDA kernels, and the one im2col of the port.
 
-The port's copy of ``repro.kernels.ops`` for the CNN path.  Route
-*selection* (direct conv vs im2col GEMM, planned tiles) is the engine's job
-(``core/engine.py``); these wrappers run whichever route they are told.
-Flash attention is not ported yet.
+The port's copy of ``repro.kernels.ops``.  Route *selection* (direct conv vs
+im2col GEMM, planned tiles) is the engine's job (``core/engine.py``); these
+wrappers run whichever route they are told.  :func:`flash_attention` is the
+GQA attention wrapper the model's chunked prefill route calls.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.core.quantization import Q2_14, QFormat
 from repro_torch.core.tiling import MatmulBlock
 
 from .conv2d import conv2d_cuda, conv2d_q16_cuda
+from .flash_attention import flash_attention_cuda
 from .matmul_fp import matmul_fp_cuda
 from .matmul_q16 import matmul_q16_cuda
 
@@ -26,6 +27,7 @@ __all__ = [
     "matmul_q16",
     "conv2d",
     "conv2d_q16",
+    "flash_attention",
 ]
 
 
@@ -160,3 +162,25 @@ def conv2d_q16(
                      relu=relu, fmt=fmt, shift=shift, bias_shift=bias_shift,
                      block=block)
     return out.reshape(n, ho, wo, cout)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    bq: int = 256, bk: int = 256) -> torch.Tensor:
+    """GQA-aware attention.  q: (B, Hq, Sq, D), k / v: (B, Hkv, Sk, D) ->
+    (B, Hq, Sq, D).  q head h reads kv head ``h // (Hq // Hkv)`` in place;
+    the reference's broadcast of k / v over the group is not built.
+
+    ``bq`` / ``bk`` are the reference's block sizes: they are clamped to the
+    sequence lengths as there, and a non-causal call whose Sk is not a
+    multiple of ``bk`` raises as there.  The kernel tiles by its own blocks.
+    """
+    sk = k.shape[2]
+    bk = min(bk, sk)
+    if not causal and sk % bk:
+        raise ValueError("non-causal flash kernel requires sk % bk == 0")
+    return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, bk=bk)

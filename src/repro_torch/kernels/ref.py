@@ -36,6 +36,7 @@ __all__ = [
     "conv2d_q16_ref",
     "conv_taps_f32",
     "conv_taps_i32",
+    "attention_ref",
 ]
 
 
@@ -163,3 +164,16 @@ def conv2d_q16_ref(xq, wq, bq=None, *, fmt: QFormat = Q2_14, stride: int = 1,
     return q16_epilogue(acc, bq, bias_shift=fmt.frac_bits, relu=relu,
                         shift=fmt.frac_bits, raw_min=fmt.raw_min,
                         raw_max=fmt.raw_max, out_dtype=fmt.storage_dtype)
+
+
+def attention_ref(q, k, v, causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Dense softmax attention oracle.  q: (BH, Sq, D), k / v: (BH, Sk, D)."""
+    sq, sk = q.shape[1], k.shape[1]
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32)) * scale
+    if causal:
+        rows = q_offset + torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(rows >= cols, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)

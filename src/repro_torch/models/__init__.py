@@ -1,5 +1,6 @@
-"""The CNN zoo (LeNet / AlexNet / VGG16).  The transformer family is not
-ported yet."""
+"""The CNN zoo (LeNet / AlexNet / VGG16), and the dense transformer
+(``layers``, ``attention``, ``transformer``; the other families are not
+ported yet)."""
 from .cnn import (
     ALEXNET,
     CNN_ZOO,

@@ -2,8 +2,10 @@
 // tests/test_torch_kernels_emulated.py can run src/repro_torch/kernels/csrc
 // compiled by g++ (``-include`` this header, which defines REPRO_CPU_SHIM).
 // Every block of a launch runs in turn; its threads run as std::threads that
-// meet at a std::barrier for __syncthreads.  Only what the kernels use is
-// here; bf16 is left out (common.cuh guards it).
+// meet at a std::barrier for __syncthreads.  A warp shuffle is an exchange
+// through a per-block buffer between two barriers, so every thread of the
+// block must reach it together (the kernels shuffle uniformly).  Only what
+// the kernels use is here; bf16 is left out (common.cuh guards it).
 #pragma once
 #define REPRO_CPU_SHIM 1
 #include <math.h>
@@ -35,7 +37,17 @@ inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
 inline std::barrier<>* g_barrier = nullptr;
 inline unsigned char* g_dyn_smem = nullptr;
+inline float* g_shfl = nullptr;  // one slot per thread of the running block
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+// 1-D blocks: the lane partner of thread t is t ^ lane_mask (lane_mask < 32)
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const unsigned t = threadIdx.x;
+  g_shfl[t] = v;
+  __syncthreads();
+  const float r = g_shfl[t ^ static_cast<unsigned>(lane_mask)];
+  __syncthreads();
+  return r;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaSetDevice(int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
@@ -45,6 +57,8 @@ template <class F>
 void shim_launch(dim3 grid, dim3 block, size_t smem, F f) {
   std::vector<unsigned char> dyn(smem + 64, 0xAB);
   g_dyn_smem = dyn.data();
+  std::vector<float> shfl(block.x * block.y * block.z);
+  g_shfl = shfl.data();
   gridDim = grid;
   blockDim = block;
   const int nt = block.x * block.y * block.z;

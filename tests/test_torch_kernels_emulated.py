@@ -5,8 +5,10 @@
 ``launch`` functions then call the kernels' C entry points on CPU tensors,
 exactly as the wrappers do on the card, and the results are held against
 the plain versions: integers bit for bit, floats at 1e-4.  This checks the
-kernels' indexing, tiling, masking, Cin chunks and epilogues at tiny shapes
-here; it says nothing about speed, and the card runs the real build.
+kernels' indexing, tiling, masking, Cin chunks, epilogues, the GEMM's
+transposed-B operand and flash attention's GQA indexing, causal block skip,
+ragged rows, ``q_offset`` and strided views at tiny shapes here; it says
+nothing about speed, and the card runs the real build.
 """
 import ctypes
 import shutil
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch.core.quantization import Q2_6, Q2_14
 from repro_torch.core.tiling import H100, MatmulBlock
-from repro_torch.kernels import _build, conv2d, matmul_fp, matmul_q16
+from repro_torch.kernels import _build, conv2d, flash_attention, matmul_fp, matmul_q16
 
 SHIM = Path(__file__).with_name("cuda_cpu_shim.h")
 NULL_STREAM = ctypes.c_void_p(0)
@@ -78,6 +80,48 @@ def test_gemm_kernels_emulated(libs, tile, m, n, k):
         assert torch.equal(out, want), (xd, wd, od, shift)
 
 
+@pytest.mark.parametrize("tile", H100.gemm_tiles)
+def test_gemm_transposed_b_emulated(libs, tile):
+    """w as the transposed view of a contiguous (n, k) matrix (the tied LM
+    head's ``embed.T``) is read in place and gives the plain product."""
+    g = torch.Generator().manual_seed(7)
+    m, n, k = 5, 133, 37
+    x, wt = torch.randn(m, k, generator=g), torch.randn(n, k, generator=g)
+    w = wt.t()
+    assert matmul_fp.transposed(w) and not matmul_fp.transposed(wt)
+    out = torch.empty(m, n)
+    matmul_fp.launch(libs["matmul_fp"], x, w, None, out, MatmulBlock(*tile), False, None,
+                     0, NULL_STREAM)
+    torch.testing.assert_close(out, matmul_fp.matmul_fp_plain(x, w), atol=1e-4, rtol=1e-4)
+
+
+FA_CASES = [  # b, hq, hkv, sq, sk, d, causal, q_offset, strided
+    (1, 2, 2, 64, 64, 16, True, 0, False),
+    (2, 4, 2, 70, 70, 32, True, 0, True),     # GQA, ragged rows, (B, S, H, D) views
+    (1, 4, 1, 130, 130, 16, True, 0, False),  # MQA, three q tiles, causal skip
+    (1, 2, 2, 16, 80, 64, True, 64, False),   # decode-style rows at the end of the keys
+    (1, 2, 1, 40, 64, 16, False, 0, True),    # non-causal
+]
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_emulated(libs, case):
+    b, hq, hkv, sq, sk, d, causal, q_offset, strided = case
+    g = torch.Generator().manual_seed(sq * d + hq)
+
+    def draw(h, s):
+        if strided:  # the model's layout: (B, S, H, D) memory, viewed as (B, H, S, D)
+            return (torch.randn(b, s, h, d, generator=g) * 0.5).transpose(1, 2)
+        return torch.randn(b, h, s, d, generator=g) * 0.5
+
+    q, k, v = draw(hq, sq), draw(hkv, sk), draw(hkv, sk)
+    out = torch.empty_like(q)
+    flash_attention.launch(libs["flash_attention"], q, k, v, out, causal=causal,
+                           q_offset=q_offset, device=0, stream=NULL_STREAM)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+
+
 CONVS = [  # n, h, w, cin, cout, k, stride, pad, tau, chunk, tile_rows, tile_cols, halo
     (2, 12, 12, 3, 10, 3, 1, 1, 8, 0, 0, 0, "none"),
     (1, 9, 9, 5, 70, 3, 1, 1, 64, 2, 0, 0, "none"),
@@ -126,6 +170,10 @@ def test_kernels_refuse_bad_launches(libs):
         matmul_fp.launch(libs["matmul_fp"], x, w, None, out, MatmulBlock(32, 32, 32),
                          False, None, 0, NULL_STREAM)
     q = torch.zeros(4, 8, dtype=torch.int16)
+    qf = torch.randn(1, 2, 8, 24)
+    with pytest.raises(RuntimeError, match="does not take"):  # head dim 24 not compiled
+        flash_attention.launch(libs["flash_attention"], qf, qf, qf, torch.empty_like(qf),
+                               causal=True, q_offset=0, device=0, stream=NULL_STREAM)
     with pytest.raises(RuntimeError, match="does not take"):
         matmul_q16.launch(libs["matmul_q16"], q, q.t().contiguous(), None,
                           torch.empty(4, 4, dtype=torch.int16), MatmulBlock(16, 64, 16),

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each held against its plain version
 on the same inputs: integers bit for bit, floats at 1e-4 (GEMM) and 2e-3
-(conv), with TF32 off.  Every test here needs an NVIDIA Hopper card and
-skips without one; run them there with ``python -m pytest -m gpu``.
+(conv, flash attention), with TF32 off.  Every test here needs an NVIDIA
+Hopper card and skips without one; run them there with
+``python -m pytest -m gpu``.
 """
 import pytest
 import torch
@@ -10,6 +11,7 @@ from repro_torch.core.quantization import Q2_6, Q2_14
 from repro_torch.core.template import default_template
 from repro_torch.core.tiling import H100, MatmulBlock
 from repro_torch.kernels import _build
+from repro_torch.kernels import ops
 from repro_torch.kernels.conv2d import (
     conv2d_cuda,
     conv2d_plain,
@@ -18,6 +20,7 @@ from repro_torch.kernels.conv2d import (
 )
 from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain
 from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import cnn
 
 pytestmark = pytest.mark.gpu
@@ -117,3 +120,61 @@ def test_lenet_forward_on_card_matches_cpu(dev):
                           x.to(dev), policy=pol)
     assert _build.launches["conv2d_q16"] == 2 and _build.launches["matmul_q16"] == 3
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_fp_transposed_b_vs_plain(dev, dtype):
+    """The tied head's operand: w the transposed view of an (n, k) table."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 96, generator=g).to(dev, dtype)
+    table = torch.randn(1000, 96, generator=g).to(dev, dtype)
+    got = matmul_fp_cuda(x, table.T)
+    want = matmul_fp_plain(x, table.T)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+FA_CASES = [  # b, hq, hkv, sq, sk, d, causal, q_offset, dtype
+    (1, 4, 4, 64, 64, 32, True, 0, torch.float32),
+    (2, 8, 2, 64, 64, 32, True, 0, torch.float32),
+    (1, 4, 1, 128, 128, 64, True, 0, torch.float32),
+    (2, 4, 4, 64, 64, 32, False, 0, torch.float32),
+    (1, 2, 2, 96, 96, 32, True, 0, torch.float32),
+    (1, 2, 2, 16, 64, 32, True, 48, torch.float32),
+    (2, 16, 2, 300, 300, 64, True, 0, torch.bfloat16),
+    (1, 4, 2, 200, 200, 128, True, 0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+def test_flash_attention_kernel_vs_plain(dev, case):
+    b, hq, hkv, sq, sk, d, causal, q_offset, dtype = case
+    g = torch.Generator().manual_seed(sq + d)
+    # the model's layout: (B, S, H, D) memory viewed as (B, H, S, D)
+    q = (0.5 * torch.randn(b, sq, hq, d, generator=g)).to(dev, dtype).transpose(1, 2)
+    k = (0.5 * torch.randn(b, sk, hkv, d, generator=g)).to(dev, dtype).transpose(1, 2)
+    v = (0.5 * torch.randn(b, sk, hkv, d, generator=g)).to(dev, dtype).transpose(1, 2)
+    before = _build.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset, bq=32, bk=32)
+    assert _build.launches["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, bk=32)
+    tol = 2e-3 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_reduced_qwen_on_card_matches_torch_backend(dev, monkeypatch):
+    """Reduced qwen2-0.5b with the chunked route forced: the cuda backend
+    (GEMM and flash kernels) against the plain torch backend on the card."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import attention, transformer as T
+
+    monkeypatch.setattr(attention, "CHUNKED_THRESHOLD", 8)
+    cfg = reduced(get_config("qwen2-0.5b"))
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    tokens = tokens.to(dev)
+    _build.reset_launches()
+    got, _ = T.forward(default_template("cuda"), cfg, params, tokens)
+    assert _build.launches["flash_attention"] == cfg.n_layers
+    want, _ = T.forward(default_template("torch"), cfg, params, tokens)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
