@@ -14,7 +14,12 @@ non-zero without its result line):
 2. each kernel held against its plain version on the same inputs at the
    main paths' shapes (floats at a stated tolerance, integers bit for bit),
    with its time, the plain version's, one PyTorch call's where there is
-   one, and the least time the card could take (its bound);
+   one, and the least time the card could take (its bound).  The float
+   GEMM is checked at every distinct float GEMM shape of both main paths on
+   the route its plan names (wgmma, splitk; tile for the im2col route),
+   bit for bit repeatable, and timed on gate / up (beside its route "tile"
+   on the same call, the design that served it before), fc0 and the tied
+   head;
 3. the CNN path: ``plan_cnn`` -> ``cnn_forward`` for LeNet, AlexNet and
    VGG16 at full width, batch 8, random weights and biases from a seed
    (each hidden layer fitted onto the activation grid), in float,
@@ -29,13 +34,21 @@ non-zero without its result line):
    width and depth (bf16, random weights from the seed), 4 prompts of 4096
    tokens then 16 greedy tokens, in float on the ``cuda`` backend and
    grid-resident after ``calibrate_policy``, each with the launch counts set
-   to 0 just before and read just after.  Each stream is replayed
-   teacher-forced through the same kernels and through the plain ``torch``
-   backend (float), and the logits are held to stated tolerances; the
+   to 0 just before and read just after (the float GEMM's per route: every
+   prefill GEMM on wgmma, every m = 4 GEMM on splitk, none on the q16
+   GEMM).  Each stream is replayed teacher-forced through the same kernels
+   and through the plain ``torch`` backend (float), and the logits are held
+   to stated tolerances; the
    grid-resident replay shows each layer's share of raws at the grid's
    bounds and the island counts.  Then prefill tokens/s, decode ms/step,
    peak memory, device time by kernel (``torch.profiler``), and one run of
    ``serve.main`` at the reference's reduced CLI size.
+
+``--gemm-route-study`` adds the float GEMM's design measurements, off by
+default: route "tile" timed beside fc0 and the tied head, and the
+``wgmma_threshold`` lines (gate / up's n and k at m from 17 to 256 and at
+the prefill's m, each wgmma tile against the tile route), which set the
+planner's bound between routes W and L.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -44,6 +57,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -57,6 +71,9 @@ ROOT = Path(__file__).resolve().parent
 
 #: float tolerances (atol = rtol), the reference's own (tests/test_kernels.py)
 GEMM_TOL = 1e-4
+#: ``--gemm-route-study``: time the float GEMM's design alternatives too
+ROUTE_STUDY = False
+GEMM_TOL_BF16 = 2e-2
 CONV_TOL = 2e-3
 #: end-to-end float logits, cuda kernels vs the torch backend on the card
 E2E_TOL = 2e-3
@@ -186,8 +203,9 @@ def phase_card(torch, dev):
         spills = [line.strip() for line in log.splitlines()
                   if "spill" in line and not line.strip().startswith("0 bytes")
                   and " 0 bytes spill stores, 0 bytes spill loads" not in line]
+        warnings = [line.strip() for line in log.splitlines() if "arning" in line]
         regs[name] = {"kernels": len(used), "max_registers": max(used, default=None),
-                      "spill_lines": spills[:4]}
+                      "spill_lines": spills[:4], "warnings": warnings[:4]}
     emit({"phase": "card", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -202,12 +220,14 @@ def phase_card(torch, dev):
 
 class KernelBook:
     """Per-kernel record: worst error over its checks, and the timings of its
-    representative main-path shape."""
+    representative main-path shape.  The float GEMM keeps one record per
+    route (``matmul_fp.<route>``)."""
 
     def __init__(self):
         self.rows = {}
 
     def check(self, kernel, case, got, want, *, exact, tol=None):
+        """``kernel``: a kernel's name, or ``matmul_fp.<route>``."""
         import torch
 
         if exact:
@@ -227,10 +247,12 @@ class KernelBook:
               "max_abs_err": err, "exact": exact, "tol": tol})
 
     def timing(self, kernel, case, *, kernel_fn, plain_fn, library_fn, library,
-               nbytes_, ops, peak, record=True):
+               nbytes_, ops, peak, record=True, tile_fn=None):
         """Time one call of the kernel, its plain version and the library
         call on the same inputs; ``record`` makes it the kernel's row in the
-        ``kernels`` line, else it is printed as an extra case."""
+        ``kernels`` line, else it is printed as an extra case.  ``tile_fn``:
+        the float GEMM's route "tile" on the same call (the block-tiled
+        CUDA-core kernel that served every float GEMM before the routes)."""
         b_ms, b_by = bound(nbytes_, ops, peak)
         row = {
             "shape": case,
@@ -241,10 +263,18 @@ class KernelBook:
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
+        if tile_fn is not None:
+            row["route_tile_ms"] = time_ms(tile_fn)
         if record:
             self.rows[kernel].update(row)
         emit({"phase": "kernel_time" if record else "kernel_time_extra",
               "kernel": kernel, **row})
+
+
+def _plan(blk) -> str:
+    """A float GEMM plan in a case name: route, tile and slices."""
+    out = f"route={blk.route} block={blk.bm}x{blk.bn}x{blk.bk}"
+    return out + (f" splits={blk.splits}" if blk.splits > 1 else "")
 
 
 def _gen(dev, seed):
@@ -268,12 +298,14 @@ def phase_kernels(torch, dev, book: KernelBook):
 
     from repro_torch.core import dse
     from repro_torch.core.quantization import Q2_6, Q2_14
+    from repro_torch.core.template import default_template
     from repro_torch.core.tiling import H100
     from repro_torch.kernels import ops
     from repro_torch.kernels.conv2d import (conv2d_cuda, conv2d_plain, conv2d_q16_cuda,
                                             conv2d_q16_plain)
     from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain
     from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
+    from repro_torch.models import cnn
 
     def conv_plan(n, h, cin, cout, k, s, p, in_bytes):
         ho = (h + 2 * p - k) // s + 1
@@ -319,39 +351,47 @@ def phase_kernels(torch, dev, book: KernelBook):
                 ops=2 * n * ho * ho * cout * k * k * cin, peak=PEAK_F32)
         del x, w, got, want
 
-    # -- float GEMM ----------------------------------------------------------
-    gemms = [
-        ("vgg16.fc0", BATCH, 25088, 4096),
-        ("vgg16.fc2", BATCH, 4096, 1000),
-        ("lenet.fc0", BATCH, 400, 120),
-    ]
-    for i, (name, m, k, n) in enumerate(gemms):
+    # -- float GEMM: every FC shape of the CNN path, on the plan it runs ----
+    fcs = {}
+    for net in ("lenet", "alexnet", "vgg16"):
+        spec = cnn.CNN_ZOO[net]
+        plan = cnn.plan_cnn(default_template("cuda"), spec,
+                            (BATCH, spec.input_hw, spec.input_hw, spec.input_ch))
+        for j, gp in enumerate(plan.fcs):
+            fcs.setdefault((gp.m, gp.k, gp.n), (f"{net}.fc{j}", gp.block))
+    for i, ((m, k, n), (name, blk)) in enumerate(fcs.items()):
         x = _randn(torch, (m, k), dev, 40 + i)
         w = _randn(torch, (k, n), dev, 50 + i, k ** -0.5)
         b = _randn(torch, (n,), dev, 60 + i, 0.1)
-        blk = dse.default_block_for(m, n, k, H100)
+        assert blk.route == "splitk", (name, blk)
         got = matmul_fp_cuda(x, w, b, block=blk, relu=True)
+        again = matmul_fp_cuda(x, w, b, block=blk, relu=True)
         want = matmul_fp_plain(x, w, b, relu=True)
         torch.cuda.synchronize()
-        book.check("matmul_fp", f"{name} ({m},{k})@({k},{n}) block={blk.bm}x{blk.bn}",
+        assert torch.equal(got, again), f"{name}: route {blk.route} not repeatable"
+        book.check(f"matmul_fp.{blk.route}", f"{name} ({m},{k})@({k},{n}) {_plan(blk)}",
                    got, want, exact=False, tol=GEMM_TOL)
         if name == "vgg16.fc0":
+            tile = dse.default_block_for(m, n, k, H100)
             book.timing(
-                "matmul_fp", f"{name} ({m},{k})@({k},{n}) block={blk.bm}x{blk.bn}x{blk.bk}",
+                "matmul_fp.splitk", f"{name} ({m},{k})@({k},{n}) f32 {_plan(blk)}",
                 kernel_fn=lambda: matmul_fp_cuda(x, w, b, block=blk, relu=True),
                 plain_fn=lambda: matmul_fp_plain(x, w, b, relu=True),
                 library_fn=lambda: torch.relu(torch.addmm(b, x, w)),
                 library="torch.relu(torch.addmm(b, x, w)) (cuBLAS, TF32 off)",
-                nbytes_=nbytes(x, w, b) + m * n * 4, ops=2 * m * n * k, peak=PEAK_F32)
+                nbytes_=nbytes(x, w, b) + m * n * 4, ops=2 * m * n * k, peak=PEAK_F32,
+                tile_fn=(lambda: matmul_fp_cuda(x, w, b, block=tile, relu=True))
+                if ROUTE_STUDY else None)
         del x, w
-    # the forced im2col route: im2col + the float GEMM kernel
+    # the forced im2col route: im2col + the float GEMM kernel, route "tile"
     x = _randn(torch, (BATCH, 28, 28, 512), dev, 70)
     w = _randn(torch, (3, 3, 512, 512), dev, 71, 4608 ** -0.5)
-    blk = dse.default_block_for(BATCH * 28 * 28, 512, 4608, H100)
+    blk = dse.default_fp_block_for(BATCH * 28 * 28, 512, 4608, H100, dtype_bytes=4)
+    assert blk.route == "tile", blk
     got = ops.conv2d(x, w, padding=1, relu=True, route="im2col", block=blk)
     want = conv2d_plain(x, w, padding=1, relu=True)
     torch.cuda.synchronize()
-    book.check("matmul_fp", f"im2col route vgg16.conv8 block={blk.bm}x{blk.bn}", got, want,
+    book.check("matmul_fp.tile", f"im2col route vgg16.conv8 {_plan(blk)}", got, want,
                exact=False, tol=CONV_TOL)
     del x, w, got, want
 
@@ -529,6 +569,8 @@ def phase_main_path(torch, dev):
         torch.cuda.synchronize()
         assert _build.launches["conv2d"] - before["conv2d"] == nc
         assert _build.launches["matmul_fp"] - before["matmul_fp"] == nf
+        # every FC layer (batch 8) streams its weights on the split-k route
+        assert _build.launches["matmul_fp.splitk"] - before["matmul_fp.splitk"] == nf
         y_ref = cnn.cnn_forward(default_template("torch"), spec, params, x)
         assert y.shape == (BATCH, spec.n_classes) and bool(torch.isfinite(y).all())
         err = float((y - y_ref).abs().max())
@@ -561,6 +603,7 @@ def phase_main_path(torch, dev):
             assert law == {"quantize_calls": 1, "dequantize_calls": 1}, dict(c)
             assert _build.launches["conv2d_q16"] - before["conv2d_q16"] == nc
             assert _build.launches["matmul_q16"] - before["matmul_q16"] == nf
+            assert _build.launches["matmul_fp"] == before["matmul_fp"]
             with tq.engine.plan_cache.scope() as warm:
                 y2 = cnn.cnn_forward(tq, spec, qp, x, policy=policy)
             assert warm["misses"] == 0 and torch.equal(y, y2)
@@ -630,7 +673,7 @@ def phase_profile(torch, runs):
         torch.cuda.synchronize()
         emit({"phase": "profile", "net": net, "numerics": numerics, "forwards": 3,
               **profile_window(torch, lambda: [fwd() for _ in range(3)],
-                               groups=("conv", "gemm_kernel"))})
+                               groups=("conv", "splitk", "gemm_kernel"))})
 
 
 # ---------------------------------------------------------------------------
@@ -650,7 +693,7 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
     from repro_torch.core.tiling import H100
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain
+    from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain, plan_for
     from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
 
     fa_cases = [
@@ -700,36 +743,69 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
     for dtype, tol in ((torch.float32, GEMM_TOL), (torch.bfloat16, FA_TOL_BF16)):
         x = _randn(torch, (QWEN_PROMPTS, dm), dev, 170).to(dtype)
         table = _randn(torch, (vocab, dm), dev, 171, dm ** -0.5).to(dtype)
-        blk = dse.default_block_for(QWEN_PROMPTS, vocab, dm, H100)
+        blk = plan_for(x, table.T)
+        assert blk.route == "splitk", blk
         got = matmul_fp_cuda(x, table.T, block=blk)
+        again = matmul_fp_cuda(x, table.T, block=blk)
         want = matmul_fp_plain(x, table.T)
         torch.cuda.synchronize()
-        book.check("matmul_fp", f"tied head ({QWEN_PROMPTS},{dm})@embed.T({dm},{vocab}) "
-                   f"{str(dtype)[6:]} block={blk.bm}x{blk.bn}", got, want, exact=False,
+        assert torch.equal(got, again), "tied head: route splitk not repeatable"
+        book.check("matmul_fp.splitk", f"tied head ({QWEN_PROMPTS},{dm})@embed.T({dm},"
+                   f"{vocab}) {str(dtype)[6:]} {_plan(blk)}", got, want, exact=False,
                    tol=tol)
         if dtype == torch.bfloat16:
+            tile = dse.default_block_for(QWEN_PROMPTS, vocab, dm, H100)
             book.timing(
-                "matmul_fp", f"tied head ({QWEN_PROMPTS},{dm})@embed.T bf16 "
-                f"block={blk.bm}x{blk.bn}x{blk.bk}", record=False,
+                "matmul_fp.splitk", f"tied head ({QWEN_PROMPTS},{dm})@embed.T bf16 "
+                f"{_plan(blk)}", record=False,
                 kernel_fn=lambda: matmul_fp_cuda(x, table.T, block=blk),
                 plain_fn=lambda: matmul_fp_plain(x, table.T),
                 library_fn=lambda: torch.matmul(x, table.T),
                 library="torch.matmul(x, embed.T) (cuBLAS, bf16)",
                 nbytes_=nbytes(x, table) + QWEN_PROMPTS * vocab * 2,
-                ops=2 * QWEN_PROMPTS * vocab * dm, peak=PEAK_BF16)
-        del x, table, got, want
+                ops=2 * QWEN_PROMPTS * vocab * dm, peak=PEAK_BF16,
+                tile_fn=(lambda: matmul_fp_cuda(x, table.T, block=tile))
+                if ROUTE_STUDY else None)
+        del x, table, got, again, want
 
-    # the prefill's widest GEMM (the MLP's gate / up), float and int16
-    m, k, n = QWEN_PROMPTS * QWEN_PROMPT_LEN, dm, 4864
+    # every distinct GEMM of a qwen2 layer, at prefill (m = 4 x 4096) and at
+    # decode (m = 4), on the planner's route: wgmma and splitk
+    m_prefill = QWEN_PROMPTS * QWEN_PROMPT_LEN
+    layer = [("q", 1024, dm), ("k/v", 128, dm), ("o", dm, 1024), ("gate/up", 4864, dm),
+             ("down", dm, 4864)]
+    for j, (name, n, k) in enumerate(layer):
+        w = _randn(torch, (k, n), dev, 180 + j, k ** -0.5).to(torch.bfloat16)
+        b = _randn(torch, (n,), dev, 190 + j, 0.1)
+        for m, route in ((m_prefill, "wgmma"), (QWEN_PROMPTS, "splitk")):
+            x = _randn(torch, (m, k), dev, 200 + j).to(torch.bfloat16)
+            blk = plan_for(x, w)
+            assert blk.route == route, (name, m, blk)
+            got = matmul_fp_cuda(x, w, b, block=blk)
+            again = matmul_fp_cuda(x, w, b, block=blk)
+            want = matmul_fp_plain(x, w, b)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), f"qwen2 {name} m={m}: route {route} not repeatable"
+            book.check(f"matmul_fp.{route}", f"qwen2 {name} ({m},{k})@({k},{n}) bf16 "
+                       f"{_plan(blk)}", got, want, exact=False, tol=GEMM_TOL_BF16)
+            if name == "gate/up":
+                tile = dse.default_block_for(m, n, k, H100)
+                book.timing(
+                    f"matmul_fp.{route}",
+                    f"qwen2 gate/up ({m},{k})@({k},{n}) bf16 {_plan(blk)}",
+                    record=route == "wgmma",
+                    kernel_fn=lambda: matmul_fp_cuda(x, w, block=blk),
+                    plain_fn=lambda: matmul_fp_plain(x, w),
+                    library_fn=lambda: torch.matmul(x, w),
+                    library="torch.matmul (cuBLAS, bf16)", nbytes_=nbytes(x, w) + m * n * 2,
+                    ops=2 * m * n * k, peak=PEAK_BF16,
+                    tile_fn=(lambda: matmul_fp_cuda(x, w, block=tile))
+                    if route == "wgmma" or ROUTE_STUDY else None)
+            del x, got, again, want
+        del w, b
+
+    # the prefill's widest GEMM in int16 (the q16 kernel, unchanged)
+    m, k, n = m_prefill, dm, 4864
     blk = dse.default_block_for(m, n, k, H100)
-    x = _randn(torch, (m, k), dev, 172).to(torch.bfloat16)
-    w = _randn(torch, (k, n), dev, 173, k ** -0.5).to(torch.bfloat16)
-    book.timing(
-        "matmul_fp", f"qwen2 gate/up ({m},{k})@({k},{n}) bf16 block={blk.bm}x{blk.bn}x{blk.bk}",
-        record=False, kernel_fn=lambda: matmul_fp_cuda(x, w, block=blk),
-        plain_fn=lambda: matmul_fp_plain(x, w), library_fn=lambda: torch.matmul(x, w),
-        library="torch.matmul (cuBLAS, bf16)", nbytes_=nbytes(x, w) + m * n * 2,
-        ops=2 * m * n * k, peak=PEAK_BF16)
     xq = _raws(torch, (m, k), torch.int16, dev, 174)
     wq = _raws(torch, (k, n), torch.int16, dev, 175)
     qkw = dict(block=blk, shift=20, bias_shift=0)
@@ -745,7 +821,31 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
         plain_fn=lambda: matmul_q16_plain(xq, wq, **pkw), library_fn=None,
         library="none: no PyTorch call multiplies int16 matrices on CUDA",
         nbytes_=nbytes(xq, wq) + m * n * 2, ops=2 * m * n * k, peak=PEAK_INT8 / 4)
-    del x, w, xq, wq, got, want
+    del xq, wq, got, want
+
+
+def phase_wgmma_threshold(torch, dev):
+    """``--gemm-route-study``: where route W starts to beat route L on bf16,
+    on gate / up's n and k at small m (the planner sends m <= 16 to split-k
+    and every larger m to W), and at the full prefill m the two compiled
+    wgmma tiles side by side."""
+    from repro_torch.core import dse
+    from repro_torch.core.tiling import H100, MatmulBlock
+    from repro_torch.kernels.matmul_fp import matmul_fp_cuda, plan_for
+
+    n, k = 4864, 896
+    w = _randn(torch, (k, n), dev, 210, k ** -0.5).to(torch.bfloat16)
+    for m in (17, 32, 64, 128, 256, QWEN_PROMPTS * QWEN_PROMPT_LEN):
+        x = _randn(torch, (m, k), dev, 211).to(torch.bfloat16)
+        wg, wg256 = (MatmulBlock(128, bn, 64, route="wgmma") for bn in (128, 256))
+        tile = dse.default_block_for(m, n, k, H100)
+        emit({"phase": "wgmma_threshold", "m": m, "n": n, "k": k,
+              "wgmma_128x128_ms": time_ms(lambda: matmul_fp_cuda(x, w, block=wg)),
+              "wgmma_128x256_ms": time_ms(lambda: matmul_fp_cuda(x, w, block=wg256)),
+              "tile_ms": time_ms(lambda: matmul_fp_cuda(x, w, block=tile)),
+              "tile": _plan(tile), "planned": _plan(plan_for(x, w))})
+        del x
+    del w
 
 
 # ---------------------------------------------------------------------------
@@ -895,11 +995,19 @@ def phase_serving(torch, dev):
         emit({"phase": "serving_launches", "numerics": numerics, **launches})
         want = {"flash_attention": cfg.n_layers,
                 kernel: QWEN_GEN * per_prefill["matmul_fp"]}
+        if pol is None:
+            # the prefill's 7 GEMMs a layer (m = 4 x 4096, bf16) on the tensor
+            # cores; its head (m = 4) and every decode GEMM stream on split-k
+            want.update({"matmul_fp.wgmma": 7 * cfg.n_layers,
+                         "matmul_fp.splitk": want[kernel] - 7 * cfg.n_layers,
+                         "matmul_fp.tile": 0, "matmul_q16": 0})
+        else:  # the grid-resident path never reaches the float GEMM
+            want["matmul_fp"] = 0
         for name, n in want.items():
             if launches[name] != n:
                 raise AssertionError(f"{numerics}: {name} launched {launches[name]} times, "
                                      f"want {n} (flash once per layer per prefill, never "
-                                     f"in decode)")
+                                     f"in decode; float GEMMs by route)")
         assert stream.shape == (QWEN_PROMPTS, QWEN_GEN)
         # replay the stream teacher-forced through the same kernels (and, on
         # the grid, count islands and clipped raws), then through the plain path
@@ -953,7 +1061,8 @@ def _qleaves(tree):
             yield from _qleaves(v)
 
 
-def profile_window(torch, fn, *, groups=("gemm_kernel", "flash_attention_kernel"),
+def profile_window(torch, fn, *, groups=("wgmma_kernel", "splitk", "gemm_kernel",
+                                         "flash_attention_kernel"),
                    host_ops: bool = False) -> dict:
     """``fn`` once under ``torch.profiler``: its wall time, the device's
     busy time and share of it, device time by group (kernels whose name
@@ -1059,21 +1168,42 @@ def phase_serve_cli(torch):
           "tokens": out.tolist(), "seconds": time.perf_counter() - t0})
 
 
+#: the ``kernels`` line: one row per kernel, and for the float GEMM one per
+#: route of the main paths (record name -> kernel, GEMM route, source, TPU
+#: kernel); its route "tile" serves no main-path call and is checked above.
+#: A row's launches are its wrapper's calls, one launch of the kernel each;
+#: route "splitk" adds its reduction pass's launches as ``reduce_launches``
 KERNEL_META = {
-    "matmul_fp": ("src/repro_torch/kernels/csrc/matmul_fp.cu",
-                  "src/repro/kernels/matmul_fp.py:76"),
-    "matmul_q16": ("src/repro_torch/kernels/csrc/matmul_q16.cu",
+    "matmul_fp.wgmma": ("matmul_fp", "wgmma", "src/repro_torch/kernels/csrc/gemm_wgmma.cuh",
+                        "src/repro/kernels/matmul_fp.py:76"),
+    "matmul_fp.splitk": ("matmul_fp", "splitk",
+                         "src/repro_torch/kernels/csrc/gemm_splitk.cuh",
+                         "src/repro/kernels/matmul_fp.py:76"),
+    "matmul_q16": ("matmul_q16", "tile", "src/repro_torch/kernels/csrc/matmul_q16.cu",
                    "src/repro/kernels/matmul_q16.py:71"),
-    "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
+    "conv2d": ("conv2d", None, "src/repro_torch/kernels/csrc/conv2d.cu",
                "src/repro/kernels/conv2d.py:329"),
-    "conv2d_q16": ("src/repro_torch/kernels/csrc/conv2d.cu",
+    "conv2d_q16": ("conv2d_q16", None, "src/repro_torch/kernels/csrc/conv2d.cu",
                    "src/repro/kernels/conv2d.py:437"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": ("flash_attention", None,
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:73"),
 }
 
 
+def _build_kernels():
+    from repro_torch.kernels import _build
+
+    return [k for k in _build.KERNELS if "." not in k]
+
+
 def main() -> int:
+    global ROUTE_STUDY
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--gemm-route-study", action="store_true",
+                    help="also time the float GEMM's design alternatives (route "
+                         "'tile' beside fc0 and the tied head, the W/L threshold sweep)")
+    ROUTE_STUDY = ap.parse_args().gemm_route_study
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: no src/repro_torch beside this script; run it from the "
               "root of a checkout", file=sys.stderr)
@@ -1094,6 +1224,8 @@ def main() -> int:
     book = KernelBook()
     phase_kernels(torch, dev, book)
     phase_kernels_serving(torch, dev, book)
+    if ROUTE_STUDY:
+        phase_wgmma_threshold(torch, dev)
     torch.cuda.empty_cache()
     runs, cnn_launches = phase_main_path(torch, dev)
     phase_timing(torch, runs)
@@ -1108,19 +1240,25 @@ def main() -> int:
 
     windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()}}
     kernels = []
-    for name, (source, replaces) in KERNEL_META.items():
-        row = book.rows[name]
-        by_path = {path: w[name] for path, w in windows.items() if w[name]}
+    for key, (name, gemm_route, source, replaces) in KERNEL_META.items():
+        row = book.rows[key]
+        by_path = {path: w[key] for path, w in windows.items() if w[key]}
         if not by_path:
-            raise AssertionError(f"kernel {name} was not launched on any main path")
+            raise AssertionError(f"kernel {key} was not launched on any main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": row["max_abs_err"],
+            "name": name, "route": "cuda", "gemm_route": gemm_route, "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": row["library"], "shape": row["shape"], "checks": row["checks"],
+            **({"route_tile_ms": row["route_tile_ms"]} if "route_tile_ms" in row else {}),
         })
+        if key == "matmul_fp.splitk":
+            kernels[-1]["reduce_launches"] = sum(
+                w["matmul_fp.splitk_reduce"] for w in windows.values())
+    if {k["name"] for k in kernels} != set(_build_kernels()):
+        raise AssertionError("the kernels line does not list every kernel")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})

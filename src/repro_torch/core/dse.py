@@ -11,7 +11,10 @@ takes a spec:
   reference's choices over the whole zoo.
 * Under a :class:`~repro_torch.core.tiling.GpuSpec` the candidates are what
   the CUDA kernels take, and legality is the shared memory they really
-  use.  The GEMM picks one of the compiled tiles.  The conv picks τ and the
+  use.  The q16 GEMM picks one of the compiled tiles
+  (:func:`default_block_for`); the float GEMM first picks its route from
+  the shape and the dtype, then the route's tile
+  (:func:`default_fp_block_for`).  The conv picks τ and the
   Cin chunk that ``csrc/conv2d.cu`` stages per step; a GPU block always
   loads exactly its own tile's input window (the reference's ``dma``
   regime), so the plan leaves the output tile to the kernel's default.
@@ -40,6 +43,8 @@ __all__ = [
     "explore_tpu_block",
     "explore_conv_spatial",
     "default_block_for",
+    "default_fp_block_for",
+    "fp_block_legal",
     "default_conv_tile_for",
     "direct_conv_vmem",
     "direct_conv_hbm_traffic",
@@ -122,6 +127,80 @@ def default_block_for(m: int, n: int, k: int, spec: Spec = TPU_V5E) -> MatmulBlo
     if isinstance(spec, GpuSpec):
         raise ValueError(f"no compiled GEMM tile of {spec.name} is legal")
     return clamp_block(m, n, k, MatmulBlock(128, 128, 128), spec)
+
+
+#: route "splitk"'s planning targets: a grid of ``_SPLITK_WAVES`` blocks per
+#: SM, k slices of at least ``_SPLITK_MIN_SLICE`` rows (a multiple of the
+#: header's ``SLICE_ALIGN``, 64) and at most ``_SPLITK_X_BYTES`` of x staged
+#: in f32: the room a block keeps for its cross-row sums anyway (the
+#: header's ``RED_BYTES``), so x never adds to a block's shared memory
+_SPLITK_WAVES = 4
+_SPLITK_MIN_SLICE = 128
+_SPLITK_X_BYTES = 32 * 1024
+
+
+def _splitk_block(m: int, n: int, k: int, spec: GpuSpec) -> MatmulBlock:
+    """Route "splitk": pad m to a compiled row count, then cut k into as many
+    slices as put about ``_SPLITK_WAVES`` blocks on each SM."""
+    rows = min(r for r in spec.splitk_rows if r >= m)
+    want = max(1, ceil_div(_SPLITK_WAVES * spec.sms, ceil_div(n, spec.splitk_cols)))
+    most = _SPLITK_X_BYTES // (4 * rows) // 64 * 64
+    piece = max(_SPLITK_MIN_SLICE, ceil_div(ceil_div(k, want), 64) * 64)
+    piece = min(piece, most, ceil_div(k, 64) * 64)
+    return MatmulBlock(rows, spec.splitk_cols, piece, route="splitk",
+                       splits=ceil_div(k, piece))
+
+
+def _wgmma_block(m: int, n: int, spec: GpuSpec) -> MatmulBlock:
+    """Route "wgmma": the compiled tile with the best :func:`_gpu_block_score`
+    among ``wgmma_tiles`` (ragged-edge waste, SM fill, operand reuse), the
+    wider on a tie."""
+    bm, bn, bk = max(spec.wgmma_tiles, key=lambda t: (
+        _gpu_block_score(MatmulBlock(*t), m, n, spec), t[1]))
+    return MatmulBlock(bm, bn, bk, route="wgmma")
+
+
+def default_fp_block_for(m: int, n: int, k: int, spec: Spec = TPU_V5E, *,
+                         dtype_bytes: int = 4) -> MatmulBlock:
+    """The float GEMM's plan for one call: its route, then the route's tile.
+
+    Under a GpuSpec: m <= ``splitk_max_m`` streams w on route "splitk" (any
+    dtype); bf16 (``dtype_bytes`` 2) with any larger m and k, n multiples
+    of 8 takes the tensor cores on route "wgmma" (on an H100 it ran ahead of
+    the CUDA-core tile from m = 17 up); everything else
+    (f32 with larger m, bf16 that TMA cannot address) the block-tiled route
+    "tile" with :func:`default_block_for`'s tile.  Every route reads w in
+    either layout, (k, n) or the transposed view of an (n, k) matrix, with
+    the same plan.  Under a TpuSpec it is :func:`default_block_for`.
+    """
+    if not isinstance(spec, GpuSpec):
+        return default_block_for(m, n, k, spec)
+    if m <= spec.splitk_max_m:
+        return _splitk_block(m, n, k, spec)
+    if dtype_bytes == 2 and k % 8 == 0 and n % 8 == 0:
+        return _wgmma_block(m, n, spec)
+    return default_block_for(m, n, k, spec)
+
+
+def fp_block_legal(block: MatmulBlock, m: int, n: int, k: int, *, dtype_bytes: int,
+                   spec: GpuSpec) -> bool:
+    """Whether the float GEMM kernel takes ``block`` for this call: a
+    compiled tile of its route, the route's conditions on the call, and the
+    shared memory of a block where the plan sets it (route "tile": the
+    tile; "splitk": x's slice, staged in f32; a "wgmma" tile's is fixed)."""
+    tile = (block.bm, block.bn, block.bk)
+    if block.route == "tile":
+        return (tile in spec.gemm_tiles and block.splits == 1
+                and block.smem_bytes() <= spec.smem_per_block)
+    if block.route == "wgmma":
+        return (tile in spec.wgmma_tiles and block.splits == 1 and dtype_bytes == 2
+                and k % 8 == 0 and n % 8 == 0)
+    if block.route == "splitk":
+        return (block.bm in spec.splitk_rows and m <= block.bm
+                and block.bn == spec.splitk_cols and block.bk % 64 == 0
+                and block.splits == ceil_div(k, block.bk)
+                and block.bm * block.bk * 4 <= spec.smem_per_block)
+    return False
 
 
 # ---------------------------------------------------------------------------

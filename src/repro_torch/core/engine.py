@@ -2,14 +2,14 @@
 
 The port's copy of ``repro.core.engine`` for one device:
 
-* :class:`PlanRegistry` — memoized DSE choices (GEMM blocks and direct-conv
-  configurations) per (shape, spec), with hit and miss counters, so a test
-  can assert that a repeated shape costs one search.  It lives in memory;
+* :class:`PlanRegistry` — memoized DSE choices (GEMM plans per kernel and
+  direct-conv configurations) per (shape, spec), with hit and miss
+  counters, so a test can assert that a repeated shape costs one search.  It lives in memory;
   the reference's JSON plan store and ``measure_and_pin`` are not ported
   yet.
 * :class:`GemmPlan` / :class:`ConvPlan` — per-layer plans: the conv route
   (direct CUDA conv or im2col GEMM), τ, the Cin chunk and tiles of the
-  direct route, the GEMM tile.
+  direct route, the GEMM tile (and, for the float GEMM, its route).
 * :class:`Engine` — runs plans on three backends: ``"cuda"`` (the
   hand-written kernels, the analog of ``pallas``), ``"q16"`` (the
   fixed-point kernels, grid-resident on QTensor operands) and ``"torch"``
@@ -67,12 +67,25 @@ class PlanRegistry:
         self.hits = 0
         self.misses = 0
 
-    def block_for(self, m: int, n: int, k: int, spec: Spec = H100) -> MatmulBlock:
-        key = (m, n, k, spec)
+    def block_for(self, m: int, n: int, k: int, spec: Spec = H100, *,
+                  kernel: str = "matmul_q16", dtype_bytes: int = 4) -> MatmulBlock:
+        """The memoized GEMM plan of one kernel for one call.  The key holds
+        the kernel: the float GEMM ("matmul_fp") plans a route from the
+        dtype as well (:func:`dse.default_fp_block_for`), the q16 GEMM
+        ("matmul_q16") one of its compiled tiles."""
+        if kernel == "matmul_fp":
+            key = (kernel, m, n, k, dtype_bytes, spec)
+        elif kernel == "matmul_q16":
+            key = (kernel, m, n, k, spec)
+        else:
+            raise ValueError(f"no GEMM kernel {kernel!r}")
         blk = self._blocks.get(key)
         if blk is None:
             self.misses += 1
-            blk = dse.default_block_for(m, n, k, spec)
+            if kernel == "matmul_fp":
+                blk = dse.default_fp_block_for(m, n, k, spec, dtype_bytes=dtype_bytes)
+            else:
+                blk = dse.default_block_for(m, n, k, spec)
             self._blocks[key] = blk
         else:
             self.hits += 1
@@ -248,10 +261,16 @@ class Engine:
 
     # -- planning ------------------------------------------------------------
 
-    def block_for(self, m: int, n: int, k: int) -> MatmulBlock:
-        """The GEMM tile for a shape: config override or cached DSE."""
+    def block_for(self, m: int, n: int, k: int, *, dtype=torch.float32) -> MatmulBlock:
+        """The GEMM plan for one call: config override or cached DSE.  The
+        cuda backend plans the float GEMM (its route follows m and
+        ``dtype``), the q16 backend the fixed-point GEMM."""
         if self.config.block is not None:
             return clamp_block(m, n, k, self.config.block, self.config.hw)
+        if self.config.backend == "cuda":
+            return self.plan_cache.block_for(
+                m, n, k, self.config.hw, kernel="matmul_fp",
+                dtype_bytes=torch.finfo(dtype).bits // 8)
         return self.plan_cache.block_for(m, n, k, self.config.hw)
 
     def plan_gemm(self, m: int, n: int, k: int, *, mesh=None,
@@ -513,7 +532,8 @@ class Engine:
             from repro_torch.kernels import ops as kops
 
             self.counters["gemm_cuda"] += 1
-            block = plan.block if plan is not None and plan.block is not None else self.block_for(m, n, k)
+            block = plan.block if plan is not None and plan.block is not None else \
+                self.block_for(m, n, k, dtype=x.dtype)
             out = kops.matmul_fp(x2.contiguous(), w, bias=bias, relu=relu,
                                  qout=qout, block=block)
         elif backend == "q16":

@@ -7,10 +7,12 @@ Two specs live here:
   reference's plans (``tests/test_torch_dse.py``).  No kernel of the port
   runs under it.
 * :class:`GpuSpec` / ``H100`` — what the port plans against.  Its limits are
-  the CUDA kernels' own: the GEMM tiles they are compiled for, the threads
-  of a block, and the shared memory a block may take.
+  the CUDA kernels' own: the GEMM tiles they are compiled for, the routes
+  of the float GEMM, the threads of a block, and the shared memory a block
+  may take.
 
-:class:`MatmulBlock` is one GEMM tile (bm, bn, bk) under either spec.
+:class:`MatmulBlock` is one GEMM tile (bm, bn, bk) under either spec; under
+a GpuSpec it also names the float GEMM's route (``FP_ROUTES``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import math
 from typing import Union
 
 __all__ = [
+    "FP_ROUTES",
     "GpuSpec",
     "H100",
     "MatmulBlock",
@@ -28,6 +31,14 @@ __all__ = [
     "ceil_div",
     "clamp_block",
 ]
+
+
+#: the float GEMM's routes (``csrc/matmul_fp.cu``): "tile" is the block-tiled
+#: CUDA-core GEMM of ``csrc/gemm.cuh`` (route L, the q16 kernel's only one),
+#: "splitk" the split-k weight stream of ``csrc/gemm_splitk.cuh`` (route S,
+#: m <= 16), "wgmma" the tensor-core pipeline of ``csrc/gemm_wgmma.cuh``
+#: (route W, bf16 with large m)
+FP_ROUTES = ("tile", "splitk", "wgmma")
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -55,10 +66,22 @@ TPU_V5E = TpuSpec()
 class GpuSpec:
     """One NVIDIA Hopper card as the port's kernels see it.
 
-    ``gemm_tiles`` are the (bm, bn, bk) tiles ``csrc/matmul.cu`` is compiled
-    for, each run by ``gemm_threads`` threads; ``conv_taus`` the output-
-    channel slices ``csrc/conv2d.cu`` takes.  Rates are NVIDIA's dense
-    published peaks for the SXM part at its 700 W limit.
+    ``gemm_tiles`` are the (bm, bn, bk) tiles of the block-tiled GEMM in
+    ``csrc/gemm.cuh`` (both GEMM kernels' route "tile"), each run by
+    ``gemm_threads`` threads; ``conv_taus`` the output-channel slices
+    ``csrc/conv2d.cu`` takes.  The float GEMM's other routes, each field the
+    list its header compiles:
+
+    * "splitk" (``csrc/gemm_splitk.cuh``) takes m up to
+      :attr:`splitk_max_m`, padded to one of ``splitk_rows`` (the header's
+      ``switch (bm)``); a block streams ``splitk_cols`` columns of w (its
+      ``COLS``) over one k slice;
+    * "wgmma" (``csrc/gemm_wgmma.cuh``) takes bf16 with every larger m, and
+      k, n multiples of 8 (TMA's 16-byte row strides), on the
+      ``wgmma_tiles`` (its ``BM`` x ``BN`` x ``BK``, ``BN`` 128 or 256).
+
+    Rates are NVIDIA's dense published peaks for the SXM part at its 700 W
+    limit.
     """
 
     name: str = "h100_sxm"
@@ -70,8 +93,16 @@ class GpuSpec:
     peak_int8_ops: float = 1979e12
     gemm_tiles: tuple = ((16, 64, 16), (64, 64, 16), (128, 128, 16))
     gemm_threads: int = 256
+    wgmma_tiles: tuple = ((128, 128, 64), (128, 256, 64))
+    splitk_rows: tuple = (1, 2, 4, 8, 16)
+    splitk_cols: int = 256
     conv_taus: tuple = (8, 16, 32, 64, 128, 256)
     conv_threads: int = 256
+
+    @property
+    def splitk_max_m(self) -> int:
+        """The largest m route "splitk" takes: its largest compiled row count."""
+        return max(self.splitk_rows)
 
 
 H100 = GpuSpec()
@@ -82,11 +113,19 @@ Spec = Union[TpuSpec, GpuSpec]
 @dataclasses.dataclass(frozen=True)
 class MatmulBlock:
     """One GEMM tile: ``bm`` rows x ``bn`` columns of output, ``bk`` deep per
-    step of the reduction loop."""
+    step of the reduction loop.
+
+    ``route`` is the float GEMM's route (one of ``FP_ROUTES``; the q16 GEMM
+    and every TPU plan take "tile").  On route "splitk" ``bm`` is the
+    compiled row count m is padded to, ``bn`` the columns of one block,
+    ``bk`` the k slice of one block and ``splits`` the number of slices.
+    """
 
     bm: int = 512
     bn: int = 512
     bk: int = 512
+    route: str = "tile"
+    splits: int = 1
 
     def vmem_bytes(self, in_dtype_bytes: int = 2, acc_bytes: int = 4) -> int:
         # TPU model: double-buffered x/w/out tiles + the f32 accumulator
@@ -97,8 +136,8 @@ class MatmulBlock:
         return x + w + acc + out
 
     def smem_bytes(self) -> int:
-        """Shared memory of ``csrc/matmul.cu`` at this tile: the x and w
-        tiles of one k-step, widened to 4 bytes each."""
+        """Shared memory of ``csrc/gemm.cuh`` (route "tile") at this tile:
+        the x and w tiles of one k-step, widened to 4 bytes each."""
         return (self.bm * self.bk + self.bk * self.bn) * 4
 
     def aligned(self, spec: TpuSpec = TPU_V5E) -> bool:

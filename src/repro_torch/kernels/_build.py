@@ -42,8 +42,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 #: library name -> its CUDA source in csrc/
 SOURCES = {"matmul_fp": "matmul_fp.cu", "matmul_q16": "matmul_q16.cu",
            "conv2d": "conv2d.cu", "flash_attention": "flash_attention.cu"}
-#: every kernel a wrapper launches, by the name its launch count goes under
-KERNELS = ("matmul_fp", "matmul_q16", "conv2d", "conv2d_q16", "flash_attention")
+#: every kernel a wrapper launches, by the name its launch count goes under;
+#: the float GEMM also counts each call under its route's name
+#: ("matmul_fp.<route>", ``core.tiling.FP_ROUTES``), and route "splitk"'s
+#: second launch, the reduction pass of a call cut into several k slices,
+#: as "matmul_fp.splitk_reduce"
+KERNELS = ("matmul_fp", "matmul_fp.tile", "matmul_fp.splitk", "matmul_fp.splitk_reduce",
+           "matmul_fp.wgmma", "matmul_q16", "conv2d", "conv2d_q16", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,8 +61,8 @@ _libs: dict = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "matmul_fp": {
-        "matmul_fp_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _F, _F, _I, _P],
+        "matmul_fp_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _F, _F, _I, _P],
     },
     "matmul_q16": {
         "matmul_q16_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -136,10 +141,20 @@ def _finish_build(name: str, job) -> float:
 
 def build_all() -> dict:
     """Build every library not yet built, one nvcc per source in parallel.
-    Returns {name: seconds} for the libraries it built."""
+    Returns {name: seconds} for the libraries it built; if any build fails,
+    raises once every nvcc has ended."""
     jobs = {name: _start_build(name) for name in SOURCES}
-    return {name: _finish_build(name, job)
-            for name, job in jobs.items() if job is not None}
+    done, failed = {}, []
+    for name, job in jobs.items():
+        if job is None:
+            continue
+        try:
+            done[name] = _finish_build(name, job)
+        except RuntimeError as err:
+            failed.append(str(err))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
 
 
 def build_log(name: str) -> str:

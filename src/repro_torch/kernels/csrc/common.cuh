@@ -1,9 +1,10 @@
 // Shared pieces of the port's hand-written Hopper kernels (sm_90a).
 //
-// The fused epilogues live here as __device__ functions so that the GEMM
-// (matmul.cu) and the direct conv (conv2d.cu) run one copy of each, as the
-// reference's Pallas kernels share repro/core/quantization.py's
-// shift_saturate_i32 and kernels/conv2d.py's _float_epilogue / _q16_epilogue.
+// The fused epilogues live here as __device__ functions so that the GEMMs
+// (matmul_fp.cu, matmul_q16.cu) and the direct conv (conv2d.cu) run one
+// copy of each, as the reference's Pallas kernels share
+// repro/core/quantization.py's shift_saturate_i32 and kernels/conv2d.py's
+// _float_epilogue / _q16_epilogue.
 //
 // Arithmetic contract (held bit for bit by the CPU tests' plain versions and
 // by chip_smoke.py on the card):

@@ -1,4 +1,5 @@
-// The block-tiled GEMM shared by matmul_fp.cu and matmul_q16.cu.
+// The block-tiled GEMM: route "tile" (L) of matmul_fp.cu, and the whole of
+// matmul_q16.cu.
 //
 // Replaces the TPU kernels repro/kernels/matmul_fp.py:_mm_kernel (via
 // matmul_fp_pallas) and repro/kernels/matmul_q16.py:_qmm_kernel (via
@@ -7,16 +8,17 @@
 // and loops over k itself, keeping the accumulator in registers, and runs
 // the fused epilogue of common.cuh on its last step.
 //
-// What bounds it on an H100: the zoo's FC layers run at batch 8, so m is
-// tiny and the weight matrix (VGG16 fc0: 25088 x 4096, 411 MB in f32) is
-// read once from HBM: memory bound, 3.35 TB/s.  The im2col route has large
-// m and is bound by the CUDA cores (67 TFLOP/s f32; integer multiply-adds
-// run at about half that rate).  This first version is plain: each k-step
-// stages an x tile and a w tile in shared memory (widened to 4 bytes), and
-// each of the 256 threads accumulates a TM x TN register tile on CUDA
-// cores.  The small (16, 64) tile exists so that batch-8 FC layers spread
-// the weight read over more blocks.  No tensor cores: f32 stays f32 (the
-// reference holds it at 1e-4, which TF32 misses) and int16 has no MMA.
+// What bounds it on an H100: with large m (the im2col route) the CUDA
+// cores, 67 TFLOP/s f32 (integer multiply-adds at about half that rate);
+// with batch-8 m the weight read, 3.35 TB/s.  This kernel is plain: each
+// k-step stages an x tile and a w tile in shared memory (widened to 4
+// bytes), and each of the 256 threads accumulates a TM x TN register tile
+// on CUDA cores.  It is the fixed-point GEMM's only route (int16 has no
+// MMA, and its results are held bit for bit).  The float GEMM takes it only
+// for f32 with m > 16 (f32 stays f32: the reference holds it at 1e-4,
+// which TF32 misses) and for bf16 shapes that TMA cannot address; bf16 with
+// large m runs on the tensor cores (gemm_wgmma.cuh) and every m <= 16 on
+// the split-k stream (gemm_splitk.cuh).
 //
 // TB (transposed B) reads w as an (n, k) row-major matrix: the tied LM head
 // multiplies by the (vocab, d) embedding table as it is stored, so no

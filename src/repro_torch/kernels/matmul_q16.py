@@ -94,7 +94,7 @@ def matmul_q16_cuda(
     bias_shift = fmt.frac_bits if bias_shift is None else bias_shift
     check_shifts(shift, bias_shift)
     block = block or default_block_for(m, n, k, H100)
-    if (block.bm, block.bn, block.bk) not in H100.gemm_tiles:
+    if (block.bm, block.bn, block.bk) not in H100.gemm_tiles or block.route != "tile":
         raise ValueError(f"matmul_q16 kernel is compiled for tiles "
                          f"{H100.gemm_tiles}, not {block}")
     out_dtype = torch.int32 if wide else fmt.storage_dtype

@@ -202,7 +202,12 @@ class NetworkPlan:
             )
         for i, gp in enumerate(self.fcs):
             blk = (gp.block.bm, gp.block.bn, gp.block.bk) if gp.block else None
-            lines.append(f"fc{i}: m={gp.m} n={gp.n} k={gp.k} block={blk}")
+            route = ""
+            if gp.block is not None and gp.block.route != "tile":
+                route = f" route={gp.block.route}"
+                if gp.block.splits > 1:
+                    route += f" splits={gp.block.splits}"
+            lines.append(f"fc{i}: m={gp.m} n={gp.n} k={gp.k} block={blk}{route}")
         return lines
 
 

@@ -5,7 +5,8 @@
 // meet at a std::barrier for __syncthreads.  A warp shuffle is an exchange
 // through a per-block buffer between two barriers, so every thread of the
 // block must reach it together (the kernels shuffle uniformly).  Only what
-// the kernels use is here; bf16 is left out (common.cuh guards it).
+// the kernels use is here; bf16, and with it the float GEMM's wgmma route,
+// is left out (common.cuh and gemm_wgmma.cuh guard them).
 #pragma once
 #define REPRO_CPU_SHIM 1
 #include <math.h>
@@ -29,6 +30,18 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+// 16-byte vectors: what the kernels' vector loads read (alignas keeps the
+// kernels' alignment assumptions checkable here)
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0

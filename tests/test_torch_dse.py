@@ -10,6 +10,7 @@ kernel supports, and a shared-memory footprint under a block's limit.
 import dataclasses
 
 import pytest
+import torch
 
 from repro.core import dse as jdse
 from repro.core.engine import reset_plan_caches as j_reset
@@ -145,8 +146,12 @@ def test_h100_plans_are_legal_for_the_kernels(net, backend, batch):
         hh, ww = geo.ho // (pool or 1), geo.wo // (pool or 1)
         ch = cout
     for gp in plan.fcs:
-        assert (gp.block.bm, gp.block.bn, gp.block.bk) in H100.gemm_tiles
-        assert gp.block.smem_bytes() <= H100.smem_per_block
+        if backend == "q16":
+            assert (gp.block.bm, gp.block.bn, gp.block.bk) in H100.gemm_tiles
+            assert gp.block.smem_bytes() <= H100.smem_per_block
+        else:  # the float GEMM streams the FC weights on its split-k route
+            assert gp.block.route == "splitk"
+            assert tdse.fp_block_legal(gp.block, gp.m, gp.n, gp.k, dtype_bytes=4, spec=H100)
 
 
 def test_h100_conv_search_prefers_real_channels_and_fits_smem():
@@ -206,3 +211,138 @@ def test_sharded_plans_are_not_ported():
         tcnn.plan_cnn(tpl, tcnn.LENET, (2, 32, 32, 1), spatial=2)
     with pytest.raises(NotImplementedError):
         tpl.engine.plan_gemm(8, 8, 8, mesh=object())
+
+
+# -- the float GEMM's routes (csrc/matmul_fp.cu) ------------------------------
+
+QWEN = dict(d=896, q=1024, kv=128, ff=4864, vocab=151936)
+
+
+def _qwen_gemms(m):
+    """(n, k) of qwen2-0.5b's seven per-layer GEMMs: q, k, v, o, gate, up, down."""
+    d, q, kv, ff = QWEN["d"], QWEN["q"], QWEN["kv"], QWEN["ff"]
+    return [(q, d), (kv, d), (kv, d), (d, q), (ff, d), (ff, d), (d, ff)]
+
+
+@pytest.mark.parametrize("net", NETS)
+def test_fp_route_cnn_fcs_stream_on_splitk(net):
+    """Batch-8 FC layers (f32) take route S, spread over the card."""
+    _, gemms, fcs = _layers(tcnn.CNN_ZOO[net], 8)
+    for m, n, k in fcs:
+        blk = tdse.default_fp_block_for(m, n, k, H100, dtype_bytes=4)
+        assert blk.route == "splitk" and blk.bm == 8 and blk.bn == H100.splitk_cols
+        assert blk.splits == -(-k // blk.bk) and blk.bk % 64 == 0
+        assert blk.bm * blk.bk * 4 <= 32 * 1024  # x's slice fits the reduction's room
+        assert tdse.fp_block_legal(blk, m, n, k, dtype_bytes=4, spec=H100)
+    # im2col GEMMs (f32, large m) stay on the CUDA-core tile: the q16 choice
+    for m, n, k in gemms:
+        blk = tdse.default_fp_block_for(m, n, k, H100, dtype_bytes=4)
+        assert blk == tdse.default_block_for(m, n, k, H100) and blk.route == "tile"
+
+
+def test_fp_route_vgg16_fc0_covers_the_card():
+    blk = tdse.default_fp_block_for(8, 4096, 25088, H100, dtype_bytes=4)
+    assert blk == MatmulBlock(8, 256, 768, route="splitk", splits=33)
+    assert (4096 // blk.bn) * blk.splits >= 2 * H100.sms
+
+
+def test_fp_route_qwen2_prefill_takes_wgmma_decode_takes_splitk():
+    for n, k in _qwen_gemms(16384):
+        blk = tdse.default_fp_block_for(16384, n, k, H100, dtype_bytes=2)
+        assert blk.route == "wgmma" and (blk.bm, blk.bn, blk.bk) in H100.wgmma_tiles
+        assert tdse.fp_block_legal(blk, 16384, n, k, dtype_bytes=2, spec=H100)
+    # n = 128 (k / v) would waste half a 256-wide tile
+    assert tdse.default_fp_block_for(16384, 128, 896, H100, dtype_bytes=2).bn == 128
+    assert tdse.default_fp_block_for(16384, 4864, 896, H100, dtype_bytes=2).bn == 256
+    for n, k in _qwen_gemms(4):
+        blk = tdse.default_fp_block_for(4, n, k, H100, dtype_bytes=2)
+        assert blk.route == "splitk" and blk.bm == 4
+    down = tdse.default_fp_block_for(4, 896, 4864, H100, dtype_bytes=2)
+    assert (-(-896 // down.bn)) * down.splits >= H100.sms
+
+
+def test_fp_route_tied_head_streams_the_table_in_place():
+    """embed.T (the same plan as a row-major w): route S, whole rows, no
+    split needed, 594 blocks of 256 columns."""
+    for db in (2, 4):
+        blk = tdse.default_fp_block_for(4, QWEN["vocab"], QWEN["d"], H100, dtype_bytes=db)
+        assert blk == MatmulBlock(4, H100.splitk_cols, 896, route="splitk", splits=1)
+        assert tdse.fp_block_legal(blk, 4, QWEN["vocab"], QWEN["d"], dtype_bytes=db, spec=H100)
+        assert -(-QWEN["vocab"] // blk.bn) >= 4 * H100.sms
+    # the full-sequence head (forward) has large m: the tensor cores, K-major B
+    blk = tdse.default_fp_block_for(4096, QWEN["vocab"], QWEN["d"], H100, dtype_bytes=2)
+    assert blk.route == "wgmma"
+
+
+@pytest.mark.parametrize("m,n,k,db,route", [
+    (16, 64, 64, 2, "splitk"),      # the split-k bound is inclusive
+    (17, 64, 64, 2, "wgmma"),       # bf16 above it: the tensor cores
+    (64, 64, 64, 4, "tile"),        # f32 above it: the CUDA-core tile
+    (200, 60, 64, 2, "tile"),       # n not a multiple of 8: TMA cannot address it
+    (200, 64, 60, 2, "tile"),       # k not a multiple of 8
+    (4096, 512, 4608, 4, "tile"),   # f32 never takes the tensor cores (no TF32)
+])
+def test_fp_route_bounds(m, n, k, db, route):
+    blk = tdse.default_fp_block_for(m, n, k, H100, dtype_bytes=db)
+    assert blk.route == route
+    assert tdse.fp_block_legal(blk, m, n, k, dtype_bytes=db, spec=H100)
+
+
+def test_fp_routes_leave_q16_and_tpu_choices_unchanged():
+    """The q16 GEMM keeps default_block_for's compiled tiles; under the TPU
+    spec the float planner is the reference's block search."""
+    for m, n, k in [(8, 4096, 25088), (16384, 4864, 896), (4, 896, 4864), (6272, 512, 4608)]:
+        assert tdse.default_block_for(m, n, k, H100).route == "tile"
+        assert (tdse.default_fp_block_for(m, n, k, TPU_V5E, dtype_bytes=2)
+                == tdse.default_block_for(m, n, k, TPU_V5E))
+
+
+def test_fp_block_legality_refuses_what_the_kernel_does_not_take():
+    wg = MatmulBlock(128, 256, 64, route="wgmma")
+    assert not tdse.fp_block_legal(wg, 256, 256, 256, dtype_bytes=4, spec=H100)
+    assert not tdse.fp_block_legal(wg, 256, 260, 256, dtype_bytes=2, spec=H100)
+    sk = MatmulBlock(4, 256, 128, route="splitk", splits=2)
+    assert tdse.fp_block_legal(sk, 4, 300, 256, dtype_bytes=2, spec=H100)
+    assert not tdse.fp_block_legal(sk, 5, 300, 256, dtype_bytes=2, spec=H100)
+    assert not tdse.fp_block_legal(sk, 4, 300, 300, dtype_bytes=2, spec=H100)
+    assert not tdse.fp_block_legal(MatmulBlock(16, 64, 16, route="nope"), 4, 4, 4,
+                                   dtype_bytes=4, spec=H100)
+    assert tdse.fp_block_legal(MatmulBlock(16, 64, 16), 300, 300, 300, dtype_bytes=2,
+                               spec=H100)
+    assert not tdse.fp_block_legal(MatmulBlock(128, 64, 64, route="wgmma"), 300, 64, 64,
+                                   dtype_bytes=2, spec=H100)
+
+
+def test_registry_key_separates_the_two_gemm_kernels():
+    """One shape planned for the float and the q16 GEMM: two entries, each
+    the kernel's own choice, so neither receives the other's tile."""
+    reg = PlanRegistry()
+    q = reg.block_for(8, 4096, 25088, H100)
+    f = reg.block_for(8, 4096, 25088, H100, kernel="matmul_fp", dtype_bytes=4)
+    assert q == MatmulBlock(16, 64, 16) and f.route == "splitk"
+    assert reg.block_for(8, 4096, 25088, H100, kernel="matmul_q16") is q
+    # the float plan is keyed by dtype as well
+    f2 = reg.block_for(16384, 4864, 896, H100, kernel="matmul_fp", dtype_bytes=2)
+    f4 = reg.block_for(16384, 4864, 896, H100, kernel="matmul_fp", dtype_bytes=4)
+    assert f2.route == "wgmma" and f4.route == "tile"
+    assert reg.block_for(8, 4096, 25088, H100, kernel="matmul_fp", dtype_bytes=4) is f
+    assert reg.stats()["gemm_blocks"] == 4 and reg.misses == 4 and reg.hits == 2
+    with pytest.raises(ValueError):
+        reg.block_for(8, 8, 8, H100, kernel="matmul")
+
+
+def test_engines_plan_their_own_kernel():
+    """A cuda and a q16 engine sharing the H100 registry get different plans
+    for one FC shape; a template's block override still wins."""
+    from repro_torch.core.engine import reset_plan_caches
+
+    reset_plan_caches()
+    fp = default_template("cuda", device="cpu").engine
+    q16 = default_template("q16", device="cpu").engine
+    assert fp.plan_cache is q16.plan_cache
+    assert fp.plan_gemm(8, 4096, 25088).block.route == "splitk"
+    assert q16.plan_gemm(8, 4096, 25088).block == MatmulBlock(16, 64, 16)
+    assert fp.block_for(16384, 4864, 896, dtype=torch.bfloat16).route == "wgmma"
+    pinned = Template(TemplateConfig(backend="cuda", device="cpu",
+                                     block=MatmulBlock(64, 64, 16)))
+    assert pinned.engine.plan_gemm(8, 4096, 25088).block == MatmulBlock(64, 64, 16)

@@ -6,9 +6,13 @@
 exactly as the wrappers do on the card, and the results are held against
 the plain versions: integers bit for bit, floats at 1e-4.  This checks the
 kernels' indexing, tiling, masking, Cin chunks, epilogues, the GEMM's
-transposed-B operand and flash attention's GQA indexing, causal block skip,
-ragged rows, ``q_offset`` and strided views at tiny shapes here; it says
-nothing about speed, and the card runs the real build.
+transposed-B operand, the float GEMM's split-k route (both layouts, its
+slices and their fixed-order reduction) and flash attention's GQA indexing,
+causal block skip, ragged rows, ``q_offset`` and strided views at tiny
+shapes here; it says nothing about speed, and the card runs the real build.
+The float GEMM's wgmma route is inline PTX for sm_90a with no CPU
+counterpart (``csrc/gemm_wgmma.cuh`` is left out under the shim): only the
+card tests (``tests/test_torch_kernels_gpu.py``) run it.
 """
 import ctypes
 import shutil
@@ -18,6 +22,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core import dse as tdse
 from repro_torch.core.quantization import Q2_6, Q2_14
 from repro_torch.core.tiling import H100, MatmulBlock
 from repro_torch.kernels import _build, conv2d, flash_attention, matmul_fp, matmul_q16
@@ -56,7 +61,8 @@ def _raws(shape, dtype, gen):
 def test_gemm_kernels_emulated(libs, tile, m, n, k):
     g = torch.Generator().manual_seed(m * n + k)
     blk = MatmulBlock(*tile)
-    x, w, b = torch.randn(m, k, generator=g), torch.randn(k, n, generator=g), torch.randn(n, generator=g)
+    x, w = torch.randn(m, k, generator=g), torch.randn(k, n, generator=g)
+    b = torch.randn(n, generator=g)
     out = torch.empty(m, n)
     matmul_fp.launch(libs["matmul_fp"], x, w, b, out, blk, True, Q2_14, 0, NULL_STREAM)
     torch.testing.assert_close(out, matmul_fp.matmul_fp_plain(x, w, b, relu=True, qout=Q2_14),
@@ -93,6 +99,58 @@ def test_gemm_transposed_b_emulated(libs, tile):
     matmul_fp.launch(libs["matmul_fp"], x, w, None, out, MatmulBlock(*tile), False, None,
                      0, NULL_STREAM)
     torch.testing.assert_close(out, matmul_fp.matmul_fp_plain(x, w), atol=1e-4, rtol=1e-4)
+
+
+SPLITK_CASES = [  # m, n, k, trans_b, slice (None: the planner's)
+    (1, 300, 200, False, None),   # one thread row's groups end inside the slice
+    (4, 70, 333, False, 64),      # ragged n (scalar loads), k not a multiple of 64
+    (8, 260, 1000, False, None),  # ragged last column tile, vector loads
+    (16, 33, 130, False, 64),     # m = 16 in four reduction passes
+    (1, 70, 333, True, 64),       # transposed, k not a multiple of 4 (scalar loads)
+    (4, 133, 896, True, None),    # the tied head's layout: one slice, whole rows
+    (8, 64, 1000, True, 128),     # transposed, several slices
+    (16, 9, 96, True, None),
+]
+
+
+@pytest.mark.parametrize("case", SPLITK_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_gemm_splitk_route_emulated(libs, case):
+    """Route S (csrc/gemm_splitk.cuh) in f32, against the plain version at
+    1e-4, and bit for bit equal on a second launch (no atomics)."""
+    m, n, k, tb, piece = case
+    g = torch.Generator().manual_seed(m * n + k)
+    x, b = torch.randn(m, k, generator=g), torch.randn(n, generator=g)
+    w = torch.randn(n, k, generator=g).t() if tb else torch.randn(k, n, generator=g)
+    blk = tdse.default_fp_block_for(m, n, k, H100, dtype_bytes=4)
+    if piece is not None:
+        blk = MatmulBlock(blk.bm, blk.bn, piece, route="splitk", splits=-(-k // piece))
+    assert blk.route == "splitk"
+    assert tdse.fp_block_legal(blk, m, n, k, dtype_bytes=4, spec=H100)
+    want = matmul_fp.matmul_fp_plain(x, w, b, relu=True)
+    outs = []
+    for _ in range(2):
+        out = torch.full((m, n), float("nan"))
+        matmul_fp.launch(libs["matmul_fp"], x, w, b, out, blk, True, None, 0, NULL_STREAM,
+                         matmul_fp.workspace_for(blk, m, n, "cpu"))
+        outs.append(out)
+    torch.testing.assert_close(outs[0], want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_gemm_splitk_epilogue_emulated(libs):
+    """Bias, ReLU and fake-quant fused into route S's write-back, with one
+    slice (in the streaming kernel) and several (in the reduction)."""
+    g = torch.Generator().manual_seed(11)
+    m, n, k = 8, 120, 400
+    x, w = torch.randn(m, k, generator=g), torch.randn(k, n, generator=g)
+    b = torch.randn(n, generator=g)
+    want = matmul_fp.matmul_fp_plain(x, w, b, relu=True, qout=Q2_14)
+    for piece in (448, 64):
+        blk = MatmulBlock(8, 256, piece, route="splitk", splits=-(-k // piece))
+        out = torch.full((m, n), float("nan"))
+        matmul_fp.launch(libs["matmul_fp"], x, w, b, out, blk, True, Q2_14, 0, NULL_STREAM,
+                         matmul_fp.workspace_for(blk, m, n, "cpu"))
+        torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
 
 
 FA_CASES = [  # b, hq, hkv, sq, sk, d, causal, q_offset, strided
@@ -169,6 +227,19 @@ def test_kernels_refuse_bad_launches(libs):
     with pytest.raises(RuntimeError, match="does not take"):
         matmul_fp.launch(libs["matmul_fp"], x, w, None, out, MatmulBlock(32, 32, 32),
                          False, None, 0, NULL_STREAM)
+    bad_splitk = [
+        MatmulBlock(2, 256, 64, route="splitk"),             # m = 4 rows > 2
+        MatmulBlock(4, 64, 64, route="splitk"),              # row-major w takes 256 columns
+        MatmulBlock(4, 256, 32, route="splitk"),             # slice not a multiple of 64
+        MatmulBlock(4, 256, 64, route="splitk", splits=2),   # 2 slices of 64 != k = 8
+    ]
+    for blk in bad_splitk:
+        with pytest.raises(RuntimeError, match="does not take"):
+            matmul_fp.launch(libs["matmul_fp"], x, w, None, out, blk, False, None, 0,
+                             NULL_STREAM)
+    with pytest.raises(RuntimeError, match="does not take"):  # wgmma: f32, and no shim
+        matmul_fp.launch(libs["matmul_fp"], x, w, None, out,
+                         MatmulBlock(128, 128, 64, route="wgmma"), False, None, 0, NULL_STREAM)
     q = torch.zeros(4, 8, dtype=torch.int16)
     qf = torch.randn(1, 2, 8, 24)
     with pytest.raises(RuntimeError, match="does not take"):  # head dim 24 not compiled

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, each held against its plain version
 on the same inputs: integers bit for bit, floats at 1e-4 (GEMM) and 2e-3
-(conv, flash attention), with TF32 off.  Every test here needs an NVIDIA
-Hopper card and skips without one; run them there with
-``python -m pytest -m gpu``.
+(conv, flash attention), with TF32 off; the float GEMM's bf16 routes at
+2e-2, each of its routes also bit for bit equal on a second launch.  Every
+test here needs an NVIDIA Hopper card and skips without one; run them there
+with ``python -m pytest -m gpu``.
 """
 import pytest
 import torch
@@ -18,7 +19,7 @@ from repro_torch.kernels.conv2d import (
     conv2d_q16_cuda,
     conv2d_q16_plain,
 )
-from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain
+from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain, plan_for
 from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import cnn
@@ -132,6 +133,86 @@ def test_matmul_fp_transposed_b_vs_plain(dev, dtype):
     want = matmul_fp_plain(x, table.T)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _fp_operands(m, n, k, dtype, trans_b, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).to(dev, dtype)
+    if trans_b:  # the tied head's operand: the transposed view of an (n, k) table
+        w = (torch.randn(n, k, generator=g) * k ** -0.5).to(dev, dtype).T
+    else:
+        w = (torch.randn(k, n, generator=g) * k ** -0.5).to(dev, dtype)
+    b = (0.1 * torch.randn(n, generator=g)).to(dev)
+    return x, w, b
+
+
+def _check_route(x, w, b, route, **epi):
+    """The planner's route for x @ w is ``route``; the kernel agrees with
+    the plain version (1e-4 in f32, 2e-2 in bf16) and repeats bit for bit."""
+    blk = plan_for(x, w)
+    assert blk.route == route, blk
+    before = dict(_build.launches)
+    got = matmul_fp_cuda(x, w, b, block=blk, **epi)
+    again = matmul_fp_cuda(x, w, b, block=blk, **epi)
+    torch.cuda.synchronize()
+    assert _build.launches[f"matmul_fp.{route}"] == before[f"matmul_fp.{route}"] + 2
+    assert _build.launches["matmul_fp"] == before["matmul_fp"] + 2
+    reduces = 2 if route == "splitk" and blk.splits > 1 else 0
+    assert (_build.launches["matmul_fp.splitk_reduce"]
+            == before["matmul_fp.splitk_reduce"] + reduces)
+    want = matmul_fp_plain(x, w, b, **epi)
+    tol = 1e-4 if x.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("trans_b", [False, True], ids=["w", "wT"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 64, 200])
+@pytest.mark.parametrize("n,k", [(136, 200), (130, 1000)], ids=["n136k200", "n130k1000"])
+def test_matmul_fp_routes_vs_plain(dev, m, n, k, dtype, trans_b):
+    """Each route the planner takes: S for m <= 16, W for bf16 with m > 16
+    and n, k multiples of 8, L otherwise; ragged m and n on every route."""
+    x, w, b = _fp_operands(m, n, k, dtype, trans_b, dev, m + n + k)
+    if m <= 16:
+        route = "splitk"
+    elif dtype == torch.bfloat16 and n % 8 == 0:
+        route = "wgmma"
+    else:
+        route = "tile"
+    _check_route(x, w, b, route, relu=True)
+
+
+QWEN_GEMMS = [  # name, n, k (qwen2-0.5b: d 896, q 1024, kv 128, d_ff 4864)
+    ("q", 1024, 896), ("kv", 128, 896), ("o", 896, 1024), ("gate_up", 4864, 896),
+    ("down", 896, 4864),
+]
+
+
+@pytest.mark.parametrize("name,n,k", QWEN_GEMMS, ids=[c[0] for c in QWEN_GEMMS])
+@pytest.mark.parametrize("m,route", [(16384, "wgmma"), (4, "splitk")], ids=["prefill", "decode"])
+def test_matmul_fp_qwen_shapes(dev, name, n, k, m, route):
+    x, w, b = _fp_operands(m, n, k, torch.bfloat16, False, dev, n + k)
+    _check_route(x, w, b, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_matmul_fp_tied_head_and_fc0(dev, dtype):
+    x, w, _ = _fp_operands(4, 151936, 896, dtype, True, dev, 5)
+    _check_route(x, w, None, "splitk")
+    x, w, b = _fp_operands(8, 4096, 25088, torch.float32, False, dev, 6)
+    _check_route(x, w, b, "splitk", relu=True, qout=Q2_14)
+
+
+def test_matmul_fp_wgmma_epilogue_and_refusals(dev):
+    """Route W fuses the same epilogue; it refuses f32 and unaligned rows."""
+    x, w, b = _fp_operands(300, 256, 128, torch.bfloat16, False, dev, 7)
+    _check_route(x, w, b, "wgmma", relu=True, qout=Q2_14)
+    blk = MatmulBlock(128, 256, 64, route="wgmma")
+    with pytest.raises(ValueError):
+        matmul_fp_cuda(x.float(), w.float(), block=blk)
+    with pytest.raises(ValueError):
+        matmul_fp_cuda(x[:, :124], w[:124, :252].contiguous(), block=blk)
 
 
 FA_CASES = [  # b, hq, hkv, sq, sk, d, causal, q_offset, dtype
