@@ -19,12 +19,18 @@ non-zero without its result line):
    the route its plan names (wgmma, splitk; tile for the im2col route),
    bit for bit repeatable, and timed on gate / up (beside its route "tile"
    on the same call, the design that served it before), fc0 and the tied
-   head;
+   head.  The float conv is checked on the route its plan names: "tc" (the
+   tensor cores in 3xTF32) at 1e-4 and bit for bit repeatable at
+   vgg16.conv1, vgg16.conv8, alexnet.conv1, the 512² dma call and a
+   two-block call, "cudacore" at 2e-3 at every case; "tc" is timed at the
+   first four (bounds in 3xTF32 and f32), "cudacore" at vgg16.conv0;
 3. the CNN path: ``plan_cnn`` -> ``cnn_forward`` for LeNet, AlexNet and
    VGG16 at full width, batch 8, random weights and biases from a seed
    (each hidden layer fitted onto the activation grid), in float,
    grid-resident Q2.14 and a forced int8/int16 mix, with every kernel's
-   launch count set to 0 just before and read just after.  Float logits
+   launch count set to 0 just before and read just after (the float conv's
+   per route: VGG16 12 "tc" and 1 "cudacore", AlexNet 4 and 1, LeNet 0 and
+   2; the grid-resident forwards none on "tc").  Float logits
    are held to the plain ``torch`` backend on the card; the fixed-point
    logits to the same engine on the CPU (the kernels' plain versions), bit
    for bit, and that run shows how few of each layer's raws are clipped;
@@ -48,7 +54,8 @@ non-zero without its result line):
 default: route "tile" timed beside fc0 and the tied head, and the
 ``wgmma_threshold`` lines (gate / up's n and k at m from 17 to 256 and at
 the prefill's m, each wgmma tile against the tile route), which set the
-planner's bound between routes W and L.
+planner's bound between routes W and L.  ``--conv-route-study`` times the
+float conv's CUDA-core route beside each timed tensor-core row.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -73,8 +80,13 @@ ROOT = Path(__file__).resolve().parent
 GEMM_TOL = 1e-4
 #: ``--gemm-route-study``: time the float GEMM's design alternatives too
 ROUTE_STUDY = False
+#: ``--conv-route-study``: time the float conv's CUDA-core route beside "tc"
+CONV_ROUTE_STUDY = False
 GEMM_TOL_BF16 = 2e-2
 CONV_TOL = 2e-3
+#: the float conv's tensor-core route (3xTF32) against conv2d_plain: the
+#: reference's tolerance between its conv routes (tests/test_conv_routes.py)
+TC_TOL = 1e-4
 #: end-to-end float logits, cuda kernels vs the torch backend on the card
 E2E_TOL = 2e-3
 #: H100 SXM dense peaks (NVIDIA data sheet, 700 W)
@@ -82,6 +94,7 @@ HBM_BW = 3.35e12
 PEAK_F32 = 67e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 BATCH = 8
 SEED = 0
 #: He-style weight scale: keeps the activations O(1) through VGG16's ReLU
@@ -204,8 +217,12 @@ def phase_card(torch, dev):
                   if "spill" in line and not line.strip().startswith("0 bytes")
                   and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         warnings = [line.strip() for line in log.splitlines() if "arning" in line]
+        # ptxas's notes where it serializes a kernel's wgmmas (C7511 and kin)
+        serialized = [line.strip()[:200] for line in log.splitlines()
+                      if "Performance Loss" in line]
         regs[name] = {"kernels": len(used), "max_registers": max(used, default=None),
-                      "spill_lines": spills[:4], "warnings": warnings[:4]}
+                      "spill_lines": spills[:4], "warnings": warnings[:4],
+                      "wgmma_serialized": serialized[:4]}
     emit({"phase": "card", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -247,12 +264,16 @@ class KernelBook:
               "max_abs_err": err, "exact": exact, "tol": tol})
 
     def timing(self, kernel, case, *, kernel_fn, plain_fn, library_fn, library,
-               nbytes_, ops, peak, record=True, tile_fn=None):
+               nbytes_, ops, peak, record=True, tile_fn=None, cudacore_fn=None,
+               bound_note=None, extra=None):
         """Time one call of the kernel, its plain version and the library
         call on the same inputs; ``record`` makes it the kernel's row in the
         ``kernels`` line, else it is printed as an extra case.  ``tile_fn``:
         the float GEMM's route "tile" on the same call (the block-tiled
-        CUDA-core kernel that served every float GEMM before the routes)."""
+        CUDA-core kernel that served every float GEMM before the routes);
+        ``cudacore_fn``: the float conv's CUDA-core route on the same call.
+        ``ops`` are what the bound counts at ``peak`` (``bound_note`` says
+        how); ``extra`` adds fields to the row."""
         b_ms, b_by = bound(nbytes_, ops, peak)
         row = {
             "shape": case,
@@ -262,9 +283,13 @@ class KernelBook:
             "library": library,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            **({"bound_note": bound_note} if bound_note else {}),
+            **(extra or {}),
         }
         if tile_fn is not None:
             row["route_tile_ms"] = time_ms(tile_fn)
+        if cudacore_fn is not None:
+            row["route_cudacore_ms"] = time_ms(cudacore_fn)
         if record:
             self.rows[kernel].update(row)
         emit({"phase": "kernel_time" if record else "kernel_time_extra",
@@ -308,47 +333,85 @@ def phase_kernels(torch, dev, book: KernelBook):
     from repro_torch.models import cnn
 
     def conv_plan(n, h, cin, cout, k, s, p, in_bytes):
+        """The CUDA-core route's (τ, Cin chunk) for a conv: the planner's
+        best-ranked configuration on that route."""
         ho = (h + 2 * p - k) // s + 1
-        c = dse.default_conv_tile_for(h + 2 * p, h + 2 * p, cin, k, k, ho, ho, cout, s,
-                                      H100, in_bytes)
+        ranked = dse.explore_conv_spatial(h + 2 * p, h + 2 * p, cin, k, k, ho, ho, cout, s,
+                                          H100, in_bytes)
+        c = next(c for c in ranked if c.route == "cudacore")
         return c.tau, c.cin_chunk
 
     # -- float conv ----------------------------------------------------------
     float_convs = [
         # name, n, h, cin, cout, k, stride, pad, tiles (rows, cols, regime)
+        ("vgg16.conv0", BATCH, 224, 3, 64, 3, 1, 1, None),
         ("vgg16.conv1", BATCH, 224, 64, 64, 3, 1, 1, None),
         ("vgg16.conv8", BATCH, 28, 512, 512, 3, 1, 1, None),
         ("alexnet.conv0", BATCH, 224, 3, 64, 11, 4, 2, None),
+        ("alexnet.conv1", BATCH, 18, 64, 192, 5, 1, 2, None),
         ("lenet.conv0", BATCH, 32, 1, 6, 5, 1, 0, None),
         ("vgg16@512.conv1 dma(256x128)", BATCH, 512, 64, 64, 3, 1, 1, (256, 128, "dma")),
         ("vgg16.conv4 two_block(8)", BATCH, 56, 128, 256, 3, 1, 1, (8, 0, "two_block")),
     ]
+    tc_timed = ("vgg16.conv1", "vgg16.conv8", "alexnet.conv1", "vgg16@512.conv1 dma(256x128)")
+    engine = default_template("cuda").engine
     for i, (name, n, h, cin, cout, k, s, p, tiles) in enumerate(float_convs):
         x = _randn(torch, (n, h, h, cin), dev, 10 + i)
         w = _randn(torch, (k, k, cin, cout), dev, 20 + i, (k * k * cin) ** -0.5)
         b = _randn(torch, (cout,), dev, 30 + i, 0.1)
-        tau, chunk = conv_plan(n, h, cin, cout, k, s, p, 4)
         tr, tc, hm = tiles or (0, 0, "none")
-        kw = dict(stride=s, padding=p, tau=tau, cin_chunk=chunk, tile_rows=tr,
-                  tile_cols=tc, halo_mode=hm, relu=True)
-        got = conv2d_cuda(x, w, b, **kw)
+        plan = engine.plan_conv(x.shape, w.shape, stride=s, padding=p)
+        ho = (h + 2 * p - k) // s + 1
         want = conv2d_plain(x, w, b, stride=s, padding=p, relu=True)
+        # the CUDA-core route: checked at every case, as before the routes
+        tau, chunk = conv_plan(n, h, cin, cout, k, s, p, 4)
+        ckw = dict(stride=s, padding=p, tau=tau, cin_chunk=chunk, tile_rows=tr,
+                   tile_cols=tc, halo_mode=hm, relu=True, conv_route="cudacore")
+        got = conv2d_cuda(x, w, b, **ckw)
         torch.cuda.synchronize()
-        book.check("conv2d", f"{name} tau={tau} chunk={chunk}", got, want, exact=False,
-                   tol=CONV_TOL)
-        if name == "vgg16.conv1" or tiles is not None and hm == "dma":
-            ho = (h + 2 * p - k) // s + 1
-            wn = w.permute(3, 2, 0, 1)
+        book.check("conv2d.cudacore", f"{name} tau={tau} chunk={chunk}", got, want,
+                   exact=False, tol=CONV_TOL)
+        cudacore_fn = lambda: conv2d_cuda(x, w, b, **ckw)  # noqa: E731
+        nb = nbytes(x, w, b) + n * ho * ho * cout * 4
+        flops = 2 * n * ho * ho * cout * k * k * cin
+        library_fn = (lambda wn: lambda: F.conv2d(x.permute(0, 3, 1, 2), wn, b, stride=s,
+                                                  padding=p))(w.permute(3, 2, 0, 1))
+        library = "F.conv2d (cuDNN, TF32 off, channels_last input; no ReLU)"
+        if plan.conv_route == "tc":
+            tkw = dict(stride=s, padding=p, tau=plan.tau, splits=plan.splits, tile_rows=tr,
+                       tile_cols=tc, halo_mode=hm, relu=True, conv_route="tc")
+            if tiles is None:  # the plan's own sub-tile; a tiled call plans its region's
+                tkw.update(sub_rows=plan.sub_rows, sub_cols=plan.sub_cols)
+            else:
+                tkw["splits"] = 1
+            got = conv2d_cuda(x, w, b, **tkw)
+            again = conv2d_cuda(x, w, b, **tkw)
+            torch.cuda.synchronize()
+            desc = (f"{name} tau={plan.tau} splits={tkw['splits']}"
+                    + (f" sub={plan.sub_rows}x{plan.sub_cols}" if tiles is None else ""))
+            if not torch.equal(got, again):
+                raise AssertionError(f"conv2d.tc {desc}: not repeatable bit for bit")
+            book.check("conv2d.tc", desc, got, want, exact=False, tol=TC_TOL)
+            if name in tc_timed:
+                book.timing(
+                    "conv2d.tc", f"{desc} x{tuple(x.shape)} w{tuple(w.shape)}",
+                    record=name == "vgg16.conv1",
+                    kernel_fn=lambda: conv2d_cuda(x, w, b, **tkw),
+                    plain_fn=lambda: conv2d_plain(x, w, b, stride=s, padding=p, relu=True),
+                    library_fn=library_fn, library=library, nbytes_=nb, ops=3 * flops,
+                    peak=PEAK_TF32, bound_note="ops, 3xTF32: 3 x 2·N·Ho·Wo·Cout·K²·Cin "
+                    "at 495 TFLOP/s dense TF32",
+                    extra={"bound_f32_ms": bound(nb, flops, PEAK_F32)[0],
+                           "bound_f32_note": "ops at 67 TFLOP/s f32 (CUDA cores)"},
+                    cudacore_fn=cudacore_fn if CONV_ROUTE_STUDY else None)
+            del again
+        elif name == "vgg16.conv0":
             book.timing(
-                "conv2d", f"{name} x{tuple(x.shape)} w{tuple(w.shape)} tau={tau} chunk={chunk}",
-                record=tiles is None,
-                kernel_fn=lambda: conv2d_cuda(x, w, b, **kw),
+                "conv2d.cudacore",
+                f"{name} x{tuple(x.shape)} w{tuple(w.shape)} tau={tau} chunk={chunk}",
+                kernel_fn=cudacore_fn,
                 plain_fn=lambda: conv2d_plain(x, w, b, stride=s, padding=p, relu=True),
-                library_fn=lambda: F.conv2d(x.permute(0, 3, 1, 2), wn, b, stride=s,
-                                            padding=p),
-                library="F.conv2d (cuDNN, TF32 off, channels_last input; no ReLU)",
-                nbytes_=nbytes(x, w, b) + n * ho * ho * cout * 4,
-                ops=2 * n * ho * ho * cout * k * k * cin, peak=PEAK_F32)
+                library_fn=library_fn, library=library, nbytes_=nb, ops=flops, peak=PEAK_F32)
         del x, w, got, want
 
     # -- float GEMM: every FC shape of the CNN path, on the plan it runs ----
@@ -491,6 +554,9 @@ def phase_kernels(torch, dev, book: KernelBook):
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
+#: float convs per forward on the conv's routes: ("tc", "cudacore")
+CONV_ROUTES = {"lenet": (0, 2), "alexnet": (4, 1), "vgg16": (12, 1)}
+
 MIXED = {
     "lenet": ("conv0", "fc0", "fc2"),
     "alexnet": ("conv0", "conv3", "fc1"),
@@ -568,6 +634,15 @@ def phase_main_path(torch, dev):
         y = cnn.cnn_forward(tpl, spec, params, x, plan=plan)
         torch.cuda.synchronize()
         assert _build.launches["conv2d"] - before["conv2d"] == nc
+        # the float conv's routes: every conv with Cin and Cout multiples of
+        # 8 on the tensor cores, the first layers on the CUDA cores
+        grew = {k: _build.launches[k] - before[k] for k in before}
+        tc, cc = CONV_ROUTES[net]
+        splits = sum(cp.splits > 1 for cp in plan.convs)
+        if (grew["conv2d.tc"], grew["conv2d.cudacore"]) != (tc, cc) \
+                or grew["conv2d.tc_prep"] != tc or grew["conv2d.tc_reduce"] != splits:
+            raise AssertionError(f"{net} float: conv launches by route {grew}, want "
+                                 f"{tc} tc (+ {tc} prep, {splits} reduce), {cc} cudacore")
         assert _build.launches["matmul_fp"] - before["matmul_fp"] == nf
         # every FC layer (batch 8) streams its weights on the split-k route
         assert _build.launches["matmul_fp.splitk"] - before["matmul_fp.splitk"] == nf
@@ -604,6 +679,7 @@ def phase_main_path(torch, dev):
             assert _build.launches["conv2d_q16"] - before["conv2d_q16"] == nc
             assert _build.launches["matmul_q16"] - before["matmul_q16"] == nf
             assert _build.launches["matmul_fp"] == before["matmul_fp"]
+            assert _build.launches["conv2d"] == before["conv2d"]  # no float conv, no "tc"
             with tq.engine.plan_cache.scope() as warm:
                 y2 = cnn.cnn_forward(tq, spec, qp, x, policy=policy)
             assert warm["misses"] == 0 and torch.equal(y, y2)
@@ -634,7 +710,8 @@ def phase_main_path(torch, dev):
             runs.append((net, numerics, tq, spec, qp, x, policy))
     launches = dict(_build.launches)
     emit({"phase": "main_path_launches", "path": "cnn", **launches})
-    for name in ("matmul_fp", "matmul_q16", "conv2d", "conv2d_q16"):
+    for name in ("matmul_fp", "matmul_q16", "conv2d", "conv2d.tc", "conv2d.cudacore",
+                 "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16"):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the CNN path")
     return runs, launches
@@ -673,7 +750,7 @@ def phase_profile(torch, runs):
         torch.cuda.synchronize()
         emit({"phase": "profile", "net": net, "numerics": numerics, "forwards": 3,
               **profile_window(torch, lambda: [fwd() for _ in range(3)],
-                               groups=("conv", "splitk", "gemm_kernel"))})
+                               groups=("conv_tc", "conv_kernel", "splitk", "gemm_kernel"))})
 
 
 # ---------------------------------------------------------------------------
@@ -1168,11 +1245,13 @@ def phase_serve_cli(torch):
           "tokens": out.tolist(), "seconds": time.perf_counter() - t0})
 
 
-#: the ``kernels`` line: one row per kernel, and for the float GEMM one per
-#: route of the main paths (record name -> kernel, GEMM route, source, TPU
-#: kernel); its route "tile" serves no main-path call and is checked above.
-#: A row's launches are its wrapper's calls, one launch of the kernel each;
-#: route "splitk" adds its reduction pass's launches as ``reduce_launches``
+#: the ``kernels`` line: one row per kernel, and for the float GEMM and the
+#: float conv one per route of the main paths (record name -> kernel, route,
+#: source, TPU kernel); the GEMM's route "tile" serves no main-path call and
+#: is checked above.  A row's launches are its wrapper's calls, one launch of
+#: the kernel each; route "splitk" adds its reduction pass's launches as
+#: ``reduce_launches``, the conv's route "tc" its weight preparation's and
+#: Cin-split reduction's as ``prep_launches`` and ``reduce_launches``
 KERNEL_META = {
     "matmul_fp.wgmma": ("matmul_fp", "wgmma", "src/repro_torch/kernels/csrc/gemm_wgmma.cuh",
                         "src/repro/kernels/matmul_fp.py:76"),
@@ -1181,8 +1260,10 @@ KERNEL_META = {
                          "src/repro/kernels/matmul_fp.py:76"),
     "matmul_q16": ("matmul_q16", "tile", "src/repro_torch/kernels/csrc/matmul_q16.cu",
                    "src/repro/kernels/matmul_q16.py:71"),
-    "conv2d": ("conv2d", None, "src/repro_torch/kernels/csrc/conv2d.cu",
-               "src/repro/kernels/conv2d.py:329"),
+    "conv2d.tc": ("conv2d", "tc", "src/repro_torch/kernels/csrc/conv2d_tc.cuh",
+                  "src/repro/kernels/conv2d.py:329"),
+    "conv2d.cudacore": ("conv2d", "cudacore", "src/repro_torch/kernels/csrc/conv2d.cu",
+                        "src/repro/kernels/conv2d.py:329"),
     "conv2d_q16": ("conv2d_q16", None, "src/repro_torch/kernels/csrc/conv2d.cu",
                    "src/repro/kernels/conv2d.py:437"),
     "flash_attention": ("flash_attention", None,
@@ -1198,12 +1279,16 @@ def _build_kernels():
 
 
 def main() -> int:
-    global ROUTE_STUDY
+    global ROUTE_STUDY, CONV_ROUTE_STUDY
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gemm-route-study", action="store_true",
                     help="also time the float GEMM's design alternatives (route "
                          "'tile' beside fc0 and the tied head, the W/L threshold sweep)")
-    ROUTE_STUDY = ap.parse_args().gemm_route_study
+    ap.add_argument("--conv-route-study", action="store_true",
+                    help="also time the float conv's CUDA-core route beside each timed "
+                         "tensor-core row")
+    args = ap.parse_args()
+    ROUTE_STUDY, CONV_ROUTE_STUDY = args.gemm_route_study, args.conv_route_study
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: no src/repro_torch beside this script; run it from the "
               "root of a checkout", file=sys.stderr)
@@ -1246,17 +1331,23 @@ def main() -> int:
         if not by_path:
             raise AssertionError(f"kernel {key} was not launched on any main path")
         kernels.append({
-            "name": name, "route": "cuda", "gemm_route": gemm_route, "source": source,
+            "name": name, "route": "cuda",
+            ("conv_route" if name == "conv2d" else "gemm_route"): gemm_route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": row["library"], "shape": row["shape"], "checks": row["checks"],
-            **({"route_tile_ms": row["route_tile_ms"]} if "route_tile_ms" in row else {}),
+            **{k: row[k] for k in ("route_tile_ms", "route_cudacore_ms", "bound_note",
+                                   "bound_f32_ms") if k in row},
         })
         if key == "matmul_fp.splitk":
             kernels[-1]["reduce_launches"] = sum(
                 w["matmul_fp.splitk_reduce"] for w in windows.values())
+        if key == "conv2d.tc":
+            kernels[-1]["prep_launches"] = sum(w["conv2d.tc_prep"] for w in windows.values())
+            kernels[-1]["reduce_launches"] = sum(
+                w["conv2d.tc_reduce"] for w in windows.values())
     if {k["name"] for k in kernels} != set(_build_kernels()):
         raise AssertionError("the kernels line does not list every kernel")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

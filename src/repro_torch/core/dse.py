@@ -53,6 +53,12 @@ __all__ = [
     "gpu_conv_subtile",
     "gpu_conv_smem",
     "gpu_conv_max_chunk",
+    "gpu_conv_tc_blocks",
+    "gpu_conv_tc_legal",
+    "gpu_conv_tc_smem",
+    "gpu_conv_tc_splits",
+    "gpu_conv_tc_subtile",
+    "gpu_conv_tc_tau",
 ]
 
 
@@ -311,7 +317,10 @@ class ConvTileChoice:
     ``vmem_bytes`` is the on-chip working set the spec's kernel needs: VMEM
     under a TpuSpec, shared memory per block under a GpuSpec.  ``cin_chunk``
     is the Cin slice the CUDA kernel stages per step (0 under a TpuSpec,
-    where no regime splits Cin).
+    where no regime splits Cin).  Under a GpuSpec ``route`` names the
+    conv's route (``CONV_ROUTES``); route "tc" also plans the sub-tile of
+    ``sub_rows`` x ``sub_cols`` output pixels its blocks walk, and the
+    ``splits`` its Cin chunks are cut into across blocks.
     """
 
     tau: int
@@ -323,6 +332,10 @@ class ConvTileChoice:
     col_tiles: int = 1
     halo_mode: str = ""
     cin_chunk: int = 0
+    route: str = ""
+    splits: int = 1
+    sub_rows: int = 0
+    sub_cols: int = 0
 
 
 def _conv_tile_score(
@@ -396,14 +409,129 @@ def gpu_conv_max_chunk(kh: int, kw: int, stride: int, tau: int, cin: int,
     return best
 
 
+# ---------------------------------------------------------------------------
+# direct conv: the tensor-core route (csrc/conv2d_tc.cuh's own constants)
+# ---------------------------------------------------------------------------
+
+#: BM: output pixels of a sub-tile (two consumer warpgroups of 64 rows)
+TC_PIXELS = 128
+#: CHUNK: Cin per staging step (one 128-byte swizzle row of f32)
+TC_CHUNK = 32
+#: MAX_BOX: TMA's largest box extent, which bounds the input window
+TC_MAX_BOX = 256
+#: w_stages<τ>(): weight-ring slots; WIN_STAGES: input windows in flight
+_TC_W_STAGES = {64: 6, 128: 4}
+_TC_WIN_STAGES = 2
+#: sub-tile widths tried (each capped at the region's width)
+_TC_WIDTHS = (8, 16, 32, 64, 128)
+
+
+def gpu_conv_tc_legal(cin: int, cout: int, in_bytes: int) -> bool:
+    """Whether the tensor-core route takes a conv: f32 operands (the
+    fixed-point convs stay exact on the CUDA cores), and Cin, Cout multiples
+    of 8 (TMA's 16-byte rows; one TF32 k-step)."""
+    return in_bytes == 4 and cin % 8 == 0 and cout % 8 == 0
+
+
+def gpu_conv_tc_smem(kh: int, kw: int, stride: int, tau: int, sub_rows: int,
+                     sub_cols: int) -> int:
+    """Dynamic shared memory of ``csrc/conv2d_tc.cuh`` (its ``smem_bytes``):
+    the weight ring (hi and lo planes of τ x 32 channels a slot), two input
+    windows of 32 channels each rounded to 1024 bytes, the barriers, and
+    1024 bytes of alignment slack."""
+    rows = (sub_rows - 1) * stride + kh
+    cols = (sub_cols - 1) * stride + kw
+    win = ceil_div(rows * cols * TC_CHUNK * 4, 1024) * 1024
+    stages = _TC_W_STAGES[tau]
+    return (1024 + stages * 2 * tau * TC_CHUNK * 4 + _TC_WIN_STAGES * win
+            + (2 * _TC_WIN_STAGES + 2 * stages) * 8)
+
+
+def gpu_conv_tc_tau(cout: int, spec: GpuSpec) -> int:
+    """The compiled τ that pads Cout least (the larger one on a tie)."""
+    return min(spec.conv_tc_taus, key=lambda t: (ceil_div(cout, t) * t, -t))
+
+
+def gpu_conv_tc_subtile(rh: int, rw: int, kh: int, kw: int, stride: int, tau: int,
+                        spec: GpuSpec) -> Optional[tuple[int, int]]:
+    """(rows, cols) of the sub-tile the blocks of a region of rh x rw output
+    pixels walk, or None when no input window fits TMA's box and shared
+    memory.  For each width, the most rows (at most 128 pixels) whose window
+    fits; of those, the fewest sub-tiles over the region, then the smallest
+    input window, then the widest rows."""
+    best = None
+    for tw in sorted({min(w, rw) for w in _TC_WIDTHS}):
+        cols = (tw - 1) * stride + kw
+        for th in range(min(TC_PIXELS // tw, rh), 0, -1):
+            rows = (th - 1) * stride + kh
+            if (max(rows, cols) <= TC_MAX_BOX
+                    and gpu_conv_tc_smem(kh, kw, stride, tau, th, tw) <= spec.smem_per_block):
+                break
+        else:
+            continue
+        key = (ceil_div(rh, th) * ceil_div(rw, tw), rows * cols, -tw)
+        if best is None or key < best[0]:
+            best = (key, (th, tw))
+    return None if best is None else best[1]
+
+
+def gpu_conv_tc_splits(blocks: int, cin: int, spec: GpuSpec) -> int:
+    """How many ways to cut the Cin chunks across blocks.  One when the
+    grid already covers the card (a split adds a reduction pass over
+    splits x the output); else the fewest waves of blocks times chunks a
+    block (a block fills an SM), the fewest splits on a tie."""
+    chunks = ceil_div(cin, TC_CHUNK)
+    if blocks >= spec.sms:
+        return 1
+
+    def cost(s):
+        return ceil_div(blocks * s, spec.sms) * ceil_div(chunks, s), s
+
+    best = min(range(1, chunks + 1), key=cost)
+    return ceil_div(chunks, ceil_div(chunks, best))  # no empty split
+
+
+def gpu_conv_tc_blocks(n: int, ho: int, wo: int, cout: int, tau: int, sub_rows: int,
+                       sub_cols: int) -> int:
+    """Blocks of an untiled tensor-core conv before any Cin split: one per
+    sub-tile of each image and τ slice of Cout."""
+    return n * ceil_div(ho, sub_rows) * ceil_div(wo, sub_cols) * ceil_div(cout, tau)
+
+
+def _tc_choice(ho, wo, kh, kw, cout, stride, spec: GpuSpec) -> Optional[ConvTileChoice]:
+    """The tensor-core route's plan for an untiled conv: τ and the sub-tile
+    (each block's region); None when no sub-tile's window fits.  The Cin
+    split depends on the batch, which this search does not see:
+    ``Engine.plan_conv`` adds it."""
+    tau = gpu_conv_tc_tau(cout, spec)
+    sub = gpu_conv_tc_subtile(ho, wo, kh, kw, stride, tau, spec)
+    if sub is None:
+        return None
+    sh, sw = sub
+    tiles = ceil_div(ho, sh) * ceil_div(wo, sw)
+    ways = ceil_div(cout, tau)
+    # the share of the grid's work that is real pixels and channels
+    score = (ho * wo / (tiles * TC_PIXELS)) * (cout / (ways * tau))
+    return ConvTileChoice(
+        tau=tau, tile_rows=ho, spatial_tiles=1,
+        vmem_bytes=gpu_conv_tc_smem(kh, kw, stride, tau, sh, sw), score=score,
+        tile_cols=wo, col_tiles=1, halo_mode="none", cin_chunk=TC_CHUNK,
+        route="tc", sub_rows=sh, sub_cols=sw,
+    )
+
+
 def _explore_conv_gpu(hp, wp, cin, kh, kw, ho, wo, cout, stride,
                       spec: GpuSpec, in_bytes: int, top: int):
-    """Rank (τ, Cin chunk) for the CUDA conv by modeled traffic.
+    """A float conv whose operands the tensor-core route takes
+    (:func:`gpu_conv_tc_legal`) and for which one of its sub-tiles fits
+    (:func:`gpu_conv_tc_subtile`) is planned on it (its Cin split is the
+    engine's, which knows the batch); the CUDA-core route's (τ, Cin chunk)
+    follow, ranked by modeled traffic, and serve every other conv.
 
-    Every block re-reads its sub-tile's input window for each τ-way and the
-    kh·kw·Cin·τ weight slab for each sub-tile, so small τ re-streams the
-    image and large τ the weights; padded channels and pixels are wasted
-    work; a grid with fewer blocks than SMs leaves the card idle.
+    CUDA-core ranking: every block re-reads its sub-tile's input window for
+    each τ-way and the kh·kw·Cin·τ weight slab for each sub-tile, so small τ
+    re-streams the image and large τ the weights; padded channels and pixels
+    are wasted work; a grid with fewer blocks than SMs leaves the card idle.
     """
     out = []
     ideal = direct_conv_ideal_traffic(hp, wp, cin, kh, kw, ho, wo, cout, in_bytes)
@@ -427,9 +555,13 @@ def _explore_conv_gpu(hp, wp, cin, kh, kw, ho, wo, cout, stride,
             tau=tau, tile_rows=ho, spatial_tiles=1,
             vmem_bytes=gpu_conv_smem(kh, kw, stride, tau, chunk),
             score=ideal / traffic * waste * fill, tile_cols=wo, col_tiles=1,
-            halo_mode="none", cin_chunk=chunk,
+            halo_mode="none", cin_chunk=chunk, route="cudacore",
         ))
     out.sort(key=lambda c: (-c.score, -c.tau))
+    tc = (_tc_choice(ho, wo, kh, kw, cout, stride, spec)
+          if gpu_conv_tc_legal(cin, cout, in_bytes) else None)
+    if tc is not None:
+        out.insert(0, tc)
     return out[:top]
 
 

@@ -179,6 +179,9 @@ class ConvPlan:
         default); halo_mode: "none" | "two_block" | "dma".
     vmem_bytes: on-chip working set of the route (shared memory per block
         under a GpuSpec).
+    conv_route: the direct conv's route under a GpuSpec (``CONV_ROUTES``:
+        "cudacore" or "tc"; "" otherwise).  Route "tc" walks sub-tiles of
+        sub_rows x sub_cols pixels and cuts its Cin chunks ``splits`` ways.
     """
 
     route: str
@@ -194,6 +197,10 @@ class ConvPlan:
     col_tiles: int = 1
     halo_mode: str = "none"
     cin_chunk: int = 0
+    conv_route: str = ""
+    splits: int = 1
+    sub_rows: int = 0
+    sub_cols: int = 0
 
 
 def _resolve_pad(padding, kh: int) -> int:
@@ -286,9 +293,12 @@ class Engine:
         """Pick the kernel route for one conv layer.
 
         Direct route: the DSE (memoized in the registry) picks the
-        configuration for the spec — under H100, τ and the Cin chunk the
-        CUDA kernel stages.  When no configuration fits, the layer takes the
-        im2col GEMM route with a planned tile.  ``route`` forces a route.
+        configuration for the spec — under H100 the conv's route (a float
+        conv with Cin and Cout multiples of 8 on the tensor cores, every
+        other on the CUDA cores), τ, the Cin chunk and, on the tensor-core
+        route, the sub-tile; this adds that route's Cin split for the batch.
+        When no configuration fits, the layer takes the im2col GEMM route
+        with a planned tile.  ``route`` forces a route.
         """
         _no_sharding(mesh, partition, spatial)
         n, h, wd, cin = x_shape
@@ -310,10 +320,16 @@ class Engine:
                 tile_rows = 0 if choice.tile_rows >= ho else choice.tile_rows
                 tile_cols = 0 if (choice.tile_cols or wo) >= wo else choice.tile_cols
                 halo_mode = choice.halo_mode or ("two_block" if tile_rows else "none")
+                splits = 1
+                if choice.route == "tc":
+                    blocks = dse.gpu_conv_tc_blocks(n, ho, wo, cout, choice.tau,
+                                                    choice.sub_rows, choice.sub_cols)
+                    splits = dse.gpu_conv_tc_splits(blocks, cin, self.config.hw)
                 return ConvPlan(
                     "direct", stride, pad, choice.tau, None, gemm,
                     choice.vmem_bytes, tile_rows, choice.spatial_tiles,
                     tile_cols, choice.col_tiles, halo_mode, choice.cin_chunk,
+                    choice.route, splits, choice.sub_rows, choice.sub_cols,
                 )
             if route == "direct":
                 raise ValueError(
@@ -595,6 +611,8 @@ class Engine:
                 cin_chunk=plan.cin_chunk, relu=relu, qout=qout, route=plan.route,
                 block=plan.block, tile_rows=plan.tile_rows,
                 tile_cols=plan.tile_cols, halo_mode=plan.halo_mode,
+                conv_route=plan.conv_route or "cudacore", splits=plan.splits,
+                sub_rows=plan.sub_rows, sub_cols=plan.sub_cols,
             )
         if backend != "q16":
             raise ValueError(f"unknown backend {backend!r}")

@@ -21,6 +21,7 @@ import math
 from typing import Union
 
 __all__ = [
+    "CONV_ROUTES",
     "FP_ROUTES",
     "GpuSpec",
     "H100",
@@ -39,6 +40,12 @@ __all__ = [
 #: m <= 16), "wgmma" the tensor-core pipeline of ``csrc/gemm_wgmma.cuh``
 #: (route W, bf16 with large m)
 FP_ROUTES = ("tile", "splitk", "wgmma")
+
+#: the float direct conv's routes (``csrc/conv2d.cu``): "cudacore" is its
+#: CUDA-core ``conv_kernel`` (every fixed-point conv, and the float convs
+#: the other route does not take), "tc" the tensor-core 3xTF32 implicit GEMM
+#: of ``csrc/conv2d_tc.cuh`` (float, Cin and Cout multiples of 8)
+CONV_ROUTES = ("cudacore", "tc")
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -69,7 +76,8 @@ class GpuSpec:
     ``gemm_tiles`` are the (bm, bn, bk) tiles of the block-tiled GEMM in
     ``csrc/gemm.cuh`` (both GEMM kernels' route "tile"), each run by
     ``gemm_threads`` threads; ``conv_taus`` the output-channel slices
-    ``csrc/conv2d.cu`` takes.  The float GEMM's other routes, each field the
+    ``csrc/conv2d.cu``'s CUDA-core route takes, ``conv_tc_taus`` those of
+    its tensor-core route (``csrc/conv2d_tc.cuh``).  The float GEMM's other routes, each field the
     list its header compiles:
 
     * "splitk" (``csrc/gemm_splitk.cuh``) takes m up to
@@ -98,6 +106,8 @@ class GpuSpec:
     splitk_cols: int = 256
     conv_taus: tuple = (8, 16, 32, 64, 128, 256)
     conv_threads: int = 256
+    #: conv2d_tc.cuh: the τ that launch_conv_tc instantiates (launch_tau<64 / 128>)
+    conv_tc_taus: tuple = (64, 128)
 
     @property
     def splitk_max_m(self) -> int:

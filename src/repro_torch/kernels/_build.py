@@ -46,9 +46,13 @@ SOURCES = {"matmul_fp": "matmul_fp.cu", "matmul_q16": "matmul_q16.cu",
 #: the float GEMM also counts each call under its route's name
 #: ("matmul_fp.<route>", ``core.tiling.FP_ROUTES``), and route "splitk"'s
 #: second launch, the reduction pass of a call cut into several k slices,
-#: as "matmul_fp.splitk_reduce"
+#: as "matmul_fp.splitk_reduce"; the float conv likewise counts each call
+#: under its route ("conv2d.<route>", ``core.tiling.CONV_ROUTES``), and
+#: route "tc"'s weight preparation and Cin-split reduction launches as
+#: "conv2d.tc_prep" and "conv2d.tc_reduce"
 KERNELS = ("matmul_fp", "matmul_fp.tile", "matmul_fp.splitk", "matmul_fp.splitk_reduce",
-           "matmul_fp.wgmma", "matmul_q16", "conv2d", "conv2d_q16", "flash_attention")
+           "matmul_fp.wgmma", "matmul_q16", "conv2d", "conv2d.cudacore", "conv2d.tc",
+           "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,6 +76,8 @@ _SIGNATURES = {
         "conv2d_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P],
         "conv2d_q16_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                               _I, _I, _P],
+        "conv2d_tc_prep_launch": [_P, _P, _I, _I, _I, _I, _P],
+        "conv2d_tc_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

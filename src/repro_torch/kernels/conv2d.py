@@ -5,7 +5,13 @@ Replaces ``repro/kernels/conv2d.py:conv2d_pallas`` (kernel ``_conv_kernel``),
 ``conv2d_q16_pallas`` (kernel ``_conv_q16_kernel``) and their manual-DMA
 regime ``_conv_dma_call`` (kernel ``_conv_dma_kernel``).  Both wrappers
 launch ``csrc/conv2d.cu``, whose header says what bounds it on an H100 and
-what its design does about that.
+what its design does about that.  The float conv has two routes
+(``CONV_ROUTES``), which the planner picks from the shape: "tc", the
+tensor-core implicit GEMM in split-precision TF32 of ``csrc/conv2d_tc.cuh``
+(a weight-preparation launch, the conv, and for a Cin split a reduction
+launch), and "cudacore", the CUDA-core ``conv_kernel`` that every
+fixed-point conv also runs.  A launch that a route does not take raises;
+no call moves to the other route.
 
 The reference's three input regimes map onto one kernel:
 
@@ -16,7 +22,10 @@ The reference's three input regimes map onto one kernel:
   (tile_rows, Wo) tiles, and keeps the reference's legality rule and error
   (``stride·tile_rows ≥ kh``);
 * an untiled plan leaves the tile to the kernel: one pass of
-  :func:`~repro_torch.core.dse.gpu_conv_subtile` pixels per block.
+  :func:`~repro_torch.core.dse.gpu_conv_subtile` pixels per block (route
+  "tc": one sub-tile of :func:`~repro_torch.core.dse.gpu_conv_tc_subtile`);
+  a tiled one makes the tile each block's region, which route "tc" walks
+  in its sub-tiles.
 
 Zero fill past the image stands in for the reference's explicit pad, which
 is exact for both numerics, so the direct route never materialises a padded
@@ -33,12 +42,17 @@ from typing import Optional
 import torch
 
 from repro_torch.core.dse import (
+    TC_CHUNK,
+    TC_MAX_BOX,
+    TC_PIXELS,
     gpu_conv_max_chunk,
     gpu_conv_smem,
     gpu_conv_subtile,
+    gpu_conv_tc_smem,
+    gpu_conv_tc_subtile,
 )
 from repro_torch.core.quantization import Q2_14, QFormat
-from repro_torch.core.tiling import H100, ceil_div
+from repro_torch.core.tiling import CONV_ROUTES, H100, ceil_div
 
 from . import _build
 from ._common import on_cpu, ptr, require_contiguous, stream_of
@@ -55,6 +69,8 @@ __all__ = [
     "halo_mode_for",
     "launch",
     "launch_q16",
+    "launch_tc",
+    "prep_tc",
 ]
 
 _BITS = {torch.int8: 8, torch.int16: 16}
@@ -88,6 +104,8 @@ class ConvLaunch:
     ho: int
     wo: int
     smem_bytes: int
+    route: str = "cudacore"
+    splits: int = 1  # route "tc": ways the Cin chunks are cut across blocks
 
 
 def _pow2_ceil(v: int) -> int:
@@ -99,22 +117,35 @@ def _pow2_ceil(v: int) -> int:
 
 def conv_launch_geometry(
     x_shape, w_shape, *, stride: int, padding: int, tau: int, cin_chunk: int,
-    tile_rows: int, tile_cols: int, halo_mode: str,
+    tile_rows: int, tile_cols: int, halo_mode: str, conv_route: str = "cudacore",
+    sub_rows: int = 0, sub_cols: int = 0, splits: int = 1,
 ) -> ConvLaunch:
-    """Resolve and check one direct-conv launch: τ (capped at the smallest
-    compiled τ covering Cout, as the reference caps it at Cout), the Cin
-    chunk (0 = the largest that fits shared memory), and each block's output
-    tile from the regime."""
+    """Resolve and check one direct-conv launch on ``conv_route``.
+
+    "cudacore": τ (capped at the smallest compiled τ covering Cout, as the
+    reference caps it at Cout), the Cin chunk (0 = the largest that fits
+    shared memory), and each block's output tile from the regime.  "tc": a
+    compiled τ, Cin and Cout multiples of 8, the 32-channel chunk (0 or 32),
+    the regime's tile as each block's region, walked in sub-tiles of
+    ``sub_rows`` x ``sub_cols`` pixels (0 = the planner's), and the Cin
+    chunks cut ``splits`` ways."""
     n, h, wd, cin = x_shape
     kh, kw, cin2, cout = w_shape
     if cin != cin2:
         raise ValueError(f"input has {cin} channels, weights expect {cin2}")
     if stride < 1 or padding < 0:
         raise ValueError(f"bad stride {stride} / padding {padding}")
+    if conv_route not in CONV_ROUTES:
+        raise ValueError(f"conv route must be one of {CONV_ROUTES}, got {conv_route!r}")
     ho = (h + 2 * padding - kh) // stride + 1
     wo = (wd + 2 * padding - kw) // stride + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"empty conv output {ho}x{wo}")
+    if conv_route == "tc":
+        return _tc_geometry(x_shape, w_shape, ho, wo, stride=stride, padding=padding,
+                            tau=tau, cin_chunk=cin_chunk, tile_rows=tile_rows,
+                            tile_cols=tile_cols, halo_mode=halo_mode,
+                            sub_rows=sub_rows, sub_cols=sub_cols, splits=splits)
     tau = min(tau, _pow2_ceil(max(cout, 8)))
     if tau not in H100.conv_taus:
         raise ValueError(f"conv kernel takes tau in {H100.conv_taus}, got {tau}")
@@ -129,22 +160,66 @@ def conv_launch_geometry(
     if smem > limit:
         raise ValueError(f"Cin chunk {cin_chunk} at tau {tau} needs {smem} bytes "
                          f"of shared memory, over the {limit} a block has")
-    mode = halo_mode_for(tile_rows, tile_cols, ho, wo, halo_mode)
-    if mode == "untiled":
-        th, tw = sub_h, sub_w
-    elif mode == "two_block":
-        th, tw = tile_rows, wo
-        if stride * th < kh:
-            raise ValueError(
-                f"tile_rows={th} too small: stride*tile_rows ({stride * th}) must "
-                f"cover the {kh}-row tap window for the two-block halo scheme"
-            )
-    else:
-        th = tile_rows if 0 < tile_rows < ho else ho
-        tw = tile_cols if 0 < tile_cols < wo else wo
+    th, tw = _region(kh, stride, ho, wo, tile_rows, tile_cols, halo_mode, (sub_h, sub_w))
     geom = (n, h, wd, cin, kh, kw, stride, padding, ho, wo, cout, tau,
             cin_chunk, th, tw, ceil_div(wo, tw), sub_h, sub_w)
     return ConvLaunch(geom, ho, wo, smem)
+
+
+def _region(kh, stride, ho, wo, tile_rows, tile_cols, halo_mode, untiled):
+    """Each block's output tile under the regime (``untiled`` when the
+    plan has none), with the two-block scheme's legality rule."""
+    mode = halo_mode_for(tile_rows, tile_cols, ho, wo, halo_mode)
+    if mode == "untiled":
+        return untiled
+    if mode == "two_block":
+        if stride * tile_rows < kh:
+            raise ValueError(
+                f"tile_rows={tile_rows} too small: stride*tile_rows ({stride * tile_rows}) "
+                f"must cover the {kh}-row tap window for the two-block halo scheme"
+            )
+        return tile_rows, wo
+    return (tile_rows if 0 < tile_rows < ho else ho,
+            tile_cols if 0 < tile_cols < wo else wo)
+
+
+def _tc_geometry(x_shape, w_shape, ho, wo, *, stride, padding, tau, cin_chunk, tile_rows,
+                 tile_cols, halo_mode, sub_rows, sub_cols, splits) -> ConvLaunch:
+    n, h, wd, cin = x_shape
+    kh, kw, _, cout = w_shape
+    if cin % 8 or cout % 8:
+        raise ValueError(f"the tensor-core conv route takes Cin and Cout multiples of "
+                         f"8, got Cin {cin}, Cout {cout}")
+    if tau not in H100.conv_tc_taus:
+        raise ValueError(f"the tensor-core conv route takes tau in {H100.conv_tc_taus}, "
+                         f"got {tau}")
+    if cin_chunk not in (0, TC_CHUNK):
+        raise ValueError(f"the tensor-core conv route stages Cin in chunks of "
+                         f"{TC_CHUNK}, got {cin_chunk}")
+    region = _region(kh, stride, ho, wo, tile_rows, tile_cols, halo_mode, None)
+    if not sub_rows or not sub_cols:
+        sub = gpu_conv_tc_subtile(*(region or (ho, wo)), kh, kw, stride, tau, H100)
+        if sub is None:
+            raise ValueError(f"no tensor-core conv sub-tile fits a {kh}x{kw} stride-{stride} "
+                             f"window in TMA's {TC_MAX_BOX}-wide box and "
+                             f"{H100.smem_per_block} bytes of shared memory")
+        sub_rows, sub_cols = sub
+    if sub_rows < 1 or sub_cols < 1 or sub_rows * sub_cols > TC_PIXELS:
+        raise ValueError(f"sub-tile {sub_rows}x{sub_cols} outside 1..{TC_PIXELS} pixels")
+    rows, cols = (sub_rows - 1) * stride + kh, (sub_cols - 1) * stride + kw
+    if max(rows, cols) > TC_MAX_BOX:
+        raise ValueError(f"input window {rows}x{cols} exceeds TMA's {TC_MAX_BOX}-wide box")
+    smem = gpu_conv_tc_smem(kh, kw, stride, tau, sub_rows, sub_cols)
+    if smem > H100.smem_per_block:
+        raise ValueError(f"sub-tile {sub_rows}x{sub_cols} needs {smem} bytes of shared "
+                         f"memory, over the {H100.smem_per_block} a block has")
+    chunks = ceil_div(cin, TC_CHUNK)
+    if not 1 <= splits <= chunks or (splits - 1) * ceil_div(chunks, splits) >= chunks:
+        raise ValueError(f"{splits} Cin splits of {chunks} chunks leave a split empty")
+    th, tw = region or (sub_rows, sub_cols)
+    geom = (n, h, wd, cin, kh, kw, stride, padding, ho, wo, cout, tau,
+            TC_CHUNK, th, tw, ceil_div(wo, tw), sub_rows, sub_cols)
+    return ConvLaunch(geom, ho, wo, smem, "tc", splits)
 
 
 def _check_operands(x, w, bias, dtypes):
@@ -176,18 +251,40 @@ def conv2d_plain(x, w, bias=None, *, stride: int = 1, padding: int = 0,
                             relu=relu, qout=qout)
 
 
+def _epilogue_args(qout: Optional[QFormat]) -> tuple:
+    return (int(qout is not None), qout.scale if qout else 1.0,
+            qout.min_val if qout else 0.0, qout.max_val if qout else 0.0)
+
+
 def launch(lib, x, w, bias, out, geo: ConvLaunch, *, relu: bool,
            qout: Optional[QFormat], device: int, stream) -> None:
     """One call of the float C entry point on prepared, checked operands."""
     keep, geom = _geom_arg(geo.geom)
-    rc = lib.conv2d_launch(
-        ptr(x), ptr(w), ptr(bias), ptr(out), geom, int(relu),
-        int(qout is not None), qout.scale if qout else 1.0,
-        qout.min_val if qout else 0.0, qout.max_val if qout else 0.0,
-        device, stream,
-    )
+    rc = lib.conv2d_launch(ptr(x), ptr(w), ptr(bias), ptr(out), geom, int(relu),
+                           *_epilogue_args(qout), device, stream)
     del keep
     _build.check(lib, rc, "conv2d")
+
+
+def prep_tc(lib, w, wp, *, device: int, stream) -> None:
+    """Route "tc"'s weight preparation: w (K, K, Cin, Cout) -> wp (2, Cout,
+    K·K, Cin), the TF32 hi and lo planes, K-major."""
+    kh, kw, cin, cout = w.shape
+    rc = lib.conv2d_tc_prep_launch(ptr(w), ptr(wp), kh * kw, cin, cout, device, stream)
+    _build.check(lib, rc, "conv2d.tc_prep")
+
+
+def launch_tc(lib, x, wp, bias, out, workspace, geo: ConvLaunch, *, relu: bool,
+              qout: Optional[QFormat], device: int, stream) -> None:
+    """One call of route "tc" (the conv, and for a Cin split its reduction)
+    on prepared weights ``wp``; ``workspace`` (splits, N·Ho·Wo·Cout) f32 when
+    ``geo.splits`` > 1."""
+    keep, geom = _geom_arg(geo.geom)
+    rc = lib.conv2d_tc_launch(ptr(x), ptr(wp), ptr(bias), ptr(out), ptr(workspace), geom,
+                              geo.splits, int(relu), *_epilogue_args(qout), device,
+                              stream)
+    del keep
+    _build.check(lib, rc, "conv2d.tc")
 
 
 def conv2d_cuda(
@@ -204,26 +301,48 @@ def conv2d_cuda(
     tile_rows: int = 0,
     tile_cols: int = 0,
     halo_mode: str = "two_block",
+    conv_route: str = "cudacore",
+    sub_rows: int = 0,
+    sub_cols: int = 0,
+    splits: int = 1,
 ) -> torch.Tensor:
     """NHWC conv, any stride and zero padding.  x: (N,H,W,Cin) f32,
     w: (K,K,Cin,Cout) f32 -> (N,Ho,Wo,Cout) f32; ``bias`` (Cout,), ``relu``
-    and ``qout`` fused into the write-back."""
+    and ``qout`` fused into the write-back.  ``conv_route``, the sub-tile
+    and ``splits`` as in :func:`conv_launch_geometry`; a launch the route
+    does not take raises, here or in the kernel's launcher."""
     _check_operands(x, w, bias, (torch.float32,))
     geo = conv_launch_geometry(
         x.shape, w.shape, stride=stride, padding=padding, tau=tau,
         cin_chunk=cin_chunk, tile_rows=tile_rows, tile_cols=tile_cols,
-        halo_mode=halo_mode,
+        halo_mode=halo_mode, conv_route=conv_route, sub_rows=sub_rows,
+        sub_cols=sub_cols, splits=splits,
     )
     if on_cpu(x, w, bias):
         return conv2d_plain(x, w, bias, stride=stride, padding=padding,
                             relu=relu, qout=qout)
     bias32 = None if bias is None else bias.to(torch.float32).contiguous()
     require_contiguous(x=x, w=w)
-    out = torch.empty((x.shape[0], geo.ho, geo.wo, w.shape[3]),
-                      dtype=torch.float32, device=x.device)
-    launch(_build.library("conv2d"), x, w, bias32, out, geo, relu=relu,
-           qout=qout, device=x.device.index, stream=stream_of(x))
+    n, cout = x.shape[0], w.shape[3]
+    out = torch.empty((n, geo.ho, geo.wo, cout), dtype=torch.float32, device=x.device)
+    lib = _build.library("conv2d")
+    dev, stream = x.device.index, stream_of(x)
+    if geo.route == "tc":
+        kh, kw, cin, _ = w.shape
+        wp = torch.empty((2, cout, kh * kw, cin), dtype=torch.float32, device=x.device)
+        prep_tc(lib, w, wp, device=dev, stream=stream)
+        _build.launches["conv2d.tc_prep"] += 1
+        ws = None
+        if geo.splits > 1:
+            ws = torch.empty((geo.splits, n * geo.ho * geo.wo * cout),
+                             dtype=torch.float32, device=x.device)
+        launch_tc(lib, x, wp, bias32, out, ws, geo, relu=relu, qout=qout, device=dev,
+                  stream=stream)
+        _build.launches["conv2d.tc_reduce"] += int(geo.splits > 1)
+    else:
+        launch(lib, x, w, bias32, out, geo, relu=relu, qout=qout, device=dev, stream=stream)
     _build.launches["conv2d"] += 1
+    _build.launches[f"conv2d.{geo.route}"] += 1
     return out
 
 

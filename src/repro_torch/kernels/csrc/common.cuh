@@ -96,6 +96,31 @@ struct FloatEpilogue {
   }
 };
 
+// The second pass of a reduction cut across blocks (gemm_splitk.cuh's k
+// slices, conv2d_tc.cuh's Cin split): out = epilogue(sum of the (splits, m,
+// n) f32 partial sums), added in split order.  No atomics: the same bits on
+// every run.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    split_reduce_kernel(const float* __restrict__ part, T* __restrict__ out, int m, int n,
+                        int splits, FloatEpilogue epi) {
+  const size_t mn = static_cast<size_t>(m) * n;
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= mn) return;
+  float s = 0.0f;
+  for (int sp = 0; sp < splits; ++sp) s += part[sp * mn + i];
+  out[i] = epi.template apply<T>(s, static_cast<int>(i % n));
+}
+
+template <typename T>
+inline int launch_split_reduce(const float* part, T* out, int m, int n, int splits,
+                               const FloatEpilogue& epi, cudaStream_t stream) {
+  const size_t mn = static_cast<size_t>(m) * n;
+  const dim3 grid(static_cast<unsigned>((mn + 255) / 256));
+  LAUNCH(split_reduce_kernel<T>, grid, dim3(256), 0, stream, part, out, m, n, splits, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Fixed-point epilogue (matmul_q16.py:_qmm_kernel, conv2d.py:_q16_epilogue):
 // + (bias << bias_shift) -> ReLU on int32 -> shift_saturate onto the output
 // rung, or the raw int32 accumulator when TO is int32_t (``wide``).

@@ -2,17 +2,24 @@
 //
 // Replaces repro/kernels/conv2d.py:conv2d_pallas (kernel _conv_kernel),
 // conv2d_q16_pallas (kernel _conv_q16_kernel) and, through the same code,
-// their manual-DMA regime _conv_dma_call (kernel _conv_dma_kernel).
+// their manual-DMA regime _conv_dma_call (kernel _conv_dma_kernel), on two
+// routes the planner (core/dse.py) picks from the shape and the numerics:
+//   "tc"       (conv2d_tc.cuh): float convs whose Cin and Cout are multiples
+//              of 8, on the tensor cores in split-precision TF32; that
+//              header says what bounds it and what its design does;
+//   "cudacore" (conv_kernel below): every fixed-point conv, bit-exact, and
+//              the float convs the tensor-core route does not take (Cin 1,
+//              3 or 6: the zoo's first layers).
 //
-// Each block owns one output tile of (tile_rows x tile_cols) pixels of one
-// image and a slice of tau output channels.  It walks its tile in passes of
-// (sub_h x sub_w) pixels: for each Cin chunk it stages the pass's input
-// window -- (sub_h-1)*stride + kh rows by (sub_w-1)*stride + kw columns,
-// zero-filled outside the image, which stands in for the reference's pad --
-// and the kh*kw*chunk*tau weight slab in shared memory, then runs the K^2
-// taps as rank-1 updates into registers: each of the 256 threads owns 4
-// pixels x 4 channels, so a pass covers 4096 / tau pixels.  The fused
-// epilogue (common.cuh) writes the pass back.
+// conv_kernel: each block owns one output tile of (tile_rows x tile_cols)
+// pixels of one image and a slice of tau output channels.  It walks its tile
+// in passes of (sub_h x sub_w) pixels: for each Cin chunk it stages the
+// pass's input window -- (sub_h-1)*stride + kh rows by (sub_w-1)*stride + kw
+// columns, zero-filled outside the image, which stands in for the
+// reference's pad -- and the kh*kw*chunk*tau weight slab in shared memory,
+// then runs the K^2 taps as rank-1 updates into registers: each of the 256
+// threads owns 4 pixels x 4 channels, so a pass covers 4096 / tau pixels.
+// The fused epilogue (common.cuh) writes the pass back.
 //
 // Why this shape: the reference keeps a whole K^2*Cin*tau weight slab and a
 // whole image slab resident in VMEM (64 MiB); a Hopper block has 227 KB of
@@ -23,13 +30,12 @@
 // float sum runs in another order than the reference (chunk, then tap); the
 // integer sum is exact in any order.
 //
-// What bounds it on an H100: VGG16's convs do 2*9*Cin per output and reuse
-// each input 9*Cout times, so they are bound by the CUDA cores (67 TFLOP/s
-// f32; integer multiply-adds at about half that).  This first version feeds
-// 16 multiply-adds from 8 shared-memory loads, so shared-memory bandwidth
-// caps it well below that peak; tensor cores (wgmma, TMA windows) are later
-// work.
+// What bounds conv_kernel on an H100: its convs are bound by the CUDA cores
+// (67 TFLOP/s f32; integer multiply-adds at about half that).  It feeds 16
+// multiply-adds from 8 shared-memory loads, so shared-memory bandwidth caps
+// it well below that peak.
 #include "common.cuh"
+#include "conv2d_tc.cuh"
 
 namespace repro {
 
@@ -197,6 +203,39 @@ extern "C" int conv2d_launch(const void* x, const void* w, const void* bias, voi
                                  qhi};
   return repro::launch_conv<float, float, float, float, float>(
       x, w, out, geom, epi, device, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core route's weight preparation: w (K, K, Cin, Cout) f32 ->
+// wp (2, Cout, K*K, Cin), its TF32 hi and lo planes.
+extern "C" int conv2d_tc_prep_launch(const void* w, void* wp, int taps, int cin, int cout,
+                                     int device, void* stream) {
+#ifndef REPRO_CPU_SHIM
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return repro::launch_conv_tc_prep(w, wp, taps, cin, cout, static_cast<cudaStream_t>(stream));
+#else
+  return REPRO_BAD_ARG;  // inline PTX: no CPU counterpart
+#endif
+}
+
+// The tensor-core route on x and the prepared wp; geom as for
+// conv2d_launch, with chunk 32 and (sub_h, sub_w) the sub-tile of at most
+// 128 pixels; workspace: the (splits, N*Ho*Wo, Cout) f32 partial sums when
+// splits > 1, else null.
+extern "C" int conv2d_tc_launch(const void* x, const void* wp, const void* bias, void* out,
+                                void* workspace, const int* geom, int splits, int relu,
+                                int has_q, float qscale, float qlo, float qhi, int device,
+                                void* stream) {
+#ifndef REPRO_CPU_SHIM
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const repro::FloatEpilogue epi{static_cast<const float*>(bias), relu, has_q, qscale, qlo,
+                                 qhi};
+  return repro::launch_conv_tc(x, wp, out, static_cast<float*>(workspace), geom, splits, epi,
+                               static_cast<cudaStream_t>(stream));
+#else
+  return REPRO_BAD_ARG;  // inline PTX: no CPU counterpart
+#endif
 }
 
 // xbits / wbits: 8 or 16; obits: 8 or 16.

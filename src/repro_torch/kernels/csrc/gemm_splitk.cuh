@@ -25,9 +25,9 @@
 //     eight 16-byte loads (a 128-byte line) in flight, against x read as
 //     shared-memory broadcasts;
 //   * one slice writes the epilogue's result directly; several write f32
-//     partial sums to a (splits, m, n) workspace, and a second small kernel
-//     adds them in slice order and runs the epilogue.  No atomics: the
-//     result is the same bits on every run.
+//     partial sums to a (splits, m, n) workspace, and common.cuh's
+//     split_reduce_kernel adds them in slice order and runs the epilogue.
+//     No atomics: the result is the same bits on every run.
 // f32 stays f32 (FFMA, never TF32): the reference holds it at 1e-4.  A
 // shape whose rows are not 16-byte aligned (n, or k when transposed, not a
 // multiple of the vector) takes the same kernels with scalar loads.
@@ -242,19 +242,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// out = epilogue(sum over slices of part), slices added in order.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    splitk_reduce_kernel(const float* __restrict__ part, T* __restrict__ out, int m, int n,
-                         int splits, FloatEpilogue epi) {
-  const size_t mn = static_cast<size_t>(m) * n;
-  const size_t i = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) s += part[sp * mn + i];
-  out[i] = epi.template apply<T>(s, static_cast<int>(i % n));
-}
-
 template <typename T, int MT, bool VEC>
 int launch_rows(const void* x, const void* w, void* out, float* part, int m, int n, int k,
                 int trans_b, int slice, int splits, size_t smem, const FloatEpilogue& epi,
@@ -312,11 +299,7 @@ int launch_splitk(const void* x, const void* w, void* out, float* part, int m, i
     default: return REPRO_BAD_ARG;
   }
   if (rc != 0 || splits == 1) return rc;
-  const size_t mn = static_cast<size_t>(m) * n;
-  const dim3 grid(static_cast<unsigned>((mn + THREADS - 1) / THREADS));
-  LAUNCH(splitk_reduce_kernel<T>, grid, dim3(THREADS), 0, stream, part, static_cast<T*>(out),
-         m, n, splits, epi);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split_reduce<T>(part, static_cast<T*>(out), m, n, splits, epi, stream);
 }
 
 }  // namespace repro

@@ -38,109 +38,26 @@
 //     at one time share their x rows and w columns in L2.
 // TMA needs 16-byte row strides (k and n multiples of 8) and 16-byte
 // aligned bases: the planner sends other shapes to route L, and the wrapper
-// refuses unaligned pointers.  The CUtensorMap comes from
-// cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint, so the
-// library does not link libcuda.
+// refuses unaligned pointers.  The PTX wrappers (mbarriers, TMA, wgmma
+// descriptors and fences) and the tensor-map encoder are hopper.cuh's,
+// shared with the float conv's tensor-core route.
 //
 // All of it is inline PTX for sm_90a, so none of it exists under the CPU
 // shim (REPRO_CPU_SHIM): the CPU tests cannot run this route.
 #pragma once
 
 #ifndef REPRO_CPU_SHIM
-#include <cuda.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace wgmma {
+
+using namespace hopper;
 
 constexpr int BM = 128;      // output rows of a block: two consumer warpgroups of 64
 constexpr int BK = 64;       // k per stage: 64 bf16 = one 128-byte swizzle row
 constexpr int THREADS = 384; // producer warpgroup + two consumer warpgroups
 constexpr int GROUP_M = 16;  // m-tiles per group of the tile order
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box into shared memory; its bytes complete on ``bar``.  c0 is the
-// coordinate along the contiguous dimension, c1 along the rows.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// One TMA box from shared memory to the matrix (rows and columns past its
-// edges are not written), in this thread's bulk group.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
-                                          int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed groups of wgmmas are still in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D (64 x 128, f32 in registers) += A (64 x 16) . B (16 x 128), bf16 from shared
 // memory through descriptors; TNSP_B = 1 reads B MN-major (a (k, n) row-major w).
@@ -383,29 +300,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     if (t128 == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A rows x cols row-major bf16 matrix, read in boxes of box_rows x 64

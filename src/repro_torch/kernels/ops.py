@@ -106,15 +106,21 @@ def conv2d(
     tile_rows: int = 0,
     tile_cols: int = 0,
     halo_mode: str = "two_block",
+    conv_route: str = "cudacore",
+    splits: int = 1,
+    sub_rows: int = 0,
+    sub_cols: int = 0,
 ) -> torch.Tensor:
     """NHWC conv, float path.  ``route="direct"``: the direct CUDA conv
-    (padding as zero fill inside the kernel); ``route="im2col"``: im2col +
+    (padding as zero fill inside the kernel) on ``conv_route`` ("cudacore"
+    or "tc", with its sub-tile and Cin split); ``route="im2col"``: im2col +
     the float GEMM kernel.  The epilogue is fused on both routes."""
     if route == "direct":
         return conv2d_cuda(
             x, w, bias, stride=stride, padding=padding, tau=tau,
             cin_chunk=cin_chunk, relu=relu, qout=qout, tile_rows=tile_rows,
-            tile_cols=tile_cols, halo_mode=halo_mode,
+            tile_cols=tile_cols, halo_mode=halo_mode, conv_route=conv_route,
+            splits=splits, sub_rows=sub_rows, sub_cols=sub_cols,
         )
     if route != "im2col":
         raise ValueError(f"unknown conv route {route!r}")

@@ -36,6 +36,9 @@ __all__ = [
     "conv2d_q16_ref",
     "conv_taps_f32",
     "conv_taps_i32",
+    "conv_taps_tf32",
+    "tf32_round",
+    "tf32_split",
     "attention_ref",
 ]
 
@@ -111,6 +114,47 @@ def conv_taps_i32(xq: torch.Tensor, wq: torch.Tensor, *, stride: int = 1,
         term = torch.matmul(patch.to(torch.float64), wq[i, j].to(torch.float64))
         acc = term if acc is None else acc + term
     return wrap_i32(acc)
+
+
+# ---------------------------------------------------------------------------
+# split-precision TF32: the numerics of the tensor-core conv, emulated
+# (for the tests; nothing on the main path calls these)
+# ---------------------------------------------------------------------------
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits' range
+    to the magnitude bits, then clear them.  Infinities and NaNs pass."""
+    x = x.to(torch.float32)
+    bits = x.view(torch.int32).to(torch.int64)
+    rounded = ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x -> (hi, lo), both TF32 values: hi rounds x, lo rounds x - hi (the
+    tensor-core conv rounds both halves; it truncates neither)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def conv_taps_tf32(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                   padding: int = 0, passes: int = 3) -> torch.Tensor:
+    """:func:`conv_taps_f32` on TF32 operands.  ``passes=3``: each product
+    as hi·lo + lo·hi + hi·hi of :func:`tf32_split`'s halves (3xTF32, the
+    tensor-core conv's arithmetic); ``passes=1``: hi·hi alone (one TF32
+    pass).  A TF32 x TF32 product is exact in f32, so the f32 sums differ
+    from the card's only in their order."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    xh, xl = tf32_split(x)
+    wh, wl = tf32_split(w)
+    acc = conv_taps_f32(xh, wh, stride=stride, padding=padding)
+    if passes == 3:
+        acc = (conv_taps_f32(xh, wl, stride=stride, padding=padding)
+               + conv_taps_f32(xl, wh, stride=stride, padding=padding)) + acc
+    return acc
 
 
 # ---------------------------------------------------------------------------

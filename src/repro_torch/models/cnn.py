@@ -196,6 +196,10 @@ class NetworkPlan:
             else:
                 tiling = "untiled"
             chunk = f" cin_chunk={cp.cin_chunk}" if cp.cin_chunk else ""
+            if cp.conv_route:
+                chunk = f" kernel={cp.conv_route}{chunk}"
+            if cp.conv_route == "tc":
+                chunk += f" sub={cp.sub_rows}x{cp.sub_cols} splits={cp.splits}"
             lines.append(
                 f"conv{i}: route={cp.route} tau={cp.tau}{chunk} {tiling} "
                 f"smem={cp.vmem_bytes / 2**10:.1f}KiB gemm={cp.gemm}"

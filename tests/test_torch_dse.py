@@ -54,20 +54,30 @@ def _choice(c):
     return None if c is None else dataclasses.asdict(c)
 
 
+#: ConvTileChoice fields only the GPU search fills, and their TPU values
+_GPU_ONLY = {"cin_chunk": 0, "route": "", "splits": 1, "sub_rows": 0, "sub_cols": 0}
+
+
+def _tpu_fields(choice: dict) -> dict:
+    """The reference's fields of a port choice; the GPU-only ones must hold
+    their TPU values."""
+    for name, value in _GPU_ONLY.items():
+        assert choice.pop(name) == value, name
+    return choice
+
+
 @pytest.mark.parametrize("in_bytes", [4, 2])
 @pytest.mark.parametrize("net", NETS)
 def test_tpu_conv_choices_equal_reference(net, in_bytes):
     convs, _, _ = _layers(jcnn.CNN_ZOO[net], 1)
     for geo in convs:
         want = _choice(jdse.default_conv_tile_for(*geo, J_TPU, in_bytes))
-        got = _choice(tdse.default_conv_tile_for(*geo, TPU_V5E, in_bytes))
-        assert got.pop("cin_chunk") == 0
+        got = _tpu_fields(_choice(tdse.default_conv_tile_for(*geo, TPU_V5E, in_bytes)))
         assert got == want, geo
         # the top-5 ranking, not only the winner
         want5 = [_choice(c) for c in jdse.explore_conv_spatial(*geo, J_TPU, in_bytes)]
-        got5 = [_choice(c) for c in tdse.explore_conv_spatial(*geo, TPU_V5E, in_bytes)]
-        for g in got5:
-            g.pop("cin_chunk")
+        got5 = [_tpu_fields(_choice(c))
+                for c in tdse.explore_conv_spatial(*geo, TPU_V5E, in_bytes)]
         assert got5 == want5, geo
 
 
@@ -135,12 +145,14 @@ def test_h100_plans_are_legal_for_the_kernels(net, backend, batch):
     ch = spec.input_ch
     for cp, (cout, k, stride, pad, pool) in zip(plan.convs, spec.convs):
         assert cp.route == "direct"
-        assert cp.tau in H100.conv_taus and 1 <= cp.cin_chunk <= ch
+        taus = H100.conv_tc_taus if cp.conv_route == "tc" else H100.conv_taus
+        assert cp.tau in taus and 1 <= cp.cin_chunk <= ch
         assert cp.vmem_bytes <= H100.smem_per_block
         geo = conv_launch_geometry(
             (batch, hh, ww, ch), (k, k, ch, cout), stride=stride, padding=pad,
             tau=cp.tau, cin_chunk=cp.cin_chunk, tile_rows=cp.tile_rows,
-            tile_cols=cp.tile_cols, halo_mode=cp.halo_mode,
+            tile_cols=cp.tile_cols, halo_mode=cp.halo_mode, conv_route=cp.conv_route,
+            sub_rows=cp.sub_rows, sub_cols=cp.sub_cols, splits=cp.splits,
         )
         assert geo.smem_bytes == cp.vmem_bytes
         hh, ww = geo.ho // (pool or 1), geo.wo // (pool or 1)
@@ -346,3 +358,172 @@ def test_engines_plan_their_own_kernel():
     pinned = Template(TemplateConfig(backend="cuda", device="cpu",
                                      block=MatmulBlock(64, 64, 16)))
     assert pinned.engine.plan_gemm(8, 4096, 25088).block == MatmulBlock(64, 64, 16)
+
+
+# ---------------------------------------------------------------------------
+# the float conv's routes: tensor cores (3xTF32) or CUDA cores
+# ---------------------------------------------------------------------------
+
+#: convs on route "tc" and on "cudacore" in one float forward of each net
+CONV_ROUTE_COUNTS = {"vgg16": (12, 1), "alexnet": (4, 1), "lenet": (0, 2)}
+
+
+def _plan(net, backend, batch=8):
+    t_reset()
+    spec = tcnn.CNN_ZOO[net]
+    tpl = default_template(backend, device="cpu")
+    return spec, tcnn.plan_cnn(tpl, spec, (batch, spec.input_hw, spec.input_hw,
+                                           spec.input_ch))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("net", NETS)
+def test_conv_routes_of_the_zoo(net, batch):
+    """Float: every conv whose Cin and Cout are multiples of 8 on the tensor
+    cores, the first layers (Cin 1, 3, 6) on the CUDA cores; fixed point:
+    every conv on the CUDA cores."""
+    spec, plan = _plan(net, "cuda", batch)
+    routes = [cp.conv_route for cp in plan.convs]
+    tc, cc = CONV_ROUTE_COUNTS[net]
+    assert routes.count("tc") == tc and routes.count("cudacore") == cc, routes
+    ch = spec.input_ch
+    for cp, (cout, *_rest) in zip(plan.convs, spec.convs):
+        assert cp.conv_route == ("tc" if ch % 8 == 0 and cout % 8 == 0 else "cudacore")
+        ch = cout
+    for backend in ("q16",):
+        _, qplan = _plan(net, backend, batch)
+        assert all(cp.conv_route == "cudacore" for cp in qplan.convs)
+
+
+@pytest.mark.parametrize("net", ["alexnet", "vgg16"])
+def test_tc_plans_fit_shared_memory_and_the_box(net):
+    spec, plan = _plan(net, "cuda")
+    hh = spec.input_hw
+    for cp, (cout, k, stride, pad, pool) in zip(plan.convs, spec.convs):
+        ho = (hh + 2 * pad - k) // stride + 1
+        if cp.conv_route == "tc":
+            assert cp.tau in H100.conv_tc_taus and cp.cin_chunk == tdse.TC_CHUNK
+            assert cp.sub_rows * cp.sub_cols <= tdse.TC_PIXELS
+            assert max((cp.sub_rows - 1) * stride + k, (cp.sub_cols - 1) * stride + k) \
+                <= tdse.TC_MAX_BOX
+            assert cp.vmem_bytes == tdse.gpu_conv_tc_smem(k, k, stride, cp.tau, cp.sub_rows,
+                                                          cp.sub_cols)
+            assert cp.vmem_bytes <= H100.smem_per_block
+        hh = ho // (pool or 1)
+
+
+def test_vgg16_14x14_layers_fill_the_card():
+    """VGG16's 14² layers (8·196 pixels x 512 channels) have 64 blocks of
+    128 pixels x 128 channels; their Cin is split so the grid covers the
+    SMs in one wave, and the other layers' grids are not split."""
+    spec, plan = _plan("vgg16", "cuda")
+    for i, cp in enumerate(plan.convs):
+        if cp.conv_route != "tc":
+            continue
+        n_pix = cp.gemm[0] // 8
+        ho = int(round(n_pix ** 0.5))
+        blocks = tdse.gpu_conv_tc_blocks(8, ho, ho, cp.gemm[1], cp.tau, cp.sub_rows,
+                                         cp.sub_cols)
+        if ho == 14:
+            assert blocks < H100.sms and cp.splits > 1
+            assert blocks * cp.splits >= 0.9 * H100.sms, (i, blocks, cp.splits)
+            assert blocks * cp.splits <= H100.sms  # one wave
+        else:
+            assert blocks >= H100.sms and cp.splits == 1, (i, blocks, cp.splits)
+
+
+def test_tc_split_never_leaves_a_split_empty():
+    for blocks in (1, 8, 16, 24, 64, 72, 131):
+        for cin in (8, 32, 40, 64, 192, 384, 512):
+            s = tdse.gpu_conv_tc_splits(blocks, cin, H100)
+            chunks = -(-cin // tdse.TC_CHUNK)
+            assert 1 <= s <= chunks and (s - 1) * -(-chunks // s) < chunks
+    assert tdse.gpu_conv_tc_splits(H100.sms, 512, H100) == 1
+
+
+def test_tc_route_refusals_raise_before_the_cpu_branch():
+    """A launch route "tc" does not take raises on CPU tensors too (the
+    checks run before the plain version), so nothing moves to the other
+    route silently."""
+    from repro_torch.kernels.conv2d import conv2d_cuda
+
+    def call(cin=16, cout=16, **kw):
+        x, w = torch.zeros(1, 8, 8, cin), torch.zeros(3, 3, cin, cout)
+        return conv2d_cuda(x, w, padding=1, conv_route="tc", **kw)
+
+    assert call().shape == (1, 8, 8, 16)
+    for bad in (dict(cin=3), dict(cin=12), dict(cout=6), dict(tau=256), dict(tau=32),
+                dict(cin_chunk=16), dict(splits=2), dict(sub_rows=16, sub_cols=16),
+                dict(cin=64, splits=3)):
+        with pytest.raises(ValueError):
+            call(**bad)
+    with pytest.raises(ValueError):
+        conv2d_cuda(torch.zeros(1, 8, 8, 16), torch.zeros(3, 3, 16, 16), conv_route="wgmma")
+    # the two-block regime keeps its legality rule on either route
+    with pytest.raises(ValueError, match="too small"):
+        call(tile_rows=1, halo_mode="two_block")
+
+
+def test_tc_subtile_covers_the_zoo_widths():
+    """Sub-tiles of at most 128 pixels: exact on VGG16's 224 / 112 widths,
+    one output row group per sub-tile at 28 and 14, AlexNet's 18² in 3."""
+    assert tdse.gpu_conv_tc_subtile(224, 224, 3, 3, 1, 64, H100) == (8, 16)
+    assert tdse.gpu_conv_tc_subtile(112, 112, 3, 3, 1, 128, H100) == (8, 16)
+    th, tw = tdse.gpu_conv_tc_subtile(28, 28, 3, 3, 1, 128, H100)
+    assert -(-28 // th) * -(-28 // tw) == 7
+    th, tw = tdse.gpu_conv_tc_subtile(14, 14, 3, 3, 1, 128, H100)
+    assert -(-14 // th) * -(-14 // tw) == 2
+    th, tw = tdse.gpu_conv_tc_subtile(18, 18, 5, 5, 1, 64, H100)
+    assert -(-18 // th) * -(-18 // tw) == 3 and th * tw <= 128
+
+
+#: (x shape, w shape, stride, pad) of convs whose 128-pixel sub-tiles all miss
+#: shared memory or TMA's box: a ResNet-style 3x3 stride-2 downsampling and
+#: an 11x11 stride-1 conv
+_SHORT_SUBTILE_CONVS = [
+    ((8, 112, 112, 64), (3, 3, 64, 128), 2, 1),
+    ((2, 56, 56, 64), (11, 11, 64, 256), 1, 5),
+]
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,pad", _SHORT_SUBTILE_CONVS)
+def test_tc_plans_a_shorter_subtile_when_128_pixels_miss(x_shape, w_shape, stride, pad):
+    """The planner and the engine plan such convs on route "tc" with a
+    sub-tile of fewer than 128 pixels that fits, and the launch geometry
+    takes that plan."""
+    kh, kw, cin, cout = w_shape
+    ho = (x_shape[1] + 2 * pad - kh) // stride + 1
+    tau = tdse.gpu_conv_tc_tau(cout, H100)
+    for tw in {min(w, ho) for w in tdse._TC_WIDTHS}:
+        th = min(tdse.TC_PIXELS // tw, ho)
+        assert (max((th - 1) * stride + kh, (tw - 1) * stride + kw) > tdse.TC_MAX_BOX
+                or tdse.gpu_conv_tc_smem(kh, kw, stride, tau, th, tw) > H100.smem_per_block)
+    t_reset()
+    cp = default_template("cuda", device="cpu").engine.plan_conv(
+        x_shape, w_shape, stride=stride, padding=pad)
+    assert cp.route == "direct" and cp.conv_route == "tc"
+    assert cp.sub_rows * cp.sub_cols < tdse.TC_PIXELS
+    assert max((cp.sub_rows - 1) * stride + kh, (cp.sub_cols - 1) * stride + kw) \
+        <= tdse.TC_MAX_BOX
+    assert cp.vmem_bytes == tdse.gpu_conv_tc_smem(kh, kw, stride, cp.tau, cp.sub_rows,
+                                                  cp.sub_cols)
+    assert cp.vmem_bytes <= H100.smem_per_block
+    geo = conv_launch_geometry(x_shape, w_shape, stride=stride, padding=pad, tau=cp.tau,
+                               cin_chunk=cp.cin_chunk, tile_rows=0, tile_cols=0,
+                               halo_mode="none", conv_route="tc", splits=cp.splits)
+    assert geo.geom[16:] == (cp.sub_rows, cp.sub_cols)
+
+
+def test_conv_no_tc_subtile_fits_plans_cudacore():
+    """A conv whose every tensor-core window misses the limits (23x23 taps
+    on 8 output columns) is planned on the CUDA cores from its shape; the
+    tensor-core route forced on it raises."""
+    from repro_torch.kernels.conv2d import conv2d_cuda
+
+    x_shape, w_shape = (1, 30, 30, 16), (23, 23, 16, 16)
+    assert tdse.gpu_conv_tc_subtile(8, 8, 23, 23, 1, 64, H100) is None
+    t_reset()
+    cp = default_template("cuda", device="cpu").engine.plan_conv(x_shape, w_shape)
+    assert cp.route == "direct" and cp.conv_route == "cudacore"
+    with pytest.raises(ValueError, match="no tensor-core conv sub-tile fits"):
+        conv2d_cuda(torch.zeros(x_shape), torch.zeros(w_shape), conv_route="tc", tau=64)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card, each held against its plain version
-on the same inputs: integers bit for bit, floats at 1e-4 (GEMM) and 2e-3
-(conv, flash attention), with TF32 off; the float GEMM's bf16 routes at
-2e-2, each of its routes also bit for bit equal on a second launch.  Every
-test here needs an NVIDIA Hopper card and skips without one; run them there
-with ``python -m pytest -m gpu``.
+on the same inputs: integers bit for bit, floats at 1e-4 (GEMM, and the
+float conv's tensor-core route in 3xTF32) and 2e-3 (the conv's CUDA-core
+route, flash attention), with TF32 off; the float GEMM's bf16 routes at
+2e-2; the float GEMM's routes and the conv's tensor-core route also bit for
+bit equal on a second launch.  Every test here needs an NVIDIA Hopper card
+and skips without one; run them there with ``python -m pytest -m gpu``.
 """
 import pytest
 import torch
@@ -12,12 +13,13 @@ from repro_torch.core.quantization import Q2_6, Q2_14
 from repro_torch.core.template import default_template
 from repro_torch.core.tiling import H100, MatmulBlock
 from repro_torch.kernels import _build
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.conv2d import (
     conv2d_cuda,
     conv2d_plain,
     conv2d_q16_cuda,
     conv2d_q16_plain,
+    prep_tc,
 )
 from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain, plan_for
 from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
@@ -103,6 +105,90 @@ def test_conv_kernels_vs_plain(dev, case):
                                 bias_shift=2, raw_min=fmt.raw_min, raw_max=fmt.raw_max,
                                 out_dtype=fmt.storage_dtype, relu=True)
         assert torch.equal(got, want)
+
+
+TC_CONVS = [  # n, h, w, cin, cout, k, stride, pad, tau, splits, (tile_rows, tile_cols, halo)
+    (2, 20, 20, 64, 64, 3, 1, 1, 64, 1, None),        # VGG16-like, sub-tiles past the edge
+    (1, 13, 17, 32, 128, 3, 1, 1, 128, 1, None),      # pixels not a multiple of 128
+    (2, 18, 18, 64, 192, 5, 1, 2, 64, 1, None),       # AlexNet conv1: 5x5, pad 2
+    (2, 18, 18, 64, 192, 5, 1, 2, 128, 2, None),      # Cout 192 in two τ=128 slices, split
+    (1, 6, 6, 192, 384, 3, 1, 1, 128, 6, None),       # AlexNet conv2: Cout 384, 6-way split
+    (1, 12, 10, 40, 24, 3, 1, 0, 64, 1, None),        # pad 0, Cin 40 (a part chunk), Cout 24
+    (1, 15, 15, 16, 64, 3, 2, 1, 64, 1, None),        # stride 2
+    (2, 112, 112, 64, 128, 3, 2, 1, 128, 1, None),    # stride 2, a sub-tile of 80 pixels
+    (1, 56, 56, 64, 256, 11, 1, 5, 128, 1, None),     # 11x11, a sub-tile of 88 pixels
+    (2, 14, 14, 512, 512, 3, 1, 1, 128, 2, None),     # VGG16 conv10: the planner's split
+    (2, 14, 14, 512, 256, 3, 1, 1, 128, 3, None),     # an uneven split (6, 6, 4 chunks)
+    (1, 33, 40, 32, 64, 3, 1, 1, 64, 1, (16, 24, "dma")),       # a (𝒯, ℭ) region
+    (1, 20, 20, 16, 16, 3, 1, 1, 64, 1, (7, 0, "two_block")),  # row tiles
+]
+
+
+@pytest.mark.parametrize("case", TC_CONVS, ids=lambda c: "-".join(map(str, c[:10])))
+def test_conv_tc_route_vs_plain(dev, case):
+    """Route "tc" within 1e-4 of the plain version at ragged shapes, bit for
+    bit the same on a second launch, each call one prep, one conv and (when
+    split) one reduction launch."""
+    n, h, w, cin, cout, k, s, p, tau, splits, tiles = case
+    tr, tc, hm = tiles or (0, 0, "none")
+    g = torch.Generator().manual_seed(sum(case[:10]))
+    x = torch.randn(n, h, w, cin, generator=g).to(dev)
+    wt = (torch.randn(k, k, cin, cout, generator=g) * (k * k * cin) ** -0.5).to(dev)
+    b = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    kw = dict(stride=s, padding=p, tau=tau, splits=splits, tile_rows=tr, tile_cols=tc,
+              halo_mode=hm, conv_route="tc")
+    before = dict(_build.launches)
+    got = conv2d_cuda(x, wt, b, relu=True, **kw)
+    again = conv2d_cuda(x, wt, b, relu=True, **kw)
+    torch.cuda.synchronize()
+    grew = {name: _build.launches[name] - before[name] for name in before}
+    assert grew["conv2d"] == grew["conv2d.tc"] == grew["conv2d.tc_prep"] == 2
+    assert grew["conv2d.cudacore"] == 0 and grew["conv2d.tc_reduce"] == 2 * (splits > 1)
+    want = conv2d_plain(x, wt, b, stride=s, padding=p, relu=True)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again)
+
+
+def test_conv_tc_epilogue_and_planned_shapes(dev):
+    """Bias, ReLU and fake-quant fused on both of the route's write-backs
+    (the conv's own and the split reduction's), at the planner's plans."""
+    g = torch.Generator().manual_seed(9)
+    for n, h, cin, cout in ((2, 28, 256, 512), (2, 14, 512, 512)):
+        x = torch.randn(n, h, h, cin, generator=g).to(dev)
+        wt = (torch.randn(3, 3, cin, cout, generator=g) * (9 * cin) ** -0.5).to(dev)
+        b = (0.1 * torch.randn(cout, generator=g)).to(dev)
+        tpl = default_template("cuda")
+        plan = tpl.engine.plan_conv(x.shape, wt.shape, stride=1, padding=1)
+        assert plan.conv_route == "tc"
+        got = tpl.engine.conv2d(x, wt, bias=b, padding=1, relu=True, qout=Q2_14, plan=plan)
+        want = conv2d_plain(x, wt, b, padding=1, relu=True, qout=Q2_14)
+        # fake-quant may move a value that sits on a rounding boundary by a step
+        step = 1.0 / Q2_14.scale
+        diff = (got - want).abs()
+        assert float(diff.max()) <= step + 1e-6
+        assert float((diff > 1e-4).float().mean()) < 1e-3
+
+
+def test_conv_tc_weight_prep_is_the_tf32_split(dev):
+    """The preparation launch writes (2, Cout, K·K, Cin): the hi and lo
+    halves of ``ref.tf32_split``, bit for bit."""
+    g = torch.Generator().manual_seed(10)
+    w = (torch.randn(5, 5, 40, 72, generator=g) * 3.0).to(dev)
+    wp = torch.empty((2, 72, 25, 40), device=dev)
+    prep_tc(_build.library("conv2d"), w, wp, device=dev.index,
+            stream=torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    hi, lo = ref.tf32_split(w.reshape(25, 40, 72).permute(2, 0, 1))
+    assert torch.equal(wp[0], hi) and torch.equal(wp[1], lo)
+
+
+def test_conv_tc_refuses_unaligned_operands(dev):
+    """TMA needs 16-byte aligned bases: the launcher refuses an x that is
+    contiguous but starts 4 bytes into its storage, and the wrapper raises."""
+    x = torch.randn(1 + 8 * 8 * 16, device=dev)[1:].view(1, 8, 8, 16)
+    w = torch.randn(3, 3, 16, 16, device=dev)
+    with pytest.raises(RuntimeError, match="does not take"):
+        conv2d_cuda(x, w, padding=1, conv_route="tc")
 
 
 def test_lenet_forward_on_card_matches_cpu(dev):
