@@ -23,7 +23,14 @@ non-zero without its result line):
    tensor cores in 3xTF32) at 1e-4 and bit for bit repeatable at
    vgg16.conv1, vgg16.conv8, alexnet.conv1, the 512² dma call and a
    two-block call, "cudacore" at 2e-3 at every case; "tc" is timed at the
-   first four (bounds in 3xTF32 and f32), "cudacore" at vgg16.conv0;
+   first four (bounds in 3xTF32 and f32), "cudacore" at vgg16.conv0.  Flash
+   attention is checked on the route its plan names (head dims 16 and 32 on
+   "simt", 64 and 128 on "wgmma", the tensor cores in split-precision bf16)
+   at 2e-3 (bf16: 2^-7), and each "wgmma" case also against
+   ``ref.attention_split_bf16``, the emulation of its arithmetic, at 1e-4
+   (bf16: one bf16 step relative plus 2^-12); "wgmma" is timed at the qwen2 prefill
+   shape beside its preparation launch, the plain version and SDPA (bounds
+   in split bf16 and f32);
 3. the CNN path: ``plan_cnn`` -> ``cnn_forward`` for LeNet, AlexNet and
    VGG16 at full width, batch 8, random weights and biases from a seed
    (each hidden layer fitted onto the activation grid), in float,
@@ -42,11 +49,12 @@ non-zero without its result line):
    grid-resident after ``calibrate_policy``, each with the launch counts set
    to 0 just before and read just after (the float GEMM's per route: every
    prefill GEMM on wgmma, every m = 4 GEMM on splitk, none on the q16
-   GEMM).  Each stream is replayed teacher-forced through the same kernels
-   and through the plain ``torch`` backend (float), and the logits are held
-   to stated tolerances; the
-   grid-resident replay shows each layer's share of raws at the grid's
-   bounds and the island counts.  Then prefill tokens/s, decode ms/step,
+   GEMM; flash once a layer a prefill on its route "wgmma", with its
+   preparation launch, none on "simt" and none in decode).  Each stream is
+   replayed teacher-forced through the same kernels and through the plain
+   ``torch`` backend (float), and the logits are held to stated
+   tolerances; the grid-resident replay shows each layer's share of raws at
+   the grid's bounds and the island counts.  Then prefill tokens/s, decode ms/step,
    peak memory, device time by kernel (``torch.profiler``), and one run of
    ``serve.main`` at the reference's reduced CLI size.
 
@@ -56,6 +64,10 @@ default: route "tile" timed beside fc0 and the tied head, and the
 the prefill's m, each wgmma tile against the tile route), which set the
 planner's bound between routes W and L.  ``--conv-route-study`` times the
 float conv's CUDA-core route beside each timed tensor-core row.
+``--flash-pv-study`` builds a variant of flash's route "wgmma" that
+accumulates PV in place into O (the design the committed kernel rejected)
+and reports both designs' ptxas spills, times at the qwen2 prefill shape
+and error against ``ref.attention_split_bf16`` at two q / k scales.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -65,6 +77,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import math
@@ -82,6 +95,8 @@ GEMM_TOL = 1e-4
 ROUTE_STUDY = False
 #: ``--conv-route-study``: time the float conv's CUDA-core route beside "tc"
 CONV_ROUTE_STUDY = False
+#: ``--flash-pv-study``: flash's route wgmma beside a variant with PV in place
+FLASH_PV_STUDY = False
 GEMM_TOL_BF16 = 2e-2
 CONV_TOL = 2e-3
 #: the float conv's tensor-core route (3xTF32) against conv2d_plain: the
@@ -113,6 +128,14 @@ MAX_CLIPPED_SHARE = 1e-3
 #: (tests/test_kernels.py); bf16 outputs to one bf16 step
 FA_TOL = 2e-3
 FA_TOL_BF16 = 2 ** -7
+#: flash attention's route wgmma against the emulation of its own
+#: split-bf16 arithmetic (``ref.attention_split_bf16``): only the order of
+#: the f32 sums differs, so a dropped lo product would show.  bf16 outputs to
+#: one bf16 step relative, plus 2^-12 (one step at the typical |out| ~ 0.04):
+#: there p is rounded to bf16, and an f32 p that differs in its last bits
+#: can round to the neighbouring value, 2^-8 of p
+FA_SPLIT_TOL = 1e-4
+FA_SPLIT_TOL_BF16 = dict(atol=2 ** -12, rtol=2 ** -7)
 #: the serving main path: qwen2-0.5b, 4 prompts of 4096 tokens, 16 generated
 QWEN_ARCH = "qwen2-0.5b"
 QWEN_PROMPTS = 4
@@ -768,13 +791,16 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
 
     from repro_torch.core import dse
     from repro_torch.core.tiling import H100
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels._common import stream_of
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain, plan_for
     from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
 
     fa_cases = [
-        # name, b, hq, hkv, sq, sk, d, causal, q_offset, dtype, block
+        # name, b, hq, hkv, sq, sk, d, causal, q_offset, dtype, block; the
+        # planner's route (simt at head dims 16 / 32, wgmma at 64 / 128)
         ("MHA", 1, 4, 4, 64, 64, 32, True, 0, torch.float32, 32),
         ("GQA", 2, 8, 2, 64, 64, 32, True, 0, torch.float32, 32),
         ("MQA", 1, 4, 1, 128, 128, 64, True, 0, torch.float32, 32),
@@ -782,37 +808,69 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
         ("ragged Sq=96", 1, 2, 2, 96, 96, 32, True, 0, torch.float32, 32),
         ("q_offset=48", 1, 2, 2, 16, 64, 32, True, 48, torch.float32, 16),
         ("bf16 GQA", 2, 16, 2, 300, 300, 64, True, 0, torch.bfloat16, 256),
+        ("MHA D128 ragged", 2, 4, 4, 190, 190, 128, True, 0, torch.float32, 64),
+        ("GQA D128 q_offset=133", 1, 8, 2, 200, 333, 128, True, 133, torch.float32, 32),
+        ("non-causal GQA", 2, 4, 2, 96, 256, 64, False, 0, torch.float32, 256),
+        ("non-causal bf16 D128", 1, 4, 4, 64, 128, 128, False, 0, torch.bfloat16, 128),
+        ("under one TMA box", 1, 2, 1, 5, 9, 64, True, 4, torch.float32, 16),
         ("qwen2-0.5b prefill", QWEN_PROMPTS, 16, 2, QWEN_PROMPT_LEN, QWEN_PROMPT_LEN, 64,
          True, 0, torch.float32, 1024),
     ]
+    split_err = 0.0
     for i, (name, b, hq, hkv, sq, sk, d, causal, q_offset, dtype, blk) in enumerate(fa_cases):
         # the model's layout: (B, S, H, D) memory, viewed as (B, H, S, D)
         q = _randn(torch, (b, sq, hq, d), dev, 140 + i, 0.5).to(dtype).transpose(1, 2)
         k = _randn(torch, (b, sk, hkv, d), dev, 150 + i, 0.5).to(dtype).transpose(1, 2)
         v = _randn(torch, (b, sk, hkv, d), dev, 160 + i, 0.5).to(dtype).transpose(1, 2)
         kw = dict(causal=causal, q_offset=q_offset)
+        plan = dse.plan_flash(d, q.element_size(), H100)
+        label = f"{name} q{tuple(q.shape)} kv{tuple(k.shape)} {str(dtype)[6:]}"
         got = ops.flash_attention(q, k, v, bq=blk, bk=blk, **kw)
         want = flash_attention_plain(q, k, v, bk=blk, **kw)
         torch.cuda.synchronize()
         tol = FA_TOL if dtype == torch.float32 else FA_TOL_BF16
-        book.check("flash_attention", f"{name} q{tuple(q.shape)} kv{tuple(k.shape)} "
-                   f"{str(dtype)[6:]}", got, want, exact=False, tol=tol)
+        book.check(f"flash_attention.{plan.route}", label, got, want, exact=False, tol=tol)
+        if plan.route == "wgmma":
+            split = ref.attention_split_bf16(q, k, v, bk=plan.bk, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - split.float()).abs().max())
+            tols = (dict(atol=FA_SPLIT_TOL, rtol=FA_SPLIT_TOL) if dtype == torch.float32
+                    else FA_SPLIT_TOL_BF16)
+            torch.testing.assert_close(got, split, **tols,
+                                       msg=lambda m: f"flash wgmma {label} vs split: {m}")
+            if dtype == torch.float32:
+                split_err = max(split_err, err)
+            emit({"phase": "kernel_check", "kernel": "flash_attention.wgmma",
+                  "case": f"{label} vs ref.attention_split_bf16", "max_abs_err": err,
+                  "exact": False, "tol": tols})
+            del split
         if name.startswith("qwen2"):
             g = hq // hkv
             qc = q.contiguous()  # the library call gets dense, expanded heads
             ke = k.repeat_interleave(g, dim=1).contiguous()
             ve = v.repeat_interleave(g, dim=1).contiguous()
-            out_bytes = nbytes(q)
+            lib = _build.library("flash_attention")
+            planes = fa.planes(q, k)
+            pairs = causal_pairs(sq, sk, q_offset)
+            nb = nbytes(q, k, v) + nbytes(q)
+            extra = {
+                "bound_f32_ms": bound(nb, 4 * d * b * hq * pairs, PEAK_F32)[0],
+                "prep_ms": time_ms(lambda: fa.prep(lib, q, k, v, *planes, device=dev.index,
+                                                   stream=stream_of(q))),
+                "max_abs_err_vs_split": split_err,
+            }
             book.timing(
-                "flash_attention",
+                "flash_attention.wgmma",
                 f"{name} q{tuple(q.shape)} kv{tuple(k.shape)} f32 causal",
                 kernel_fn=lambda: ops.flash_attention(q, k, v, bq=blk, bk=blk, **kw),
                 plain_fn=lambda: flash_attention_plain(q, k, v, bk=blk, **kw),
                 library_fn=lambda: F.scaled_dot_product_attention(qc, ke, ve, is_causal=True),
                 library="F.scaled_dot_product_attention (f32, kv heads expanded, is_causal)",
-                nbytes_=nbytes(q, k, v) + out_bytes,
-                ops=4 * d * b * hq * causal_pairs(sq, sk, q_offset), peak=PEAK_F32)
-            del qc, ke, ve
+                nbytes_=nb, ops=3 * 4 * d * b * hq * pairs, peak=PEAK_BF16,
+                bound_note="three bf16 products (split precision) per f32 product at "
+                           "the bf16 peak; bound_f32_ms: one f32 product on the CUDA cores",
+                extra=extra)
+            del qc, ke, ve, planes
         del q, k, v, got, want
 
     # the tied LM head reads the (vocab, d) table in place (transposed B)
@@ -899,6 +957,153 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
         library="none: no PyTorch call multiplies int16 matrices on CUDA",
         nbytes_=nbytes(xq, wq) + m * n * 2, ops=2 * m * n * k, peak=PEAK_INT8 / 4)
     del xq, wq, got, want
+
+#: ``--flash-pv-study``: flash_wgmma.cuh's PV step (a fresh accumulator a kv
+#: tile, added to the rescaled O on the CUDA cores) and the variant it
+#: rejected, PV accumulated in place into the rescaled O on the tensor cores
+_PV_FRESH = """        float pv[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) pv[i] = 0.0f;
+        const uint64_t dv_hi = smem_desc(vs, BK * 128, 1024);
+        const uint64_t dv_lo = smem_desc(vs + (P - 1) * KP, BK * 128, 1024);
+        fence_regs(pv);
+        fence_regs(ph);
+        if constexpr (P == 2) fence_regs(pl);
+        wgmma_fence();
+        if constexpr (P == 2) {
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(pv, ph + 4 * kk, dv_lo + kk * 128);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(pv, pl + 4 * kk, dv_hi + kk * 128);
+        }
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(pv, ph + 4 * kk, dv_hi + kk * 128);
+        wgmma_commit();
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            o[4 * j + 2 * hh] *= alpha[hh];
+            o[4 * j + 2 * hh + 1] *= alpha[hh];
+          }
+        wgmma_wait<0>();
+        fence_regs(pv);
+        fence_regs(ph);
+        if constexpr (P == 2) fence_regs(pl);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] += pv[i];
+"""
+_PV_IN_PLACE = """#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            o[4 * j + 2 * hh] *= alpha[hh];
+            o[4 * j + 2 * hh + 1] *= alpha[hh];
+          }
+        const uint64_t dv_hi = smem_desc(vs, BK * 128, 1024);
+        const uint64_t dv_lo = smem_desc(vs + (P - 1) * KP, BK * 128, 1024);
+        fence_regs(o);
+        fence_regs(ph);
+        if constexpr (P == 2) fence_regs(pl);
+        wgmma_fence();
+        if constexpr (P == 2) {
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(o, ph + 4 * kk, dv_lo + kk * 128);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(o, pl + 4 * kk, dv_hi + kk * 128);
+        }
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) mma_rs<D>(o, ph + 4 * kk, dv_hi + kk * 128);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(ph);
+        if constexpr (P == 2) fence_regs(pl);
+"""
+
+
+def _ptxas_spills(log: str) -> list:
+    """ptxas's spill lines of route wgmma's kernels in a ``-Xptxas -v`` log."""
+    lines, out, kernel = log.splitlines(), [], None
+    for line in lines:
+        if "Compiling entry function" in line:
+            kernel = "flash_attention_wgmma" in line
+        elif kernel and "spill" in line:
+            out.append(line.strip())
+    return out
+
+
+def phase_flash_pv_study(torch, dev):
+    """``--flash-pv-study``: route wgmma as committed beside a variant that
+    accumulates PV in place into O, built from a patched copy of the sources
+    under ``build/``: ptxas's spills, the time of each at the qwen2 prefill
+    shape (committed, variant, variant, committed), and each one's error
+    against ``ref.attention_split_bf16`` and the plain version at q / k
+    scales 0.5 (the smoke's inputs) and 1.6 (scores several times larger)."""
+    import re
+
+    from repro_torch.core import dse
+    from repro_torch.core.tiling import H100
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels._common import stream_of
+
+    src = ROOT / "build" / "flash_pv_study"
+    src.mkdir(parents=True, exist_ok=True)
+    for f in list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / "flash_attention.cu"]:
+        text = f.read_text()
+        if f.name == "flash_wgmma.cuh":
+            if text.count(_PV_FRESH) != 1:
+                raise AssertionError("flash_wgmma.cuh's PV step is not the one the study "
+                                     "patches; update _PV_FRESH / _PV_IN_PLACE")
+            # a namespace of its own: launch_d's static `configured` flag would
+            # otherwise be one symbol across both libraries
+            text = re.sub(r"\bfawg\b", "fawg_pv", text.replace(_PV_FRESH, _PV_IN_PLACE))
+        (src / f.name).write_text(text)
+    so = src / "libflash_attention_pv_in_place.so"
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                          str(src / "flash_attention.cu")], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"flash PV study: nvcc failed:\n{res.stdout[-3000:]}"
+                           f"{res.stderr[-3000:]}")
+    base = _build.library("flash_attention")
+    var = _build.bind(ctypes.CDLL(str(so)), "flash_attention")
+    emit({"phase": "flash_pv_study_build",
+          "committed_spills": _ptxas_spills(_build.build_log("flash_attention")),
+          "in_place_spills": _ptxas_spills(res.stdout + res.stderr)})
+
+    b, hq, hkv, s, d = QWEN_PROMPTS, 16, 2, QWEN_PROMPT_LEN, 64
+    plan = dse.plan_flash(d, 4, H100)
+    for i, scale in enumerate((0.5, 1.6)):
+        q = _randn(torch, (b, s, hq, d), dev, 190 + i, scale).transpose(1, 2)
+        k = _randn(torch, (b, s, hkv, d), dev, 192 + i, scale).transpose(1, 2)
+        v = _randn(torch, (b, s, hkv, d), dev, 194 + i).transpose(1, 2)
+        planes = fa.planes(q, k)
+        fa.prep(base, q, k, v, *planes, device=dev.index, stream=stream_of(q))
+
+        def run(lib, q=q, k=k, planes=planes):
+            out = torch.empty_like(q)
+            fa.launch_wgmma(lib, *planes, out, plan=plan, kv_shape=k.shape, causal=True,
+                            q_offset=0, device=dev.index, stream=stream_of(q))
+            return out
+
+        fresh, in_place = run(base), run(var)
+        split = ref.attention_split_bf16(q, k, v, bk=plan.bk)
+        plain = fa.flash_attention_plain(q, k, v, bk=1024)
+        score = (q[0, 0] @ k[0, 0].T).abs().max() / d ** 0.5
+        torch.cuda.synchronize()
+        row = {"phase": "flash_pv_study", "shape": f"q{tuple(q.shape)} kv{tuple(k.shape)} "
+               "f32 causal", "qk_scale": scale, "max_abs_score_head0": float(score)}
+        for name, got in (("committed", fresh), ("in_place", in_place)):
+            row[f"{name}_err_vs_split"] = float((got - split).abs().max())
+            row[f"{name}_err_vs_plain"] = float((got - plain).abs().max())
+        if i == 0:
+            t = [time_ms(lambda: run(base)), time_ms(lambda: run(var)),
+                 time_ms(lambda: run(var)), time_ms(lambda: run(base))]
+            row.update({"committed_ms": [t[0], t[3]], "in_place_ms": [t[1], t[2]]})
+        emit(row)
+        del q, k, v, planes, fresh, in_place, split, plain
 
 
 def phase_wgmma_threshold(torch, dev):
@@ -1059,8 +1264,7 @@ def phase_serving(torch, dev):
           "int16_weight_fmts": sorted({v.fmt.name for v in _qleaves(qp)})})
     tf = default_template("cuda")
     tplain = default_template("torch")
-    per_prefill = {"flash_attention": cfg.n_layers,
-                   "matmul_fp": 7 * cfg.n_layers + 1}
+    per_prefill = {"matmul_fp": 7 * cfg.n_layers + 1}
     runs, windows = [], {}
     for numerics, tpl, pol in (("float", tf, None), ("grid " + policy.fmt.name, tq, policy)):
         kernel = "matmul_fp" if pol is None else "matmul_q16"
@@ -1070,7 +1274,10 @@ def phase_serving(torch, dev):
         launches = dict(_build.launches)
         windows[numerics] = launches
         emit({"phase": "serving_launches", "numerics": numerics, **launches})
-        want = {"flash_attention": cfg.n_layers,
+        # flash once a layer a prefill, on route wgmma with its preparation
+        # (head dim 64), never in decode
+        want = {"flash_attention": cfg.n_layers, "flash_attention.wgmma": cfg.n_layers,
+                "flash_attention.prep": cfg.n_layers, "flash_attention.simt": 0,
                 kernel: QWEN_GEN * per_prefill["matmul_fp"]}
         if pol is None:
             # the prefill's 7 GEMMs a layer (m = 4 x 4096, bf16) on the tensor
@@ -1083,8 +1290,8 @@ def phase_serving(torch, dev):
         for name, n in want.items():
             if launches[name] != n:
                 raise AssertionError(f"{numerics}: {name} launched {launches[name]} times, "
-                                     f"want {n} (flash once per layer per prefill, never "
-                                     f"in decode; float GEMMs by route)")
+                                     f"want {n} (flash once per layer per prefill on "
+                                     f"route wgmma, never in decode; float GEMMs by route)")
         assert stream.shape == (QWEN_PROMPTS, QWEN_GEN)
         # replay the stream teacher-forced through the same kernels (and, on
         # the grid, count islands and clipped raws), then through the plain path
@@ -1138,8 +1345,8 @@ def _qleaves(tree):
             yield from _qleaves(v)
 
 
-def profile_window(torch, fn, *, groups=("wgmma_kernel", "splitk", "gemm_kernel",
-                                         "flash_attention_kernel"),
+def profile_window(torch, fn, *, groups=("flash_attention_prep", "flash_attention",
+                                         "wgmma_kernel", "splitk", "gemm_kernel"),
                    host_ops: bool = False) -> dict:
     """``fn`` once under ``torch.profiler``: its wall time, the device's
     busy time and share of it, device time by group (kernels whose name
@@ -1266,9 +1473,17 @@ KERNEL_META = {
                         "src/repro/kernels/conv2d.py:329"),
     "conv2d_q16": ("conv2d_q16", None, "src/repro_torch/kernels/csrc/conv2d.cu",
                    "src/repro/kernels/conv2d.py:437"),
-    "flash_attention": ("flash_attention", None,
-                        "src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:73"),
+    "flash_attention.wgmma": ("flash_attention", "wgmma",
+                              "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
+                              "src/repro/kernels/flash_attention.py:73"),
+}
+#: flash attention's two routes, named in its row (route simt serves no
+#: main-path call at the models' head dims and is checked above)
+FLASH_ROUTES = {
+    "wgmma": "src/repro_torch/kernels/csrc/flash_wgmma.cuh: head dims 64 and 128, "
+             "split-precision bf16 on the tensor cores, after a preparation launch",
+    "simt": "src/repro_torch/kernels/csrc/flash_attention.cu: head dims 16 and 32, "
+            "f32 FFMA on the CUDA cores",
 }
 
 
@@ -1279,7 +1494,7 @@ def _build_kernels():
 
 
 def main() -> int:
-    global ROUTE_STUDY, CONV_ROUTE_STUDY
+    global ROUTE_STUDY, CONV_ROUTE_STUDY, FLASH_PV_STUDY
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gemm-route-study", action="store_true",
                     help="also time the float GEMM's design alternatives (route "
@@ -1287,8 +1502,12 @@ def main() -> int:
     ap.add_argument("--conv-route-study", action="store_true",
                     help="also time the float conv's CUDA-core route beside each timed "
                          "tensor-core row")
+    ap.add_argument("--flash-pv-study", action="store_true",
+                    help="also build and measure flash's route wgmma with PV accumulated "
+                         "in place (spills, time, error against the emulation)")
     args = ap.parse_args()
     ROUTE_STUDY, CONV_ROUTE_STUDY = args.gemm_route_study, args.conv_route_study
+    FLASH_PV_STUDY = args.flash_pv_study
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: no src/repro_torch beside this script; run it from the "
               "root of a checkout", file=sys.stderr)
@@ -1311,6 +1530,8 @@ def main() -> int:
     phase_kernels_serving(torch, dev, book)
     if ROUTE_STUDY:
         phase_wgmma_threshold(torch, dev)
+    if FLASH_PV_STUDY:
+        phase_flash_pv_study(torch, dev)
     torch.cuda.empty_cache()
     runs, cnn_launches = phase_main_path(torch, dev)
     phase_timing(torch, runs)
@@ -1330,20 +1551,28 @@ def main() -> int:
         by_path = {path: w[key] for path, w in windows.items() if w[key]}
         if not by_path:
             raise AssertionError(f"kernel {key} was not launched on any main path")
+        route_key = {"conv2d": "conv_route", "flash_attention": "flash_route"}.get(
+            name, "gemm_route")
         kernels.append({
-            "name": name, "route": "cuda",
-            ("conv_route" if name == "conv2d" else "gemm_route"): gemm_route, "source": source,
+            "name": name, "route": "cuda", route_key: gemm_route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": row["library"], "shape": row["shape"], "checks": row["checks"],
-            **{k: row[k] for k in ("route_tile_ms", "route_cudacore_ms", "bound_note",
-                                   "bound_f32_ms") if k in row},
+            **{k: row[k] for k in ("route_tile_ms", "route_cudacore_ms",
+                                   "prep_ms", "bound_note", "bound_f32_ms",
+                                   "max_abs_err_vs_split") if k in row},
         })
         if key == "matmul_fp.splitk":
             kernels[-1]["reduce_launches"] = sum(
                 w["matmul_fp.splitk_reduce"] for w in windows.values())
+        if key == "flash_attention.wgmma":
+            kernels[-1]["prep_launches"] = sum(
+                w["flash_attention.prep"] for w in windows.values())
+            kernels[-1]["routes"] = FLASH_ROUTES
+            kernels[-1]["simt_checks"] = book.rows["flash_attention.simt"]["checks"]
+            kernels[-1]["simt_max_abs_err"] = book.rows["flash_attention.simt"]["max_abs_err"]
         if key == "conv2d.tc":
             kernels[-1]["prep_launches"] = sum(w["conv2d.tc_prep"] for w in windows.values())
             kernels[-1]["reduce_launches"] = sum(

@@ -19,6 +19,10 @@ takes a spec:
   loads exactly its own tile's input window (the reference's ``dma``
   regime), so the plan leaves the output tile to the kernel's default.
 
+Flash attention picks its route from the head dim and the dtype
+(:func:`plan_flash`): the tensor cores for the models' head dims, the CUDA
+cores for the reduced configs'.
+
 The FPGA plane (``explore_board``) and ``choose_precision`` are not ported
 yet.
 """
@@ -40,6 +44,7 @@ from .tiling import (
 
 __all__ = [
     "ConvTileChoice",
+    "FlashPlan",
     "explore_tpu_block",
     "explore_conv_spatial",
     "default_block_for",
@@ -59,6 +64,8 @@ __all__ = [
     "gpu_conv_tc_splits",
     "gpu_conv_tc_subtile",
     "gpu_conv_tc_tau",
+    "gpu_flash_smem",
+    "plan_flash",
 ]
 
 
@@ -654,3 +661,69 @@ def default_conv_tile_for(
         hp, wp, cin, kh, kw, ho, wo, cout, stride, spec, in_bytes
     )
     return ranked[0] if ranked else None
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+#: route "wgmma" (csrc/flash_wgmma.cuh): q rows of a block (two consumer
+#: warpgroups of 64), K / V tiles in flight, and keys of a kv tile by head dim
+_FLASH_WGMMA_BQ = 128
+_FLASH_WGMMA_STAGES = 2
+_FLASH_WGMMA_BK = {64: 128, 128: 64}
+#: route "simt" (csrc/flash_attention.cu): FA_BQ = FA_BK, one tile at a time
+_FLASH_SIMT_BLOCK = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """Flash attention's kernel for one call: its ``route`` ("simt" or
+    "wgmma"), the keys of a kv tile ``bk`` and the block's dynamic
+    shared memory ``smem`` in bytes.  The launch passes ``bk`` and ``smem``
+    to the route's C entry point, which refuses a plan that differs from
+    its own compiled tile."""
+
+    route: str
+    bk: int
+    smem: int
+
+
+def gpu_flash_smem(route: str, d: int, dtype_bytes: int) -> int:
+    """Dynamic shared memory of a flash block.  "wgmma" (``flash_wgmma.cuh``'s
+    ``smem_bytes``): 1024 bytes of alignment slack, the Q tile and two
+    stages of K and V tiles in bf16, two planes each for f32 (hi, lo) and
+    one for bf16, and the barriers.  "simt" (``flash_attention.cu``'s
+    ``fa_smem_floats``): the q, kᵀ, v and p tiles in f32, rows padded by
+    one."""
+    if route == "wgmma":
+        planes = 2 if dtype_bytes == 4 else 1
+        bq, bk, st = _FLASH_WGMMA_BQ, _FLASH_WGMMA_BK[d], _FLASH_WGMMA_STAGES
+        return 1024 + planes * (bq * d * 2 + st * 2 * bk * d * 2) + (1 + 2 * st) * 8
+    b = _FLASH_SIMT_BLOCK
+    return 4 * (b * (d + 1) + d * (b + 1) + b * d + b * (b + 1))
+
+
+def plan_flash(d: int, dtype_bytes: int, spec: Spec) -> FlashPlan:
+    """The route of a flash-attention call on a GPU: "wgmma" (the tensor
+    cores in split-precision bf16) for the head dims it is compiled for,
+    "simt" (the CUDA cores) for the others it takes, f32 (``dtype_bytes``
+    4) or bf16 (2).  Any other head dim or dtype raises, as does a TPU spec:
+    the reference takes its flash blocks from the caller."""
+    if not isinstance(spec, GpuSpec):
+        raise TypeError(f"flash attention is planned for a GPU spec, got {spec.name}")
+    if dtype_bytes not in (2, 4):
+        raise ValueError(f"flash attention takes f32 or bf16, not {dtype_bytes}-byte values")
+    if d in spec.flash_wgmma_head_dims:
+        route, bk = "wgmma", _FLASH_WGMMA_BK[d]
+    elif d in spec.flash_head_dims:
+        route, bk = "simt", _FLASH_SIMT_BLOCK
+    else:
+        raise ValueError(f"flash attention is compiled for head dims "
+                         f"{sorted(set(spec.flash_head_dims) | set(spec.flash_wgmma_head_dims))}"
+                         f", not {d}")
+    smem = gpu_flash_smem(route, d, dtype_bytes)
+    if smem > spec.smem_per_block:
+        raise ValueError(f"flash route {route} at head dim {d} needs {smem} bytes of "
+                         f"shared memory, over the {spec.smem_per_block} a block has")
+    return FlashPlan(route, bk, smem)

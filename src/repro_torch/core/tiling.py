@@ -88,6 +88,10 @@ class GpuSpec:
       k, n multiples of 8 (TMA's 16-byte row strides), on the
       ``wgmma_tiles`` (its ``BM`` x ``BN`` x ``BK``, ``BN`` 128 or 256).
 
+    Flash attention's routes: "simt" (``csrc/flash_attention.cu``) is
+    compiled for the ``flash_head_dims``, "wgmma" (``csrc/flash_wgmma.cuh``)
+    for the ``flash_wgmma_head_dims``.
+
     Rates are NVIDIA's dense published peaks for the SXM part at its 700 W
     limit.
     """
@@ -108,6 +112,9 @@ class GpuSpec:
     conv_threads: int = 256
     #: conv2d_tc.cuh: the τ that launch_conv_tc instantiates (launch_tau<64 / 128>)
     conv_tc_taus: tuple = (64, 128)
+    #: flash_attention.cu: launch_flash_d's head dims; flash_wgmma.cuh: launch_flash_wgmma's
+    flash_head_dims: tuple = (16, 32)
+    flash_wgmma_head_dims: tuple = (64, 128)
 
     @property
     def splitk_max_m(self) -> int:

@@ -1,4 +1,5 @@
-// Online-softmax (flash) attention with GQA, for sm_90a.
+// Online-softmax (flash) attention with GQA, for sm_90a: route simt here,
+// route wgmma in flash_wgmma.cuh, and their C entry points.
 //
 // Replaces repro/kernels/flash_attention.py:flash_attention_pallas (kernel
 // _fa_kernel) and the kv broadcast of repro/kernels/ops.py:flash_attention.
@@ -8,25 +9,28 @@
 // and accumulator per row, masked scores at -1e30, p rounded to v's dtype
 // before p·v (a no-op for f32), and a write-back of acc / max(l, 1e-30) in
 // q's dtype.  Key columns past Sk are masked too (the reference pads them and
-// relies on the causal mask).
+// relies on the causal mask).  The planner (core/dse.py:plan_flash) sends
+// head dims 64 and 128 (the models' own) to route wgmma, the tensor cores in
+// split-precision bf16, and 16 and 32 (the reduced configs) here.
 //
-// On the TPU the kv axis is a sequential grid axis that carries the state in
-// VMEM scratch.  Here one block owns one (batch·q head, 64-row q tile) and
-// walks the kv tiles itself, with the state in registers; the kv head is read
-// in place for every q head of its group (no broadcast copy).  A kv tile
-// wholly above the diagonal is never loaded (the reference's causal block
-// skip), and the grid starts the heaviest q tiles first.
-//
-// What bounds it on an H100: at the serving shape (B 4, Hq 16, S 4096,
-// D 64, causal) the work is 137 GFLOP against 0.15 GB of q/k/v/out, so it is
-// bound by operations; without TF32 (the reference holds it at 2e-3 and the
-// model's chunked route is f32) that is the CUDA cores' f32 rate, 67 TFLOP/s.
-// This first version is plain: each of the 256 threads computes a 4 x 4 tile
-// of the 64 x 64 score block and a 4 x (D/16) tile of the output with FFMA,
-// from K (transposed), V, Q and P staged as f32 in shared memory; the row
-// max and sum reduce over the 16 lanes that share a row with warp shuffles.
-// wgmma, TMA and cp.async pipelining are later work.
+// Route simt: on the TPU the kv axis is a sequential grid axis that carries
+// the state in VMEM scratch.  Here one block owns one (batch·q head, 64-row
+// q tile) and walks the kv tiles itself, with the state in registers; the
+// kv head is read in place for every q head of its group (no broadcast
+// copy).  A kv tile wholly above the diagonal is never loaded (the
+// reference's causal block skip), and the grid starts the heaviest q tiles
+// first.  It is bound by the CUDA cores' f32 rate, 67 TFLOP/s: each of the
+// 256 threads computes a 4 x 4 tile of the 64 x 64 score block and a
+// 4 x (D/16) tile of the output with FFMA, from K (transposed), V, Q and P
+// staged as f32 in shared memory; the row max and sum reduce over the 16
+// lanes that share a row with warp shuffles.  It served the qwen2-0.5b
+// prefill shape (head dim 64) in 5.6 ms on an H100 80GB HBM3 at 700 W
+// (PERF.md), where route wgmma's bound is 0.417 ms; it is compiled for head
+// dims 16 and 32 only.
 #include "common.cuh"
+#ifndef REPRO_CPU_SHIM
+#include "flash_wgmma.cuh"
+#endif
 
 namespace repro {
 
@@ -181,8 +185,9 @@ __global__ void __launch_bounds__(FA_THREADS)
 template <typename T, int D>
 int launch_flash(const void* q, const void* k, const void* v, void* out, int batch, int hq,
                  int group, int sq, int sk, const FaStrides& st, int causal, int q_offset,
-                 float scale, cudaStream_t stream) {
+                 float scale, int plan_bk, int plan_smem, cudaStream_t stream) {
   constexpr int smem = fa_smem_floats<D>() * static_cast<int>(sizeof(float));
+  if (plan_bk != FA_BK || plan_smem != smem) return REPRO_BAD_ARG;  // the planner's copy
   auto kfn = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kfn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -196,12 +201,10 @@ int launch_flash(const void* q, const void* k, const void* v, void* out, int bat
 template <typename T>
 int launch_flash_d(int d, const void* q, const void* k, const void* v, void* out, int batch,
                    int hq, int group, int sq, int sk, const FaStrides& st, int causal,
-                   int q_offset, float scale, cudaStream_t s) {
+                   int q_offset, float scale, int bk, int smem, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_flash<T, 16>(q, k, v, out, batch, hq, group, sq, sk, st, causal, q_offset, scale, s);
-    case 32: return launch_flash<T, 32>(q, k, v, out, batch, hq, group, sq, sk, st, causal, q_offset, scale, s);
-    case 64: return launch_flash<T, 64>(q, k, v, out, batch, hq, group, sq, sk, st, causal, q_offset, scale, s);
-    case 128: return launch_flash<T, 128>(q, k, v, out, batch, hq, group, sq, sk, st, causal, q_offset, scale, s);
+    case 16: return launch_flash<T, 16>(q, k, v, out, batch, hq, group, sq, sk, st, causal, q_offset, scale, bk, smem, s);
+    case 32: return launch_flash<T, 32>(q, k, v, out, batch, hq, group, sq, sk, st, causal, q_offset, scale, bk, smem, s);
     default: return REPRO_BAD_ARG;
   }
 }
@@ -211,10 +214,13 @@ int launch_flash_d(int d, const void* q, const void* k, const void* v, void* out
 // q: (B, Hq, Sq, D), k / v: (B, Hkv, Sk, D), out like q, each with the
 // element strides of its first three axes in ``strides`` (q, k, v, out in
 // turn) and a contiguous last axis.  dtype: 0 = float32, 1 = bfloat16.
+// bk and smem are the plan's kv tile and shared memory (core/dse.py:
+// plan_flash); a plan that differs from the compiled kernel is refused.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int batch, int hq, int hkv, int sq, int sk, int d,
                                       int dtype, const long long* strides, int causal,
-                                      int q_offset, float scale, int device, void* stream) {
+                                      int q_offset, float scale, int bk, int smem, int device,
+                                      void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || sk <= 0 || hq % hkv != 0 ||
       q_offset < 0 || static_cast<long long>(batch) * hq > 65535)
     return REPRO_BAD_ARG;
@@ -227,11 +233,57 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const int group = hq / hkv;
   if (dtype == 0)
     return repro::launch_flash_d<float>(d, q, k, v, out, batch, hq, group, sq, sk, st, causal,
-                                        q_offset, scale, s);
+                                        q_offset, scale, bk, smem, s);
 #ifndef REPRO_CPU_SHIM
   if (dtype == 1)
     return repro::launch_flash_d<__nv_bfloat16>(d, q, k, v, out, batch, hq, group, sq, sk, st,
-                                                causal, q_offset, scale, s);
+                                                causal, q_offset, scale, bk, smem, s);
 #endif
   return REPRO_BAD_ARG;
+}
+
+// Route wgmma's preparation pass (flash_wgmma.cuh): q, k, v as for
+// flash_attention_launch, with the strides of their first three axes in
+// ``strides`` (q, k, v in turn), into the dense bf16 planes qp, kp, vp.
+extern "C" int flash_attention_prep_launch(const void* q, const void* k, const void* v,
+                                           void* qp, void* kp, void* vp, int batch, int hq,
+                                           int hkv, int sq, int sk, int d, int dtype,
+                                           const long long* strides, int device,
+                                           void* stream) {
+  if (batch <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || sk <= 0 || hq % hkv != 0)
+    return REPRO_BAD_ARG;
+#ifdef REPRO_CPU_SHIM
+  (void)q, (void)k, (void)v, (void)qp, (void)kp, (void)vp, (void)d, (void)dtype;
+  (void)strides, (void)device, (void)stream;
+  return REPRO_BAD_ARG;  // inline PTX for sm_90a: no CPU counterpart
+#else
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return repro::launch_flash_prep(q, k, v, qp, kp, vp, batch, hq, hkv, sq, sk, d, dtype,
+                                  strides, static_cast<cudaStream_t>(stream));
+#endif
+}
+
+// Route wgmma on the planes of flash_attention_prep_launch; out, bk and
+// smem as for flash_attention_launch, out's strides in ``out_strides``.
+extern "C" int flash_attention_wgmma_launch(const void* qp, const void* kp, const void* vp,
+                                            void* out, int batch, int hq, int hkv, int sq,
+                                            int sk, int d, int dtype,
+                                            const long long* out_strides, int causal,
+                                            int q_offset, float scale, int bk, int smem,
+                                            int device, void* stream) {
+  if (batch <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || sk <= 0 || hq % hkv != 0 ||
+      q_offset < 0)
+    return REPRO_BAD_ARG;
+#ifdef REPRO_CPU_SHIM
+  (void)qp, (void)kp, (void)vp, (void)out, (void)d, (void)dtype, (void)out_strides;
+  (void)causal, (void)scale, (void)bk, (void)smem, (void)device, (void)stream;
+  return REPRO_BAD_ARG;  // inline PTX for sm_90a: no CPU counterpart
+#else
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return repro::launch_flash_wgmma(qp, kp, vp, out, batch, hq, hkv, sq, sk, d, dtype,
+                                   out_strides, causal, q_offset, scale, bk, smem,
+                                   static_cast<cudaStream_t>(stream));
+#endif
 }

@@ -1,19 +1,27 @@
-"""Flash attention (online softmax, GQA): CUDA kernel wrapper + plain version.
+"""Flash attention (online softmax, GQA): CUDA kernel wrappers + plain version.
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention_pallas`` (kernel
 ``_fa_kernel``) together with the kv broadcast of
-``repro/kernels/ops.py:flash_attention``.  The kernel is
-``csrc/flash_attention.cu``, which says what bounds it on an H100 and what
-its design does about that; it reads kv head ``q_head // G`` in place.
+``repro/kernels/ops.py:flash_attention``.  Two routes, which the planner
+(:func:`~repro_torch.core.dse.plan_flash`) picks from the head dim:
+"wgmma", the tensor cores in split-precision bf16 of
+``csrc/flash_wgmma.cuh`` for head dims 64 and 128 (a preparation launch that
+writes q, k and v as dense bf16 planes, then the attention), and "simt",
+the CUDA-core kernel of ``csrc/flash_attention.cu`` for 16 and 32.  Each
+source says what bounds it on an H100 and what its design does about that;
+both read kv head ``q_head // G`` in place.  A head dim, dtype or alignment
+that no route takes raises; no call moves to the other route.  Each launch
+hands the plan's kv tile and shared memory to its C entry point, which
+refuses a plan that differs from the kernel it compiled.
 
-Both versions compute the reference kernel's function: an f32 running max,
+Both routes compute the reference kernel's function: an f32 running max,
 denominator and accumulator over kv blocks, masked scores at -1e30, fully
 masked kv blocks skipped, p rounded to v's dtype before p·v, and
 ``acc / max(l, 1e-30)`` written in q's dtype.  q / k / v may be strided
 views (the model passes its (B, S, H, D) activations transposed); the head
-dim must be contiguous.
+dim must be contiguous, and for route "wgmma" every row 16-byte aligned.
 
-``flash_attention_cuda`` launches the kernel for CUDA tensors and runs
+``flash_attention_cuda`` launches a kernel for CUDA tensors and runs
 :func:`flash_attention_plain` for CPU tensors, and only for those.
 """
 from __future__ import annotations
@@ -22,14 +30,16 @@ import ctypes
 
 import torch
 
+from repro_torch.core.dse import FlashPlan, plan_flash
+from repro_torch.core.tiling import H100
+
 from . import _build
 from ._common import on_cpu, ptr, stream_of
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain", "launch", "HEAD_DIMS"]
+__all__ = ["flash_attention_cuda", "flash_attention_plain", "launch", "launch_wgmma",
+           "planes", "prep"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 128)
 _NEG = -1e30
 
 
@@ -46,6 +56,13 @@ def _check(q, k, v, q_offset: int) -> None:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+
+
+def _strides(*tensors) -> list:
+    """The element strides of each tensor's first three axes (0 on an axis
+    of size 1, whose stride no element uses)."""
+    return [0 if n == 1 else st for t in tensors
+            for n, st in zip(t.shape[:3], t.stride()[:3])]
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -84,39 +101,90 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return out.to(q.dtype).reshape(b, hq, sq, d)
 
 
-def launch(lib, q, k, v, out, *, causal: bool, q_offset: int, device: int,
-           stream) -> None:
-    """One call of the C entry point on checked operands (any strides with a
-    contiguous head dim; ``out`` shaped like q)."""
+def launch(lib, q, k, v, out, *, plan: FlashPlan, causal: bool, q_offset: int,
+           device: int, stream) -> None:
+    """One call of route "simt"'s C entry point on checked operands (any
+    strides with a contiguous head dim; ``out`` shaped like q)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     rc = lib.flash_attention_launch(
         ptr(q), ptr(k), ptr(v), ptr(out), b, hq, hkv, sq, sk, d, _DTYPES[q.dtype],
         (ctypes.c_longlong * 12)(*strides), int(causal), q_offset,
-        1.0 / d ** 0.5, device, stream,
+        1.0 / d ** 0.5, plan.bk, plan.smem, device, stream,
     )
-    _build.check(lib, rc, "flash_attention")
+    _build.check(lib, rc, "flash_attention.simt")
+
+
+def planes(q, k) -> tuple:
+    """Route "wgmma"'s dense bf16 planes, empty: q's (P, B·Hq·Sq, D) and
+    k's and v's (P, B·Hkv·Sk, D), with P = 2 (hi, lo) for f32, 1 for bf16."""
+    p = 2 if q.dtype == torch.float32 else 1
+    b, hq, sq, d = q.shape
+    rows_kv = b * k.shape[1] * k.shape[2]
+    return tuple(torch.empty((p, rows, d), dtype=torch.bfloat16, device=q.device)
+                 for rows in (b * hq * sq, rows_kv, rows_kv))
+
+
+def prep(lib, q, k, v, qp, kp, vp, *, device: int, stream) -> None:
+    """Route "wgmma"'s preparation launch: q, k, v (strided, 16-byte aligned
+    rows) -> the planes of :func:`planes`, hi = bf16_rn(x) and for f32 lo =
+    bf16_rn(x - hi)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rc = lib.flash_attention_prep_launch(
+        ptr(q), ptr(k), ptr(v), ptr(qp), ptr(kp), ptr(vp), b, hq, hkv, sq, sk, d,
+        _DTYPES[q.dtype], (ctypes.c_longlong * 9)(*_strides(q, k, v)), device, stream)
+    _build.check(lib, rc, "flash_attention.prep")
+
+
+def launch_wgmma(lib, qp, kp, vp, out, *, plan: FlashPlan, kv_shape, causal: bool,
+                 q_offset: int, device: int, stream) -> None:
+    """One call of route "wgmma" on prepared planes; ``out`` (B, Hq, Sq, D) in
+    the operands' dtype, ``kv_shape`` k's (B, Hkv, Sk, D)."""
+    b, hq, sq, d = out.shape
+    rc = lib.flash_attention_wgmma_launch(
+        ptr(qp), ptr(kp), ptr(vp), ptr(out), b, hq, kv_shape[1], sq, kv_shape[2], d,
+        _DTYPES[out.dtype], (ctypes.c_longlong * 3)(*_strides(out)), int(causal), q_offset,
+        1.0 / d ** 0.5, plan.bk, plan.smem, device, stream)
+    _build.check(lib, rc, "flash_attention.wgmma")
+
+
+def _check_aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        rows = [st * t.element_size() for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(r % 16 for r in rows):
+            raise ValueError(f"{name}: route wgmma reads 16-byte aligned rows; got base "
+                             f"{t.data_ptr() % 16} bytes off and row strides {rows} bytes")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
                          bk: int = 256) -> torch.Tensor:
     """q: (B, Hq, Sq, D), k / v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's
-    dtype and in q's memory layout.  ``bk`` sets the plain version's kv
-    block; the kernel tiles by its own 64 x 64 blocks (a fully masked block
-    adds exactly nothing, so the result is the same function)."""
+    dtype and in q's memory layout, on the route the planner picks from the
+    head dim.  ``bk`` sets the plain version's kv block; the kernels tile by
+    their own blocks (a fully masked block adds exactly nothing, so the
+    result is the same function)."""
     _check(q, k, v, q_offset)
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, bk=bk)
-    d = q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel is compiled for head dims "
-                         f"{HEAD_DIMS}, not {d}")
+    plan = plan_flash(q.shape[-1], q.element_size(), H100)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a contiguous head dim for the CUDA kernel")
     out = torch.empty_like(q)
-    launch(_build.library("flash_attention"), q, k, v, out, causal=causal,
-           q_offset=q_offset, device=q.device.index, stream=stream_of(q))
+    lib = _build.library("flash_attention")
+    dev, stream = q.device.index, stream_of(q)
+    if plan.route == "wgmma":
+        _check_aligned(q=q, k=k, v=v)
+        qp, kp, vp = planes(q, k)
+        prep(lib, q, k, v, qp, kp, vp, device=dev, stream=stream)
+        _build.launches["flash_attention.prep"] += 1
+        launch_wgmma(lib, qp, kp, vp, out, plan=plan, kv_shape=k.shape, causal=causal,
+                     q_offset=q_offset, device=dev, stream=stream)
+    else:
+        launch(lib, q, k, v, out, plan=plan, causal=causal, q_offset=q_offset, device=dev,
+               stream=stream)
     _build.launches["flash_attention"] += 1
+    _build.launches[f"flash_attention.{plan.route}"] += 1
     return out

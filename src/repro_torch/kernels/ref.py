@@ -40,6 +40,8 @@ __all__ = [
     "tf32_round",
     "tf32_split",
     "attention_ref",
+    "attention_split_bf16",
+    "bf16_split",
 ]
 
 
@@ -221,3 +223,70 @@ def attention_ref(q, k, v, causal: bool = True, q_offset: int = 0) -> torch.Tens
         s = torch.where(rows >= cols, s, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x -> (hi, lo) in bf16: hi rounds x to nearest (ties to even, as
+    ``__float2bfloat16_rn``), lo rounds x - hi the same way.  For bf16 x, hi
+    is x and lo is zero."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+#: log2(e) in f32, as flash attention's route "wgmma" folds it into the scale
+_LOG2E = 1.4426950408889634
+
+
+def attention_split_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, q_offset: int = 0, bk: int = 128,
+                         passes: int = 3) -> torch.Tensor:
+    """Flash attention's route "wgmma" (``csrc/flash_wgmma.cuh``) in its
+    operands' arithmetic.  q: (B, Hq, Sq, D), k / v: (B, Hkv, Sk, D) -> (B,
+    Hq, Sq, D) in q's dtype.  Each operand is split into bf16 planes
+    (:func:`bf16_split`) and each product issued as hi·lo + lo·hi + hi·hi
+    (``passes`` 3) or hi·hi alone (1), exact products summed in f32; the
+    online softmax runs per kv tile of ``bk`` keys in the log2 domain (the
+    scale times log2(e), ``exp2``) with an f32 max, denominator and
+    accumulator, masked scores at -1e30; p is split too, and rounded to
+    bf16 (its hi plane alone) when v is bf16, as the reference rounds p to
+    v's dtype.  Only the order of the f32 sums differs from the card."""
+    f32 = torch.float32
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+
+    def planes(x):
+        hi, lo = (t.to(f32) for t in bf16_split(x))
+        return hi, (lo if passes == 3 else torch.zeros_like(lo))
+
+    def mm(a, bt):  # a @ bt over split planes, the small products first
+        (ah, al), (bh, bl) = a, bt
+        return (ah @ bl + al @ bh) + ah @ bh
+
+    sl2 = torch.tensor(1.0 / d ** 0.5, dtype=f32) * torch.tensor(_LOG2E, dtype=f32)
+    qs = planes(q.reshape(b, hkv, g, sq, d))
+    rows = q_offset + torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, hkv, g, sq, 1), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=f32, device=q.device)
+    for c0 in range(0, sk, bk):
+        if causal and c0 > q_offset + sq - 1:
+            break
+        kb = planes(k[:, :, None, c0:c0 + bk])
+        vb = planes(v[:, :, None, c0:c0 + bk])
+        s = mm(qs, tuple(t.transpose(-1, -2) for t in kb)) * sl2.to(q.device)
+        if causal:
+            cols = c0 + torch.arange(kb[0].shape[-2], device=q.device)[None, :]
+            s = torch.where(rows >= cols, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        ph, pl = planes(p)
+        if v.dtype != f32:
+            pl = torch.zeros_like(pl)
+        acc = acc * alpha + mm((ph, pl), vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.to(q.dtype).reshape(b, hq, sq, d)

@@ -527,3 +527,53 @@ def test_conv_no_tc_subtile_fits_plans_cudacore():
     assert cp.route == "direct" and cp.conv_route == "cudacore"
     with pytest.raises(ValueError, match="no tensor-core conv sub-tile fits"):
         conv2d_cuda(torch.zeros(x_shape), torch.zeros(w_shape), conv_route="tc", tau=64)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's routes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype_bytes", [4, 2])
+@pytest.mark.parametrize("d,route", [(16, "simt"), (32, "simt"), (64, "wgmma"),
+                                     (128, "wgmma")])
+def test_flash_plan_route_by_head_dim(d, route, dtype_bytes):
+    """The models' head dims (qwen2 64; internlm2, mistral-nemo, qwen2.5 128)
+    on the tensor cores, the reduced configs' (16, 32) on the CUDA cores;
+    each plan's shared memory inside the 227 KB a block may take."""
+    plan = tdse.plan_flash(d, dtype_bytes, H100)
+    assert plan.route == route
+    assert plan.smem == tdse.gpu_flash_smem(route, d, dtype_bytes)
+    assert plan.smem <= H100.smem_per_block == 232_448
+    assert plan.bk == {16: 64, 32: 64, 64: 128, 128: 64}[d]
+
+
+def test_flash_wgmma_smem_is_the_headers_layout():
+    """Q hi+lo and two stages of K and V hi+lo in bf16: 160 KB at D 64 with
+    128-key tiles, 192 KB at D 128 with 64-key tiles (plus 1024 bytes of
+    alignment slack and five barriers); one plane for bf16."""
+    assert tdse.plan_flash(64, 4, H100).smem == 160 * 1024 + 1024 + 40
+    assert tdse.plan_flash(128, 4, H100).smem == 192 * 1024 + 1024 + 40
+    assert tdse.plan_flash(64, 2, H100).smem == 80 * 1024 + 1024 + 40
+
+
+def test_flash_plan_refuses_what_no_route_takes():
+    for d in (8, 24, 48, 96, 256):
+        with pytest.raises(ValueError, match="head dims"):
+            tdse.plan_flash(d, 4, H100)
+    with pytest.raises(ValueError):
+        tdse.plan_flash(64, 1, H100)
+    with pytest.raises(TypeError):
+        tdse.plan_flash(64, 4, TPU_V5E)
+
+
+def test_flash_planner_leaves_tpu_plans_unchanged():
+    """Adding flash's routes to the GPU spec changes no TPU plan: the GEMM
+    blocks of the qwen2-0.5b prefill and decode shapes are still the
+    reference's."""
+    shapes = [(m, n, k) for m in (4, 16384) for n, k in _qwen_gemms(m)]
+    for m, n, k in shapes:
+        want = jdse.default_block_for(m, n, k, J_TPU)
+        got = tdse.default_block_for(m, n, k, TPU_V5E)
+        assert (got.bm, got.bn, got.bk) == (want.bm, want.bn, want.bk)
+        assert tdse.default_fp_block_for(m, n, k, TPU_V5E, dtype_bytes=2) == got

@@ -15,6 +15,7 @@ counterpart (``csrc/gemm_wgmma.cuh`` is left out under the shim): only the
 card tests (``tests/test_torch_kernels_gpu.py``) run it.
 """
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 from pathlib import Path
@@ -157,7 +158,7 @@ FA_CASES = [  # b, hq, hkv, sq, sk, d, causal, q_offset, strided
     (1, 2, 2, 64, 64, 16, True, 0, False),
     (2, 4, 2, 70, 70, 32, True, 0, True),     # GQA, ragged rows, (B, S, H, D) views
     (1, 4, 1, 130, 130, 16, True, 0, False),  # MQA, three q tiles, causal skip
-    (1, 2, 2, 16, 80, 64, True, 64, False),   # decode-style rows at the end of the keys
+    (1, 2, 2, 16, 80, 32, True, 64, False),   # decode-style rows at the end of the keys
     (1, 2, 1, 40, 64, 16, False, 0, True),    # non-causal
 ]
 
@@ -174,10 +175,26 @@ def test_flash_attention_emulated(libs, case):
 
     q, k, v = draw(hq, sq), draw(hkv, sk), draw(hkv, sk)
     out = torch.empty_like(q)
-    flash_attention.launch(libs["flash_attention"], q, k, v, out, causal=causal,
+    flash_attention.launch(libs["flash_attention"], q, k, v, out,
+                           plan=tdse.plan_flash(d, 4, H100), causal=causal,
                            q_offset=q_offset, device=0, stream=NULL_STREAM)
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
     torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d,change", [(32, {"smem": 4}), (32, {"bk": -32}), (64, {})],
+                         ids=["smem", "bk", "head-dim-64"])
+def test_flash_simt_refuses_a_plan_it_did_not_compile(libs, d, change):
+    """Route simt's C entry point takes the planner's kv tile and shared
+    memory and refuses a plan that differs from its compiled kernel, and it
+    is compiled for head dims 16 and 32 only (64 and 128 are route wgmma's)."""
+    plan = tdse.plan_flash(32, 4, H100)
+    plan = dataclasses.replace(plan, **{f: getattr(plan, f) + dv for f, dv in change.items()})
+    q = torch.randn(1, 2, 64, d)
+    with pytest.raises(RuntimeError, match="does not take"):
+        flash_attention.launch(libs["flash_attention"], q, q, q, torch.empty_like(q),
+                               plan=plan, causal=True, q_offset=0, device=0,
+                               stream=NULL_STREAM)
 
 
 CONVS = [  # n, h, w, cin, cout, k, stride, pad, tau, chunk, tile_rows, tile_cols, halo
@@ -244,7 +261,8 @@ def test_kernels_refuse_bad_launches(libs):
     qf = torch.randn(1, 2, 8, 24)
     with pytest.raises(RuntimeError, match="does not take"):  # head dim 24 not compiled
         flash_attention.launch(libs["flash_attention"], qf, qf, qf, torch.empty_like(qf),
-                               causal=True, q_offset=0, device=0, stream=NULL_STREAM)
+                               plan=tdse.plan_flash(32, 4, H100), causal=True, q_offset=0,
+                               device=0, stream=NULL_STREAM)
     with pytest.raises(RuntimeError, match="does not take"):
         matmul_q16.launch(libs["matmul_q16"], q, q.t().contiguous(), None,
                           torch.empty(4, 4, dtype=torch.int16), MatmulBlock(16, 64, 16),

@@ -1,11 +1,16 @@
 """The port's CUDA kernels on the card, each held against its plain version
 on the same inputs: integers bit for bit, floats at 1e-4 (GEMM, and the
 float conv's tensor-core route in 3xTF32) and 2e-3 (the conv's CUDA-core
-route, flash attention), with TF32 off; the float GEMM's bf16 routes at
-2e-2; the float GEMM's routes and the conv's tensor-core route also bit for
-bit equal on a second launch.  Every test here needs an NVIDIA Hopper card
+route, flash attention on both routes), with TF32 off; the float GEMM's
+bf16 routes at 2e-2; the float GEMM's routes and the conv's tensor-core
+route also bit for bit equal on a second launch; flash attention's route
+wgmma also within 1e-4 (bf16: about one bf16 step) of the emulation of its
+split-bf16 arithmetic (``ref.attention_split_bf16``), and its preparation pass bit for bit equal
+to ``ref.bf16_split``.  Every test here needs an NVIDIA Hopper card
 and skips without one; run them there with ``python -m pytest -m gpu``.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -23,7 +28,10 @@ from repro_torch.kernels.conv2d import (
 )
 from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain, plan_for
 from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.core.dse import plan_flash
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels._common import stream_of
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.models import cnn
 
 pytestmark = pytest.mark.gpu
@@ -310,23 +318,130 @@ FA_CASES = [  # b, hq, hkv, sq, sk, d, causal, q_offset, dtype
     (1, 2, 2, 16, 64, 32, True, 48, torch.float32),
     (2, 16, 2, 300, 300, 64, True, 0, torch.bfloat16),
     (1, 4, 2, 200, 200, 128, True, 0, torch.float32),
+    # route wgmma (head dims 64 and 128): MHA over two q tiles, GQA and MQA
+    # with Sq / Sk off the 128-row and 128 / 64-key tiles, non-causal, a
+    # q_offset with a ragged Sk, and bf16
+    (2, 4, 4, 256, 256, 64, True, 0, torch.float32),
+    (2, 8, 2, 200, 200, 64, True, 0, torch.float32),
+    (1, 8, 1, 130, 130, 128, True, 0, torch.float32),
+    (2, 4, 2, 96, 160, 64, False, 0, torch.float32),
+    (1, 4, 4, 64, 192, 128, False, 0, torch.float32),
+    (1, 4, 2, 100, 300, 128, True, 200, torch.float32),
+    (1, 2, 2, 77, 333, 64, True, 256, torch.float32),
+    (2, 16, 2, 300, 300, 128, True, 0, torch.bfloat16),
+    (1, 4, 4, 64, 64, 64, False, 0, torch.bfloat16),
+    # tensors smaller than one TMA box (10 q rows, 9 kv rows)
+    (1, 2, 1, 5, 9, 64, True, 4, torch.float32),
+    (1, 1, 1, 3, 7, 128, False, 0, torch.bfloat16),
 ]
+#: route wgmma against the emulation of its own split-bf16 arithmetic: only
+#: the order of the f32 sums (and exp2's last bits) differ.  bf16 outputs to
+#: one bf16 step relative, plus 2^-12 (one step at the typical |out| ~ 0.04):
+#: there p is rounded to bf16, and an f32 p that differs in its last bits
+#: can round to the neighbouring value, 2^-8 of p (2^-14 seen on an H100)
+FA_SPLIT_TOL = 1e-4
+FA_SPLIT_TOL_BF16 = dict(atol=2 ** -12, rtol=2 ** -7)
 
 
-@pytest.mark.parametrize("case", FA_CASES, ids=str)
-def test_flash_attention_kernel_vs_plain(dev, case):
-    b, hq, hkv, sq, sk, d, causal, q_offset, dtype = case
+def _fa_operands(case, dev):
+    b, hq, hkv, sq, sk, d, _, _, dtype = case
     g = torch.Generator().manual_seed(sq + d)
     # the model's layout: (B, S, H, D) memory viewed as (B, H, S, D)
     q = (0.5 * torch.randn(b, sq, hq, d, generator=g)).to(dev, dtype).transpose(1, 2)
     k = (0.5 * torch.randn(b, sk, hkv, d, generator=g)).to(dev, dtype).transpose(1, 2)
     v = (0.5 * torch.randn(b, sk, hkv, d, generator=g)).to(dev, dtype).transpose(1, 2)
-    before = _build.launches["flash_attention"]
+    return q, k, v
+
+
+def _fa_counts():
+    return {r: _build.launches[f"flash_attention.{r}"] for r in ("simt", "wgmma", "prep")}
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+def test_flash_attention_kernel_vs_plain(dev, case):
+    b, hq, hkv, sq, sk, d, causal, q_offset, dtype = case
+    q, k, v = _fa_operands(case, dev)
+    plan = plan_flash(d, q.element_size(), H100)
+    before = _fa_counts()
     got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset, bq=32, bk=32)
-    assert _build.launches["flash_attention"] == before + 1
+    wgmma = plan.route == "wgmma"
+    assert _fa_counts() == {"simt": before["simt"] + (not wgmma),
+                            "wgmma": before["wgmma"] + wgmma,
+                            "prep": before["prep"] + wgmma}
     want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, bk=32)
     tol = 2e-3 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if wgmma:
+        split = ref.attention_split_bf16(q, k, v, causal=causal, q_offset=q_offset,
+                                         bk=plan.bk)
+        tols = (dict(atol=FA_SPLIT_TOL, rtol=FA_SPLIT_TOL) if dtype == torch.float32
+                else FA_SPLIT_TOL_BF16)
+        torch.testing.assert_close(got, split, **tols)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_prep_is_the_bf16_split(dev, dtype):
+    """Route wgmma's preparation launch writes q, k and v (strided views) as
+    dense (B·H·S, D) planes equal bit for bit to ``ref.bf16_split``: hi and
+    lo for f32, hi alone (the operand itself) for bf16."""
+    q, k, v = _fa_operands((2, 8, 2, 200, 136, 64, True, 0, dtype), dev)
+    qp, kp, vp = fa.planes(q, k)
+    assert qp.shape[0] == (2 if dtype == torch.float32 else 1)
+    fa.prep(_build.library("flash_attention"), q, k, v, qp, kp, vp, device=dev.index,
+            stream=stream_of(q))
+    torch.cuda.synchronize()
+    for x, xp in ((q, qp), (k, kp), (v, vp)):
+        hi, lo = ref.bf16_split(x.contiguous().reshape(-1, x.shape[-1]))
+        assert torch.equal(xp[0], hi)
+        if dtype == torch.float32:
+            assert torch.equal(xp[1], lo)
+        else:
+            assert torch.equal(xp[0], x.contiguous().reshape(-1, x.shape[-1]))
+
+
+def test_flash_refuses_what_no_route_takes(dev):
+    """A head dim, dtype, layout or alignment that no route takes raises,
+    on a CUDA tensor as on the kernels' C entry points; nothing moves to
+    another route."""
+    def qkv(d, dtype=torch.float32):
+        return (torch.zeros(1, 2, 64, d, device=dev, dtype=dtype) for _ in range(3))
+
+    for d in (24, 256):
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention_cuda(*qkv(d))
+    with pytest.raises(TypeError):
+        flash_attention_cuda(*qkv(64, torch.float16))
+    q, k, v = qkv(64)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        flash_attention_cuda(q.transpose(2, 3), k, v)
+    # rows of 65 floats (260 bytes), and a base 4 bytes off 16
+    wide = torch.zeros(1, 2, 64, 65, device=dev)[..., :64]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(wide, k, v)
+    off = torch.zeros(1 + 2 * 64 * 64, device=dev)[1:].view(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(off, k, v)
+    lib = _build.library("flash_attention")
+    qp, kp, vp = fa.planes(q, k)
+    with pytest.raises(RuntimeError, match="does not take"):  # the C check, unaligned q
+        fa.prep(lib, off, k, v, qp, kp, vp, device=dev.index, stream=stream_of(q))
+    plan = plan_flash(64, 4, H100)
+    with pytest.raises(RuntimeError, match="does not take"):  # head dim 32 on wgmma
+        q32, k32, _ = qkv(32)
+        qp, kp, vp = fa.planes(q32, k32)
+        fa.launch_wgmma(lib, qp, kp, vp, torch.empty_like(q32), plan=plan,
+                        kv_shape=k32.shape, causal=True, q_offset=0, device=dev.index,
+                        stream=stream_of(q))
+    # a plan whose kv tile or shared memory is not the header's
+    qp, kp, vp = fa.planes(q, k)
+    for bad in (dataclasses.replace(plan, bk=64), dataclasses.replace(plan, smem=plan.smem + 8)):
+        with pytest.raises(RuntimeError, match="does not take"):
+            fa.launch_wgmma(lib, qp, kp, vp, torch.empty_like(q), plan=bad, kv_shape=k.shape,
+                            causal=True, q_offset=0, device=dev.index, stream=stream_of(q))
+    # head dim 64 on route simt, which is compiled for 16 and 32
+    with pytest.raises(RuntimeError, match="does not take"):
+        fa.launch(lib, q, k, v, torch.empty_like(q), plan=plan_flash(32, 4, H100),
+                  causal=True, q_offset=0, device=dev.index, stream=stream_of(q))
 
 
 def test_reduced_qwen_on_card_matches_torch_backend(dev, monkeypatch):
@@ -342,6 +457,29 @@ def test_reduced_qwen_on_card_matches_torch_backend(dev, monkeypatch):
     tokens = tokens.to(dev)
     _build.reset_launches()
     got, _ = T.forward(default_template("cuda"), cfg, params, tokens)
-    assert _build.launches["flash_attention"] == cfg.n_layers
+    # head dim 16: route simt, once a layer
+    assert _build.launches["flash_attention.simt"] == cfg.n_layers
+    assert _build.launches["flash_attention.wgmma"] == 0
     want, _ = T.forward(default_template("torch"), cfg, params, tokens)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_reduced_qwen_at_head_dim_64_takes_route_wgmma(dev, monkeypatch):
+    """The reduced qwen2-0.5b at the model's own head dim, 64: flash runs on
+    route wgmma (and its preparation) once a layer, and the logits stay
+    within the reference's flash tolerance, 2e-3, of the torch backend."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import attention, transformer as T
+
+    monkeypatch.setattr(attention, "CHUNKED_THRESHOLD", 8)
+    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")), head_dim=64)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    tokens = tokens.to(dev)
+    _build.reset_launches()
+    got, _ = T.forward(default_template("cuda"), cfg, params, tokens)
+    assert _build.launches["flash_attention.wgmma"] == cfg.n_layers
+    assert _build.launches["flash_attention.prep"] == cfg.n_layers
+    assert _build.launches["flash_attention.simt"] == 0
+    want, _ = T.forward(default_template("torch"), cfg, params, tokens)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
