@@ -18,8 +18,8 @@ non-zero without its result line):
    GEMM is checked at every distinct float GEMM shape of both main paths on
    the route its plan names (wgmma, splitk; tile for the im2col route),
    bit for bit repeatable, and timed on gate / up (beside its route "tile"
-   on the same call, the design that served it before), fc0 and the tied
-   head.  The float conv is checked on the route its plan names: "tc" (the
+   on the same call, the design that served it before), fc0, the tied head
+   and, on route "tile", the im2col call's GEMM.  The float conv is checked on the route its plan names: "tc" (the
    tensor cores in 3xTF32) at 1e-4 and bit for bit repeatable at
    vgg16.conv1, vgg16.conv8, alexnet.conv1, the 512² dma call and a
    two-block call, "cudacore" at 2e-3 at every case; "tc" is timed at the
@@ -30,14 +30,22 @@ non-zero without its result line):
    ``ref.attention_split_bf16``, the emulation of its arithmetic, at 1e-4
    (bf16: one bf16 step relative plus 2^-12); "wgmma" is timed at the qwen2 prefill
    shape beside its preparation launch, the plain version and SDPA (bounds
-   in split bf16 and f32);
+   in split bf16 and f32), "simt" at a head-dim-32 GQA case of 1024 tokens.  The q16 GEMM is checked bit for bit on the
+   route its plan names ("splitk" for m <= 16, "wgmma" above) at every q16
+   GEMM shape of both main paths, the im2col route's int8 x int8 and int16
+   x int8, and the two wrap-around cases (raws -1 at k = 40,960, -32768 at
+   k = 4) on both routes; "splitk" is timed at VGG16 fc0, decode gate / up
+   and the grid head, "wgmma" at the prefill's gate / up and the im2col
+   int8 x int8 call (beside ``torch._int_mm``), each beside route "tile",
+   the design that served every q16 GEMM before the routes;
 3. the CNN path: ``plan_cnn`` -> ``cnn_forward`` for LeNet, AlexNet and
    VGG16 at full width, batch 8, random weights and biases from a seed
    (each hidden layer fitted onto the activation grid), in float,
    grid-resident Q2.14 and a forced int8/int16 mix, with every kernel's
    launch count set to 0 just before and read just after (the float conv's
    per route: VGG16 12 "tc" and 1 "cudacore", AlexNet 4 and 1, LeNet 0 and
-   2; the grid-resident forwards none on "tc").  Float logits
+   2; the grid-resident forwards none on "tc", and every FC layer on the q16
+   GEMM's "splitk").  Float logits
    are held to the plain ``torch`` backend on the card; the fixed-point
    logits to the same engine on the CPU (the kernels' plain versions), bit
    for bit, and that run shows how few of each layer's raws are clipped;
@@ -49,7 +57,9 @@ non-zero without its result line):
    grid-resident after ``calibrate_policy``, each with the launch counts set
    to 0 just before and read just after (the float GEMM's per route: every
    prefill GEMM on wgmma, every m = 4 GEMM on splitk, none on the q16
-   GEMM; flash once a layer a prefill on its route "wgmma", with its
+   GEMM; on the grid, every prefill GEMM on the q16 GEMM's "wgmma" with its
+   preparation launch, its head and every decode GEMM on "splitk", none on
+   "tile"; flash once a layer a prefill on its route "wgmma", with its
    preparation launch, none on "simt" and none in decode).  Each stream is
    replayed teacher-forced through the same kernels and through the plain
    ``torch`` backend (float), and the logits are held to stated
@@ -62,7 +72,8 @@ non-zero without its result line):
 default: route "tile" timed beside fc0 and the tied head, and the
 ``wgmma_threshold`` lines (gate / up's n and k at m from 17 to 256 and at
 the prefill's m, each wgmma tile against the tile route), which set the
-planner's bound between routes W and L.  ``--conv-route-study`` times the
+planner's bound between routes W and L, and the q16 GEMM's line (split-k
+against wgmma in int16 from m = 1 to 64), which checks its bound at m = 16.  ``--conv-route-study`` times the
 float conv's CUDA-core route beside each timed tensor-core row.
 ``--flash-pv-study`` builds a variant of flash's route "wgmma" that
 accumulates PV in place into O (the design the committed kernel rejected)
@@ -104,6 +115,8 @@ CONV_TOL = 2e-3
 TC_TOL = 1e-4
 #: end-to-end float logits, cuda kernels vs the torch backend on the card
 E2E_TOL = 2e-3
+#: the q16 GEMM's library yardstick where none exists
+Q16_NO_LIBRARY = "none: no PyTorch call multiplies int16 matrices on CUDA"
 #: H100 SXM dense peaks (NVIDIA data sheet, 700 W)
 HBM_BW = 3.35e12
 PEAK_F32 = 67e12
@@ -320,7 +333,7 @@ class KernelBook:
 
 
 def _plan(blk) -> str:
-    """A float GEMM plan in a case name: route, tile and slices."""
+    """A GEMM plan in a case name: route, tile and slices."""
     out = f"route={blk.route} block={blk.bm}x{blk.bn}x{blk.bk}"
     return out + (f" splits={blk.splits}" if blk.splits > 1 else "")
 
@@ -353,6 +366,7 @@ def phase_kernels(torch, dev, book: KernelBook):
                                             conv2d_q16_plain)
     from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain
     from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
+    from repro_torch.kernels.matmul_q16 import plan_for as q16_plan_for
     from repro_torch.models import cnn
 
     def conv_plan(n, h, cin, cout, k, s, p, in_bytes):
@@ -479,7 +493,18 @@ def phase_kernels(torch, dev, book: KernelBook):
     torch.cuda.synchronize()
     book.check("matmul_fp.tile", f"im2col route vgg16.conv8 {_plan(blk)}", got, want,
                exact=False, tol=CONV_TOL)
-    del x, w, got, want
+    # its GEMM alone, timed: route "tile" serves no main-path call
+    cols = ops.im2col(F.pad(x, (0, 0, 1, 1, 1, 1)), 3, 3, 1)[0].contiguous()
+    wmat = ops.conv_gemm_weights(w).contiguous()
+    m, k, n = cols.shape[0], cols.shape[1], wmat.shape[1]
+    book.timing(
+        "matmul_fp.tile", f"im2col vgg16.conv8 ({m},{k})@({k},{n}) f32 {_plan(blk)}",
+        record=False, kernel_fn=lambda: matmul_fp_cuda(cols, wmat, block=blk, relu=True),
+        plain_fn=lambda: matmul_fp_plain(cols, wmat, relu=True),
+        library_fn=lambda: torch.relu(torch.matmul(cols, wmat)),
+        library="torch.relu(torch.matmul(x, w)) (cuBLAS, TF32 off)",
+        nbytes_=nbytes(cols, wmat) + m * n * 4, ops=2 * m * n * k, peak=PEAK_F32)
+    del x, w, got, want, cols, wmat
 
     # -- fixed-point conv ----------------------------------------------------
     q_convs = [
@@ -525,7 +550,7 @@ def phase_kernels(torch, dev, book: KernelBook):
                 ops=2 * n * ho * ho * cout * k * k * cin, peak=PEAK_INT8 / 4)
         del x, w, got, want
 
-    # -- fixed-point GEMM ----------------------------------------------------
+    # -- fixed-point GEMM: the CNN path's shapes on their planned routes ----
     q_gemms = [
         # name, m, k, n, x dtype, w dtype, out fmt, shift, wide
         ("vgg16.fc0 Q2.14", BATCH, 25088, 4096, torch.int16, torch.int16, Q2_14, 16, False),
@@ -535,42 +560,82 @@ def phase_kernels(torch, dev, book: KernelBook):
         ("vgg16.fc2 wide", BATCH, 4096, 1000, torch.int16, torch.int16, Q2_14, 0, True),
         ("im2col vgg16.conv8 int8xint8", BATCH * 28 * 28, 4608, 512, torch.int8,
          torch.int8, Q2_6, 9, False),
+        ("im2col vgg16.conv8 int16xint8", BATCH * 28 * 28, 4608, 512, torch.int16,
+         torch.int8, Q2_14, 10, False),
     ]
     for i, (name, m, k, n, xd, wd, fmt, shift, wide) in enumerate(q_gemms):
         x = _raws(torch, (m, k), xd, dev, 110 + i)
         w = _raws(torch, (k, n), wd, dev, 120 + i)
         b = _raws(torch, (n,), xd, dev, 130 + i)
-        blk = dse.default_block_for(m, n, k, H100)
+        blk = q16_plan_for(x, w)
+        assert blk.route == ("splitk" if m <= 16 else "wgmma"), (name, blk)
         kw = dict(fmt=fmt, block=blk, relu=not wide, shift=shift, bias_shift=3, wide=wide)
         got = matmul_q16_cuda(x, w, b, **kw)
+        again = matmul_q16_cuda(x, w, b, **kw)
         pkw = dict(shift=shift, bias_shift=3, raw_min=fmt.raw_min, raw_max=fmt.raw_max,
                    out_dtype=torch.int32 if wide else fmt.storage_dtype, relu=not wide,
                    wide=wide)
         want = matmul_q16_plain(x, w, b, **pkw)
         torch.cuda.synchronize()
-        book.check("matmul_q16", f"{name} ({m},{k})@({k},{n}) block={blk.bm}x{blk.bn}",
+        assert torch.equal(got, again), f"{name}: route {blk.route} not repeatable"
+        book.check(f"matmul_q16.{blk.route}", f"{name} ({m},{k})@({k},{n}) {_plan(blk)}",
                    got, want, exact=True)
+        limbs = dse.q16_limb_products(8 * x.element_size(), 8 * w.element_size())
         if name == "vgg16.fc0 Q2.14":
             book.timing(
-                "matmul_q16", f"{name} ({m},{k})@({k},{n}) int16 block={blk.bm}x{blk.bn}x{blk.bk}",
+                "matmul_q16.splitk", f"{name} ({m},{k})@({k},{n}) int16 {_plan(blk)}",
                 kernel_fn=lambda: matmul_q16_cuda(x, w, b, **kw),
                 plain_fn=lambda: matmul_q16_plain(x, w, b, **pkw),
-                library_fn=None,
-                library="none: no PyTorch call multiplies int16 matrices on CUDA",
+                library_fn=None, library=Q16_NO_LIBRARY,
                 nbytes_=nbytes(x, w, b) + m * n * 2, ops=2 * m * n * k,
-                peak=PEAK_INT8 / 4)
+                peak=PEAK_INT8 / limbs, tile_fn=lambda: matmul_q16_cuda(
+                    x, w, b, **{**kw, "block": dse.default_block_for(m, n, k, H100)}))
         if name.endswith("int8xint8"):
             # torch._int_mm (int8 x int8 -> int32) fits this shape (m > 16,
             # k and n multiples of 8): timed beside the kernel, never used by it
             book.timing(
-                "matmul_q16", f"{name} ({m},{k})@({k},{n}) block={blk.bm}x{blk.bn}x{blk.bk}",
+                "matmul_q16.wgmma", f"{name} ({m},{k})@({k},{n}) {_plan(blk)}",
                 kernel_fn=lambda: matmul_q16_cuda(x, w, b, **kw),
                 plain_fn=lambda: matmul_q16_plain(x, w, b, **pkw),
                 library_fn=lambda: torch._int_mm(x, w),
                 library="torch._int_mm (no epilogue)",
                 nbytes_=nbytes(x, w, b) + m * n, ops=2 * m * n * k, peak=PEAK_INT8,
-                record=False)
-        del x, w, got, want
+                record=False, tile_fn=lambda: matmul_q16_cuda(
+                    x, w, b, **{**kw, "block": dse.default_block_for(m, n, k, H100)}),
+                extra={"prep_ms": time_ms(lambda: q16_prep_only(x, w))})
+        del x, w, got, again, want
+
+    # the two wrap-around cases on both routes: raws -1 at k = 40,960 (the ll
+    # limb sum alone passes 2^31; wide reads exactly 40,960) and -32768 at
+    # k = 4 (the int32 sum 2^32 wraps to 0); a .satfinite would show here
+    for route, m in (("wgmma", 64), ("splitk", 8)):
+        for k, v, total in ((40960, -1, 40960), (4, -32768, 0)):
+            x = torch.full((m, k), v, dtype=torch.int16, device=dev)
+            w = torch.full((k, 40), v, dtype=torch.int16, device=dev)
+            blk = q16_plan_for(x, w)
+            assert blk.route == route, blk
+            got = matmul_q16_cuda(x, w, block=blk, wide=True, shift=0, bias_shift=0)
+            want = matmul_q16_plain(x, w, shift=0, bias_shift=0, raw_min=-1, raw_max=1,
+                                    out_dtype=torch.int32, wide=True)
+            torch.cuda.synchronize()
+            if int(want.min()) != total or int(want.max()) != total:
+                raise AssertionError(f"wrap case {v} x {v} at k={k}: plain gives {want[0, 0]}")
+            book.check(f"matmul_q16.{route}", f"wrap {v}x{v} k={k} wide ({m},{k})@({k},40) "
+                       f"{_plan(blk)}", got, want, exact=True)
+            del x, w, got, want
+
+
+def q16_prep_only(x, w):
+    """Route "wgmma"'s preparation launch alone, on fresh planes."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._common import stream_of
+    from repro_torch.kernels.matmul_q16 import plan_for, planes_for, prep
+
+    xp, wp, kp = planes_for(x, w, plan_for(x, w))
+    prep(_build.library("matmul_q16"), x, w, xp, wp, kp=kp, device=torch.cuda.current_device(),
+         stream=stream_of(x))
 
 
 # ---------------------------------------------------------------------------
@@ -701,6 +766,12 @@ def phase_main_path(torch, dev):
             assert law == {"quantize_calls": 1, "dequantize_calls": 1}, dict(c)
             assert _build.launches["conv2d_q16"] - before["conv2d_q16"] == nc
             assert _build.launches["matmul_q16"] - before["matmul_q16"] == nf
+            # every FC layer (batch 8) streams its raws on the q16 split-k route
+            grew = {k: _build.launches[k] - before[k] for k in before}
+            if (grew["matmul_q16.splitk"], grew["matmul_q16.tile"],
+                    grew["matmul_q16.wgmma"]) != (nf, 0, 0):
+                raise AssertionError(f"{net} {numerics}: q16 GEMM launches by route {grew}, "
+                                     f"want {nf} splitk")
             assert _build.launches["matmul_fp"] == before["matmul_fp"]
             assert _build.launches["conv2d"] == before["conv2d"]  # no float conv, no "tc"
             with tq.engine.plan_cache.scope() as warm:
@@ -733,8 +804,8 @@ def phase_main_path(torch, dev):
             runs.append((net, numerics, tq, spec, qp, x, policy))
     launches = dict(_build.launches)
     emit({"phase": "main_path_launches", "path": "cnn", **launches})
-    for name in ("matmul_fp", "matmul_q16", "conv2d", "conv2d.tc", "conv2d.cudacore",
-                 "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16"):
+    for name in ("matmul_fp", "matmul_q16", "matmul_q16.splitk", "conv2d", "conv2d.tc",
+                 "conv2d.cudacore", "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16"):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the CNN path")
     return runs, launches
@@ -773,7 +844,8 @@ def phase_profile(torch, runs):
         torch.cuda.synchronize()
         emit({"phase": "profile", "net": net, "numerics": numerics, "forwards": 3,
               **profile_window(torch, lambda: [fwd() for _ in range(3)],
-                               groups=("conv_tc", "conv_kernel", "splitk", "gemm_kernel"))})
+                               groups=("conv_tc", "conv_kernel", "splitk", "split_reduce",
+                                       "gemm_kernel"))})
 
 
 # ---------------------------------------------------------------------------
@@ -797,6 +869,7 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain, plan_for
     from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
+    from repro_torch.kernels.matmul_q16 import plan_for as q16_plan_for
 
     fa_cases = [
         # name, b, hq, hkv, sq, sk, d, causal, q_offset, dtype, block; the
@@ -813,6 +886,7 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
         ("non-causal GQA", 2, 4, 2, 96, 256, 64, False, 0, torch.float32, 256),
         ("non-causal bf16 D128", 1, 4, 4, 64, 128, 128, False, 0, torch.bfloat16, 128),
         ("under one TMA box", 1, 2, 1, 5, 9, 64, True, 4, torch.float32, 16),
+        ("GQA D32 S1024", 2, 8, 2, 1024, 1024, 32, True, 0, torch.float32, 256),
         ("qwen2-0.5b prefill", QWEN_PROMPTS, 16, 2, QWEN_PROMPT_LEN, QWEN_PROMPT_LEN, 64,
          True, 0, torch.float32, 1024),
     ]
@@ -844,6 +918,21 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
                   "case": f"{label} vs ref.attention_split_bf16", "max_abs_err": err,
                   "exact": False, "tol": tols})
             del split
+        if name == "GQA D32 S1024":  # route simt serves no main-path call: timed here
+            qc = q.contiguous()
+            ke = k.repeat_interleave(hq // hkv, dim=1).contiguous()
+            ve = v.repeat_interleave(hq // hkv, dim=1).contiguous()
+            pairs = causal_pairs(sq, sk, q_offset)
+            book.timing(
+                "flash_attention.simt", f"{name} q{tuple(q.shape)} kv{tuple(k.shape)} f32 "
+                "causal", record=False,
+                kernel_fn=lambda: ops.flash_attention(q, k, v, bq=blk, bk=blk, **kw),
+                plain_fn=lambda: flash_attention_plain(q, k, v, bk=blk, **kw),
+                library_fn=lambda: F.scaled_dot_product_attention(qc, ke, ve, is_causal=True),
+                library="F.scaled_dot_product_attention (f32, kv heads expanded, is_causal)",
+                nbytes_=nbytes(q, k, v) + nbytes(q), ops=4 * d * b * hq * pairs,
+                peak=PEAK_F32)
+            del qc, ke, ve
         if name.startswith("qwen2"):
             g = hq // hkv
             qc = q.contiguous()  # the library call gets dense, expanded heads
@@ -938,25 +1027,45 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
             del x, got, again, want
         del w, b
 
-    # the prefill's widest GEMM in int16 (the q16 kernel, unchanged)
-    m, k, n = m_prefill, dm, 4864
-    blk = dse.default_block_for(m, n, k, H100)
-    xq = _raws(torch, (m, k), torch.int16, dev, 174)
-    wq = _raws(torch, (k, n), torch.int16, dev, 175)
-    qkw = dict(block=blk, shift=20, bias_shift=0)
-    pkw = dict(shift=20, bias_shift=0, raw_min=-32768, raw_max=32767, out_dtype=torch.int16)
-    got = matmul_q16_cuda(xq, wq, **qkw)
-    want = matmul_q16_plain(xq, wq, **pkw)
-    torch.cuda.synchronize()
-    book.check("matmul_q16", f"qwen2 gate/up ({m},{k})@({k},{n}) int16", got, want,
-               exact=True)
-    book.timing(
-        "matmul_q16", f"qwen2 gate/up ({m},{k})@({k},{n}) int16 block={blk.bm}x{blk.bn}x{blk.bk}",
-        record=False, kernel_fn=lambda: matmul_q16_cuda(xq, wq, **qkw),
-        plain_fn=lambda: matmul_q16_plain(xq, wq, **pkw), library_fn=None,
-        library="none: no PyTorch call multiplies int16 matrices on CUDA",
-        nbytes_=nbytes(xq, wq) + m * n * 2, ops=2 * m * n * k, peak=PEAK_INT8 / 4)
-    del xq, wq, got, want
+    # every distinct grid GEMM of a qwen2 layer in int16, at prefill (route
+    # wgmma) and at decode (route splitk), and the grid head (m = 4, w
+    # (896, 151936) stored row-major); gate / up timed at both m, beside
+    # route "tile" (the design that served every q16 GEMM before the routes)
+    for j, (name, n, k) in enumerate(layer + [("head", vocab, dm)]):
+        wq = _raws(torch, (k, n), torch.int16, dev, 220 + j)
+        # a bias where the model has one (q, k / v), as the float rows
+        bq = _raws(torch, (n,), torch.int16, dev, 230 + j) if j < 2 else None
+        for m, route in ((m_prefill, "wgmma"), (QWEN_PROMPTS, "splitk")):
+            if name == "head" and route == "wgmma":
+                continue  # the head reads only each prompt's last position
+            xq = _raws(torch, (m, k), torch.int16, dev, 240 + j)
+            blk = q16_plan_for(xq, wq)
+            assert blk.route == route, (name, m, blk)
+            qkw = dict(block=blk, shift=20, bias_shift=4)
+            pkw = dict(shift=20, bias_shift=4, raw_min=-32768, raw_max=32767,
+                       out_dtype=torch.int16)
+            got = matmul_q16_cuda(xq, wq, bq, **qkw)
+            again = matmul_q16_cuda(xq, wq, bq, **qkw)
+            want = matmul_q16_plain(xq, wq, bq, **pkw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), f"qwen2 {name} m={m}: not repeatable"
+            book.check(f"matmul_q16.{route}", f"qwen2 {name} ({m},{k})@({k},{n}) int16 "
+                       f"{_plan(blk)}", got, want, exact=True)
+            if name in ("gate/up", "head"):
+                tile = dse.default_block_for(m, n, k, H100)
+                extra = ({"prep_ms": time_ms(lambda: q16_prep_only(xq, wq))}
+                         if route == "wgmma" else None)
+                book.timing(
+                    f"matmul_q16.{route}",
+                    f"qwen2 {name} ({m},{k})@({k},{n}) int16 {_plan(blk)}",
+                    record=route == "wgmma",
+                    kernel_fn=lambda: matmul_q16_cuda(xq, wq, bq, **qkw),
+                    plain_fn=lambda: matmul_q16_plain(xq, wq, bq, **pkw), library_fn=None,
+                    library=Q16_NO_LIBRARY, nbytes_=nbytes(xq, wq, bq) + m * n * 2,
+                    ops=2 * m * n * k, peak=PEAK_INT8 / 4, extra=extra,
+                    tile_fn=lambda: matmul_q16_cuda(xq, wq, bq, **{**qkw, "block": tile}))
+            del xq, got, again, want
+        del wq, bq
 
 #: ``--flash-pv-study``: flash_wgmma.cuh's PV step (a fresh accumulator a kv
 #: tile, added to the rescaled O on the CUDA cores) and the variant it
@@ -1110,10 +1219,13 @@ def phase_wgmma_threshold(torch, dev):
     """``--gemm-route-study``: where route W starts to beat route L on bf16,
     on gate / up's n and k at small m (the planner sends m <= 16 to split-k
     and every larger m to W), and at the full prefill m the two compiled
-    wgmma tiles side by side."""
+    wgmma tiles side by side; then the q16 GEMM's split-k and wgmma routes
+    on the same n and k in int16 from m = 1 to 64."""
     from repro_torch.core import dse
     from repro_torch.core.tiling import H100, MatmulBlock
     from repro_torch.kernels.matmul_fp import matmul_fp_cuda, plan_for
+    from repro_torch.kernels.matmul_q16 import matmul_q16_cuda
+    from repro_torch.kernels.matmul_q16 import plan_for as q16_plan_for
 
     n, k = 4864, 896
     w = _randn(torch, (k, n), dev, 210, k ** -0.5).to(torch.bfloat16)
@@ -1128,6 +1240,25 @@ def phase_wgmma_threshold(torch, dev):
               "tile": _plan(tile), "planned": _plan(plan_for(x, w))})
         del x
     del w
+
+    # the q16 GEMM on the same n and k in int16: route "splitk" (m <= 16)
+    # against route "wgmma" (any m) on both sides of splitk_max_m, which
+    # sets the planner's bound between the two
+    wq = _raws(torch, (k, n), torch.int16, dev, 212)
+    wg = MatmulBlock(128, 64, 128, route="wgmma")
+    for m in (1, 2, 4, 8, 12, 16, 17, 24, 32, 64):
+        xq = _raws(torch, (m, k), torch.int16, dev, 213)
+        row = {"phase": "wgmma_threshold", "kernel": "matmul_q16", "m": m, "n": n, "k": k,
+               "dtype": "int16", "wgmma_128x64_ms": time_ms(
+                   lambda: matmul_q16_cuda(xq, wq, block=wg)),
+               "planned": _plan(q16_plan_for(xq, wq))}
+        if m <= H100.splitk_max_m:
+            sk = dse.default_q16_block_for(m, n, k, H100)
+            row.update({"splitk_ms": time_ms(lambda: matmul_q16_cuda(xq, wq, block=sk)),
+                        "splitk": _plan(sk)})
+        emit(row)
+        del xq
+    del wq
 
 
 # ---------------------------------------------------------------------------
@@ -1285,13 +1416,20 @@ def phase_serving(torch, dev):
             want.update({"matmul_fp.wgmma": 7 * cfg.n_layers,
                          "matmul_fp.splitk": want[kernel] - 7 * cfg.n_layers,
                          "matmul_fp.tile": 0, "matmul_q16": 0})
-        else:  # the grid-resident path never reaches the float GEMM
-            want["matmul_fp"] = 0
+        else:
+            # the grid-resident path never reaches the float GEMM; its
+            # prefill's 7 GEMMs a layer (m = 4 x 4096, int16) run on the q16
+            # GEMM's tensor cores, each after a preparation launch; its head
+            # (m = 4) and every decode GEMM stream on split-k
+            want.update({"matmul_fp": 0, "matmul_q16.wgmma": 7 * cfg.n_layers,
+                         "matmul_q16.prep": 7 * cfg.n_layers,
+                         "matmul_q16.splitk": want[kernel] - 7 * cfg.n_layers,
+                         "matmul_q16.tile": 0})
         for name, n in want.items():
             if launches[name] != n:
                 raise AssertionError(f"{numerics}: {name} launched {launches[name]} times, "
                                      f"want {n} (flash once per layer per prefill on "
-                                     f"route wgmma, never in decode; float GEMMs by route)")
+                                     f"route wgmma, never in decode; GEMMs by route)")
         assert stream.shape == (QWEN_PROMPTS, QWEN_GEN)
         # replay the stream teacher-forced through the same kernels (and, on
         # the grid, count islands and clipped raws), then through the plain path
@@ -1346,7 +1484,9 @@ def _qleaves(tree):
 
 
 def profile_window(torch, fn, *, groups=("flash_attention_prep", "flash_attention",
-                                         "wgmma_kernel", "splitk", "gemm_kernel"),
+                                         "q16wg::prep_kernel", "q16_wgmma_kernel",
+                                         "wgmma_kernel", "splitk", "split_reduce",
+                                         "gemm_kernel"),
                    host_ops: bool = False) -> dict:
     """``fn`` once under ``torch.profiler``: its wall time, the device's
     busy time and share of it, device time by group (kernels whose name
@@ -1452,21 +1592,27 @@ def phase_serve_cli(torch):
           "tokens": out.tolist(), "seconds": time.perf_counter() - t0})
 
 
-#: the ``kernels`` line: one row per kernel, and for the float GEMM and the
+#: the ``kernels`` line: one row per kernel, and for the two GEMMs and the
 #: float conv one per route of the main paths (record name -> kernel, route,
-#: source, TPU kernel); the GEMM's route "tile" serves no main-path call and
-#: is checked above.  A row's launches are its wrapper's calls, one launch of
-#: the kernel each; route "splitk" adds its reduction pass's launches as
-#: ``reduce_launches``, the conv's route "tc" its weight preparation's and
-#: Cin-split reduction's as ``prep_launches`` and ``reduce_launches``
+#: source, TPU kernel); the GEMMs' route "tile" serves no main-path call and
+#: is checked (float) or timed beside the other routes (q16) above.  A row's
+#: launches are its wrapper's calls, one launch of the kernel each; route
+#: "splitk" adds its reduction pass's launches as ``reduce_launches``, the
+#: q16 route "wgmma" its preparation's as ``prep_launches``, the conv's
+#: route "tc" its weight preparation's and Cin-split reduction's as
+#: ``prep_launches`` and ``reduce_launches``
 KERNEL_META = {
     "matmul_fp.wgmma": ("matmul_fp", "wgmma", "src/repro_torch/kernels/csrc/gemm_wgmma.cuh",
                         "src/repro/kernels/matmul_fp.py:76"),
     "matmul_fp.splitk": ("matmul_fp", "splitk",
                          "src/repro_torch/kernels/csrc/gemm_splitk.cuh",
                          "src/repro/kernels/matmul_fp.py:76"),
-    "matmul_q16": ("matmul_q16", "tile", "src/repro_torch/kernels/csrc/matmul_q16.cu",
-                   "src/repro/kernels/matmul_q16.py:71"),
+    "matmul_q16.wgmma": ("matmul_q16", "wgmma",
+                         "src/repro_torch/kernels/csrc/gemm_q16_wgmma.cuh",
+                         "src/repro/kernels/matmul_q16.py:71"),
+    "matmul_q16.splitk": ("matmul_q16", "splitk",
+                          "src/repro_torch/kernels/csrc/gemm_splitk.cuh",
+                          "src/repro/kernels/matmul_q16.py:71"),
     "conv2d.tc": ("conv2d", "tc", "src/repro_torch/kernels/csrc/conv2d_tc.cuh",
                   "src/repro/kernels/conv2d.py:329"),
     "conv2d.cudacore": ("conv2d", "cudacore", "src/repro_torch/kernels/csrc/conv2d.cu",
@@ -1564,9 +1710,11 @@ def main() -> int:
                                    "prep_ms", "bound_note", "bound_f32_ms",
                                    "max_abs_err_vs_split") if k in row},
         })
-        if key == "matmul_fp.splitk":
+        if key in ("matmul_fp.splitk", "matmul_q16.splitk"):
             kernels[-1]["reduce_launches"] = sum(
-                w["matmul_fp.splitk_reduce"] for w in windows.values())
+                w[f"{name}.splitk_reduce"] for w in windows.values())
+        if key == "matmul_q16.wgmma":
+            kernels[-1]["prep_launches"] = sum(w["matmul_q16.prep"] for w in windows.values())
         if key == "flash_attention.wgmma":
             kernels[-1]["prep_launches"] = sum(
                 w["flash_attention.prep"] for w in windows.values())

@@ -11,10 +11,10 @@ takes a spec:
   reference's choices over the whole zoo.
 * Under a :class:`~repro_torch.core.tiling.GpuSpec` the candidates are what
   the CUDA kernels take, and legality is the shared memory they really
-  use.  The q16 GEMM picks one of the compiled tiles
-  (:func:`default_block_for`); the float GEMM first picks its route from
-  the shape and the dtype, then the route's tile
-  (:func:`default_fp_block_for`).  The conv picks τ and the
+  use.  Both GEMMs first pick a route from the shape, then the route's
+  tile: the float GEMM from the dtype as well
+  (:func:`default_fp_block_for`), the q16 GEMM from its operands' widths
+  (:func:`default_q16_block_for`).  The conv picks τ and the
   Cin chunk that ``csrc/conv2d.cu`` stages per step; a GPU block always
   loads exactly its own tile's input window (the reference's ``dma``
   regime), so the plan leaves the output tile to the kernel's default.
@@ -49,7 +49,10 @@ __all__ = [
     "explore_conv_spatial",
     "default_block_for",
     "default_fp_block_for",
+    "default_q16_block_for",
     "fp_block_legal",
+    "q16_block_legal",
+    "q16_limb_products",
     "default_conv_tile_for",
     "direct_conv_vmem",
     "direct_conv_hbm_traffic",
@@ -153,8 +156,9 @@ _SPLITK_X_BYTES = 32 * 1024
 
 
 def _splitk_block(m: int, n: int, k: int, spec: GpuSpec) -> MatmulBlock:
-    """Route "splitk": pad m to a compiled row count, then cut k into as many
-    slices as put about ``_SPLITK_WAVES`` blocks on each SM."""
+    """Route "splitk" of either GEMM: pad m to a compiled row count, then cut
+    k into as many slices as put about ``_SPLITK_WAVES`` blocks on each SM.
+    x is staged in 4-byte values (f32, or int32 for the q16 GEMM)."""
     rows = min(r for r in spec.splitk_rows if r >= m)
     want = max(1, ceil_div(_SPLITK_WAVES * spec.sms, ceil_div(n, spec.splitk_cols)))
     most = _SPLITK_X_BYTES // (4 * rows) // 64 * 64
@@ -195,6 +199,13 @@ def default_fp_block_for(m: int, n: int, k: int, spec: Spec = TPU_V5E, *,
     return default_block_for(m, n, k, spec)
 
 
+def _splitk_legal(block: MatmulBlock, m: int, k: int, spec: GpuSpec) -> bool:
+    return (block.bm in spec.splitk_rows and m <= block.bm
+            and block.bn == spec.splitk_cols and block.bk % 64 == 0
+            and block.splits == ceil_div(k, block.bk)
+            and block.bm * block.bk * 4 <= spec.smem_per_block)
+
+
 def fp_block_legal(block: MatmulBlock, m: int, n: int, k: int, *, dtype_bytes: int,
                    spec: GpuSpec) -> bool:
     """Whether the float GEMM kernel takes ``block`` for this call: a
@@ -209,10 +220,65 @@ def fp_block_legal(block: MatmulBlock, m: int, n: int, k: int, *, dtype_bytes: i
         return (tile in spec.wgmma_tiles and block.splits == 1 and dtype_bytes == 2
                 and k % 8 == 0 and n % 8 == 0)
     if block.route == "splitk":
-        return (block.bm in spec.splitk_rows and m <= block.bm
-                and block.bn == spec.splitk_cols and block.bk % 64 == 0
-                and block.splits == ceil_div(k, block.bk)
-                and block.bm * block.bk * 4 <= spec.smem_per_block)
+        return _splitk_legal(block, m, k, spec)
+    return False
+
+
+def q16_limb_products(xbits: int, wbits: int) -> int:
+    """The s8 / u8 wgmmas one k step of route "wgmma" issues for a width
+    mix: an int16 operand is two limbs (a signed high byte, an unsigned low
+    one), an int8 operand one, so 4, 2 or 1."""
+    for bits in (xbits, wbits):
+        if bits not in (8, 16):
+            raise ValueError(f"the q16 GEMM takes 8- or 16-bit raws, not {bits}")
+    return (xbits // 8) * (wbits // 8)
+
+
+def _q16_wgmma_tile_legal(tile, xbits: int, wbits: int, spec: GpuSpec) -> bool:
+    """BN 64 takes every width mix; a wider tile only mixes with at most two
+    limb products (int16 x int16 keeps three s32 accumulators, hh, hl + lh
+    and ll, which at BN 128 would be 192 registers a thread)."""
+    return tile in spec.q16_wgmma_tiles and (
+        tile[1] <= 64 or q16_limb_products(xbits, wbits) <= 2)
+
+
+def default_q16_block_for(m: int, n: int, k: int, spec: Spec = TPU_V5E, *,
+                          xbits: int = 16, wbits: int = 16) -> MatmulBlock:
+    """The q16 GEMM's plan for one call: its route, then the route's tile.
+
+    Under a GpuSpec: m <= ``splitk_max_m`` streams w on route "splitk"
+    (the same plan for every width mix: x is staged as int32); every larger
+    m, at any k and n, takes the tensor cores on route "wgmma" (its
+    preparation launch pads k), on the legal tile of ``q16_wgmma_tiles`` for
+    the widths with the best :func:`_gpu_block_score`, the wider on a tie.
+    A plan for the default widths (16, 16) is legal for every mix.  Route
+    "tile" is taken only when a caller names it.  Under a TpuSpec it is
+    :func:`default_block_for`, the reference's block.
+    """
+    if not isinstance(spec, GpuSpec):
+        return default_block_for(m, n, k, spec)
+    if m <= spec.splitk_max_m:
+        return _splitk_block(m, n, k, spec)
+    tiles = [t for t in spec.q16_wgmma_tiles if _q16_wgmma_tile_legal(t, xbits, wbits, spec)]
+    bm, bn, bk = max(tiles, key=lambda t: (
+        _gpu_block_score(MatmulBlock(*t), m, n, spec), t[1]))
+    return MatmulBlock(bm, bn, bk, route="wgmma")
+
+
+def q16_block_legal(block: MatmulBlock, m: int, n: int, k: int, *, xbits: int,
+                    wbits: int, spec: GpuSpec) -> bool:
+    """Whether the q16 GEMM kernel takes ``block`` for this call: route
+    "tile" one of the compiled tiles, "splitk" the route's row counts,
+    columns and k slices (as the float GEMM's), "wgmma" a compiled tile that
+    takes this width mix, at any m, n and k."""
+    tile = (block.bm, block.bn, block.bk)
+    if block.route == "tile":
+        return (tile in spec.gemm_tiles and block.splits == 1
+                and block.smem_bytes() <= spec.smem_per_block)
+    if block.route == "wgmma":
+        return block.splits == 1 and _q16_wgmma_tile_legal(tile, xbits, wbits, spec)
+    if block.route == "splitk":
+        return _splitk_legal(block, m, k, spec)
     return False
 
 

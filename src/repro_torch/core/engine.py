@@ -68,15 +68,18 @@ class PlanRegistry:
         self.misses = 0
 
     def block_for(self, m: int, n: int, k: int, spec: Spec = H100, *,
-                  kernel: str = "matmul_q16", dtype_bytes: int = 4) -> MatmulBlock:
+                  kernel: str = "matmul_q16", dtype_bytes: int = 4, xbits: int = 16,
+                  wbits: int = 16) -> MatmulBlock:
         """The memoized GEMM plan of one kernel for one call.  The key holds
         the kernel: the float GEMM ("matmul_fp") plans a route from the
         dtype as well (:func:`dse.default_fp_block_for`), the q16 GEMM
-        ("matmul_q16") one of its compiled tiles."""
+        ("matmul_q16") from its operands' widths ``xbits`` / ``wbits``, 8 or
+        16, whose limb products shape its tensor-core tile
+        (:func:`dse.default_q16_block_for`)."""
         if kernel == "matmul_fp":
             key = (kernel, m, n, k, dtype_bytes, spec)
         elif kernel == "matmul_q16":
-            key = (kernel, m, n, k, spec)
+            key = (kernel, m, n, k, xbits, wbits, spec)
         else:
             raise ValueError(f"no GEMM kernel {kernel!r}")
         blk = self._blocks.get(key)
@@ -85,7 +88,7 @@ class PlanRegistry:
             if kernel == "matmul_fp":
                 blk = dse.default_fp_block_for(m, n, k, spec, dtype_bytes=dtype_bytes)
             else:
-                blk = dse.default_block_for(m, n, k, spec)
+                blk = dse.default_q16_block_for(m, n, k, spec, xbits=xbits, wbits=wbits)
             self._blocks[key] = blk
         else:
             self.hits += 1
@@ -268,17 +271,20 @@ class Engine:
 
     # -- planning ------------------------------------------------------------
 
-    def block_for(self, m: int, n: int, k: int, *, dtype=torch.float32) -> MatmulBlock:
+    def block_for(self, m: int, n: int, k: int, *, dtype=torch.float32, xbits: int = 16,
+                  wbits: int = 16) -> MatmulBlock:
         """The GEMM plan for one call: config override or cached DSE.  The
         cuda backend plans the float GEMM (its route follows m and
-        ``dtype``), the q16 backend the fixed-point GEMM."""
+        ``dtype``), the q16 backend the fixed-point GEMM (its route follows
+        m, its tile the raws' widths ``xbits`` / ``wbits``; the default,
+        16 and 16, plans a tile every width mix takes)."""
         if self.config.block is not None:
             return clamp_block(m, n, k, self.config.block, self.config.hw)
         if self.config.backend == "cuda":
             return self.plan_cache.block_for(
                 m, n, k, self.config.hw, kernel="matmul_fp",
                 dtype_bytes=torch.finfo(dtype).bits // 8)
-        return self.plan_cache.block_for(m, n, k, self.config.hw)
+        return self.plan_cache.block_for(m, n, k, self.config.hw, xbits=xbits, wbits=wbits)
 
     def plan_gemm(self, m: int, n: int, k: int, *, mesh=None,
                   partition=None) -> GemmPlan:
@@ -469,7 +475,9 @@ class Engine:
         acc_frac = x.fmt.frac_bits + w.fmt.frac_bits
         b_raw, bias_shift = self._qbias_operand(bias, acc_frac)
         self.counters["gemm_q16"] += 1
-        block = plan.block if plan is not None and plan.block is not None else self.block_for(m, n, k)
+        block = plan.block if plan is not None and plan.block is not None else \
+            self.block_for(m, n, k, xbits=8 * x.raw.element_size(),
+                           wbits=8 * w.raw.element_size())
         out = kops.matmul_q16(
             x2.raw, w.raw, bias=b_raw, relu=relu, fmt=out_fmt,
             shift=acc_frac - out_fmt.frac_bits, bias_shift=bias_shift,
@@ -559,7 +567,8 @@ class Engine:
             self.counters["quantize_calls"] += 2 if bias is None else 3
             self.counters["dequantize_calls"] += 1
             fmt = self.config.qformat
-            block = plan.block if plan is not None and plan.block is not None else self.block_for(m, n, k)
+            block = plan.block if plan is not None and plan.block is not None else \
+                self.block_for(m, n, k, xbits=fmt.total_bits, wbits=fmt.total_bits)
             qres = kops.matmul_q16(
                 quantize(x2, fmt), quantize(w, fmt),
                 bias=None if bias is None else quantize(bias, fmt),

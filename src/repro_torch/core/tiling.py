@@ -8,11 +8,11 @@ Two specs live here:
   runs under it.
 * :class:`GpuSpec` / ``H100`` — what the port plans against.  Its limits are
   the CUDA kernels' own: the GEMM tiles they are compiled for, the routes
-  of the float GEMM, the threads of a block, and the shared memory a block
-  may take.
+  of the float and the fixed-point GEMM, the threads of a block, and the
+  shared memory a block may take.
 
 :class:`MatmulBlock` is one GEMM tile (bm, bn, bk) under either spec; under
-a GpuSpec it also names the float GEMM's route (``FP_ROUTES``).
+a GpuSpec it also names the GEMM's route (``FP_ROUTES``, ``Q16_ROUTES``).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Union
 __all__ = [
     "CONV_ROUTES",
     "FP_ROUTES",
+    "Q16_ROUTES",
     "GpuSpec",
     "H100",
     "MatmulBlock",
@@ -35,11 +36,17 @@ __all__ = [
 
 
 #: the float GEMM's routes (``csrc/matmul_fp.cu``): "tile" is the block-tiled
-#: CUDA-core GEMM of ``csrc/gemm.cuh`` (route L, the q16 kernel's only one),
-#: "splitk" the split-k weight stream of ``csrc/gemm_splitk.cuh`` (route S,
-#: m <= 16), "wgmma" the tensor-core pipeline of ``csrc/gemm_wgmma.cuh``
-#: (route W, bf16 with large m)
+#: CUDA-core GEMM of ``csrc/gemm.cuh`` (route L), "splitk" the split-k weight
+#: stream of ``csrc/gemm_splitk.cuh`` (route S, m <= 16), "wgmma" the
+#: tensor-core pipeline of ``csrc/gemm_wgmma.cuh`` (route W, bf16 with large m)
 FP_ROUTES = ("tile", "splitk", "wgmma")
+
+#: the fixed-point GEMM's routes (``csrc/matmul_q16.cu``): "tile" is the same
+#: block-tiled CUDA-core GEMM (taken only when a plan names it), "splitk" the
+#: integer instantiation of ``csrc/gemm_splitk.cuh`` (m <= 16), "wgmma" the
+#: s8 / u8 limb products on the tensor cores of ``csrc/gemm_q16_wgmma.cuh``
+#: (every larger m)
+Q16_ROUTES = ("tile", "splitk", "wgmma")
 
 #: the float direct conv's routes (``csrc/conv2d.cu``): "cudacore" is its
 #: CUDA-core ``conv_kernel`` (every fixed-point conv, and the float convs
@@ -88,6 +95,14 @@ class GpuSpec:
       k, n multiples of 8 (TMA's 16-byte row strides), on the
       ``wgmma_tiles`` (its ``BM`` x ``BN`` x ``BK``, ``BN`` 128 or 256).
 
+    The fixed-point GEMM's routes (``Q16_ROUTES``): "splitk" is the integer
+    instantiation of the same header, with the same rows, columns and
+    bound; "wgmma"
+    (``csrc/gemm_q16_wgmma.cuh``) every larger m, on the ``q16_wgmma_tiles``
+    (its ``BM`` x ``BN`` x ``BK``, ``BK`` in bytes of k): ``BN`` 64 takes
+    every width mix, ``BN`` 128 only those with at most two limb products
+    (an int8 operand), whose accumulators fit the registers at that width.
+
     Flash attention's routes: "simt" (``csrc/flash_attention.cu``) is
     compiled for the ``flash_head_dims``, "wgmma" (``csrc/flash_wgmma.cuh``)
     for the ``flash_wgmma_head_dims``.
@@ -108,6 +123,7 @@ class GpuSpec:
     wgmma_tiles: tuple = ((128, 128, 64), (128, 256, 64))
     splitk_rows: tuple = (1, 2, 4, 8, 16)
     splitk_cols: int = 256
+    q16_wgmma_tiles: tuple = ((128, 64, 128), (128, 128, 128))
     conv_taus: tuple = (8, 16, 32, 64, 128, 256)
     conv_threads: int = 256
     #: conv2d_tc.cuh: the τ that launch_conv_tc instantiates (launch_tau<64 / 128>)
@@ -132,10 +148,10 @@ class MatmulBlock:
     """One GEMM tile: ``bm`` rows x ``bn`` columns of output, ``bk`` deep per
     step of the reduction loop.
 
-    ``route`` is the float GEMM's route (one of ``FP_ROUTES``; the q16 GEMM
-    and every TPU plan take "tile").  On route "splitk" ``bm`` is the
-    compiled row count m is padded to, ``bn`` the columns of one block,
-    ``bk`` the k slice of one block and ``splits`` the number of slices.
+    ``route`` is the GEMM's route (one of ``FP_ROUTES`` or ``Q16_ROUTES``;
+    every TPU plan takes "tile").  On route "splitk" ``bm`` is the compiled
+    row count m is padded to, ``bn`` the columns of one block, ``bk`` the k
+    slice of one block and ``splits`` the number of slices.
     """
 
     bm: int = 512

@@ -43,18 +43,21 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = {"matmul_fp": "matmul_fp.cu", "matmul_q16": "matmul_q16.cu",
            "conv2d": "conv2d.cu", "flash_attention": "flash_attention.cu"}
 #: every kernel a wrapper launches, by the name its launch count goes under;
-#: the float GEMM also counts each call under its route's name
-#: ("matmul_fp.<route>", ``core.tiling.FP_ROUTES``), and route "splitk"'s
-#: second launch, the reduction pass of a call cut into several k slices,
-#: as "matmul_fp.splitk_reduce"; the float conv likewise counts each call
-#: under its route ("conv2d.<route>", ``core.tiling.CONV_ROUTES``), and
+#: both GEMMs also count each call under its route's name
+#: ("matmul_fp.<route>", ``core.tiling.FP_ROUTES``; "matmul_q16.<route>",
+#: ``core.tiling.Q16_ROUTES``), and route "splitk"'s second launch, the
+#: reduction pass of a call cut into several k slices, as
+#: "<kernel>.splitk_reduce"; the q16 GEMM's route "wgmma" counts its
+#: preparation launch as "matmul_q16.prep"; the float conv likewise counts
+#: each call under its route ("conv2d.<route>", ``core.tiling.CONV_ROUTES``), and
 #: route "tc"'s weight preparation and Cin-split reduction launches as
 #: "conv2d.tc_prep" and "conv2d.tc_reduce"; flash attention counts each call
 #: under its route ("flash_attention.simt" or ".wgmma", ``core.dse.plan_flash``),
 #: and route "wgmma"'s preparation launch as "flash_attention.prep"
 KERNELS = ("matmul_fp", "matmul_fp.tile", "matmul_fp.splitk", "matmul_fp.splitk_reduce",
-           "matmul_fp.wgmma", "matmul_q16", "conv2d", "conv2d.cudacore", "conv2d.tc",
-           "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16", "flash_attention",
+           "matmul_fp.wgmma", "matmul_q16", "matmul_q16.tile", "matmul_q16.splitk",
+           "matmul_q16.splitk_reduce", "matmul_q16.wgmma", "matmul_q16.prep", "conv2d",
+           "conv2d.cudacore", "conv2d.tc", "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16", "flash_attention",
            "flash_attention.simt", "flash_attention.wgmma", "flash_attention.prep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,8 +75,11 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _F, _F, _F, _I, _P],
     },
     "matmul_q16": {
-        "matmul_q16_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _P],
+        "matmul_q16_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "matmul_q16_prep_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+        "matmul_q16_wgmma_launch": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "conv2d": {
         "conv2d_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _P],

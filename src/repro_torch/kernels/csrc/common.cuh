@@ -19,6 +19,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #ifndef REPRO_CPU_SHIM
 #include <cuda_runtime.h>
@@ -96,30 +97,6 @@ struct FloatEpilogue {
   }
 };
 
-// The second pass of a reduction cut across blocks (gemm_splitk.cuh's k
-// slices, conv2d_tc.cuh's Cin split): out = epilogue(sum of the (splits, m,
-// n) f32 partial sums), added in split order.  No atomics: the same bits on
-// every run.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    split_reduce_kernel(const float* __restrict__ part, T* __restrict__ out, int m, int n,
-                        int splits, FloatEpilogue epi) {
-  const size_t mn = static_cast<size_t>(m) * n;
-  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) s += part[sp * mn + i];
-  out[i] = epi.template apply<T>(s, static_cast<int>(i % n));
-}
-
-template <typename T>
-inline int launch_split_reduce(const float* part, T* out, int m, int n, int splits,
-                               const FloatEpilogue& epi, cudaStream_t stream) {
-  const size_t mn = static_cast<size_t>(m) * n;
-  const dim3 grid(static_cast<unsigned>((mn + 255) / 256));
-  LAUNCH(split_reduce_kernel<T>, grid, dim3(256), 0, stream, part, out, m, n, splits, epi);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Fixed-point epilogue (matmul_q16.py:_qmm_kernel, conv2d.py:_q16_epilogue):
 // + (bias << bias_shift) -> ReLU on int32 -> shift_saturate onto the output
@@ -140,6 +117,62 @@ struct IntEpilogue {
     return static_cast<TO>(shift_saturate(a, shift, raw_min, raw_max));
   }
 };
+
+// IntEpilogue onto a rung chosen at run time: obits 16 or 8 (the int16 or
+// int8 rung) or 32 (the raw int32 accumulator, ``wide``).  The q16 GEMM's
+// split-k and wgmma routes take it, so each of their kernels is compiled
+// once per width mix and not once more per rung.
+struct IntRungEpilogue {
+  IntEpilogue epi;
+  int obits;
+
+  __device__ __forceinline__ void put(void* out, size_t i, uint32_t acc, int col) const {
+    if (obits == 16)
+      static_cast<int16_t*>(out)[i] = epi.apply<int16_t>(acc, col);
+    else if (obits == 8)
+      static_cast<int8_t*>(out)[i] = epi.apply<int8_t>(acc, col);
+    else
+      static_cast<int32_t*>(out)[i] = epi.apply<int32_t>(acc, col);
+  }
+};
+
+// Write one result: the epilogue's value as TO, or, for TO = void, the rung
+// an IntRungEpilogue names.
+template <typename TO, typename Epi, typename TA>
+__device__ __forceinline__ void put_out(TO* out, size_t i, const Epi& epi, TA acc, int col) {
+  if constexpr (std::is_void<TO>::value) {
+    epi.put(out, i, acc, col);
+  } else {
+    out[i] = epi.template apply<TO>(acc, col);
+  }
+}
+
+// The second pass of a reduction cut across blocks (gemm_splitk.cuh's k
+// slices, conv2d_tc.cuh's Cin split): out = epilogue(sum of the (splits, m,
+// n) partial sums), added in split order.  No atomics: the same bits on
+// every run.  TA is the accumulator: f32 partial sums under FloatEpilogue,
+// uint32_t (an int32 that wraps) under IntRungEpilogue (TO = void).
+template <typename TO, typename TA, typename Epi>
+__global__ void __launch_bounds__(256)
+    split_reduce_kernel(const TA* __restrict__ part, TO* __restrict__ out, int m, int n,
+                        int splits, Epi epi) {
+  const size_t mn = static_cast<size_t>(m) * n;
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= mn) return;
+  TA s = TA(0);
+  for (int sp = 0; sp < splits; ++sp) s += part[sp * mn + i];
+  put_out(out, i, epi, s, static_cast<int>(i % n));
+}
+
+template <typename TO, typename TA, typename Epi>
+inline int launch_split_reduce(const TA* part, TO* out, int m, int n, int splits,
+                               const Epi& epi, cudaStream_t stream) {
+  const size_t mn = static_cast<size_t>(m) * n;
+  const dim3 grid(static_cast<unsigned>((mn + 255) / 256));
+  auto kfn = split_reduce_kernel<TO, TA, Epi>;
+  LAUNCH(kfn, grid, dim3(256), 0, stream, part, out, m, n, splits, epi);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace repro
 

@@ -1,4 +1,4 @@
-// The block-tiled GEMM: route "tile" (L) of matmul_fp.cu, and the whole of
+// The block-tiled GEMM: route "tile" (L) of matmul_fp.cu and of
 // matmul_q16.cu.
 //
 // Replaces the TPU kernels repro/kernels/matmul_fp.py:_mm_kernel (via
@@ -13,12 +13,13 @@
 // with batch-8 m the weight read, 3.35 TB/s.  This kernel is plain: each
 // k-step stages an x tile and a w tile in shared memory (widened to 4
 // bytes), and each of the 256 threads accumulates a TM x TN register tile
-// on CUDA cores.  It is the fixed-point GEMM's only route (int16 has no
-// MMA, and its results are held bit for bit).  The float GEMM takes it only
-// for f32 with m > 16 (f32 stays f32: the reference holds it at 1e-4,
-// which TF32 misses) and for bf16 shapes that TMA cannot address; bf16 with
-// large m runs on the tensor cores (gemm_wgmma.cuh) and every m <= 16 on
-// the split-k stream (gemm_splitk.cuh).
+// on CUDA cores.  The float GEMM takes it only for f32 with m > 16 (f32
+// stays f32: the reference holds it at 1e-4, which TF32 misses) and for
+// bf16 shapes that TMA cannot address; bf16 with large m runs on the
+// tensor cores (gemm_wgmma.cuh) and every m <= 16 on the split-k stream
+// (gemm_splitk.cuh).  The fixed-point GEMM takes it only when a plan names
+// it: its raws run on the split-k stream for m <= 16 and on the int8 tensor
+// cores as signed / unsigned byte limbs above (gemm_q16_wgmma.cuh).
 //
 // TB (transposed B) reads w as an (n, k) row-major matrix: the tied LM head
 // multiplies by the (vocab, d) embedding table as it is stored, so no

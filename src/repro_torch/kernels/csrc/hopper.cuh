@@ -1,12 +1,14 @@
 // PTX wrappers and the tensor-map encoder shared by the port's Hopper
 // (sm_90a) tensor-core kernels: the float GEMM's route W (gemm_wgmma.cuh),
-// the float direct conv's tensor-core route (conv2d_tc.cuh) and flash
-// attention's route wgmma (flash_wgmma.cuh).
+// the q16 GEMM's route wgmma (gemm_q16_wgmma.cuh), the float direct conv's
+// tensor-core route (conv2d_tc.cuh) and flash attention's route wgmma
+// (flash_wgmma.cuh).
 //
 // mbarriers, TMA loads (2-D and 4-D tensor maps) and stores, the wgmma
 // shared-memory descriptor of a 128-byte-swizzled operand, the wgmma
-// fence / commit / wait instructions, and the bf16 wgmmas with both
-// operands in shared memory at N = 128 and 256.  cuTensorMapEncodeTiled is found
+// fence / commit / wait instructions, the bf16 wgmmas with both operands
+// in shared memory at N = 128 and 256, and the s8 / u8 wgmmas (s32
+// accumulators) at N = 64 and 128.  cuTensorMapEncodeTiled is found
 // through cudaGetDriverEntryPoint, so no library links libcuda.
 //
 // All of it is inline PTX for sm_90a, so none of it exists under the CPU
@@ -115,8 +117,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-// The same for a register-A operand: its registers stay live, and are not
-// reused, until the wgmma that reads them has been waited for.
+// The same for s32 accumulators, and for a register-A operand: its
+// registers stay live, and are not reused, until the wgmma that reads them
+// has been waited for.
 template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 #pragma unroll
@@ -181,6 +184,76 @@ __device__ __forceinline__ void mma_m64n256k16(float (&d)[128], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1), "n"(TNSP_B));
 }
 
+#define REPRO_MMA_I8_N64(TYPES)                                                  \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32" TYPES " {"                  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p;\n}\n"                                                   \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]) \
+      : "l"(da), "l"(db), "r"(1))
+
+// D (64 x 64, s32 in registers) += A (64 x 32) . B (32 x 64): 8-bit integers
+// from shared memory through descriptors, both K-major (8-bit wgmma has no
+// transpose); AU / BU: A / B unsigned (u8), else signed (s8).  No scale-a/b
+// or transpose immediates, and no .satfinite: the s32 sums wrap mod 2^32.
+template <bool AU, bool BU>
+__device__ __forceinline__ void mma_i8_m64n64k32(uint32_t (&d)[32], uint64_t da,
+                                                  uint64_t db) {
+  if constexpr (!AU && !BU) {
+    REPRO_MMA_I8_N64(".s8.s8");
+  } else if constexpr (!AU && BU) {
+    REPRO_MMA_I8_N64(".s8.u8");
+  } else if constexpr (AU && !BU) {
+    REPRO_MMA_I8_N64(".u8.s8");
+  } else {
+    REPRO_MMA_I8_N64(".u8.u8");
+  }
+}
+#undef REPRO_MMA_I8_N64
+
+#define REPRO_MMA_I8_N128(TYPES)                                                  \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32" TYPES " {"                  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p;\n}\n"                                                   \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), \
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), \
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), \
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]) \
+      : "l"(da), "l"(db), "r"(1))
+
+// D (64 x 128, s32 in registers) += A (64 x 32) . B (32 x 128): 8-bit integers
+// from shared memory through descriptors, both K-major (8-bit wgmma has no
+// transpose); AU / BU: A / B unsigned (u8), else signed (s8).  No scale-a/b
+// or transpose immediates, and no .satfinite: the s32 sums wrap mod 2^32.
+template <bool AU, bool BU>
+__device__ __forceinline__ void mma_i8_m64n128k32(uint32_t (&d)[64], uint64_t da,
+                                                  uint64_t db) {
+  if constexpr (!AU && !BU) {
+    REPRO_MMA_I8_N128(".s8.s8");
+  } else if constexpr (!AU && BU) {
+    REPRO_MMA_I8_N128(".s8.u8");
+  } else if constexpr (AU && !BU) {
+    REPRO_MMA_I8_N128(".u8.s8");
+  } else {
+    REPRO_MMA_I8_N128(".u8.u8");
+  }
+}
+#undef REPRO_MMA_I8_N128
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -216,6 +289,23 @@ inline bool make_map_2d(CUtensorMap* map, const void* ptr, long long rows, int c
   const cuuint32_t estride[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
              box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A rows x cols matrix of bytes, rows ``stride`` bytes apart (a multiple
+// of 16), read in boxes of box_rows x 128 columns (128 bytes) with the
+// 128-byte swizzle; zero fill past its edges.
+inline bool make_map_bytes(CUtensorMap* map, const void* ptr, long long rows, long long cols,
+                           long long stride, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estride[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+             estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -42,6 +42,9 @@ __all__ = [
     "attention_ref",
     "attention_split_bf16",
     "bf16_split",
+    "matmul_q16_limbs",
+    "q16_limb_planes",
+    "q16_limbs",
 ]
 
 
@@ -290,3 +293,51 @@ def attention_split_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
     return out.to(q.dtype).reshape(b, hq, sq, d)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-point GEMM's tensor-core arithmetic
+# ---------------------------------------------------------------------------
+
+
+def q16_limbs(t: torch.Tensor) -> list[tuple[torch.Tensor, int]]:
+    """A raw tensor as its 8-bit limbs, (int32 values, weight's shift) each:
+    int16 -> [(hi, 8), (lo, 0)], hi = t >> 8 (arithmetic: a signed byte) and
+    lo = t & 0xFF (an unsigned byte), so t = hi·2^8 + lo exactly; int8 ->
+    [(t, 0)], one signed byte."""
+    v = t.to(torch.int32)
+    if t.dtype == torch.int8:
+        return [(v, 0)]
+    if t.dtype != torch.int16:
+        raise TypeError(f"q16 limbs of int8 or int16 raws, not {t.dtype}")
+    return [(v >> 8, 8), (v & 0xFF, 0)]
+
+
+def q16_limb_planes(t: torch.Tensor, kp: int) -> torch.Tensor:
+    """The q16 GEMM's preparation launch for one operand: t (rows, k) raws
+    -> (limbs, rows, kp) uint8, each limb's bytes (the signed hi limb in
+    two's complement) and zeros in the columns from k to kp.  x is passed
+    as it is; w (k, n) as ``w.t()``, whose planes are then (n, kp): the
+    transposed, K-major operand 8-bit wgmma takes."""
+    rows, k = t.shape
+    out = torch.zeros((len(q16_limbs(t)), rows, kp), dtype=torch.uint8, device=t.device)
+    for i, (limb, _) in enumerate(q16_limbs(t)):
+        out[i, :, :k] = (limb & 0xFF).to(torch.uint8)
+    return out
+
+
+def matmul_q16_limbs(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The q16 GEMM's route "wgmma" (``csrc/gemm_q16_wgmma.cuh``) in its own
+    arithmetic: each operand split into limbs (:func:`q16_limbs`), every
+    limb product summed on its own with int32 wrap (an s32 wgmma
+    accumulator with no ``.satfinite``; hl and lh share one), then
+    recombined in uint32: hh·2^16 + (hl + lh)·2^8 + ll, mod 2^32.  Equal
+    to ``int_matmul_i32(xq, wq)`` bit for bit, since each per-limb sum is
+    exact mod 2^32.  No main-path code calls it."""
+    by_shift: dict = {}
+    for a, sa in q16_limbs(xq):
+        for b, sb in q16_limbs(wq):
+            part = int_matmul_i32(a, b).to(torch.int64)
+            by_shift[sa + sb] = wrap_i32(by_shift.get(sa + sb, 0) + part).to(torch.int64)
+    total = sum(acc << shift for shift, acc in by_shift.items())
+    return wrap_i32(total)

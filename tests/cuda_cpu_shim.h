@@ -38,6 +38,9 @@ struct alignas(16) float4 {
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
 template <class T>
 inline T __ldg(const T* p) {
   return *p;

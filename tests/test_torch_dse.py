@@ -158,9 +158,12 @@ def test_h100_plans_are_legal_for_the_kernels(net, backend, batch):
         hh, ww = geo.ho // (pool or 1), geo.wo // (pool or 1)
         ch = cout
     for gp in plan.fcs:
-        if backend == "q16":
-            assert (gp.block.bm, gp.block.bn, gp.block.bk) in H100.gemm_tiles
-            assert gp.block.smem_bytes() <= H100.smem_per_block
+        if backend == "q16":  # the q16 GEMM streams them on its split-k route too,
+            # with one plan for every width mix
+            assert gp.block.route == "splitk"
+            for xbits, wbits in ((16, 16), (16, 8), (8, 16), (8, 8)):
+                assert tdse.q16_block_legal(gp.block, gp.m, gp.n, gp.k, xbits=xbits,
+                                            wbits=wbits, spec=H100)
         else:  # the float GEMM streams the FC weights on its split-k route
             assert gp.block.route == "splitk"
             assert tdse.fp_block_legal(gp.block, gp.m, gp.n, gp.k, dtype_bytes=4, spec=H100)
@@ -301,8 +304,9 @@ def test_fp_route_bounds(m, n, k, db, route):
 
 
 def test_fp_routes_leave_q16_and_tpu_choices_unchanged():
-    """The q16 GEMM keeps default_block_for's compiled tiles; under the TPU
-    spec the float planner is the reference's block search."""
+    """default_block_for (route "tile"'s search, which the q16 GEMM takes
+    when a plan names it) keeps its compiled tiles; under the TPU spec the
+    float planner is the reference's block search."""
     for m, n, k in [(8, 4096, 25088), (16384, 4864, 896), (4, 896, 4864), (6272, 512, 4608)]:
         assert tdse.default_block_for(m, n, k, H100).route == "tile"
         assert (tdse.default_fp_block_for(m, n, k, TPU_V5E, dtype_bytes=2)
@@ -329,16 +333,17 @@ def test_registry_key_separates_the_two_gemm_kernels():
     """One shape planned for the float and the q16 GEMM: two entries, each
     the kernel's own choice, so neither receives the other's tile."""
     reg = PlanRegistry()
-    q = reg.block_for(8, 4096, 25088, H100)
-    f = reg.block_for(8, 4096, 25088, H100, kernel="matmul_fp", dtype_bytes=4)
-    assert q == MatmulBlock(16, 64, 16) and f.route == "splitk"
-    assert reg.block_for(8, 4096, 25088, H100, kernel="matmul_q16") is q
+    q = reg.block_for(16384, 4864, 896, H100)
+    f = reg.block_for(16384, 4864, 896, H100, kernel="matmul_fp", dtype_bytes=2)
+    assert q == MatmulBlock(128, 64, 128, route="wgmma")
+    assert f == MatmulBlock(128, 256, 64, route="wgmma")
+    assert reg.block_for(16384, 4864, 896, H100, kernel="matmul_q16") is q
     # the float plan is keyed by dtype as well
     f2 = reg.block_for(16384, 4864, 896, H100, kernel="matmul_fp", dtype_bytes=2)
     f4 = reg.block_for(16384, 4864, 896, H100, kernel="matmul_fp", dtype_bytes=4)
-    assert f2.route == "wgmma" and f4.route == "tile"
-    assert reg.block_for(8, 4096, 25088, H100, kernel="matmul_fp", dtype_bytes=4) is f
-    assert reg.stats()["gemm_blocks"] == 4 and reg.misses == 4 and reg.hits == 2
+    assert f2 is f and f4.route == "tile"
+    assert reg.block_for(16384, 4864, 896, H100, kernel="matmul_fp", dtype_bytes=2) is f
+    assert reg.stats()["gemm_blocks"] == 3 and reg.misses == 3 and reg.hits == 3
     with pytest.raises(ValueError):
         reg.block_for(8, 8, 8, H100, kernel="matmul")
 
@@ -353,8 +358,9 @@ def test_engines_plan_their_own_kernel():
     q16 = default_template("q16", device="cpu").engine
     assert fp.plan_cache is q16.plan_cache
     assert fp.plan_gemm(8, 4096, 25088).block.route == "splitk"
-    assert q16.plan_gemm(8, 4096, 25088).block == MatmulBlock(16, 64, 16)
-    assert fp.block_for(16384, 4864, 896, dtype=torch.bfloat16).route == "wgmma"
+    assert q16.plan_gemm(8, 4096, 25088).block.route == "splitk"
+    assert fp.block_for(16384, 4864, 896, dtype=torch.bfloat16).bn == 256
+    assert q16.plan_gemm(16384, 4864, 896).block == MatmulBlock(128, 64, 128, route="wgmma")
     pinned = Template(TemplateConfig(backend="cuda", device="cpu",
                                      block=MatmulBlock(64, 64, 16)))
     assert pinned.engine.plan_gemm(8, 4096, 25088).block == MatmulBlock(64, 64, 16)
@@ -577,3 +583,62 @@ def test_flash_planner_leaves_tpu_plans_unchanged():
         got = tdse.default_block_for(m, n, k, TPU_V5E)
         assert (got.bm, got.bn, got.bk) == (want.bm, want.bn, want.bk)
         assert tdse.default_fp_block_for(m, n, k, TPU_V5E, dtype_bytes=2) == got
+
+
+Q16_MIXES = [(16, 16), (16, 8), (8, 16), (8, 8)]
+
+
+@pytest.mark.parametrize("xbits,wbits", Q16_MIXES)
+@pytest.mark.parametrize("m,n,k", [
+    (1, 4096, 25088), (8, 4096, 25088), (16, 33, 130), (4, 151936, 896),
+    (17, 4864, 896), (16384, 4864, 896), (6272, 512, 4608), (40, 3, 5), (300, 1001, 77),
+])
+def test_q16_route_bounds(m, n, k, xbits, wbits):
+    """The q16 planner: m <= 16 streams w on route "splitk" (one plan for
+    every width mix), every larger m takes route "wgmma" at any k and n,
+    BN 64 for int16 x int16 (three s32 accumulators); each plan is legal
+    for its widths and the 16 x 16 plan for every mix."""
+    blk = tdse.default_q16_block_for(m, n, k, H100, xbits=xbits, wbits=wbits)
+    assert blk.route == ("splitk" if m <= 16 else "wgmma")
+    assert tdse.q16_block_legal(blk, m, n, k, xbits=xbits, wbits=wbits, spec=H100)
+    if blk.route == "splitk":
+        assert blk == tdse.default_q16_block_for(m, n, k, H100)
+    elif (xbits, wbits) == (16, 16):
+        assert (blk.bm, blk.bn, blk.bk) == (128, 64, 128)
+    wide = tdse.default_q16_block_for(m, n, k, H100)
+    for xb, wb in Q16_MIXES:
+        assert tdse.q16_block_legal(wide, m, n, k, xbits=xb, wbits=wb, spec=H100)
+
+
+def test_q16_block_legality_refuses_what_the_kernel_does_not_take():
+    wg128 = MatmulBlock(128, 128, 128, route="wgmma")
+    assert not tdse.q16_block_legal(wg128, 300, 300, 300, xbits=16, wbits=16, spec=H100)
+    assert tdse.q16_block_legal(wg128, 300, 300, 300, xbits=16, wbits=8, spec=H100)
+    assert not tdse.q16_block_legal(MatmulBlock(128, 64, 64, route="wgmma"), 300, 300, 300,
+                                    xbits=8, wbits=8, spec=H100)
+    assert not tdse.q16_block_legal(MatmulBlock(128, 64, 128, route="wgmma", splits=2), 300,
+                                    300, 300, xbits=8, wbits=8, spec=H100)
+    sk = MatmulBlock(4, 256, 128, route="splitk", splits=2)
+    assert tdse.q16_block_legal(sk, 4, 300, 256, xbits=16, wbits=16, spec=H100)
+    assert not tdse.q16_block_legal(sk, 5, 300, 256, xbits=16, wbits=16, spec=H100)
+    assert tdse.q16_block_legal(MatmulBlock(16, 64, 16), 300, 300, 300, xbits=16, wbits=16,
+                                spec=H100)
+    assert not tdse.q16_block_legal(MatmulBlock(32, 32, 32), 300, 300, 300, xbits=16,
+                                    wbits=16, spec=H100)
+    with pytest.raises(ValueError):
+        tdse.q16_limb_products(32, 16)
+    assert [tdse.q16_limb_products(*mix) for mix in Q16_MIXES] == [4, 2, 2, 1]
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("net", NETS)
+def test_q16_planner_leaves_tpu_plans_unchanged(net, batch):
+    """Under TPU_V5E the q16 planner is the reference's block search, for
+    every width mix, over the zoo's and qwen2's GEMM shapes."""
+    _, gemms, fcs = _layers(jcnn.CNN_ZOO[net], batch)
+    shapes = gemms + fcs + [(m, n, k) for m in (4, 16384) for n, k in _qwen_gemms(m)]
+    for m, n, k in shapes:
+        want = jdse.default_block_for(m, n, k, J_TPU)
+        for xbits, wbits in Q16_MIXES:
+            got = tdse.default_q16_block_for(m, n, k, TPU_V5E, xbits=xbits, wbits=wbits)
+            assert (got.bm, got.bn, got.bk, got.route) == (want.bm, want.bn, want.bk, "tile")

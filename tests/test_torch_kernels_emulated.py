@@ -6,13 +6,15 @@
 exactly as the wrappers do on the card, and the results are held against
 the plain versions: integers bit for bit, floats at 1e-4.  This checks the
 kernels' indexing, tiling, masking, Cin chunks, epilogues, the GEMM's
-transposed-B operand, the float GEMM's split-k route (both layouts, its
-slices and their fixed-order reduction) and flash attention's GQA indexing,
-causal block skip, ragged rows, ``q_offset`` and strided views at tiny
-shapes here; it says nothing about speed, and the card runs the real build.
-The float GEMM's wgmma route is inline PTX for sm_90a with no CPU
-counterpart (``csrc/gemm_wgmma.cuh`` is left out under the shim): only the
-card tests (``tests/test_torch_kernels_gpu.py``) run it.
+transposed-B operand, both GEMMs' split-k route (the float one in both
+layouts, the q16 one on every width mix; their slices and fixed-order
+reductions), the q16 GEMM's preparation launch (byte planes, transpose,
+zero pad) and flash attention's GQA indexing, causal block skip, ragged
+rows, ``q_offset`` and strided views at tiny shapes here; it says nothing
+about speed, and the card runs the real build.  The GEMMs' wgmma routes
+are inline PTX for sm_90a with no CPU counterpart (``csrc/gemm_wgmma.cuh``
+and the main kernel of ``csrc/gemm_q16_wgmma.cuh`` are left out under the
+shim): only the card tests (``tests/test_torch_kernels_gpu.py``) run them.
 """
 import ctypes
 import dataclasses
@@ -26,7 +28,7 @@ import torch
 from repro_torch.core import dse as tdse
 from repro_torch.core.quantization import Q2_6, Q2_14
 from repro_torch.core.tiling import H100, MatmulBlock
-from repro_torch.kernels import _build, conv2d, flash_attention, matmul_fp, matmul_q16
+from repro_torch.kernels import _build, conv2d, flash_attention, matmul_fp, matmul_q16, ref
 
 SHIM = Path(__file__).with_name("cuda_cpu_shim.h")
 NULL_STREAM = ctypes.c_void_p(0)
@@ -152,6 +154,120 @@ def test_gemm_splitk_epilogue_emulated(libs):
         matmul_fp.launch(libs["matmul_fp"], x, w, b, out, blk, True, Q2_14, 0, NULL_STREAM,
                          matmul_fp.workspace_for(blk, m, n, "cpu"))
         torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+
+
+Q16_SPLITK_CASES = [  # m, n, k, x dtype, w dtype, out rung, slice (None: the planner's)
+    (1, 300, 200, torch.int16, torch.int16, "int16", None),
+    (4, 70, 333, torch.int8, torch.int16, "int8", 64),     # ragged n (scalar loads)
+    (8, 260, 1000, torch.int16, torch.int8, "wide", None),  # vector loads, ragged tile
+    (16, 33, 130, torch.int8, torch.int8, "int16", 64),    # m = 16, four reduction passes
+    (3, 264, 700, torch.int16, torch.int16, "int8", 128),   # several slices, vector loads
+]
+
+
+@pytest.mark.parametrize("case", Q16_SPLITK_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_q16_splitk_route_emulated(libs, case):
+    """The q16 GEMM's route "splitk" (the integer instantiation of
+    csrc/gemm_splitk.cuh: int32-staged x, uint32_t multiply-adds, uint32_t
+    partial sums reduced in slice order with IntEpilogue) bit for bit equal
+    to the plain version, on one slice and on several, and on a second
+    launch."""
+    m, n, k, xd, wd, rung, piece = case
+    g = torch.Generator().manual_seed(m * n + k)
+    xq, wq, bq = _raws((m, k), xd, g), _raws((k, n), wd, g), _raws((n,), torch.int16, g)
+    blk = tdse.default_q16_block_for(m, n, k, H100, xbits=8 * xq.element_size(),
+                                     wbits=8 * wq.element_size())
+    if piece is not None:
+        blk = MatmulBlock(blk.bm, blk.bn, piece, route="splitk", splits=-(-k // piece))
+    assert blk.route == "splitk"
+    assert tdse.q16_block_legal(blk, m, n, k, xbits=8 * xq.element_size(),
+                                wbits=8 * wq.element_size(), spec=H100)
+    fmt = Q2_6 if rung == "int8" else Q2_14
+    wide = rung == "wide"
+    od = torch.int32 if wide else fmt.storage_dtype
+    kw = dict(shift=17, bias_shift=4, raw_min=fmt.raw_min, raw_max=fmt.raw_max)
+    want = matmul_q16.matmul_q16_plain(xq, wq, bq, out_dtype=od, relu=not wide, wide=wide,
+                                       **kw)
+    outs = []
+    for _ in range(2):
+        out = torch.full((m, n), -7, dtype=od)
+        matmul_q16.launch(libs["matmul_q16"], xq, wq, bq.to(torch.int32), out, blk,
+                          relu=not wide, device=0, stream=NULL_STREAM,
+                          workspace=matmul_q16.workspace_for(blk, m, n, "cpu"), **kw)
+        outs.append(out)
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+
+
+def test_q16_splitk_wraps_mod_2_32_emulated(libs):
+    """Raws x = w = -32768 at k = 4: the int32 sum 2^32 wraps to 0 on route
+    "splitk" across two slices' partial sums, as in the plain version."""
+    xq = torch.full((2, 128), -32768, dtype=torch.int16)
+    wq = torch.full((128, 8), -32768, dtype=torch.int16)
+    blk = MatmulBlock(2, 256, 64, route="splitk", splits=2)
+    out = torch.full((2, 8), 5, dtype=torch.int32)
+    matmul_q16.launch(libs["matmul_q16"], xq, wq, None, out, blk, relu=False, shift=0,
+                      bias_shift=0, raw_min=-1, raw_max=1, device=0, stream=NULL_STREAM,
+                      workspace=matmul_q16.workspace_for(blk, 2, 8, "cpu"))
+    want = matmul_q16.matmul_q16_plain(xq, wq, shift=0, bias_shift=0, raw_min=-1, raw_max=1,
+                                       out_dtype=torch.int32, wide=True)
+    assert torch.equal(out, want) and int(want.abs().max()) == 0
+
+
+Q16_PREP_CASES = [  # m, n, k, x dtype, w dtype
+    (5, 70, 33, torch.int16, torch.int16),    # ragged everything, k padded to 128
+    (130, 129, 200, torch.int8, torch.int16),  # int8 x with unaligned rows: a plane
+    (17, 64, 128, torch.int16, torch.int8),
+    (9, 3, 256, torch.int8, torch.int8),       # int8 x with 16-byte rows: read in place
+]
+
+
+@pytest.mark.parametrize("case", Q16_PREP_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_q16_prep_launch_emulated(libs, case):
+    """Route "wgmma"'s preparation launch writes each operand's byte planes
+    (signed hi and unsigned lo limbs of int16, the int8 raw itself), w
+    transposed to (n, kp), and zeros from k to kp, bit for bit equal to
+    ``ref.q16_limb_planes``; an aligned int8 x gets no planes."""
+    m, n, k, xd, wd = case
+    g = torch.Generator().manual_seed(m + n + k)
+    xq, wq = _raws((m, k), xd, g), _raws((k, n), wd, g)
+    xp, wp, kp = matmul_q16.planes_for(xq, wq, MatmulBlock(128, 64, 128, route="wgmma"))
+    assert kp % 128 == 0 and k <= kp < k + 128
+    assert (xp is None) == (xd == torch.int8 and k % 16 == 0)
+    for t in (xp, wp):
+        if t is not None:
+            t.fill_(0xAB)
+    matmul_q16.prep(libs["matmul_q16"], xq, wq, xp, wp, kp=kp, device=0, stream=NULL_STREAM)
+    assert torch.equal(wp, ref.q16_limb_planes(wq.t(), kp))
+    if xp is not None:
+        assert torch.equal(xp, ref.q16_limb_planes(xq, kp))
+
+
+def test_q16_routes_refuse_bad_launches(libs):
+    """The q16 entry points refuse what their routes were not compiled for:
+    a split-k plan that does not cover m or k, a preparation whose kp is
+    not a multiple of the 128-byte k step, an int8 x read in place whose
+    rows TMA cannot address, and (under the shim) route "wgmma" itself."""
+    lib = libs["matmul_q16"]
+    xq = torch.zeros(4, 8, dtype=torch.int16)
+    wq = torch.zeros(8, 5, dtype=torch.int16)
+    out = torch.empty(4, 5, dtype=torch.int16)
+    kw = dict(relu=False, shift=0, bias_shift=0, raw_min=-1, raw_max=1, device=0,
+              stream=NULL_STREAM)
+    for blk in (MatmulBlock(2, 256, 64, route="splitk"),            # m = 4 rows > 2
+                MatmulBlock(4, 256, 32, route="splitk"),            # slice not x 64
+                MatmulBlock(4, 256, 64, route="splitk", splits=2)):  # 2 slices, k = 8
+        with pytest.raises(RuntimeError, match="does not take"):
+            matmul_q16.launch(lib, xq, wq, None, out, blk, workspace=torch.empty(
+                2, 4, 5, dtype=torch.int32) if blk.splits > 1 else None, **kw)
+    xp, wp, kp = matmul_q16.planes_for(xq, wq, MatmulBlock(128, 64, 128, route="wgmma"))
+    with pytest.raises(RuntimeError, match="does not take"):
+        matmul_q16.prep(lib, xq, wq, xp, wp, kp=kp - 8, device=0, stream=NULL_STREAM)
+    x8 = torch.zeros(4, 8, dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="does not take"):  # k = 8: no in-place read
+        matmul_q16.prep(lib, x8, wq, None, wp, kp=kp, device=0, stream=NULL_STREAM)
+    with pytest.raises(RuntimeError, match="does not take"):
+        matmul_q16.launch(lib, xq, wq, None, out, MatmulBlock(128, 64, 128, route="wgmma"),
+                          planes=(xp, wp, kp), **kw)
 
 
 FA_CASES = [  # b, hq, hkv, sq, sk, d, causal, q_offset, strided

@@ -3,7 +3,9 @@ on the same inputs: integers bit for bit, floats at 1e-4 (GEMM, and the
 float conv's tensor-core route in 3xTF32) and 2e-3 (the conv's CUDA-core
 route, flash attention on both routes), with TF32 off; the float GEMM's
 bf16 routes at 2e-2; the float GEMM's routes and the conv's tensor-core
-route also bit for bit equal on a second launch; flash attention's route
+route also bit for bit equal on a second launch; the q16 GEMM's routes
+bit for bit on every width mix and rung, with both wrap-around cases;
+flash attention's route
 wgmma also within 1e-4 (bf16: about one bf16 step) of the emulation of its
 split-bf16 arithmetic (``ref.attention_split_bf16``), and its preparation pass bit for bit equal
 to ``ref.bf16_split``.  Every test here needs an NVIDIA Hopper card
@@ -28,6 +30,9 @@ from repro_torch.kernels.conv2d import (
 )
 from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain, plan_for
 from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
+from repro_torch.kernels.matmul_q16 import plan_for as q16_plan_for
+from repro_torch.kernels.matmul_q16 import planes_for as q16_planes_for
+from repro_torch.kernels.matmul_q16 import prep as q16_prep
 from repro_torch.core.dse import plan_flash
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels._common import stream_of
@@ -307,6 +312,120 @@ def test_matmul_fp_wgmma_epilogue_and_refusals(dev):
         matmul_fp_cuda(x.float(), w.float(), block=blk)
     with pytest.raises(ValueError):
         matmul_fp_cuda(x[:, :124], w[:124, :252].contiguous(), block=blk)
+
+
+Q16_MIXES = [(torch.int16, torch.int16), (torch.int16, torch.int8),
+             (torch.int8, torch.int16), (torch.int8, torch.int8)]
+Q16_RUNGS = {"int16": Q2_14, "int8": Q2_6, "wide": Q2_14}
+
+
+def _check_q16(x, w, b, blk, rung, *, shift=17, bias_shift=3, relu=True):
+    """The q16 GEMM on ``blk`` bit for bit equal to ``matmul_q16_plain``, on
+    two launches, each counted once under its route (and its preparation
+    or reduction launch)."""
+    fmt, wide = Q16_RUNGS[rung], rung == "wide"
+    kw = dict(fmt=fmt, block=blk, relu=relu, shift=shift, bias_shift=bias_shift, wide=wide)
+    before = dict(_build.launches)
+    got = matmul_q16_cuda(x, w, b, **kw)
+    again = matmul_q16_cuda(x, w, b, **kw)
+    torch.cuda.synchronize()
+    grew = {k: _build.launches[k] - before[k] for k in before if k.startswith("matmul_q16")}
+    want_grew = {"matmul_q16": 2, f"matmul_q16.{blk.route}": 2,
+                 "matmul_q16.prep": 2 if blk.route == "wgmma" else 0,
+                 "matmul_q16.splitk_reduce": 2 if blk.route == "splitk" and blk.splits > 1
+                 else 0}
+    assert {k: grew[k] for k in want_grew} == want_grew, grew
+    want = matmul_q16_plain(x, w, b, shift=shift, bias_shift=bias_shift, raw_min=fmt.raw_min,
+                            raw_max=fmt.raw_max, out_dtype=got.dtype, relu=relu, wide=wide)
+    assert got.dtype == (torch.int32 if wide else fmt.storage_dtype)
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+@pytest.mark.parametrize("rung", list(Q16_RUNGS))
+@pytest.mark.parametrize("xd,wd", Q16_MIXES, ids=["16x16", "16x8", "8x16", "8x8"])
+@pytest.mark.parametrize("m,n,k", [
+    (1, 300, 200), (4, 896, 4864), (8, 4096, 3000), (16, 130, 1000),  # route splitk
+    (17, 136, 200), (200, 130, 1000), (300, 1001, 77), (1024, 512, 4608),  # route wgmma
+])
+def test_matmul_q16_routes_vs_plain(dev, m, n, k, xd, wd, rung):
+    """Each route the planner takes (splitk to m = 16, wgmma above, k and n
+    ragged; an int8 x with k a multiple of 16 read in place) on every width
+    mix and output rung, bit for bit."""
+    g = torch.Generator().manual_seed(m + n + k)
+    x, w, b = _raws((m, k), xd, g, dev), _raws((k, n), wd, g, dev), _raws((n,), xd, g, dev)
+    blk = q16_plan_for(x, w)
+    assert blk.route == ("splitk" if m <= 16 else "wgmma"), blk
+    _check_q16(x, w, b, blk, rung, shift=(8 * x.element_size() + 8 * w.element_size()) // 2 + 3)
+
+
+@pytest.mark.parametrize("xd,wd", Q16_MIXES[1:], ids=["16x8", "8x16", "8x8"])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_matmul_q16_wgmma_tiles(dev, xd, wd, bn):
+    """Both compiled tensor-core tiles on each mix that takes them (BN 128
+    only with at most two limb products)."""
+    g = torch.Generator().manual_seed(bn)
+    x, w, b = _raws((333, 520), xd, g, dev), _raws((520, 250), wd, g, dev), _raws(
+        (250,), wd, g, dev)
+    _check_q16(x, w, b, MatmulBlock(128, bn, 128, route="wgmma"), "int16", shift=12)
+
+
+@pytest.mark.parametrize("route", ["splitk", "wgmma"])
+def test_matmul_q16_wraps_mod_2_32(dev, route):
+    """The two wrap cases on each route: x = w = -1 at k = 40,960, where
+    the ll limb sum alone passes 2^31 and ``wide`` must read exactly
+    40,960 (a .satfinite, or any saturating accumulator, would not); and
+    x = w = -32768 at k = 4, where the int32 sum 2^32 wraps to 0."""
+    m = 8 if route == "splitk" else 40
+    for k, v, want in ((40960, -1, 40960), (4, -32768, 0)):
+        x = torch.full((m, k), v, dtype=torch.int16, device=dev)
+        w = torch.full((k, 24), v, dtype=torch.int16, device=dev)
+        blk = q16_plan_for(x, w)
+        assert blk.route == route
+        got = matmul_q16_cuda(x, w, block=blk, wide=True, shift=0, bias_shift=0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.full((m, 24), want, dtype=torch.int32, device=dev))
+        _check_q16(x, w, None, blk, "wide", shift=0, bias_shift=0, relu=False)
+
+
+Q16_SERVING = [  # name, m, n, k: qwen2-0.5b's grid GEMMs, VGG16's fc0
+    ("prefill q", 16384, 1024, 896), ("prefill kv", 16384, 128, 896),
+    ("prefill o", 16384, 896, 1024), ("prefill gate_up", 16384, 4864, 896),
+    ("prefill down", 16384, 896, 4864), ("decode gate_up", 4, 4864, 896),
+    ("decode down", 4, 896, 4864), ("head", 4, 151936, 896), ("vgg16 fc0", 8, 4096, 25088),
+]
+
+
+@pytest.mark.parametrize("name,m,n,k", Q16_SERVING, ids=[c[0] for c in Q16_SERVING])
+def test_matmul_q16_main_path_shapes(dev, name, m, n, k):
+    """The main paths' int16 GEMMs on their planned routes, bit for bit."""
+    g = torch.Generator().manual_seed(n + k)
+    x, w = _raws((m, k), torch.int16, g, dev), _raws((k, n), torch.int16, g, dev)
+    b = _raws((n,), torch.int16, g, dev)
+    blk = q16_plan_for(x, w)
+    assert blk.route == ("splitk" if m <= 16 else "wgmma")
+    _check_q16(x, w, b, blk, "int16", shift=20, bias_shift=4)
+
+
+def test_matmul_q16_prep_is_the_limb_split(dev):
+    """Route wgmma's preparation launch on the card writes
+    ``ref.q16_limb_planes`` bit for bit (x planes, w transposed, zero pad)."""
+    g = torch.Generator().manual_seed(9)
+    x, w = _raws((70, 300), torch.int16, g, dev), _raws((300, 90), torch.int8, g, dev)
+    xp, wp, kp = q16_planes_for(x, w, q16_plan_for(x, w))
+    q16_prep(_build.library("matmul_q16"), x, w, xp, wp, kp=kp, device=dev.index,
+             stream=stream_of(x))
+    torch.cuda.synchronize()
+    assert torch.equal(xp, ref.q16_limb_planes(x, kp))
+    assert torch.equal(wp, ref.q16_limb_planes(w.t(), kp))
+
+
+def test_matmul_q16_refuses_illegal_blocks(dev):
+    g = torch.Generator().manual_seed(2)
+    x, w = _raws((64, 64), torch.int16, g, dev), _raws((64, 64), torch.int16, g, dev)
+    for blk in (MatmulBlock(128, 128, 128, route="wgmma"), MatmulBlock(4, 256, 64,
+                route="splitk"), MatmulBlock(32, 32, 32)):
+        with pytest.raises(ValueError, match="does not take"):
+            matmul_q16_cuda(x, w, block=blk)
 
 
 FA_CASES = [  # b, hq, hkv, sq, sk, d, causal, q_offset, dtype
