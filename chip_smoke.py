@@ -23,7 +23,14 @@ non-zero without its result line):
    tensor cores in 3xTF32) at 1e-4 and bit for bit repeatable at
    vgg16.conv1, vgg16.conv8, alexnet.conv1, the 512² dma call and a
    two-block call, "cudacore" at 2e-3 at every case; "tc" is timed at the
-   first four (bounds in 3xTF32 and f32), "cudacore" at vgg16.conv0.  Flash
+   first four (bounds in 3xTF32 and f32), "cudacore" at vgg16.conv0.  The
+   fixed-point conv is checked bit for bit, and for repeatability, on the
+   route its plan names at VGG16 conv0 / 1 / 4 / 8 / 12, AlexNet conv0-4
+   and LeNet conv0 over every width mix and both rungs, at the 512² dma
+   call, a two-block call and two wrap-around cases on "tc" (raws -1 at 3x3
+   x Cin 4096, -32768 at 1x1 x Cin 8); "tc" (s8 / u8 limb wgmma) is timed at
+   VGG16 conv1 int16, conv8 int8 x int8 and the 512² dma call, "cudacore"
+   at VGG16 conv0 int16, each with its bytes and limb bounds.  Flash
    attention is checked on the route its plan names (head dims 16 and 32 on
    "simt", 64 and 128 on "wgmma", the tensor cores in split-precision bf16)
    at 2e-3 (bf16: 2^-7), and each "wgmma" case also against
@@ -42,10 +49,10 @@ non-zero without its result line):
    VGG16 at full width, batch 8, random weights and biases from a seed
    (each hidden layer fitted onto the activation grid), in float,
    grid-resident Q2.14 and a forced int8/int16 mix, with every kernel's
-   launch count set to 0 just before and read just after (the float conv's
-   per route: VGG16 12 "tc" and 1 "cudacore", AlexNet 4 and 1, LeNet 0 and
-   2; the grid-resident forwards none on "tc", and every FC layer on the q16
-   GEMM's "splitk").  Float logits
+   launch count set to 0 just before and read just after (each conv per
+   route, float and fixed point alike: VGG16 12 "tc" and 1 "cudacore",
+   AlexNet 4 and 1, LeNet 0 and 2, with a preparation launch per "tc" call
+   and a reduction per Cin split; every FC layer on its GEMM's "splitk").  Float logits
    are held to the plain ``torch`` backend on the card; the fixed-point
    logits to the same engine on the CPU (the kernels' plain versions), bit
    for bit, and that run shows how few of each layer's raws are clipped;
@@ -73,8 +80,9 @@ default: route "tile" timed beside fc0 and the tied head, and the
 ``wgmma_threshold`` lines (gate / up's n and k at m from 17 to 256 and at
 the prefill's m, each wgmma tile against the tile route), which set the
 planner's bound between routes W and L, and the q16 GEMM's line (split-k
-against wgmma in int16 from m = 1 to 64), which checks its bound at m = 16.  ``--conv-route-study`` times the
-float conv's CUDA-core route beside each timed tensor-core row.
+against wgmma in int16 from m = 1 to 64), which checks its bound at m = 16.
+``--conv-route-study`` times the conv's CUDA-core route beside each timed
+tensor-core row, float, and fixed point at every VGG16 layer checked.
 ``--flash-pv-study`` builds a variant of flash's route "wgmma" that
 accumulates PV in place into O (the design the committed kernel rejected)
 and reports both designs' ptxas spills, times at the qwen2 prefill shape
@@ -123,6 +131,8 @@ PEAK_F32 = 67e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
+#: int32 multiply-adds on the CUDA cores: IMAD at half the FFMA rate
+PEAK_INT32_CUDA = PEAK_F32 / 2
 BATCH = 8
 SEED = 0
 #: He-style weight scale: keeps the activations O(1) through VGG16's ReLU
@@ -307,7 +317,7 @@ class KernelBook:
         ``kernels`` line, else it is printed as an extra case.  ``tile_fn``:
         the float GEMM's route "tile" on the same call (the block-tiled
         CUDA-core kernel that served every float GEMM before the routes);
-        ``cudacore_fn``: the float conv's CUDA-core route on the same call.
+        ``cudacore_fn``: the conv's CUDA-core route on the same call.
         ``ops`` are what the bound counts at ``peak`` (``bound_note`` says
         how); ``extra`` adds fields to the row."""
         b_ms, b_by = bound(nbytes_, ops, peak)
@@ -506,48 +516,119 @@ def phase_kernels(torch, dev, book: KernelBook):
         nbytes_=nbytes(cols, wmat) + m * n * 4, ops=2 * m * n * k, peak=PEAK_F32)
     del x, w, got, want, cols, wmat
 
-    # -- fixed-point conv ----------------------------------------------------
+    # -- fixed-point conv: each case on the route its plan names ------------
     q_convs = [
-        # name, n, h, cin, cout, k, s, p, x dtype, w dtype, out fmt, shift, tiles
+        # name, n, h, cin, cout, k, s, p, x dtype, w dtype, out fmt, shift, relu,
+        # tiles; the shifts put the int32 sum's top bits on the rung
+        ("vgg16.conv0 Q2.14", BATCH, 224, 3, 64, 3, 1, 1, torch.int16, torch.int16,
+         Q2_14, 16, True, None),
         ("vgg16.conv1 Q2.14", BATCH, 224, 64, 64, 3, 1, 1, torch.int16, torch.int16,
-         Q2_14, 16, None),
-        ("vgg16.conv8 int8->int16", BATCH, 28, 512, 512, 3, 1, 1, torch.int8, torch.int8,
-         Q2_14, 1, None),
+         Q2_14, 16, True, None),
+        ("vgg16.conv4 int16xint8->int8", BATCH, 56, 128, 256, 3, 1, 1, torch.int16,
+         torch.int8, Q2_6, 24, False, None),
+        ("vgg16.conv8 int8xint8->int16", BATCH, 28, 512, 512, 3, 1, 1, torch.int8,
+         torch.int8, Q2_14, 4, True, None),
+        ("vgg16.conv12 int8xint16", BATCH, 14, 512, 512, 3, 1, 1, torch.int8, torch.int16,
+         Q2_14, 16, False, None),
         ("alexnet.conv0 int16->int8", BATCH, 224, 3, 64, 11, 4, 2, torch.int16,
-         torch.int16, Q2_6, 24, None),
+         torch.int16, Q2_6, 24, True, None),
+        ("alexnet.conv1 Q2.14", BATCH, 18, 64, 192, 5, 1, 2, torch.int16, torch.int16,
+         Q2_14, 16, True, None),
+        ("alexnet.conv2 Q2.14", BATCH, 6, 192, 384, 3, 1, 1, torch.int16, torch.int16,
+         Q2_14, 16, True, None),
+        ("alexnet.conv3 int8xint8->int8", BATCH, 6, 384, 256, 3, 1, 1, torch.int8,
+         torch.int8, Q2_6, 12, True, None),
+        ("alexnet.conv4 Q2.14", BATCH, 6, 256, 256, 3, 1, 1, torch.int16, torch.int16,
+         Q2_14, 16, False, None),
         ("lenet.conv0 Q2.14", BATCH, 32, 1, 6, 5, 1, 0, torch.int16, torch.int16, Q2_14,
-         15, None),
+         15, True, None),
         ("vgg16@512.conv1 dma(256x128)", BATCH, 512, 64, 64, 3, 1, 1, torch.int16,
-         torch.int16, Q2_14, 16, (256, 128, "dma")),
+         torch.int16, Q2_14, 16, True, (256, 128, "dma")),
         ("vgg16.conv4 two_block(8)", BATCH, 56, 128, 256, 3, 1, 1, torch.int16,
-         torch.int16, Q2_14, 17, (8, 0, "two_block")),
+         torch.int16, Q2_14, 17, True, (8, 0, "two_block")),
     ]
-    for i, (name, n, h, cin, cout, k, s, p, xd, wd, fmt, shift, tiles) in enumerate(q_convs):
+    q_timed = {  # record name -> its row in the kernels line
+        "vgg16.conv0 Q2.14": "conv2d_q16.cudacore", "vgg16.conv1 Q2.14": "conv2d_q16.tc",
+        "vgg16.conv8 int8xint8->int16": None, "vgg16@512.conv1 dma(256x128)": None}
+    q_engine = default_template("q16").engine
+    for i, (name, n, h, cin, cout, k, s, p, xd, wd, fmt, shift, relu,
+            tiles) in enumerate(q_convs):
         x = _raws(torch, (n, h, h, cin), xd, dev, 80 + i)
         w = _raws(torch, (k, k, cin, cout), wd, dev, 90 + i)
         b = _raws(torch, (cout,), xd, dev, 100 + i)
-        tau, chunk = conv_plan(n, h, cin, cout, k, s, p, 2)
+        plan = q_engine.plan_conv(x.shape, w.shape, stride=s, padding=p)
         tr, tc, hm = tiles or (0, 0, "none")
-        kw = dict(stride=s, padding=p, tau=tau, cin_chunk=chunk, tile_rows=tr,
-                  tile_cols=tc, halo_mode=hm, relu=True, fmt=fmt, shift=shift,
-                  bias_shift=3)
+        kw = dict(stride=s, padding=p, tau=plan.tau, cin_chunk=plan.cin_chunk, tile_rows=tr,
+                  tile_cols=tc, halo_mode=hm, relu=relu, fmt=fmt, shift=shift,
+                  bias_shift=3, conv_route=plan.conv_route)
+        if plan.conv_route == "tc" and tiles is None:  # a tiled call plans its region's
+            kw.update(sub_rows=plan.sub_rows, sub_cols=plan.sub_cols, splits=plan.splits)
+        desc = (f"{name} route={plan.conv_route} tau={plan.tau} chunk={plan.cin_chunk}"
+                + (f" sub={plan.sub_rows}x{plan.sub_cols} splits={kw['splits']}"
+                   if "splits" in kw else ""))
         got = conv2d_q16_cuda(x, w, b, **kw)
+        again = conv2d_q16_cuda(x, w, b, **kw)
         pkw = dict(stride=s, padding=p, shift=shift, bias_shift=3, raw_min=fmt.raw_min,
-                   raw_max=fmt.raw_max, out_dtype=fmt.storage_dtype, relu=True)
+                   raw_max=fmt.raw_max, out_dtype=fmt.storage_dtype, relu=relu)
         want = conv2d_q16_plain(x, w, b, **pkw)
         torch.cuda.synchronize()
-        book.check("conv2d_q16", f"{name} tau={tau} chunk={chunk}", got, want, exact=True)
-        if name == "vgg16.conv1 Q2.14" or tiles is not None and hm == "dma":
+        if not torch.equal(got, again):
+            raise AssertionError(f"conv2d_q16 {desc}: not repeatable bit for bit")
+        book.check(f"conv2d_q16.{plan.conv_route}", desc, got, want, exact=True)
+        timed = name in q_timed or CONV_ROUTE_STUDY and name.startswith("vgg16.conv") \
+            and plan.conv_route == "tc"
+        if timed:
             ho = (h + 2 * p - k) // s + 1
+            limbs = dse.q16_limb_products(8 * x.element_size(), 8 * w.element_size())
+            nb = nbytes(x, w, b) + n * ho * ho * cout * fmt.storage_dtype.itemsize
+            ops = 2 * n * ho * ho * cout * k * k * cin
+            ckw = dict(kw, conv_route="cudacore", tau=conv_plan(n, h, cin, cout, k, s, p, 2)[0],
+                       cin_chunk=conv_plan(n, h, cin, cout, k, s, p, 2)[1])
+            for key in ("sub_rows", "sub_cols", "splits"):
+                ckw.pop(key, None)
+            # the bound is the card's, whatever the route: the int8
+            # tensor-core peak over the limb products; the CUDA cores' IMAD
+            # rate is kept beside it for route "cudacore"
+            extra = {"bound_bytes_ms": nb / HBM_BW * 1e3,
+                     "bound_limbs_ms": ops * limbs / PEAK_INT8 * 1e3, "limb_products": limbs}
+            if plan.conv_route == "cudacore":
+                extra["bound_imad_ms"] = ops / PEAK_INT32_CUDA * 1e3
+            row = q_timed.get(name)
             book.timing(
-                "conv2d_q16", f"{name} x{tuple(x.shape)} int16 tau={tau} chunk={chunk}",
-                record=tiles is None,
+                row or f"conv2d_q16.{plan.conv_route}", f"{desc} x{tuple(x.shape)} "
+                f"w{tuple(w.shape)}", record=row is not None,
                 kernel_fn=lambda: conv2d_q16_cuda(x, w, b, **kw),
                 plain_fn=lambda: conv2d_q16_plain(x, w, b, **pkw),
                 library_fn=None,
-                library="none: no PyTorch call convolves int16 on CUDA",
-                nbytes_=nbytes(x, w, b) + n * ho * ho * cout * 2,
-                ops=2 * n * ho * ho * cout * k * k * cin, peak=PEAK_INT8 / 4)
+                library="none: no PyTorch call convolves int16 or int8 on CUDA",
+                nbytes_=nb, ops=ops,
+                peak=PEAK_INT8 / limbs,
+                bound_note=f"ops, {limbs} s8/u8 limb product(s) a multiply-add at 1979 "
+                           "TOPS dense int8",
+                extra=extra,
+                cudacore_fn=(lambda: conv2d_q16_cuda(x, w, b, **ckw))
+                if CONV_ROUTE_STUDY and plan.conv_route == "tc" else None)
+        del x, w, got, again, want
+
+    # the two wrap-around cases on route "tc": raws -1 at 3x3 x Cin 4096 (the
+    # ll limb sum alone passes 2^31; the total is 36,864) and -32768 at 1x1 x
+    # Cin 8 (the int32 sum 2^33 wraps to 0); a .satfinite would show here
+    for k, cin, v, total in ((3, 4096, -1, 36864), (1, 8, -32768, 0)):
+        x = torch.full((BATCH, 3, 3, cin), v, dtype=torch.int16, device=dev)
+        w = torch.full((k, k, cin, 64), v, dtype=torch.int16, device=dev)
+        # int16 Cin 8 is 16 bytes a pixel, which route "tc" takes; the plan
+        # (for every width mix: int8 Cin 8 is not) puts it on "cudacore"
+        plan = q_engine.plan_conv(x.shape, w.shape)
+        splits = plan.splits if plan.conv_route == "tc" else 1
+        kw = dict(tau=64, conv_route="tc", splits=splits, shift=1, bias_shift=0)
+        got = conv2d_q16_cuda(x, w, **kw)
+        want = conv2d_q16_plain(x, w, shift=1, bias_shift=0, raw_min=Q2_14.raw_min,
+                                raw_max=Q2_14.raw_max, out_dtype=torch.int16)
+        torch.cuda.synchronize()
+        if not int(want.min()) == int(want.max()) == (total + 1) >> 1:
+            raise AssertionError(f"wrap case {v} x {v}: plain gives {want.flatten()[0]}")
+        book.check("conv2d_q16.tc", f"wrap {v}x{v} {k}x{k} Cin {cin} splits={splits}",
+                   got, want, exact=True)
         del x, w, got, want
 
     # -- fixed-point GEMM: the CNN path's shapes on their planned routes ----
@@ -754,6 +835,7 @@ def phase_main_path(torch, dev):
         mixed = dataclasses.replace(pol, name="mixed", layer_fmts=tuple(
             sorted((layer, low) for layer in MIXED[net])))
         tcpu = default_template("q16", device="cpu")
+        qplan = cnn.plan_cnn(tq, spec, tuple(x.shape))
         for numerics, policy in (("grid " + pol.fmt.name, pol), ("mixed", mixed)):
             qp = cnn.quantize_cnn_params(tq, spec, params, policy)
             tq.engine.counters.clear()
@@ -766,14 +848,24 @@ def phase_main_path(torch, dev):
             assert law == {"quantize_calls": 1, "dequantize_calls": 1}, dict(c)
             assert _build.launches["conv2d_q16"] - before["conv2d_q16"] == nc
             assert _build.launches["matmul_q16"] - before["matmul_q16"] == nf
-            # every FC layer (batch 8) streams its raws on the q16 split-k route
             grew = {k: _build.launches[k] - before[k] for k in before}
+            # the fixed-point conv's routes: every conv with Cin a multiple of
+            # 16 and Cout of 8 on the tensor cores, the first layers on the
+            # CUDA cores, as in float
+            qsplits = sum(cp.splits > 1 for cp in qplan.convs)
+            if (grew["conv2d_q16.tc"], grew["conv2d_q16.cudacore"]) != (tc, cc) \
+                    or grew["conv2d_q16.tc_prep"] != tc \
+                    or grew["conv2d_q16.tc_reduce"] != qsplits:
+                raise AssertionError(f"{net} {numerics}: q16 conv launches by route {grew}, "
+                                     f"want {tc} tc (+ {tc} prep, {qsplits} reduce), "
+                                     f"{cc} cudacore")
+            # every FC layer (batch 8) streams its raws on the q16 split-k route
             if (grew["matmul_q16.splitk"], grew["matmul_q16.tile"],
                     grew["matmul_q16.wgmma"]) != (nf, 0, 0):
                 raise AssertionError(f"{net} {numerics}: q16 GEMM launches by route {grew}, "
                                      f"want {nf} splitk")
             assert _build.launches["matmul_fp"] == before["matmul_fp"]
-            assert _build.launches["conv2d"] == before["conv2d"]  # no float conv, no "tc"
+            assert _build.launches["conv2d"] == before["conv2d"]  # no float conv
             with tq.engine.plan_cache.scope() as warm:
                 y2 = cnn.cnn_forward(tq, spec, qp, x, policy=policy)
             assert warm["misses"] == 0 and torch.equal(y, y2)
@@ -805,7 +897,9 @@ def phase_main_path(torch, dev):
     launches = dict(_build.launches)
     emit({"phase": "main_path_launches", "path": "cnn", **launches})
     for name in ("matmul_fp", "matmul_q16", "matmul_q16.splitk", "conv2d", "conv2d.tc",
-                 "conv2d.cudacore", "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16"):
+                 "conv2d.cudacore", "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16",
+                 "conv2d_q16.tc", "conv2d_q16.cudacore", "conv2d_q16.tc_prep",
+                 "conv2d_q16.tc_reduce"):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the CNN path")
     return runs, launches
@@ -831,21 +925,26 @@ def phase_timing(torch, runs):
 
 
 def phase_profile(torch, runs):
-    """Device time by kernel over three VGG16 forwards of each numerics
-    (torch.profiler's CUDA events), and the device's busy share of the
-    window's wall time."""
+    """Device time by kernel over three forwards of each net and numerics
+    (torch.profiler's CUDA events), the device's busy share of the profiled
+    window's wall time, and its busy share of the forwards' time by CUDA
+    events without the profiler, whose own per-op cost inflates the wall of
+    a window of short kernels."""
     from repro_torch.models import cnn
 
     for net, numerics, tpl, spec, params, x, policy in runs:
-        if net != "vgg16":
-            continue
         fwd = (lambda: cnn.cnn_forward(tpl, spec, params, x, policy=policy))
         fwd()
         torch.cuda.synchronize()
-        emit({"phase": "profile", "net": net, "numerics": numerics, "forwards": 3,
-              **profile_window(torch, lambda: [fwd() for _ in range(3)],
-                               groups=("conv_tc", "conv_kernel", "splitk", "split_reduce",
-                                       "gemm_kernel"))})
+        prof = profile_window(torch, lambda: [fwd() for _ in range(3)],
+                              groups=("conv_q16_tc", "q16_conv_prep", "conv_tc",
+                                      "conv_kernel", "splitk", "split_reduce", "gemm_kernel"))
+        event_ms = time_ms(fwd)
+        busy = prof["device_busy_ms"]
+        emit({"phase": "profile", "net": net, "numerics": numerics, "forwards": 3, **prof,
+              "event_ms_per_forward": event_ms,
+              "device_busy_share_of_event_time": busy / 3 / event_ms
+              if isinstance(busy, float) else "not measured"})
 
 
 # ---------------------------------------------------------------------------
@@ -1593,12 +1692,12 @@ def phase_serve_cli(torch):
 
 
 #: the ``kernels`` line: one row per kernel, and for the two GEMMs and the
-#: float conv one per route of the main paths (record name -> kernel, route,
+#: two convs one per route of the main paths (record name -> kernel, route,
 #: source, TPU kernel); the GEMMs' route "tile" serves no main-path call and
 #: is checked (float) or timed beside the other routes (q16) above.  A row's
 #: launches are its wrapper's calls, one launch of the kernel each; route
 #: "splitk" adds its reduction pass's launches as ``reduce_launches``, the
-#: q16 route "wgmma" its preparation's as ``prep_launches``, the conv's
+#: q16 route "wgmma" its preparation's as ``prep_launches``, both convs'
 #: route "tc" its weight preparation's and Cin-split reduction's as
 #: ``prep_launches`` and ``reduce_launches``
 KERNEL_META = {
@@ -1617,8 +1716,10 @@ KERNEL_META = {
                   "src/repro/kernels/conv2d.py:329"),
     "conv2d.cudacore": ("conv2d", "cudacore", "src/repro_torch/kernels/csrc/conv2d.cu",
                         "src/repro/kernels/conv2d.py:329"),
-    "conv2d_q16": ("conv2d_q16", None, "src/repro_torch/kernels/csrc/conv2d.cu",
-                   "src/repro/kernels/conv2d.py:437"),
+    "conv2d_q16.tc": ("conv2d_q16", "tc", "src/repro_torch/kernels/csrc/conv2d_q16_tc.cuh",
+                      "src/repro/kernels/conv2d.py:437"),
+    "conv2d_q16.cudacore": ("conv2d_q16", "cudacore", "src/repro_torch/kernels/csrc/conv2d.cu",
+                            "src/repro/kernels/conv2d.py:437"),
     "flash_attention.wgmma": ("flash_attention", "wgmma",
                               "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
                               "src/repro/kernels/flash_attention.py:73"),
@@ -1646,8 +1747,8 @@ def main() -> int:
                     help="also time the float GEMM's design alternatives (route "
                          "'tile' beside fc0 and the tied head, the W/L threshold sweep)")
     ap.add_argument("--conv-route-study", action="store_true",
-                    help="also time the float conv's CUDA-core route beside each timed "
-                         "tensor-core row")
+                    help="also time the conv's CUDA-core route beside each timed "
+                         "tensor-core row (float, and fixed point at every VGG16 layer)")
     ap.add_argument("--flash-pv-study", action="store_true",
                     help="also build and measure flash's route wgmma with PV accumulated "
                          "in place (spills, time, error against the emulation)")
@@ -1697,8 +1798,8 @@ def main() -> int:
         by_path = {path: w[key] for path, w in windows.items() if w[key]}
         if not by_path:
             raise AssertionError(f"kernel {key} was not launched on any main path")
-        route_key = {"conv2d": "conv_route", "flash_attention": "flash_route"}.get(
-            name, "gemm_route")
+        route_key = {"conv2d": "conv_route", "conv2d_q16": "conv_route",
+                     "flash_attention": "flash_route"}.get(name, "gemm_route")
         kernels.append({
             "name": name, "route": "cuda", route_key: gemm_route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -1708,7 +1809,9 @@ def main() -> int:
             "library": row["library"], "shape": row["shape"], "checks": row["checks"],
             **{k: row[k] for k in ("route_tile_ms", "route_cudacore_ms",
                                    "prep_ms", "bound_note", "bound_f32_ms",
-                                   "max_abs_err_vs_split") if k in row},
+                                   "max_abs_err_vs_split", "bound_bytes_ms",
+                                   "bound_limbs_ms", "bound_imad_ms",
+                                   "limb_products") if k in row},
         })
         if key in ("matmul_fp.splitk", "matmul_q16.splitk"):
             kernels[-1]["reduce_launches"] = sum(
@@ -1721,10 +1824,10 @@ def main() -> int:
             kernels[-1]["routes"] = FLASH_ROUTES
             kernels[-1]["simt_checks"] = book.rows["flash_attention.simt"]["checks"]
             kernels[-1]["simt_max_abs_err"] = book.rows["flash_attention.simt"]["max_abs_err"]
-        if key == "conv2d.tc":
-            kernels[-1]["prep_launches"] = sum(w["conv2d.tc_prep"] for w in windows.values())
+        if key in ("conv2d.tc", "conv2d_q16.tc"):
+            kernels[-1]["prep_launches"] = sum(w[f"{name}.tc_prep"] for w in windows.values())
             kernels[-1]["reduce_launches"] = sum(
-                w["conv2d.tc_reduce"] for w in windows.values())
+                w[f"{name}.tc_reduce"] for w in windows.values())
     if {k["name"] for k in kernels} != set(_build_kernels()):
         raise AssertionError("the kernels line does not list every kernel")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

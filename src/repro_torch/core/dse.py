@@ -14,10 +14,12 @@ takes a spec:
   use.  Both GEMMs first pick a route from the shape, then the route's
   tile: the float GEMM from the dtype as well
   (:func:`default_fp_block_for`), the q16 GEMM from its operands' widths
-  (:func:`default_q16_block_for`).  The conv picks τ and the
-  Cin chunk that ``csrc/conv2d.cu`` stages per step; a GPU block always
-  loads exactly its own tile's input window (the reference's ``dma``
-  regime), so the plan leaves the output tile to the kernel's default.
+  (:func:`default_q16_block_for`).  The conv picks its route (the tensor
+  cores where :func:`gpu_conv_tc_legal` admits the conv, float or fixed
+  point, else the CUDA cores), τ and the Cin chunk that
+  ``csrc/conv2d.cu`` stages per step; a GPU block always loads exactly its
+  own tile's input window (the reference's ``dma`` regime), so the plan
+  leaves the output tile to the kernel's default.
 
 Flash attention picks its route from the head dim and the dtype
 (:func:`plan_flash`): the tensor cores for the models' head dims, the CUDA
@@ -62,6 +64,7 @@ __all__ = [
     "gpu_conv_smem",
     "gpu_conv_max_chunk",
     "gpu_conv_tc_blocks",
+    "gpu_conv_q16_tc_smem",
     "gpu_conv_tc_legal",
     "gpu_conv_tc_smem",
     "gpu_conv_tc_splits",
@@ -498,12 +501,60 @@ _TC_WIN_STAGES = 2
 #: sub-tile widths tried (each capped at the region's width)
 _TC_WIDTHS = (8, 16, 32, 64, 128)
 
+#: the fixed-point route "tc" (csrc/conv2d_q16_tc.cuh's own constants).
+#: CHUNK: Cin per staging step (one swizzle row: 64 int16 or int8 channels)
+TC_Q16_CHUNK = 64
+#: TAU: Cout a work item, for every width mix (int16 x int16 keeps three s32
+#: accumulators, hh, hl + lh and ll: 96 registers a thread at τ 64)
+TC_Q16_TAU = 64
+#: TPS: taps a step; W_RING: the weight ring's bytes, in at most 8 slots
+#: of TPS x limbs x τ x 64
+_TC_Q16_TAPS = 3
+_TC_Q16_W_RING = 98304
+_TC_Q16_MAX_W_STAGES = 8
+#: the raws' widths in bytes a fixed-point policy may give a layer
+_Q16_BYTES = (1, 2)
+
 
 def gpu_conv_tc_legal(cin: int, cout: int, in_bytes: int) -> bool:
-    """Whether the tensor-core route takes a conv: f32 operands (the
-    fixed-point convs stay exact on the CUDA cores), and Cin, Cout multiples
-    of 8 (TMA's 16-byte rows; one TF32 k-step)."""
-    return in_bytes == 4 and cin % 8 == 0 and cout % 8 == 0
+    """Whether a tensor-core route takes a conv of ``in_bytes`` operands:
+    f32 (4) with Cin and Cout multiples of 8 (TMA's 16-byte rows; one TF32
+    k-step), or int16 / int8 raws (2 / 1) with Cin·bytes a multiple of 16
+    (TMA's 16-byte rows of NHWC x) and Cout a multiple of 8 (the pairs of
+    the write-back).  Fixed point takes "tc" as well as float."""
+    if cout % 8:
+        return False
+    if in_bytes == 4:
+        return cin % 8 == 0
+    return in_bytes in _Q16_BYTES and cin * in_bytes % 16 == 0
+
+
+def gpu_conv_q16_tc_smem(kh: int, kw: int, stride: int, tau: int, sub_rows: int,
+                         sub_cols: int, xbytes: int = 2, wbytes: int = 2) -> int:
+    """Dynamic shared memory of ``csrc/conv2d_q16_tc.cuh`` (its
+    ``Cfg::smem_bytes``) for raws of ``xbytes`` / ``wbytes``: the weight
+    ring (as many slots of 3 taps x wbytes x τ x 64 bytes as fit 96 KB, at
+    most 8), two input windows of 64 channels of x each rounded to 1024
+    bytes, the two consumer warpgroups' write-back staging (64 rows of τ
+    int16 and 16 bytes of padding each), the barriers, and 1024 bytes of
+    alignment slack."""
+    rows = (sub_rows - 1) * stride + kh
+    cols = (sub_cols - 1) * stride + kw
+    win = ceil_div(rows * cols * TC_Q16_CHUNK * xbytes, 1024) * 1024
+    slot = _TC_Q16_TAPS * wbytes * tau * TC_Q16_CHUNK
+    stages = min(_TC_Q16_MAX_W_STAGES, _TC_Q16_W_RING // slot)
+    return (1024 + stages * slot + _TC_WIN_STAGES * win + 2 * 64 * (2 * tau + 16)
+            + (2 * _TC_WIN_STAGES + 2 * stages) * 8)
+
+
+def _tc_smem(kh, kw, stride, tau, sub_rows, sub_cols, in_bytes: int) -> int:
+    """Route "tc"'s shared memory for a plan: the float header's for f32,
+    the fixed-point header's for the width mix that takes the most otherwise
+    (a plan made without the raws' widths fits every mix)."""
+    if in_bytes == 4:
+        return gpu_conv_tc_smem(kh, kw, stride, tau, sub_rows, sub_cols)
+    return max(gpu_conv_q16_tc_smem(kh, kw, stride, tau, sub_rows, sub_cols, xb, wb)
+               for xb in _Q16_BYTES for wb in _Q16_BYTES)
 
 
 def gpu_conv_tc_smem(kh: int, kw: int, stride: int, tau: int, sub_rows: int,
@@ -520,25 +571,30 @@ def gpu_conv_tc_smem(kh: int, kw: int, stride: int, tau: int, sub_rows: int,
             + (2 * _TC_WIN_STAGES + 2 * stages) * 8)
 
 
-def gpu_conv_tc_tau(cout: int, spec: GpuSpec) -> int:
-    """The compiled τ that pads Cout least (the larger one on a tie)."""
+def gpu_conv_tc_tau(cout: int, spec: GpuSpec, in_bytes: int = 4) -> int:
+    """The compiled τ that pads Cout least (the larger one on a tie); for
+    fixed point (``in_bytes`` 1 or 2) the one τ its header compiles,
+    :data:`TC_Q16_TAU`."""
+    if in_bytes != 4:
+        return TC_Q16_TAU
     return min(spec.conv_tc_taus, key=lambda t: (ceil_div(cout, t) * t, -t))
 
 
 def gpu_conv_tc_subtile(rh: int, rw: int, kh: int, kw: int, stride: int, tau: int,
-                        spec: GpuSpec) -> Optional[tuple[int, int]]:
+                        spec: GpuSpec, in_bytes: int = 4) -> Optional[tuple[int, int]]:
     """(rows, cols) of the sub-tile the blocks of a region of rh x rw output
     pixels walk, or None when no input window fits TMA's box and shared
-    memory.  For each width, the most rows (at most 128 pixels) whose window
-    fits; of those, the fewest sub-tiles over the region, then the smallest
-    input window, then the widest rows."""
+    memory (:func:`_tc_smem` for ``in_bytes``).  For each width, the most
+    rows (at most 128 pixels) whose window fits; of those, the fewest
+    sub-tiles over the region, then the smallest input window, then the
+    widest rows."""
     best = None
     for tw in sorted({min(w, rw) for w in _TC_WIDTHS}):
         cols = (tw - 1) * stride + kw
         for th in range(min(TC_PIXELS // tw, rh), 0, -1):
             rows = (th - 1) * stride + kh
             if (max(rows, cols) <= TC_MAX_BOX
-                    and gpu_conv_tc_smem(kh, kw, stride, tau, th, tw) <= spec.smem_per_block):
+                    and _tc_smem(kh, kw, stride, tau, th, tw, in_bytes) <= spec.smem_per_block):
                 break
         else:
             continue
@@ -548,12 +604,13 @@ def gpu_conv_tc_subtile(rh: int, rw: int, kh: int, kw: int, stride: int, tau: in
     return None if best is None else best[1]
 
 
-def gpu_conv_tc_splits(blocks: int, cin: int, spec: GpuSpec) -> int:
-    """How many ways to cut the Cin chunks across blocks.  One when the
-    grid already covers the card (a split adds a reduction pass over
-    splits x the output); else the fewest waves of blocks times chunks a
-    block (a block fills an SM), the fewest splits on a tie."""
-    chunks = ceil_div(cin, TC_CHUNK)
+def gpu_conv_tc_splits(blocks: int, cin: int, spec: GpuSpec, chunk: int = TC_CHUNK) -> int:
+    """How many ways to cut the Cin chunks (of ``chunk`` channels: 32 f32,
+    64 raws) across blocks.  One when the grid already covers the card (a
+    split adds a reduction pass over splits x the output); else the fewest
+    waves of blocks times chunks a block (a block fills an SM), the fewest
+    splits on a tie."""
+    chunks = ceil_div(cin, chunk)
     if blocks >= spec.sms:
         return 1
 
@@ -571,13 +628,15 @@ def gpu_conv_tc_blocks(n: int, ho: int, wo: int, cout: int, tau: int, sub_rows: 
     return n * ceil_div(ho, sub_rows) * ceil_div(wo, sub_cols) * ceil_div(cout, tau)
 
 
-def _tc_choice(ho, wo, kh, kw, cout, stride, spec: GpuSpec) -> Optional[ConvTileChoice]:
-    """The tensor-core route's plan for an untiled conv: τ and the sub-tile
-    (each block's region); None when no sub-tile's window fits.  The Cin
-    split depends on the batch, which this search does not see:
+def _tc_choice(ho, wo, kh, kw, cout, stride, spec: GpuSpec,
+               in_bytes: int) -> Optional[ConvTileChoice]:
+    """A tensor-core route's plan for an untiled conv of ``in_bytes``
+    operands (float, or fixed point for every width mix): τ and the
+    sub-tile (each block's region); None when no sub-tile's window fits.
+    The Cin split depends on the batch, which this search does not see:
     ``Engine.plan_conv`` adds it."""
-    tau = gpu_conv_tc_tau(cout, spec)
-    sub = gpu_conv_tc_subtile(ho, wo, kh, kw, stride, tau, spec)
+    tau = gpu_conv_tc_tau(cout, spec, in_bytes)
+    sub = gpu_conv_tc_subtile(ho, wo, kh, kw, stride, tau, spec, in_bytes)
     if sub is None:
         return None
     sh, sw = sub
@@ -587,16 +646,19 @@ def _tc_choice(ho, wo, kh, kw, cout, stride, spec: GpuSpec) -> Optional[ConvTile
     score = (ho * wo / (tiles * TC_PIXELS)) * (cout / (ways * tau))
     return ConvTileChoice(
         tau=tau, tile_rows=ho, spatial_tiles=1,
-        vmem_bytes=gpu_conv_tc_smem(kh, kw, stride, tau, sh, sw), score=score,
-        tile_cols=wo, col_tiles=1, halo_mode="none", cin_chunk=TC_CHUNK,
+        vmem_bytes=_tc_smem(kh, kw, stride, tau, sh, sw, in_bytes), score=score,
+        tile_cols=wo, col_tiles=1, halo_mode="none",
+        cin_chunk=TC_CHUNK if in_bytes == 4 else TC_Q16_CHUNK,
         route="tc", sub_rows=sh, sub_cols=sw,
     )
 
 
 def _explore_conv_gpu(hp, wp, cin, kh, kw, ho, wo, cout, stride,
                       spec: GpuSpec, in_bytes: int, top: int):
-    """A float conv whose operands the tensor-core route takes
-    (:func:`gpu_conv_tc_legal`) and for which one of its sub-tiles fits
+    """A conv whose operands a tensor-core route takes
+    (:func:`gpu_conv_tc_legal`: float, or fixed point on every width a
+    policy may give the layer, int8 and int16, since the plan does not see
+    the raws) and for which one of its sub-tiles fits
     (:func:`gpu_conv_tc_subtile`) is planned on it (its Cin split is the
     engine's, which knows the batch); the CUDA-core route's (τ, Cin chunk)
     follow, ranked by modeled traffic, and serve every other conv.
@@ -631,8 +693,9 @@ def _explore_conv_gpu(hp, wp, cin, kh, kw, ho, wo, cout, stride,
             halo_mode="none", cin_chunk=chunk, route="cudacore",
         ))
     out.sort(key=lambda c: (-c.score, -c.tau))
-    tc = (_tc_choice(ho, wo, kh, kw, cout, stride, spec)
-          if gpu_conv_tc_legal(cin, cout, in_bytes) else None)
+    widths = (4,) if in_bytes == 4 else _Q16_BYTES
+    tc = (_tc_choice(ho, wo, kh, kw, cout, stride, spec, in_bytes)
+          if all(gpu_conv_tc_legal(cin, cout, b) for b in widths) else None)
     if tc is not None:
         out.insert(0, tc)
     return out[:top]

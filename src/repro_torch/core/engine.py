@@ -183,8 +183,9 @@ class ConvPlan:
     vmem_bytes: on-chip working set of the route (shared memory per block
         under a GpuSpec).
     conv_route: the direct conv's route under a GpuSpec (``CONV_ROUTES``:
-        "cudacore" or "tc"; "" otherwise).  Route "tc" walks sub-tiles of
-        sub_rows x sub_cols pixels and cuts its Cin chunks ``splits`` ways.
+        "cudacore" or "tc", for float and fixed point alike; "" otherwise).
+        Route "tc" walks sub-tiles of sub_rows x sub_cols pixels and cuts its
+        Cin chunks ``splits`` ways.
     """
 
     route: str
@@ -300,9 +301,10 @@ class Engine:
 
         Direct route: the DSE (memoized in the registry) picks the
         configuration for the spec — under H100 the conv's route (a float
-        conv with Cin and Cout multiples of 8 on the tensor cores, every
-        other on the CUDA cores), τ, the Cin chunk and, on the tensor-core
-        route, the sub-tile; this adds that route's Cin split for the batch.
+        conv with Cin and Cout multiples of 8, or a fixed-point one with Cin
+        a multiple of 16 and Cout of 8, on the tensor cores, every other on
+        the CUDA cores), τ, the Cin chunk and, on the tensor-core route, the
+        sub-tile; this adds that route's Cin split for the batch.
         When no configuration fits, the layer takes the im2col GEMM route
         with a planned tile.  ``route`` forces a route.
         """
@@ -330,7 +332,8 @@ class Engine:
                 if choice.route == "tc":
                     blocks = dse.gpu_conv_tc_blocks(n, ho, wo, cout, choice.tau,
                                                     choice.sub_rows, choice.sub_cols)
-                    splits = dse.gpu_conv_tc_splits(blocks, cin, self.config.hw)
+                    splits = dse.gpu_conv_tc_splits(blocks, cin, self.config.hw,
+                                                    choice.cin_chunk)
                 return ConvPlan(
                     "direct", stride, pad, choice.tau, None, gemm,
                     choice.vmem_bytes, tile_rows, choice.spatial_tiles,
@@ -512,6 +515,8 @@ class Engine:
             shift=acc_frac - out_fmt.frac_bits, bias_shift=bias_shift,
             route=plan.route, block=plan.block, tile_rows=plan.tile_rows,
             tile_cols=plan.tile_cols, halo_mode=plan.halo_mode,
+            conv_route=plan.conv_route or "cudacore", splits=plan.splits,
+            sub_rows=plan.sub_rows, sub_cols=plan.sub_cols,
         )
         return QTensor(out, out_fmt)
 
@@ -635,6 +640,7 @@ class Engine:
             stride=stride, padding=pad, tau=plan.tau, cin_chunk=plan.cin_chunk,
             relu=relu, fmt=fmt, route=plan.route, block=plan.block,
             tile_rows=plan.tile_rows, tile_cols=plan.tile_cols,
-            halo_mode=plan.halo_mode,
+            halo_mode=plan.halo_mode, conv_route=plan.conv_route or "cudacore",
+            splits=plan.splits, sub_rows=plan.sub_rows, sub_cols=plan.sub_cols,
         )
         return dequantize(qres, fmt, dtype=x.dtype)

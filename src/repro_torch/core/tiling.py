@@ -48,10 +48,12 @@ FP_ROUTES = ("tile", "splitk", "wgmma")
 #: (every larger m)
 Q16_ROUTES = ("tile", "splitk", "wgmma")
 
-#: the float direct conv's routes (``csrc/conv2d.cu``): "cudacore" is its
-#: CUDA-core ``conv_kernel`` (every fixed-point conv, and the float convs
-#: the other route does not take), "tc" the tensor-core 3xTF32 implicit GEMM
-#: of ``csrc/conv2d_tc.cuh`` (float, Cin and Cout multiples of 8)
+#: the direct conv's routes (``csrc/conv2d.cu``), float and fixed point:
+#: "cudacore" is its CUDA-core ``conv_kernel`` (the convs the other route
+#: does not take), "tc" the tensor-core implicit GEMM: 3xTF32 for float
+#: (``csrc/conv2d_tc.cuh``, Cin and Cout multiples of 8), s8 / u8 limb
+#: products for int16 / int8 raws (``csrc/conv2d_q16_tc.cuh``, Cin·bytes a
+#: multiple of 16, Cout a multiple of 8)
 CONV_ROUTES = ("cudacore", "tc")
 
 
@@ -84,7 +86,8 @@ class GpuSpec:
     ``csrc/gemm.cuh`` (both GEMM kernels' route "tile"), each run by
     ``gemm_threads`` threads; ``conv_taus`` the output-channel slices
     ``csrc/conv2d.cu``'s CUDA-core route takes, ``conv_tc_taus`` those of
-    its tensor-core route (``csrc/conv2d_tc.cuh``).  The float GEMM's other routes, each field the
+    its float tensor-core route (``csrc/conv2d_tc.cuh``; the fixed-point one,
+    ``csrc/conv2d_q16_tc.cuh``, takes ``dse.TC_Q16_TAU`` only).  The float GEMM's other routes, each field the
     list its header compiles:
 
     * "splitk" (``csrc/gemm_splitk.cuh``) takes m up to

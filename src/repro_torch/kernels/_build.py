@@ -51,14 +51,18 @@ SOURCES = {"matmul_fp": "matmul_fp.cu", "matmul_q16": "matmul_q16.cu",
 #: preparation launch as "matmul_q16.prep"; the float conv likewise counts
 #: each call under its route ("conv2d.<route>", ``core.tiling.CONV_ROUTES``), and
 #: route "tc"'s weight preparation and Cin-split reduction launches as
-#: "conv2d.tc_prep" and "conv2d.tc_reduce"; flash attention counts each call
+#: "conv2d.tc_prep" and "conv2d.tc_reduce"; the fixed-point conv the same way
+#: ("conv2d_q16.<route>", "conv2d_q16.tc_prep", "conv2d_q16.tc_reduce");
+#: flash attention counts each call
 #: under its route ("flash_attention.simt" or ".wgmma", ``core.dse.plan_flash``),
 #: and route "wgmma"'s preparation launch as "flash_attention.prep"
 KERNELS = ("matmul_fp", "matmul_fp.tile", "matmul_fp.splitk", "matmul_fp.splitk_reduce",
            "matmul_fp.wgmma", "matmul_q16", "matmul_q16.tile", "matmul_q16.splitk",
            "matmul_q16.splitk_reduce", "matmul_q16.wgmma", "matmul_q16.prep", "conv2d",
-           "conv2d.cudacore", "conv2d.tc", "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16", "flash_attention",
-           "flash_attention.simt", "flash_attention.wgmma", "flash_attention.prep")
+           "conv2d.cudacore", "conv2d.tc", "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16",
+           "conv2d_q16.cudacore", "conv2d_q16.tc", "conv2d_q16.tc_prep",
+           "conv2d_q16.tc_reduce", "flash_attention", "flash_attention.simt",
+           "flash_attention.wgmma", "flash_attention.prep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,6 +91,9 @@ _SIGNATURES = {
                               _I, _I, _P],
         "conv2d_tc_prep_launch": [_P, _P, _I, _I, _I, _I, _P],
         "conv2d_tc_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
+        "conv2d_q16_tc_prep_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
+        "conv2d_q16_tc_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -5,13 +5,15 @@ Replaces ``repro/kernels/conv2d.py:conv2d_pallas`` (kernel ``_conv_kernel``),
 ``conv2d_q16_pallas`` (kernel ``_conv_q16_kernel``) and their manual-DMA
 regime ``_conv_dma_call`` (kernel ``_conv_dma_kernel``).  Both wrappers
 launch ``csrc/conv2d.cu``, whose header says what bounds it on an H100 and
-what its design does about that.  The float conv has two routes
-(``CONV_ROUTES``), which the planner picks from the shape: "tc", the
-tensor-core implicit GEMM in split-precision TF32 of ``csrc/conv2d_tc.cuh``
-(a weight-preparation launch, the conv, and for a Cin split a reduction
-launch), and "cudacore", the CUDA-core ``conv_kernel`` that every
-fixed-point conv also runs.  A launch that a route does not take raises;
-no call moves to the other route.
+what its design does about that.  Each has two routes (``CONV_ROUTES``),
+which the planner picks from the shape: "tc", a tensor-core implicit GEMM
+-- in split-precision TF32 for float (``csrc/conv2d_tc.cuh``), as s8 / u8
+limb products of the int16 / int8 raws for fixed point
+(``csrc/conv2d_q16_tc.cuh``) -- run as a weight-preparation launch, the
+conv, and for a Cin split a reduction launch; and "cudacore", the CUDA-core
+``conv_kernel``, for the convs "tc" does not take (the first layers).  A
+launch that a route does not take raises; no call moves to the other
+route.
 
 The reference's three input regimes map onto one kernel:
 
@@ -45,9 +47,13 @@ from repro_torch.core.dse import (
     TC_CHUNK,
     TC_MAX_BOX,
     TC_PIXELS,
+    TC_Q16_CHUNK,
+    TC_Q16_TAU,
     gpu_conv_max_chunk,
+    gpu_conv_q16_tc_smem,
     gpu_conv_smem,
     gpu_conv_subtile,
+    gpu_conv_tc_legal,
     gpu_conv_tc_smem,
     gpu_conv_tc_subtile,
 )
@@ -69,8 +75,11 @@ __all__ = [
     "halo_mode_for",
     "launch",
     "launch_q16",
+    "launch_q16_tc",
     "launch_tc",
+    "prep_q16_tc",
     "prep_tc",
+    "q16_tc_planes_for",
 ]
 
 _BITS = {torch.int8: 8, torch.int16: 16}
@@ -119,16 +128,20 @@ def conv_launch_geometry(
     x_shape, w_shape, *, stride: int, padding: int, tau: int, cin_chunk: int,
     tile_rows: int, tile_cols: int, halo_mode: str, conv_route: str = "cudacore",
     sub_rows: int = 0, sub_cols: int = 0, splits: int = 1,
+    widths: Optional[tuple] = None,
 ) -> ConvLaunch:
-    """Resolve and check one direct-conv launch on ``conv_route``.
+    """Resolve and check one direct-conv launch on ``conv_route``; ``widths``
+    is (xbits, wbits) of a fixed-point conv's raws, None for float.
 
     "cudacore": τ (capped at the smallest compiled τ covering Cout, as the
     reference caps it at Cout), the Cin chunk (0 = the largest that fits
     shared memory), and each block's output tile from the regime.  "tc": a
-    compiled τ, Cin and Cout multiples of 8, the 32-channel chunk (0 or 32),
-    the regime's tile as each block's region, walked in sub-tiles of
-    ``sub_rows`` x ``sub_cols`` pixels (0 = the planner's), and the Cin
-    chunks cut ``splits`` ways."""
+    compiled τ (for fixed point one the width mix takes), float Cin and Cout
+    multiples of 8 or fixed-point Cin·bytes a multiple of 16 and Cout of 8,
+    the route's chunk (0, or 32 float / 64 fixed point), the regime's tile
+    as each block's region, walked in sub-tiles of ``sub_rows`` x
+    ``sub_cols`` pixels (0 = the planner's), and the Cin chunks cut
+    ``splits`` ways."""
     n, h, wd, cin = x_shape
     kh, kw, cin2, cout = w_shape
     if cin != cin2:
@@ -145,7 +158,8 @@ def conv_launch_geometry(
         return _tc_geometry(x_shape, w_shape, ho, wo, stride=stride, padding=padding,
                             tau=tau, cin_chunk=cin_chunk, tile_rows=tile_rows,
                             tile_cols=tile_cols, halo_mode=halo_mode,
-                            sub_rows=sub_rows, sub_cols=sub_cols, splits=splits)
+                            sub_rows=sub_rows, sub_cols=sub_cols, splits=splits,
+                            widths=widths)
     tau = min(tau, _pow2_ceil(max(cout, 8)))
     if tau not in H100.conv_taus:
         raise ValueError(f"conv kernel takes tau in {H100.conv_taus}, got {tau}")
@@ -184,21 +198,33 @@ def _region(kh, stride, ho, wo, tile_rows, tile_cols, halo_mode, untiled):
 
 
 def _tc_geometry(x_shape, w_shape, ho, wo, *, stride, padding, tau, cin_chunk, tile_rows,
-                 tile_cols, halo_mode, sub_rows, sub_cols, splits) -> ConvLaunch:
+                 tile_cols, halo_mode, sub_rows, sub_cols, splits, widths) -> ConvLaunch:
     n, h, wd, cin = x_shape
     kh, kw, _, cout = w_shape
-    if cin % 8 or cout % 8:
-        raise ValueError(f"the tensor-core conv route takes Cin and Cout multiples of "
-                         f"8, got Cin {cin}, Cout {cout}")
-    if tau not in H100.conv_tc_taus:
-        raise ValueError(f"the tensor-core conv route takes tau in {H100.conv_tc_taus}, "
-                         f"got {tau}")
-    if cin_chunk not in (0, TC_CHUNK):
+    if widths is None:
+        in_bytes, chunk = 4, TC_CHUNK
+        if cin % 8 or cout % 8:
+            raise ValueError(f"the tensor-core conv route takes Cin and Cout multiples of "
+                             f"8, got Cin {cin}, Cout {cout}")
+        if tau not in H100.conv_tc_taus:
+            raise ValueError(f"the tensor-core conv route takes tau in "
+                             f"{H100.conv_tc_taus}, got {tau}")
+    else:
+        xbits, wbits = widths
+        in_bytes, chunk = xbits // 8, TC_Q16_CHUNK
+        if not gpu_conv_tc_legal(cin, cout, in_bytes):
+            raise ValueError(f"the fixed-point tensor-core conv route takes Cin·bytes a "
+                             f"multiple of 16 and Cout a multiple of 8, got Cin {cin} of "
+                             f"int{xbits}, Cout {cout}")
+        if tau != TC_Q16_TAU:
+            raise ValueError(f"the fixed-point tensor-core conv route takes tau "
+                             f"{TC_Q16_TAU}, got {tau}")
+    if cin_chunk not in (0, chunk):
         raise ValueError(f"the tensor-core conv route stages Cin in chunks of "
-                         f"{TC_CHUNK}, got {cin_chunk}")
+                         f"{chunk}, got {cin_chunk}")
     region = _region(kh, stride, ho, wo, tile_rows, tile_cols, halo_mode, None)
     if not sub_rows or not sub_cols:
-        sub = gpu_conv_tc_subtile(*(region or (ho, wo)), kh, kw, stride, tau, H100)
+        sub = gpu_conv_tc_subtile(*(region or (ho, wo)), kh, kw, stride, tau, H100, in_bytes)
         if sub is None:
             raise ValueError(f"no tensor-core conv sub-tile fits a {kh}x{kw} stride-{stride} "
                              f"window in TMA's {TC_MAX_BOX}-wide box and "
@@ -209,16 +235,20 @@ def _tc_geometry(x_shape, w_shape, ho, wo, *, stride, padding, tau, cin_chunk, t
     rows, cols = (sub_rows - 1) * stride + kh, (sub_cols - 1) * stride + kw
     if max(rows, cols) > TC_MAX_BOX:
         raise ValueError(f"input window {rows}x{cols} exceeds TMA's {TC_MAX_BOX}-wide box")
-    smem = gpu_conv_tc_smem(kh, kw, stride, tau, sub_rows, sub_cols)
+    if widths is None:
+        smem = gpu_conv_tc_smem(kh, kw, stride, tau, sub_rows, sub_cols)
+    else:
+        smem = gpu_conv_q16_tc_smem(kh, kw, stride, tau, sub_rows, sub_cols,
+                                    widths[0] // 8, widths[1] // 8)
     if smem > H100.smem_per_block:
         raise ValueError(f"sub-tile {sub_rows}x{sub_cols} needs {smem} bytes of shared "
                          f"memory, over the {H100.smem_per_block} a block has")
-    chunks = ceil_div(cin, TC_CHUNK)
+    chunks = ceil_div(cin, chunk)
     if not 1 <= splits <= chunks or (splits - 1) * ceil_div(chunks, splits) >= chunks:
         raise ValueError(f"{splits} Cin splits of {chunks} chunks leave a split empty")
     th, tw = region or (sub_rows, sub_cols)
     geom = (n, h, wd, cin, kh, kw, stride, padding, ho, wo, cout, tau,
-            TC_CHUNK, th, tw, ceil_div(wo, tw), sub_rows, sub_cols)
+            chunk, th, tw, ceil_div(wo, tw), sub_rows, sub_cols)
     return ConvLaunch(geom, ho, wo, smem, "tc", splits)
 
 
@@ -364,7 +394,8 @@ def conv2d_q16_plain(xq, wq, bias=None, *, stride: int = 1, padding: int = 0,
 def launch_q16(lib, xq, wq, bias, out, geo: ConvLaunch, *, relu: bool,
                shift: int, bias_shift: int, raw_min: int, raw_max: int,
                device: int, stream) -> None:
-    """One call of the fixed-point C entry point on prepared operands."""
+    """One call of the fixed-point C entry point of route "cudacore" on
+    prepared operands."""
     keep, geom = _geom_arg(geo.geom)
     rc = lib.conv2d_q16_launch(
         ptr(xq), _BITS[xq.dtype], ptr(wq), _BITS[wq.dtype], ptr(bias), ptr(out),
@@ -373,6 +404,43 @@ def launch_q16(lib, xq, wq, bias, out, geo: ConvLaunch, *, relu: bool,
     )
     del keep
     _build.check(lib, rc, "conv2d_q16")
+
+
+def q16_tc_planes_for(wq: torch.Tensor) -> torch.Tensor:
+    """Route "tc"'s prepared weights for ``wq`` (K, K, Cin, Cout), unwritten:
+    (limbs, Cout, K·K, Cinp) uint8, Cinp = Cin rounded up to the 64-channel
+    chunk; one limb for int8, two for int16."""
+    kh, kw, cin, cout = wq.shape
+    return torch.empty((_BITS[wq.dtype] // 8, cout, kh * kw,
+                        ceil_div(cin, TC_Q16_CHUNK) * TC_Q16_CHUNK),
+                       dtype=torch.uint8, device=wq.device)
+
+
+def prep_q16_tc(lib, wq, wp, *, device: int, stream) -> None:
+    """Route "tc"'s weight preparation: wq (K, K, Cin, Cout) raws -> wp
+    (:func:`q16_tc_planes_for`), the signed hi and unsigned lo bytes of
+    int16 (the int8 raw itself), K-major, Cin zero-padded."""
+    kh, kw, cin, cout = wq.shape
+    rc = lib.conv2d_q16_tc_prep_launch(ptr(wq), _BITS[wq.dtype], ptr(wp), kh * kw, cin, cout,
+                                       device, stream)
+    _build.check(lib, rc, "conv2d_q16.tc_prep")
+
+
+def launch_q16_tc(lib, xq, wp, bias, out, workspace, geo: ConvLaunch, *, relu: bool,
+                  shift: int, bias_shift: int, raw_min: int, raw_max: int, device: int,
+                  stream) -> None:
+    """One call of the fixed-point route "tc" (the conv, and for a Cin split
+    its reduction) on the prepared weights ``wp`` (their limbs give the
+    weights' width); ``workspace`` (splits, N·Ho·Wo·Cout) int32 when
+    ``geo.splits`` > 1."""
+    keep, geom = _geom_arg(geo.geom)
+    rc = lib.conv2d_q16_tc_launch(
+        ptr(xq), _BITS[xq.dtype], ptr(wp), 8 * wp.shape[0], ptr(bias), ptr(out),
+        _BITS[out.dtype], ptr(workspace), geom, geo.splits, int(relu), shift, bias_shift,
+        raw_min, raw_max, device, stream,
+    )
+    del keep
+    _build.check(lib, rc, "conv2d_q16.tc")
 
 
 def conv2d_q16_cuda(
@@ -391,11 +459,18 @@ def conv2d_q16_cuda(
     tile_rows: int = 0,
     tile_cols: int = 0,
     halo_mode: str = "two_block",
+    conv_route: str = "cudacore",
+    sub_rows: int = 0,
+    sub_cols: int = 0,
+    splits: int = 1,
 ) -> torch.Tensor:
     """Fixed-point NHWC conv on int16 / int8 raws (mixed widths allowed),
     written onto ``fmt``'s rung; ``shift`` / ``bias_shift`` as in
-    :func:`~repro_torch.kernels.matmul_q16.matmul_q16_cuda`.  Every tiling is
-    bit-identical: integer accumulation is exact in any order."""
+    :func:`~repro_torch.kernels.matmul_q16.matmul_q16_cuda`.  ``conv_route``,
+    the sub-tile and ``splits`` as in :func:`conv_launch_geometry`; a launch
+    the route does not take raises, here or in the kernel's launcher.  Every
+    route and tiling is bit-identical: integer accumulation is exact in any
+    order."""
     _check_operands(xq, wq, bias, (torch.int8, torch.int16))
     if bias is not None and bias.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"bias must hold int8 or int16 raws, got {bias.dtype}")
@@ -405,7 +480,8 @@ def conv2d_q16_cuda(
     geo = conv_launch_geometry(
         xq.shape, wq.shape, stride=stride, padding=padding, tau=tau,
         cin_chunk=cin_chunk, tile_rows=tile_rows, tile_cols=tile_cols,
-        halo_mode=halo_mode,
+        halo_mode=halo_mode, conv_route=conv_route, sub_rows=sub_rows,
+        sub_cols=sub_cols, splits=splits, widths=(_BITS[xq.dtype], _BITS[wq.dtype]),
     )
     if on_cpu(xq, wq, bias):
         return conv2d_q16_plain(xq, wq, bias, stride=stride, padding=padding,
@@ -414,10 +490,24 @@ def conv2d_q16_cuda(
                                 out_dtype=fmt.storage_dtype, relu=relu)
     bias32 = None if bias is None else bias.to(torch.int32).contiguous()
     require_contiguous(xq=xq, wq=wq)
-    out = torch.empty((xq.shape[0], geo.ho, geo.wo, wq.shape[3]),
-                      dtype=fmt.storage_dtype, device=xq.device)
-    launch_q16(_build.library("conv2d"), xq, wq, bias32, out, geo, relu=relu,
-               shift=shift, bias_shift=bias_shift, raw_min=fmt.raw_min,
-               raw_max=fmt.raw_max, device=xq.device.index, stream=stream_of(xq))
+    n, cout = xq.shape[0], wq.shape[3]
+    out = torch.empty((n, geo.ho, geo.wo, cout), dtype=fmt.storage_dtype, device=xq.device)
+    lib = _build.library("conv2d")
+    dev, stream = xq.device.index, stream_of(xq)
+    epi = dict(relu=relu, shift=shift, bias_shift=bias_shift, raw_min=fmt.raw_min,
+               raw_max=fmt.raw_max, device=dev, stream=stream)
+    if geo.route == "tc":
+        wp = q16_tc_planes_for(wq)
+        prep_q16_tc(lib, wq, wp, device=dev, stream=stream)
+        _build.launches["conv2d_q16.tc_prep"] += 1
+        ws = None
+        if geo.splits > 1:
+            ws = torch.empty((geo.splits, n * geo.ho * geo.wo * cout), dtype=torch.int32,
+                             device=xq.device)
+        launch_q16_tc(lib, xq, wp, bias32, out, ws, geo, **epi)
+        _build.launches["conv2d_q16.tc_reduce"] += int(geo.splits > 1)
+    else:
+        launch_q16(lib, xq, wq, bias32, out, geo, **epi)
     _build.launches["conv2d_q16"] += 1
+    _build.launches[f"conv2d_q16.{geo.route}"] += 1
     return out

@@ -50,6 +50,27 @@ template <> __device__ __forceinline__ __nv_bfloat16 narrow_f<__nv_bfloat16>(flo
 }
 #endif
 
+// The byte of limb ``l`` of a raw, as the tensor-core integer routes feed
+// 8-bit wgmma (gemm_q16_wgmma.cuh, conv2d_q16_tc.cuh): int16 -> hi (signed,
+// plane 0), lo (unsigned, plane 1), so x = hi·2^8 + lo; int8 -> itself
+// (signed, plane 0).
+template <typename T>
+struct Limbs;
+template <>
+struct Limbs<int16_t> {
+  static constexpr int N = 2;
+  __host__ __device__ static uint8_t byte(int32_t v, int l) {
+    return static_cast<uint8_t>(l == 0 ? (v >> 8) & 0xFF : v & 0xFF);
+  }
+};
+template <>
+struct Limbs<int8_t> {
+  static constexpr int N = 1;
+  __host__ __device__ static uint8_t byte(int32_t v, int) {
+    return static_cast<uint8_t>(v & 0xFF);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // multiply-accumulate, one overload per accumulator kind
 // ---------------------------------------------------------------------------

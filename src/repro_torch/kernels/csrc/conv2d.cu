@@ -3,13 +3,16 @@
 // Replaces repro/kernels/conv2d.py:conv2d_pallas (kernel _conv_kernel),
 // conv2d_q16_pallas (kernel _conv_q16_kernel) and, through the same code,
 // their manual-DMA regime _conv_dma_call (kernel _conv_dma_kernel), on two
-// routes the planner (core/dse.py) picks from the shape and the numerics:
-//   "tc"       (conv2d_tc.cuh): float convs whose Cin and Cout are multiples
-//              of 8, on the tensor cores in split-precision TF32; that
-//              header says what bounds it and what its design does;
-//   "cudacore" (conv_kernel below): every fixed-point conv, bit-exact, and
-//              the float convs the tensor-core route does not take (Cin 1,
-//              3 or 6: the zoo's first layers).
+// routes per numerics, which the planner (core/dse.py) picks from the shape:
+//   "tc"       on the tensor cores: float convs whose Cin and Cout are
+//              multiples of 8 in split-precision TF32 (conv2d_tc.cuh), and
+//              fixed-point convs whose Cin·bytes is a multiple of 16 and
+//              whose Cout is a multiple of 8 as s8 / u8 limb products,
+//              bit-exact (conv2d_q16_tc.cuh); those headers say what bounds
+//              them and what their designs do;
+//   "cudacore" (conv_kernel below): the convs the tensor-core routes do not
+//              take (Cin 1, 3 or 6: the zoo's first layers; LeNet's Cout 6),
+//              float and fixed point, the integer sum bit-exact.
 //
 // conv_kernel: each block owns one output tile of (tile_rows x tile_cols)
 // pixels of one image and a slice of tau output channels.  It walks its tile
@@ -35,6 +38,7 @@
 // multiply-adds from 8 shared-memory loads, so shared-memory bandwidth caps
 // it well below that peak.
 #include "common.cuh"
+#include "conv2d_q16_tc.cuh"
 #include "conv2d_tc.cuh"
 
 namespace repro {
@@ -256,4 +260,39 @@ extern "C" int conv2d_q16_launch(const void* x, int xbits, const void* w, int wb
   if (xbits == 8 && wbits == 8)
     return repro::q16_by_out<int8_t, int8_t>(x, w, out, obits, geom, epi, device, s);
   return REPRO_BAD_ARG;
+}
+
+// The fixed-point tensor-core route's weight preparation: w (K, K, Cin,
+// Cout) raws of wbits (8 or 16) -> wp (limbs, Cout, K*K, cinp) bytes, the
+// signed hi and unsigned lo bytes of int16 (one plane for int8), Cin
+// zero-padded to cinp, the next multiple of 64.
+extern "C" int conv2d_q16_tc_prep_launch(const void* w, int wbits, void* wp, int taps, int cin,
+                                         int cout, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return repro::launch_conv_q16_tc_prep(w, wbits, wp, taps, cin, cout,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// The fixed-point tensor-core route on x (NHWC raws of xbits) and the
+// prepared wp (of wbits); geom as for conv2d_launch, with chunk 64 and
+// (sub_h, sub_w) the sub-tile of at most 128 pixels; out on the rung of
+// obits (8 or 16); workspace: the (splits, N*Ho*Wo, Cout) int32 partial sums
+// when splits > 1, else null.
+extern "C" int conv2d_q16_tc_launch(const void* x, int xbits, const void* wp, int wbits,
+                                    const void* bias, void* out, int obits, void* workspace,
+                                    const int* geom, int splits, int relu, int shift,
+                                    int bias_shift, int raw_min, int raw_max, int device,
+                                    void* stream) {
+#ifndef REPRO_CPU_SHIM
+  if (shift < -31 || shift > 31 || bias_shift < 0 || bias_shift > 31) return REPRO_BAD_ARG;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const repro::IntRungEpilogue epi{
+      {static_cast<const int32_t*>(bias), bias_shift, relu, shift, raw_min, raw_max}, obits};
+  return repro::launch_conv_q16_tc(x, xbits, wp, wbits, out, static_cast<uint32_t*>(workspace),
+                                   geom, splits, epi, static_cast<cudaStream_t>(stream));
+#else
+  return REPRO_BAD_ARG;  // inline PTX: no CPU counterpart
+#endif
 }

@@ -451,20 +451,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// A 4-D f32 tensor map (dims innermost first, byte strides of dims 1-3), read
-// in boxes whose innermost extent is one 128-byte swizzle row; zeros past
-// its edges.
-inline bool make_map_4d(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
-                        const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides,
-             box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int TAU>
 int launch_tau(const CUtensorMap& map_x, const CUtensorMap& map_w, const TcArgs& a, int splits,
                float* out, float* part, const FloatEpilogue& epi, cudaStream_t stream) {
@@ -549,8 +535,9 @@ inline int launch_conv_tc(const void* x, const void* wp, void* out, float* part,
                                static_cast<cuuint64_t>(a.cout), 2};
   const cuuint64_t wstrides[3] = {bx, bx * taps, bx * taps * a.cout};
   const cuuint32_t wbox[4] = {CHUNK, 1, static_cast<cuuint32_t>(tau), 2};
-  if (!make_map_4d(&map_x, x, xdims, xstrides, xbox) ||
-      !make_map_4d(&map_w, wp, wdims, wstrides, wbox))
+  constexpr CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!make_map_4d(&map_x, f32, x, xdims, xstrides, xbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_4d(&map_w, f32, wp, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return REPRO_BAD_ARG;
   float* o = static_cast<float*>(out);
   return tau == 128 ? launch_tau<128>(map_x, map_w, a, splits, o, part, epi, stream)

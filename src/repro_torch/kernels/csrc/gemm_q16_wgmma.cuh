@@ -60,25 +60,6 @@ constexpr int XP_ROWS = 8;    // x rows of a preparation block, 32 threads each
 constexpr int XP_COLS = 256;  // k columns of a preparation block, 8 a thread
 constexpr int WP_TILE = 64;   // w is transposed in 64 (k) x 64 (n) tiles
 
-// The byte of limb ``i`` of a raw: int16 -> hi (signed, plane 0), lo
-// (unsigned, plane 1); int8 -> itself (signed, plane 0).
-template <typename T>
-struct Limbs;
-template <>
-struct Limbs<int16_t> {
-  static constexpr int N = 2;
-  __host__ __device__ static uint8_t byte(int32_t v, int i) {
-    return static_cast<uint8_t>(i == 0 ? (v >> 8) & 0xFF : v & 0xFF);
-  }
-};
-template <>
-struct Limbs<int8_t> {
-  static constexpr int N = 1;
-  __host__ __device__ static uint8_t byte(int32_t v, int) {
-    return static_cast<uint8_t>(v & 0xFF);
-  }
-};
-
 __device__ __forceinline__ uint2 pack8(const uint8_t (&b)[8]) {
   uint2 o;
   o.x = b[0] | (b[1] << 8) | (b[2] << 16) | (static_cast<uint32_t>(b[3]) << 24);

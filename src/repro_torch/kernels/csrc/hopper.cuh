@@ -1,15 +1,16 @@
 // PTX wrappers and the tensor-map encoder shared by the port's Hopper
 // (sm_90a) tensor-core kernels: the float GEMM's route W (gemm_wgmma.cuh),
-// the q16 GEMM's route wgmma (gemm_q16_wgmma.cuh), the float direct conv's
-// tensor-core route (conv2d_tc.cuh) and flash attention's route wgmma
-// (flash_wgmma.cuh).
+// the q16 GEMM's route wgmma (gemm_q16_wgmma.cuh), the direct conv's
+// tensor-core routes (conv2d_tc.cuh, float; conv2d_q16_tc.cuh, fixed
+// point) and flash attention's route wgmma (flash_wgmma.cuh).
 //
 // mbarriers, TMA loads (2-D and 4-D tensor maps) and stores, the wgmma
-// shared-memory descriptor of a 128-byte-swizzled operand, the wgmma
+// shared-memory descriptor of a 128- or 64-byte-swizzled operand, the wgmma
 // fence / commit / wait instructions, the bf16 wgmmas with both operands
 // in shared memory at N = 128 and 256, and the s8 / u8 wgmmas (s32
-// accumulators) at N = 64 and 128.  cuTensorMapEncodeTiled is found
-// through cudaGetDriverEntryPoint, so no library links libcuda.
+// accumulators) at N = 64 and 128, with A from shared memory or from
+// registers.  cuTensorMapEncodeTiled is found through
+// cudaGetDriverEntryPoint, so no library links libcuda.
 //
 // All of it is inline PTX for sm_90a, so none of it exists under the CPU
 // shim (REPRO_CPU_SHIM).
@@ -90,12 +91,17 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+// The descriptor's swizzle modes (bits 62-63) of the layouts TMA writes.
+constexpr uint64_t DESC_SW128 = 1, DESC_SW64 = 2;
+
+// wgmma shared-memory descriptor of a swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout B128 (rows of 128
+// bytes, 8-row groups 1024 bytes apart) or B64 (rows of 64 bytes, 512).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle = DESC_SW128) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (swizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -254,6 +260,45 @@ __device__ __forceinline__ void mma_i8_m64n128k32(uint32_t (&d)[64], uint64_t da
 }
 #undef REPRO_MMA_I8_N128
 
+// The same s8 / u8 products with A in registers: four .b32 registers a
+// thread, each four 8-bit values along k.  Fragment layout of m64nNk32 A
+// (8-bit types): warp w of the warpgroup holds rows 16w .. 16w + 15; with
+// g = lane / 4 and t = lane % 4, register 0 holds row g, k 4t .. 4t + 3;
+// register 1 row g + 8, the same k; registers 2 and 3 the same rows at k 16
+// + 4t .. 16 + 4t + 3.  A register-A wgmma reads its registers until it has
+// been waited for: the caller keeps them unchanged until then.
+#define REPRO_MMA_I8_RS_N64(TYPES)                                               \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32" TYPES " {"                  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"                                  \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
+
+// D (64 x 64, s32 in registers) = A (64 x 32, 8-bit in registers) . B (32 x
+// 64, 8-bit from shared memory, K-major, through its descriptor), + D when
+// ``acc`` (scale-d), else D's old values are not read; AU / BU as for
+// mma_i8_m64n64k32.
+template <bool AU, bool BU>
+__device__ __forceinline__ void mma_i8_rs_m64n64k32(uint32_t (&d)[32], const uint32_t* a,
+                                                    uint64_t db, int acc) {
+  if constexpr (!AU && !BU) {
+    REPRO_MMA_I8_RS_N64(".s8.s8");
+  } else if constexpr (!AU && BU) {
+    REPRO_MMA_I8_RS_N64(".s8.u8");
+  } else if constexpr (AU && !BU) {
+    REPRO_MMA_I8_RS_N64(".u8.s8");
+  } else {
+    REPRO_MMA_I8_RS_N64(".u8.u8");
+  }
+}
+#undef REPRO_MMA_I8_RS_N64
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -307,6 +352,20 @@ inline bool make_map_bytes(CUtensorMap* map, const void* ptr, long long rows, lo
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
              estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D tensor map (dims innermost first, byte strides of dims 1-3) of
+// ``type`` elements, read in boxes whose innermost extent is one swizzle row
+// of ``swizzle``'s width; zeros past its edges.
+inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                        const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                        const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box, estride,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

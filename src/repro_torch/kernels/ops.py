@@ -150,14 +150,21 @@ def conv2d_q16(
     tile_rows: int = 0,
     tile_cols: int = 0,
     halo_mode: str = "two_block",
+    conv_route: str = "cudacore",
+    splits: int = 1,
+    sub_rows: int = 0,
+    sub_cols: int = 0,
 ) -> torch.Tensor:
-    """NHWC conv, fixed-point path, on int16 / int8 raws."""
+    """NHWC conv, fixed-point path, on int16 / int8 raws.  ``route="direct"``:
+    the direct CUDA conv on ``conv_route`` ("cudacore" or "tc", with its
+    sub-tile and Cin split); ``route="im2col"``: im2col + the q16 GEMM."""
     if route == "direct":
         return conv2d_q16_cuda(
             xq, wq, bias, stride=stride, padding=padding, tau=tau,
             cin_chunk=cin_chunk, relu=relu, fmt=fmt, shift=shift,
             bias_shift=bias_shift, tile_rows=tile_rows, tile_cols=tile_cols,
-            halo_mode=halo_mode,
+            halo_mode=halo_mode, conv_route=conv_route, splits=splits,
+            sub_rows=sub_rows, sub_cols=sub_cols,
         )
     if route != "im2col":
         raise ValueError(f"unknown conv route {route!r}")

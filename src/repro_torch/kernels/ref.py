@@ -37,6 +37,8 @@ __all__ = [
     "conv_taps_f32",
     "conv_taps_i32",
     "conv_taps_tf32",
+    "conv_q16_limbs",
+    "conv_q16_weight_planes",
     "tf32_round",
     "tf32_split",
     "attention_ref",
@@ -341,3 +343,35 @@ def matmul_q16_limbs(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
             by_shift[sa + sb] = wrap_i32(by_shift.get(sa + sb, 0) + part).to(torch.int64)
     total = sum(acc << shift for shift, acc in by_shift.items())
     return wrap_i32(total)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-point conv's tensor-core arithmetic
+# ---------------------------------------------------------------------------
+
+
+def conv_q16_limbs(xq: torch.Tensor, wq: torch.Tensor, *, stride: int = 1,
+                   padding: int = 0) -> torch.Tensor:
+    """The fixed-point conv's route "tc" (``csrc/conv2d_q16_tc.cuh``) in its
+    own arithmetic: x and w split into limbs (:func:`q16_limbs`), each limb
+    pair's conv summed over every tap and channel on its own with int32 wrap
+    (an s32 wgmma accumulator with no ``.satfinite``; hl and lh share one),
+    then recombined in uint32: hh·2^16 + (hl + lh)·2^8 + ll, mod 2^32.  Equal
+    to ``conv_taps_i32(xq, wq)`` bit for bit.  No main-path code calls it."""
+    by_shift: dict = {}
+    for a, sa in q16_limbs(xq):
+        for b, sb in q16_limbs(wq):
+            part = conv_taps_i32(a, b, stride=stride, padding=padding).to(torch.int64)
+            by_shift[sa + sb] = wrap_i32(by_shift.get(sa + sb, 0) + part).to(torch.int64)
+    total = sum(acc << shift for shift, acc in by_shift.items())
+    return wrap_i32(total)
+
+
+def conv_q16_weight_planes(wq: torch.Tensor, cinp: int) -> torch.Tensor:
+    """Route "tc"'s weight preparation: wq (K, K, Cin, Cout) raws -> (limbs,
+    Cout, K·K, cinp) uint8, each limb's bytes (the signed hi limb in two's
+    complement) with zeros from Cin to cinp: K-major, as 8-bit wgmma takes
+    its B operand."""
+    kh, kw, cin, cout = wq.shape
+    return q16_limb_planes(wq.permute(3, 0, 1, 2).reshape(cout * kh * kw, cin),
+                           cinp).reshape(-1, cout, kh * kw, cinp)

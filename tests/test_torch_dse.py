@@ -143,18 +143,24 @@ def test_h100_plans_are_legal_for_the_kernels(net, backend, batch):
     plan = tcnn.plan_cnn(tpl, spec, shape)
     hh = ww = spec.input_hw
     ch = spec.input_ch
+    # a q16 plan does not see the raws' widths: it is legal for every mix,
+    # and its shared memory is the most any mix takes
+    mixes = ((16, 16), (16, 8), (8, 16), (8, 8)) if backend == "q16" else (None,)
     for cp, (cout, k, stride, pad, pool) in zip(plan.convs, spec.convs):
         assert cp.route == "direct"
         taus = H100.conv_tc_taus if cp.conv_route == "tc" else H100.conv_taus
         assert cp.tau in taus and 1 <= cp.cin_chunk <= ch
         assert cp.vmem_bytes <= H100.smem_per_block
-        geo = conv_launch_geometry(
-            (batch, hh, ww, ch), (k, k, ch, cout), stride=stride, padding=pad,
-            tau=cp.tau, cin_chunk=cp.cin_chunk, tile_rows=cp.tile_rows,
-            tile_cols=cp.tile_cols, halo_mode=cp.halo_mode, conv_route=cp.conv_route,
-            sub_rows=cp.sub_rows, sub_cols=cp.sub_cols, splits=cp.splits,
-        )
-        assert geo.smem_bytes == cp.vmem_bytes
+        smem = []
+        for widths in mixes:
+            geo = conv_launch_geometry(
+                (batch, hh, ww, ch), (k, k, ch, cout), stride=stride, padding=pad,
+                tau=cp.tau, cin_chunk=cp.cin_chunk, tile_rows=cp.tile_rows,
+                tile_cols=cp.tile_cols, halo_mode=cp.halo_mode, conv_route=cp.conv_route,
+                sub_rows=cp.sub_rows, sub_cols=cp.sub_cols, splits=cp.splits, widths=widths,
+            )
+            smem.append(geo.smem_bytes)
+        assert max(smem) == cp.vmem_bytes
         hh, ww = geo.ho // (pool or 1), geo.wo // (pool or 1)
         ch = cout
     for gp in plan.fcs:
@@ -386,19 +392,64 @@ def _plan(net, backend, batch=8):
 @pytest.mark.parametrize("net", NETS)
 def test_conv_routes_of_the_zoo(net, batch):
     """Float: every conv whose Cin and Cout are multiples of 8 on the tensor
-    cores, the first layers (Cin 1, 3, 6) on the CUDA cores; fixed point:
-    every conv on the CUDA cores."""
-    spec, plan = _plan(net, "cuda", batch)
-    routes = [cp.conv_route for cp in plan.convs]
+    cores, the first layers (Cin 1, 3, 6) on the CUDA cores; fixed point the
+    same convs (VGG16 12 of 13, AlexNet 4 of 5, LeNet 0 of 2): every conv
+    whose Cin is a multiple of 16 (16 bytes of the narrowest raws, int8) and
+    Cout of 8 on the tensor cores, at the τ every width mix takes."""
     tc, cc = CONV_ROUTE_COUNTS[net]
-    assert routes.count("tc") == tc and routes.count("cudacore") == cc, routes
-    ch = spec.input_ch
-    for cp, (cout, *_rest) in zip(plan.convs, spec.convs):
-        assert cp.conv_route == ("tc" if ch % 8 == 0 and cout % 8 == 0 else "cudacore")
-        ch = cout
-    for backend in ("q16",):
-        _, qplan = _plan(net, backend, batch)
-        assert all(cp.conv_route == "cudacore" for cp in qplan.convs)
+    for backend, chan_mult in (("cuda", 8), ("q16", 16)):
+        spec, plan = _plan(net, backend, batch)
+        routes = [cp.conv_route for cp in plan.convs]
+        assert routes.count("tc") == tc and routes.count("cudacore") == cc, routes
+        ch = spec.input_ch
+        for cp, (cout, *_rest) in zip(plan.convs, spec.convs):
+            legal = ch % chan_mult == 0 and cout % 8 == 0
+            assert cp.conv_route == ("tc" if legal else "cudacore")
+            if cp.conv_route == "tc" and backend == "q16":
+                assert cp.tau == 64 and cp.cin_chunk == tdse.TC_Q16_CHUNK
+            ch = cout
+
+
+@pytest.mark.parametrize("net", ["alexnet", "vgg16"])
+def test_q16_tc_plans_take_every_width_mix(net):
+    """A fixed-point plan does not see the raws' widths, so its "tc" choice
+    is one every mix takes: τ 64 (int16 x int16 keeps three accumulators),
+    the 64-channel chunk, the most shared memory any mix takes, a sub-tile whose
+    window fits TMA's box, and a Cin split of the 64-channel chunks."""
+    spec, plan = _plan(net, "q16")
+    hh, ch = spec.input_hw, spec.input_ch
+    for cp, (cout, k, stride, pad, pool) in zip(plan.convs, spec.convs):
+        ho = (hh + 2 * pad - k) // stride + 1
+        if cp.conv_route == "tc":
+            assert (cp.tau, cp.cin_chunk) == (tdse.TC_Q16_TAU, tdse.TC_Q16_CHUNK) == (64, 64)
+            assert cp.vmem_bytes == max(
+                tdse.gpu_conv_q16_tc_smem(k, k, stride, 64, cp.sub_rows, cp.sub_cols, xb, wb)
+                for xb in (1, 2) for wb in (1, 2))
+            assert cp.vmem_bytes <= H100.smem_per_block
+            assert max((cp.sub_rows - 1) * stride + k, (cp.sub_cols - 1) * stride + k) \
+                <= tdse.TC_MAX_BOX
+            blocks = tdse.gpu_conv_tc_blocks(8, ho, ho, cout, 64, cp.sub_rows, cp.sub_cols)
+            assert cp.splits == tdse.gpu_conv_tc_splits(blocks, ch, H100, tdse.TC_Q16_CHUNK)
+        hh, ch = ho // (pool or 1), cout
+    # τ 64 whatever Cout, where the float route would take 128
+    assert all(tdse.gpu_conv_tc_tau(c, H100, b) == 64 for c in (128, 384) for b in (1, 2))
+    assert tdse.gpu_conv_tc_tau(384, H100, 4) == 128
+
+
+def test_q16_tc_legality_is_cin_bytes():
+    """Route "tc" takes fixed point where Cin·bytes is a multiple of 16 and
+    Cout of 8; the planner, blind to the widths, takes a conv only where
+    int8 raws qualify too (Cin a multiple of 16), so an int16 Cin of 8 is
+    legal for the launch and planned on the CUDA cores."""
+    assert tdse.gpu_conv_tc_legal(8, 16, 2) and not tdse.gpu_conv_tc_legal(8, 16, 1)
+    assert tdse.gpu_conv_tc_legal(16, 16, 1) and not tdse.gpu_conv_tc_legal(16, 12, 2)
+    assert not tdse.gpu_conv_tc_legal(12, 16, 2) and tdse.gpu_conv_tc_legal(8, 16, 4)
+    t_reset()
+    q16 = default_template("q16", device="cpu").engine
+    assert q16.plan_conv((1, 16, 16, 8), (3, 3, 8, 16), padding=1).conv_route == "cudacore"
+    assert q16.plan_conv((1, 16, 16, 16), (3, 3, 16, 16), padding=1).conv_route == "tc"
+    fp = default_template("cuda", device="cpu").engine
+    assert fp.plan_conv((1, 16, 16, 8), (3, 3, 8, 16), padding=1).conv_route == "tc"
 
 
 @pytest.mark.parametrize("net", ["alexnet", "vgg16"])

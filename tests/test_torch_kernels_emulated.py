@@ -9,12 +9,15 @@ kernels' indexing, tiling, masking, Cin chunks, epilogues, the GEMM's
 transposed-B operand, both GEMMs' split-k route (the float one in both
 layouts, the q16 one on every width mix; their slices and fixed-order
 reductions), the q16 GEMM's preparation launch (byte planes, transpose,
-zero pad) and flash attention's GQA indexing, causal block skip, ragged
-rows, ``q_offset`` and strided views at tiny shapes here; it says nothing
-about speed, and the card runs the real build.  The GEMMs' wgmma routes
-are inline PTX for sm_90a with no CPU counterpart (``csrc/gemm_wgmma.cuh``
-and the main kernel of ``csrc/gemm_q16_wgmma.cuh`` are left out under the
-shim): only the card tests (``tests/test_torch_kernels_gpu.py``) run them.
+zero pad), the fixed-point conv's route "tc" weight preparation (limb
+planes, transpose, Cin zero pad) and flash attention's GQA indexing,
+causal block skip, ragged rows, ``q_offset`` and strided views at tiny
+shapes here; it says nothing about speed, and the card runs the real
+build.  The tensor-core routes are inline PTX for sm_90a with no CPU
+counterpart (``csrc/gemm_wgmma.cuh``, the main kernels of
+``csrc/gemm_q16_wgmma.cuh`` and ``csrc/conv2d_q16_tc.cuh``, and
+``csrc/conv2d_tc.cuh`` are left out under the shim): only the card tests
+(``tests/test_torch_kernels_gpu.py``) run them.
 """
 import ctypes
 import dataclasses
@@ -350,6 +353,40 @@ def test_conv_kernels_emulated(libs, case):
                                        raw_max=fmt.raw_max, out_dtype=fmt.storage_dtype,
                                        relu=True)
         assert torch.equal(out, want), xd
+
+
+Q16_TC_PREP_CASES = [  # K, Cin, Cout
+    (3, 40, 72),   # Cin padded to 64, ragged Cout tile
+    (1, 8, 16),    # a 1x1 conv, Cin 8 in one part chunk
+    (5, 64, 10),   # Cin exactly one chunk
+    (3, 130, 33),  # three chunks, the last a part one
+]
+
+
+@pytest.mark.parametrize("wd", [torch.int16, torch.int8])
+@pytest.mark.parametrize("case", Q16_TC_PREP_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_conv_q16_tc_prep_emulated(libs, case, wd):
+    """The fixed-point conv's route "tc" preparation launch writes (limbs,
+    Cout, K·K, Cinp) bytes (the signed hi and unsigned lo bytes of int16,
+    the int8 raw itself), K-major, zeros from Cin to Cinp, bit for bit
+    ``ref.conv_q16_weight_planes``; the main kernel refuses to run here."""
+    k, cin, cout = case
+    g = torch.Generator().manual_seed(k * cin + cout)
+    w = _raws((k, k, cin, cout), wd, g)
+    wp = conv2d.q16_tc_planes_for(w)
+    assert wp.shape == (2 if wd == torch.int16 else 1, cout, k * k, -(-cin // 64) * 64)
+    wp.fill_(0xAB)
+    conv2d.prep_q16_tc(libs["conv2d"], w, wp, device=0, stream=NULL_STREAM)
+    assert torch.equal(wp, ref.conv_q16_weight_planes(w, wp.shape[-1]))
+    x = torch.zeros(1, 8, 8, 64, dtype=torch.int16)
+    geo = conv2d.conv_launch_geometry(x.shape, (k, k, 64, 16), stride=1, padding=k // 2,
+                                      tau=64, cin_chunk=0, tile_rows=0, tile_cols=0,
+                                      halo_mode="none", conv_route="tc", widths=(16, 16))
+    with pytest.raises(RuntimeError, match="does not take"):
+        conv2d.launch_q16_tc(libs["conv2d"], x, conv2d.q16_tc_planes_for(
+            torch.zeros(k, k, 64, 16, dtype=torch.int16)), None,
+            torch.empty(1, 8, 8, 16, dtype=torch.int16), None, geo, relu=False, shift=0,
+            bias_shift=0, raw_min=-1, raw_max=1, device=0, stream=NULL_STREAM)
 
 
 def test_kernels_refuse_bad_launches(libs):

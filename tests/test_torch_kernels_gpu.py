@@ -4,7 +4,10 @@ float conv's tensor-core route in 3xTF32) and 2e-3 (the conv's CUDA-core
 route, flash attention on both routes), with TF32 off; the float GEMM's
 bf16 routes at 2e-2; the float GEMM's routes and the conv's tensor-core
 route also bit for bit equal on a second launch; the q16 GEMM's routes
-bit for bit on every width mix and rung, with both wrap-around cases;
+bit for bit on every width mix and rung, with both wrap-around cases; the
+fixed-point conv's tensor-core route bit for bit at the zoo's layers on
+every width mix and rung, its Cin split, regions and wrap-around cases, and
+its preparation pass bit for bit equal to ``ref.conv_q16_weight_planes``;
 flash attention's route
 wgmma also within 1e-4 (bf16: about one bf16 step) of the emulation of its
 split-bf16 arithmetic (``ref.attention_split_bf16``), and its preparation pass bit for bit equal
@@ -26,7 +29,9 @@ from repro_torch.kernels.conv2d import (
     conv2d_plain,
     conv2d_q16_cuda,
     conv2d_q16_plain,
+    prep_q16_tc,
     prep_tc,
+    q16_tc_planes_for,
 )
 from repro_torch.kernels.matmul_fp import matmul_fp_cuda, matmul_fp_plain, plan_for
 from repro_torch.kernels.matmul_q16 import matmul_q16_cuda, matmul_q16_plain
@@ -202,6 +207,163 @@ def test_conv_tc_refuses_unaligned_operands(dev):
     w = torch.randn(3, 3, 16, 16, device=dev)
     with pytest.raises(RuntimeError, match="does not take"):
         conv2d_cuda(x, w, padding=1, conv_route="tc")
+
+
+def _zoo_conv(net, i):
+    """(h, cin, cout, k, stride, pad) of conv ``i`` of a zoo net."""
+    spec = cnn.CNN_ZOO[net]
+    hh, ch = spec.input_hw, spec.input_ch
+    for j, (cout, k, s, p, pool) in enumerate(spec.convs):
+        if j == i:
+            return hh, ch, cout, k, s, p
+        hh = (hh + 2 * p - k) // s + 1
+        hh, ch = hh // (pool or 1), cout
+
+
+#: x bits, w bits, output format, shift (the int32 sum's top bits on the
+#: rung: random raws wrap it over its whole range), ReLU
+Q16_TC_MIXES = [
+    (torch.int16, torch.int16, Q2_14, 16, True),
+    (torch.int16, torch.int8, Q2_6, 24, False),
+    (torch.int8, torch.int16, Q2_14, 16, False),
+    (torch.int8, torch.int8, Q2_6, 12, True),
+]
+Q16_TC_ZOO = [("vgg16", 1), ("vgg16", 4), ("vgg16", 8), ("vgg16", 12), ("alexnet", 1),
+              ("alexnet", 2), ("alexnet", 3), ("alexnet", 4)]
+
+
+def _q16_tc_check(x, w, b, *, fmt, shift, relu, **kw):
+    """Route "tc" bit for bit against the plain version and on a second
+    launch, each call one prep, one conv and (when split) one reduction."""
+    before = dict(_build.launches)
+    args = dict(relu=relu, fmt=fmt, shift=shift, bias_shift=3, conv_route="tc", **kw)
+    got = conv2d_q16_cuda(x, w, b, **args)
+    again = conv2d_q16_cuda(x, w, b, **args)
+    torch.cuda.synchronize()
+    grew = {name: _build.launches[name] - before[name] for name in before}
+    assert grew["conv2d_q16"] == grew["conv2d_q16.tc"] == grew["conv2d_q16.tc_prep"] == 2
+    assert grew["conv2d_q16.cudacore"] == 0
+    assert grew["conv2d_q16.tc_reduce"] == 2 * (kw.get("splits", 1) > 1)
+    want = conv2d_q16_plain(x, w, b, stride=kw.get("stride", 1), padding=kw.get("padding", 0),
+                            shift=shift, bias_shift=3, raw_min=fmt.raw_min,
+                            raw_max=fmt.raw_max, out_dtype=fmt.storage_dtype, relu=relu)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("mix", range(len(Q16_TC_MIXES)))
+@pytest.mark.parametrize("net,i", Q16_TC_ZOO)
+def test_conv_q16_tc_zoo_layers(dev, net, i, mix):
+    """The zoo's tensor-core layers at full width (batch 2) on the engine's
+    plan, every width mix and rung, ReLU on and off."""
+    h, cin, cout, k, s, p = _zoo_conv(net, i)
+    xd, wd, fmt, shift, relu = Q16_TC_MIXES[mix]
+    plan = default_template("q16").engine.plan_conv((2, h, h, cin), (k, k, cin, cout),
+                                                    stride=s, padding=p)
+    assert plan.conv_route == "tc" and plan.tau == 64
+    g = torch.Generator().manual_seed(100 * i + mix)
+    x, w = _raws((2, h, h, cin), xd, g, dev), _raws((k, k, cin, cout), wd, g, dev)
+    b = _raws((cout,), xd, g, dev)
+    _q16_tc_check(x, w, b, fmt=fmt, shift=shift, relu=relu, stride=s, padding=p,
+                  tau=plan.tau, splits=plan.splits, sub_rows=plan.sub_rows,
+                  sub_cols=plan.sub_cols)
+
+
+Q16_TC_CONVS = [  # n, h, cin, cout, k, stride, pad, x, w, tau, splits, (tiles)
+    (2, 14, 512, 512, 3, 1, 1, torch.int16, torch.int16, 64, 3, None),  # uneven split
+    (1, 13, 192, 384, 3, 1, 1, torch.int8, torch.int8, 64, 2, None),    # int8 x int8, split
+    (1, 20, 40, 24, 3, 1, 0, torch.int16, torch.int8, 64, 1, None),     # part chunk, Cout 24
+    (1, 15, 16, 64, 3, 2, 1, torch.int8, torch.int16, 64, 1, None),     # stride 2
+    (1, 19, 8, 16, 5, 4, 2, torch.int16, torch.int16, 64, 1, None),     # stride 4, Cin 8
+    (1, 512, 64, 64, 3, 1, 1, torch.int16, torch.int16, 64, 1, (256, 128, "dma")),
+    (1, 56, 128, 256, 3, 1, 1, torch.int16, torch.int16, 64, 1, (8, 0, "two_block")),
+    (1, 33, 32, 64, 3, 1, 1, torch.int8, torch.int8, 64, 1, (16, 24, "dma")),
+]
+
+
+@pytest.mark.parametrize("case", Q16_TC_CONVS, ids=lambda c: "-".join(map(str, c[:7])))
+def test_conv_q16_tc_route_vs_plain(dev, case):
+    """Ragged shapes, strides 1 / 2 / 4, Cin splits, Cout past the last τ
+    slice's end, the DMA (256 x 128) region and the two-block region."""
+    n, h, cin, cout, k, s, p, xd, wd, tau, splits, tiles = case
+    tr, tc, hm = tiles or (0, 0, "none")
+    g = torch.Generator().manual_seed(h * cin + cout)
+    x, w = _raws((n, h, h, cin), xd, g, dev), _raws((k, k, cin, cout), wd, g, dev)
+    b = _raws((cout,), xd, g, dev)
+    fmt = Q2_14 if xd == torch.int16 else Q2_6
+    _q16_tc_check(x, w, b, fmt=fmt, shift=16 if fmt is Q2_14 else 24, relu=True, stride=s,
+                  padding=p, tau=tau, splits=splits, tile_rows=tr, tile_cols=tc,
+                  halo_mode=hm)
+
+
+@pytest.mark.parametrize("cout", [16, 24])
+@pytest.mark.parametrize("xd", [torch.int16, torch.int8])
+def test_conv_q16_tc_cout_inside_one_tau_slice(dev, cout, xd):
+    """Cout 16 / 24 with a bias, one split: the τ slice runs past Cout, so
+    the one-split epilogue takes its edge path (columns past Cout read no
+    bias and are not written).  Bit for bit the plain version over the
+    whole output."""
+    g = torch.Generator().manual_seed(cout)
+    x, w = _raws((2, 12, 12, 32), xd, g, dev), _raws((3, 3, 32, cout), xd, g, dev)
+    b = _raws((cout,), xd, g, dev)
+    fmt = Q2_14 if xd == torch.int16 else Q2_6
+    _q16_tc_check(x, w, b, fmt=fmt, shift=16 if fmt is Q2_14 else 10, relu=False,
+                  padding=1, tau=64, splits=1)
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("k,cin,v,total", [(3, 4096, -1, 36864), (1, 8, -32768, 0)])
+def test_conv_q16_tc_wraps_mod_2_32(dev, k, cin, v, total, splits):
+    """Raws -1 at 3x3 x Cin 4096 (the ll limb sum alone passes 2^31; the
+    total is 36,864) and -32768 at 1x1 x Cin 8 (the int32 sum 2^33 wraps to
+    0): exact, so no ``.satfinite`` and no lost carry."""
+    if cin // 64 < splits:
+        splits = 1
+    x = torch.full((1, 3, 3, cin), v, dtype=torch.int16, device=dev)
+    w = torch.full((k, k, cin, 16), v, dtype=torch.int16, device=dev)
+    acc = ref.conv_taps_i32(x, w)
+    assert int(acc.min()) == int(acc.max()) == total
+    got = _q16_tc_check(x, w, None, fmt=Q2_14, shift=1, relu=False, tau=64, splits=splits)
+    assert int(got.min()) == int(got.max()) == (total + 1) >> 1
+
+
+def test_conv_q16_tc_weight_prep_is_the_limb_split(dev):
+    """The preparation launch writes (limbs, Cout, K·K, Cinp) bytes, bit for
+    bit ``ref.conv_q16_weight_planes``, zeros from Cin to Cinp."""
+    g = torch.Generator().manual_seed(11)
+    for wd in (torch.int16, torch.int8):
+        w = _raws((5, 5, 40, 72), wd, g, dev)
+        wp = q16_tc_planes_for(w)
+        wp.fill_(0xAB)
+        prep_q16_tc(_build.library("conv2d"), w, wp, device=dev.index,
+                    stream=torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        assert torch.equal(wp, ref.conv_q16_weight_planes(w, 64))
+
+
+def test_conv_q16_tc_refuses_what_it_does_not_take(dev):
+    """Cin·bytes not a multiple of 16, Cout not a multiple of 8, a τ other
+    than 64 (int16 x int16 or int8 x int8) and a misaligned base raise;
+    nothing moves to the CUDA cores."""
+    before = dict(_build.launches)
+    z = dict(padding=1, conv_route="tc", tau=64)
+    for xs, ws, kw in (((1, 8, 8, 12), (3, 3, 12, 16), {}),      # 24 bytes of int16
+                       ((1, 8, 8, 8), (3, 3, 8, 16), {"x8": 1}),  # 8 bytes of int8
+                       ((1, 8, 8, 16), (3, 3, 16, 12), {}),       # Cout 12
+                       ((1, 8, 8, 16), (3, 3, 16, 16), {"tau": 128}),
+                       ((1, 8, 8, 16), (3, 3, 16, 16), {"tau": 128, "x8": 1, "w8": 1})):
+        xd = torch.int8 if kw.pop("x8", 0) else torch.int16
+        wd = torch.int8 if kw.pop("w8", 0) else torch.int16
+        x = torch.zeros(xs, dtype=xd, device=dev)
+        with pytest.raises(ValueError):
+            conv2d_q16_cuda(x, torch.zeros(ws, dtype=wd, device=dev), **{**z, **kw})
+    x = torch.zeros(1 + 8 * 8 * 16, dtype=torch.int16, device=dev)[1:].view(1, 8, 8, 16)
+    with pytest.raises(RuntimeError, match="does not take"):
+        conv2d_q16_cuda(x, torch.zeros((3, 3, 16, 16), dtype=torch.int16, device=dev), **z)
+    assert _build.launches["conv2d_q16.cudacore"] == before["conv2d_q16.cudacore"]
+    assert _build.launches["conv2d_q16.tc"] == before["conv2d_q16.tc"]
 
 
 def test_lenet_forward_on_card_matches_cpu(dev):
