@@ -72,7 +72,24 @@ non-zero without its result line):
    ``torch`` backend (float), and the logits are held to stated
    tolerances; the grid-resident replay shows each layer's share of raws at
    the grid's bounds and the island counts.  Then prefill tokens/s, decode ms/step,
-   peak memory, device time by kernel (``torch.profiler``), and one run of
+   peak memory, device time by kernel (``torch.profiler``), each beside the
+   same steps through ``compiled_steps`` (one CUDA graph replay a step);
+6. the serve scheduler: ``ServeScheduler`` on the same qwen2-0.5b, float
+   and grid-resident, 8 slots over the ladder (512, 1024, 4096), 32 new
+   tokens at most, warmed up, then a bursty ``synthetic_trace`` of 24
+   requests (prompts of 64-4096 tokens, half at t = 0, the rest in four
+   bursts) on the system clock, each decode step one replay of the captured
+   CUDA graph.  Gates: a replay and the eager step give the same logits and
+   cache bit for bit at the 8-slot shape; every request completes and no
+   slot leaks; the trace makes no DSE search and no capture after warm-up;
+   each stream, teacher-forced through the unbatched path, within phase 5's
+   logit tolerances, a token differing only where the top-2 margin is at
+   most 2·max |Δlogit|; launches per route counted through the replays
+   (decode GEMMs and heads on "splitk", prefill GEMMs on "wgmma", none on
+   "tile", flash once a layer per 4096-rung prefill).  Printed: decode ms a
+   step eager against graph, the device's busy share of a replayed step,
+   tokens/s by wall time, TTFT p50 / p99, peak memory; then 4 requests with
+   512-token prefill chunks under the same stream gate; then one run of
    ``serve.main`` at the reference's reduced CLI size.
 
 ``--gemm-route-study`` adds the float GEMM's design measurements, off by
@@ -166,6 +183,20 @@ QWEN_PROMPT_LEN = 4096
 QWEN_GEN = 16
 #: random QKV biases and norm scales, N(0, 0.1²), so both carry values
 QWEN_PARAM_STD = 0.1
+#: phase 6, the serve scheduler: 8 slots over the ladder (512, 1024, 4096),
+#: 32 new tokens at most (cache_len 4128); a 24-request bursty trace, then 4
+#: requests with 512-token prefill chunks
+SCHED_SLOTS = 8
+SCHED_LADDER = (512, 1024, 4096)
+SCHED_MAX_NEW = 32
+SCHED_REQUESTS = 24
+SCHED_CHUNK_REQUESTS = 4
+SCHED_CHUNK = 512
+#: the trace's prompts run from 64 tokens, its budgets from 8
+SCHED_MIN_LEN = 64
+SCHED_MIN_NEW = 8
+#: seconds between the trace's four later bursts
+SCHED_BURST_S = 0.25
 #: teacher-forced logits against the plain torch backend (float) on the same
 #: stream: max |Δ| / max |logit|, and the least argmax agreement; wherever
 #: the plain path's top-2 margin exceeds 2·max |Δ| the argmax must agree
@@ -1473,6 +1504,7 @@ def phase_serving(torch, dev):
     from repro_torch.core.template import default_template
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import CAPTURE_COUNTS
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as T
 
@@ -1499,16 +1531,21 @@ def phase_serving(torch, dev):
     for numerics, tpl, pol in (("float", tf, None), ("grid " + policy.fmt.name, tq, policy)):
         kernel = "matmul_fp" if pol is None else "matmul_q16"
         _build.reset_launches()
+        caps0 = sum(CAPTURE_COUNTS.values())
         stream = generate(cfg, params, prompts, gen=QWEN_GEN, tpl=tpl, policy=pol)
         torch.cuda.synchronize()
+        # generate's decode steps replay a CUDA graph; its capture ran one
+        # eager warm-up step, whose launches count as any other's
+        captures = sum(CAPTURE_COUNTS.values()) - caps0
         launches = dict(_build.launches)
         windows[numerics] = launches
-        emit({"phase": "serving_launches", "numerics": numerics, **launches})
+        emit({"phase": "serving_launches", "numerics": numerics,
+              "decode_graph_captures": captures, **launches})
         # flash once a layer a prefill, on route wgmma with its preparation
         # (head dim 64), never in decode
         want = {"flash_attention": cfg.n_layers, "flash_attention.wgmma": cfg.n_layers,
                 "flash_attention.prep": cfg.n_layers, "flash_attention.simt": 0,
-                kernel: QWEN_GEN * per_prefill["matmul_fp"]}
+                kernel: (QWEN_GEN + captures) * per_prefill["matmul_fp"]}
         if pol is None:
             # the prefill's 7 GEMMs a layer (m = 4 x 4096, bf16) on the tensor
             # cores; its head (m = 4) and every decode GEMM stream on split-k
@@ -1628,6 +1665,7 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
     """Prefill tokens/s, decode ms/step and peak memory (CUDA events after
     warm-up), then the device time by kernel of one prefill and of four
     decode steps (``torch.profiler``)."""
+    from repro_torch.launch.scheduler import compiled_steps
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as T
 
@@ -1647,7 +1685,16 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
                 _, c = T.decode_step(tpl, cfg, tree, tok, s + i, c, policy=pol)
 
         decode_ms = time_ms(decode, target_ms=1.0) / (QWEN_GEN - 1)
-        del cache
+        # the same steps through compiled_steps: one CUDA graph replay each
+        fns = compiled_steps(tpl, cfg, clen, pol)
+        _, _, cache_g = fns.decode_next(tree, tok, s, cache)
+
+        def decode_graph(n=QWEN_GEN - 1):
+            for i in range(n):
+                fns.decode_next(tree, tok, s + i, cache_g)
+
+        decode_graph_ms = time_ms(decode_graph, target_ms=1.0) / (QWEN_GEN - 1)
+        del cache, cache_g
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1661,6 +1708,8 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
               "prefill_tokens_per_s": QWEN_PROMPTS * s / prefill_ms * 1e3,
               "decode_ms_per_step": decode_ms,
               "decode_tokens_per_s": QWEN_PROMPTS / decode_ms * 1e3,
+              "decode_ms_per_step_graph": decode_graph_ms,
+              "decode_tokens_per_s_graph": QWEN_PROMPTS / decode_graph_ms * 1e3,
               "generate_s_host_clock": gen_s, "peak_mem_bytes": peak,
               "resident_bytes_before": resident})
 
@@ -1678,6 +1727,303 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
               **profile_window(torch, decode4, host_ops=True)})
         del cache
     emit({"phase": "clocks_after_serving_timing", "nvidia_smi": smi_clocks()})
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serve scheduler (qwen2-0.5b), a CUDA graph per decode step
+# ---------------------------------------------------------------------------
+
+
+def sched_trace(cfg, n: int, *, seed: int = SEED):
+    """``synthetic_trace`` over the phase's ladder: prompt lengths from 64 to
+    4096, budgets from 8 to 32; half the requests at t = 0, the rest in four
+    bursts."""
+    from repro_torch.launch.scheduler import synthetic_trace
+
+    trace = synthetic_trace(n, seed=seed, vocab=cfg.vocab, ladder=SCHED_LADDER,
+                            max_new=SCHED_MAX_NEW, min_len=SCHED_MIN_LEN,
+                            min_new=SCHED_MIN_NEW)
+    half = n // 2
+    for i, r in enumerate(trace):
+        r.arrival = 0.0 if i < half else SCHED_BURST_S * (1 + (i - half) * 4 // (n - half))
+    return trace
+
+
+def slot_state(torch, sched, tree):
+    """A slot cache in mid-serve: every slot prefilled (one launch on the
+    smallest rung) to its own length, lane 2 off; with the step's tokens and
+    positions."""
+    from repro_torch.models import transformer as T
+
+    slots, dev = sched.sched.slots, sched.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rung = min(SCHED_LADDER)
+    toks = torch.randint(0, sched.cfg.vocab, (slots, rung), generator=gen, device=dev)
+    lens = (torch.arange(slots, device=dev) + 1) * rung // (slots + 1)
+    _, rows = sched._prefill(tree, toks, None, lens - 1)
+    cache = T.insert_cache_rows(sched._make_cache(), rows, src_rows=torch.arange(slots),
+                                sel=torch.ones(slots, dtype=torch.bool), valid_lens=lens)
+    del rows
+    tvec = lens.clone()
+    tvec[2] = -1
+    tok = torch.randint(0, sched.cfg.vocab, (slots, 1), generator=gen, device=dev)
+    return cache, tok, tvec
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _tree_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return all(_tree_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return all(_tree_equal(torch, x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def check_streams(torch, sched, tree, logits_of, trace, *, rel_tol, what):
+    """Each request's scheduler stream against the port's unbatched path
+    (``compiled_steps``' prefill and graph decode at batch 1), teacher-forced
+    on that stream: max |Δlogit| <= ``rel_tol`` of the logit scale, and
+    wherever the unbatched argmax differs from the scheduler's token, the
+    unbatched top-2 margin <= 2·max |Δlogit|.  Returns the summary."""
+    from repro_torch.launch.scheduler import compiled_steps
+
+    fns = compiled_steps(sched.tpl, sched.cfg, sched.cache_len, sched.policy)
+    identical, worst, flips = 0, 0.0, []
+    for r in trace:
+        stream = r.generated
+        got = torch.stack(logits_of[r.rid]).float()
+        prompt = torch.tensor([r.prompt], device=sched.device)
+        s = prompt.shape[1]
+        lg, cache = fns.prefill(tree, prompt, None, None)
+        want = [lg.to(torch.float32, copy=True)]
+        for i in range(len(stream) - 1):
+            tok = torch.tensor([[stream[i]]], device=sched.device)
+            _, lg, cache = fns.decode_next(tree, tok, s + i, cache)
+            # the step's logits buffer is rewritten by its next replay
+            want.append(lg.to(torch.float32, copy=True))
+        want = torch.cat(want)
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        differ = want.argmax(-1).cpu() != torch.tensor(stream)
+        if not (bool(torch.isfinite(got).all()) and diff / scale <= rel_tol):
+            # which side moved: the same stream through the eager unbatched steps
+            from repro_torch.models import transformer as T
+
+            lg, cache = T.prefill(sched.tpl, sched.cfg, tree, prompt,
+                                  cache_len=sched.cache_len, policy=sched.policy)
+            eager = [lg.float()]
+            for i in range(len(stream) - 1):
+                lg, cache = T.decode_step(sched.tpl, sched.cfg, tree,
+                                          torch.tensor([[stream[i]]], device=sched.device),
+                                          s + i, cache, policy=sched.policy)
+                eager.append(lg.float())
+            eager = torch.cat(eager)
+            raise AssertionError(
+                f"{what}: rid {r.rid} (prompt {s}, slots {r.slot_history}) logits off the "
+                f"unbatched path: max |Δ| {diff} of scale {scale}; by step, scheduler - "
+                f"graph {(got - want).abs().amax(-1).tolist()}, scheduler - eager "
+                f"{(got - eager).abs().amax(-1).tolist()}, graph - eager "
+                f"{(want - eager).abs().amax(-1).tolist()}")
+        for i in differ.nonzero().flatten().tolist():
+            if float(margin[i]) > 2 * diff:
+                raise AssertionError(f"{what}: rid {r.rid} step {i}: token "
+                                     f"{stream[i]} against {int(want[i].argmax())} at a "
+                                     f"top-2 margin {float(margin[i])} > 2·{diff}")
+            flips.append({"rid": r.rid, "step": i, "margin": float(margin[i]),
+                          "max_abs_diff": diff})
+        identical += int(not bool(differ.any()))
+        worst = max(worst, diff / scale)
+    return {"streams": len(trace), "byte_identical_streams": identical,
+            "worst_rel_diff": worst, "rel_tol": rel_tol, "token_flips": flips[:8],
+            "n_token_flips": len(flips)}
+
+
+def phase_scheduler(torch, cfg, params, runs):
+    """The serve scheduler on qwen2-0.5b at full width and depth, float and
+    grid-resident: warm-up, graph = eager bit for bit, a bursty 24-request
+    trace (every request completes, no slot leaks, no DSE search and no
+    capture after warm-up, launches by route counted through the graph
+    replays), each stream against the unbatched path, then eager against
+    graph decode times, the busy share of a replayed step, tokens/s, TTFT and
+    peak memory; and a shorter chunked-prefill run.  Returns the launch
+    windows."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import (
+        CAPTURE_COUNTS,
+        SchedulerConfig,
+        ServeScheduler,
+        SystemClock,
+        compiled_steps,
+        replay_trace,
+    )
+    from repro_torch.models import transformer as T
+
+    windows = {}
+    L = cfg.n_layers
+    for numerics, tpl, pol in runs:
+        kernel = "matmul_fp" if pol is None else "matmul_q16"
+        rel_tol = FLOAT_REL_TOL if pol is None else Q16_REL_TOL
+        t0 = time.perf_counter()
+        sched = ServeScheduler(cfg, params, tpl=tpl, policy=pol, clock=SystemClock(),
+                               sched=SchedulerConfig(ladder=SCHED_LADDER, slots=SCHED_SLOTS,
+                                                     max_new_limit=SCHED_MAX_NEW))
+        tree = sched.exec_params
+        sched.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        fns = compiled_steps(tpl, cfg, sched.cache_len, sched.policy)
+        misses0, caps0 = sched.registry.misses, dict(CAPTURE_COUNTS)
+
+        # gate 1: a replay of the captured step and the eager step, at the
+        # same 8-slot state and inputs: the same logits and cache, bit for bit
+        cache, tok, tvec = slot_state(torch, sched, tree)
+        lg_e, c_e = T.decode_step(tpl, cfg, tree, tok, tvec, cache, policy=sched.policy)
+        _, lg_g, c_g = fns.decode_next(tree, tok, tvec, _clone_tree(cache))
+        torch.cuda.synchronize()
+        if not (torch.equal(lg_e, lg_g) and _tree_equal(torch, c_e, c_g)):
+            raise AssertionError(f"{numerics}: the graph replay differs from the eager "
+                                 f"decode step: max |Δlogit| "
+                                 f"{float((lg_e.float() - lg_g.float()).abs().max())}")
+        # decode ms per step at 8 slots: eager against replay (the replay fed
+        # host arrays, as the scheduler feeds it)
+        tok_np, t_np = tok.cpu().numpy(), tvec.cpu().numpy()
+        eager_ms = time_ms(lambda: T.decode_step(tpl, cfg, tree, tok, tvec, cache,
+                                                 policy=sched.policy), target_ms=300.0)
+        graph_ms = time_ms(lambda: fns.decode_next(tree, tok_np, t_np, c_g), target_ms=300.0)
+        prof = profile_window(torch, lambda: fns.decode_next(tree, tok_np, t_np, c_g))
+        if isinstance(prof.get("device_busy_ms"), float):
+            prof["device_busy_share_of_event_time"] = prof["device_busy_ms"] / graph_ms
+        del cache, c_e, c_g, lg_e
+        torch.cuda.empty_cache()
+
+        # the trace, through the replayed graph
+        trace = sched_trace(cfg, SCHED_REQUESTS)
+        n_long = sum(len(r.prompt) > SCHED_LADDER[1] for r in trace)
+        assert n_long >= 2, f"the trace has {n_long} prompts on the top rung"
+        logits_of = {r.rid: [] for r in trace}
+        sched.logit_sink = lambda r, row: logits_of[r.rid].append(row.float().clone())
+        ticks = []
+        step = sched.step
+
+        def timed_step():  # each tick ends in a read of the device
+            t1 = time.perf_counter()
+            ev = step()
+            ticks.append((time.perf_counter() - t1, ev))
+            return ev
+
+        sched.step = timed_step
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = sched.clock.now()
+        stats = replay_trace(sched, trace, tick=0.0)
+        torch.cuda.synchronize()
+        wall_s = sched.clock.now() - t0
+        del sched.step
+        pre = [dt for dt, ev in ticks if ev and ev["prefill_launches"]]
+        dec = [dt for dt, ev in ticks if ev and not ev["prefill_launches"]]
+        ticks_line = {"ticks": len(ticks), "prefill_ticks": len(pre),
+                      "prefill_ticks_s": sum(pre), "decode_only_ticks": len(dec),
+                      "decode_only_ticks_s": sum(dec),
+                      "decode_only_tick_ms_mean": 1e3 * sum(dec) / max(len(dec), 1),
+                      "idle_s": wall_s - sum(pre) - sum(dec)}
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(_build.launches)
+        windows[f"scheduler {numerics}"] = launches
+        c = sched.counters
+        if not (c["completed"] == len(trace) == len(sched.results) and not sched.active
+                and not sched.queue and sched._free == list(range(SCHED_SLOTS))):
+            raise AssertionError(f"{numerics}: the trace did not complete cleanly: "
+                                 f"{dict(c)}, free slots {sched._free}")
+        if sched.registry.misses != misses0 or dict(CAPTURE_COUNTS) != caps0:
+            raise AssertionError(f"{numerics}: the warm trace planned "
+                                 f"{sched.registry.misses - misses0} GEMMs / recaptured "
+                                 f"({dict(CAPTURE_COUNTS)} vs {caps0})")
+        n_pre, n_dec = c["prefill_launches"], c["decode_steps"]
+        n4096 = sched.bucket_stats[max(SCHED_LADDER)]["launches"]
+        want = {f"{kernel}.splitk": (7 * L + 1) * n_dec + n_pre,  # decode + every head
+                f"{kernel}.wgmma": 7 * L * n_pre, f"{kernel}.tile": 0,
+                "matmul_fp.tile": 0, "matmul_q16.tile": 0,
+                "flash_attention.wgmma": L * n4096, "flash_attention.simt": 0}
+        if pol is not None:
+            want["matmul_fp"] = 0
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{numerics} scheduler: {name} launched "
+                                     f"{launches[name]} times, want {n} ({n_dec} decode "
+                                     f"steps, {n_pre} prefill launches, {n4096} on 4096)")
+        sched.logit_sink = None
+        check = check_streams(torch, sched, tree, logits_of, trace, rel_tol=rel_tol,
+                              what=f"{numerics} scheduler")
+        del logits_of
+        emit({"phase": "scheduler", "numerics": numerics, "nvidia_smi": nvidia_smi(),
+              "slots": SCHED_SLOTS, "ladder": SCHED_LADDER, "cache_len": sched.cache_len,
+              "requests": len(trace), "prompts_on_the_top_rung": n_long,
+              "warmup_s": warmup_s, "graph_equals_eager": True,
+              "decode_ms_per_step_eager": eager_ms, "decode_ms_per_step_graph": graph_ms,
+              "graph_speedup": eager_ms / graph_ms,
+              "replayed_step_profile": prof, "trace_wall_s": wall_s,
+              "trace_ticks_host_clock": ticks_line,
+              "generated_tokens": c["tokens"], "tokens_per_s": c["tokens"] / wall_s,
+              "ttft_s": stats["ttft"], "mean_occupancy": stats["mean_occupancy"],
+              "prefill_launches": n_pre, "prefill_launches_4096": n4096,
+              "decode_steps": n_dec, "peak_mem_bytes": peak,
+              "new_dse_searches": 0, "recaptures": 0, "vs_unbatched": check,
+              "stats_line": sched.stats_line()})
+        if pol is None:
+            windows["scheduler chunked"] = phase_scheduler_chunked(torch, cfg, params, tpl)
+        del sched, fns
+        torch.cuda.empty_cache()
+    return windows
+
+
+def phase_scheduler_chunked(torch, cfg, params, tpl):
+    """A shorter run with ``prefill_chunk``: long prompts stream into their
+    slots chunk by chunk beside decode; every stream held to the unbatched
+    path as in the main run."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import (
+        SchedulerConfig,
+        ServeScheduler,
+        SystemClock,
+        replay_trace,
+    )
+
+    sched = ServeScheduler(cfg, params, tpl=tpl, clock=SystemClock(),
+                           sched=SchedulerConfig(ladder=SCHED_LADDER, slots=SCHED_SLOTS,
+                                                 max_new_limit=SCHED_MAX_NEW,
+                                                 prefill_chunk=SCHED_CHUNK))
+    sched.warmup()
+    trace = sched_trace(cfg, SCHED_CHUNK_REQUESTS, seed=SEED + 1)
+    logits_of = {r.rid: [] for r in trace}
+    sched.logit_sink = lambda r, row: logits_of[r.rid].append(row.float().clone())
+    _build.reset_launches()
+    t0 = sched.clock.now()
+    replay_trace(sched, trace, tick=0.0)
+    torch.cuda.synchronize()
+    wall_s = sched.clock.now() - t0
+    launches = dict(_build.launches)
+    c = sched.counters
+    if c["completed"] != len(trace) or c["chunk_steps"] == 0:
+        raise AssertionError(f"chunked scheduler: {dict(c)}")
+    sched.logit_sink = None
+    check = check_streams(torch, sched, sched.exec_params, logits_of, trace,
+                          rel_tol=FLOAT_REL_TOL, what="chunked scheduler")
+    emit({"phase": "scheduler_chunked", "numerics": "float", "prefill_chunk": SCHED_CHUNK,
+          "requests": len(trace), "prompt_lens": [len(r.prompt) for r in trace],
+          "chunk_steps": c["chunk_steps"], "decode_steps": c["decode_steps"],
+          "prefill_launches": c["prefill_launches"], "trace_wall_s": wall_s,
+          "tokens_per_s": c["tokens"] / wall_s, "ttft_s": sched.stats()["ttft"],
+          "vs_unbatched": check})
+    return launches
 
 
 def phase_serve_cli(torch):
@@ -1787,6 +2133,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cfg, params, prompts, serving_runs, serving_windows = phase_serving(torch, dev)
     phase_serving_timing(torch, cfg, params, prompts, serving_runs)
+    torch.cuda.empty_cache()
+    serving_windows.update(phase_scheduler(torch, cfg, params, serving_runs))
     del params, serving_runs
     torch.cuda.empty_cache()
     phase_serve_cli(torch)

@@ -4,7 +4,7 @@ The port's copy of ``repro.configs.base``: every architecture is a frozen
 :class:`ArchConfig` (the same fields and defaults, so a config prints the
 same in both packages); :func:`reduced` derives the small variant of the
 same family that the CPU tests run.  The registry holds the families the
-port runs; others arrive with their families (ROADMAP queue 1 item 10).
+port runs; others arrive with their families (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -106,7 +106,7 @@ def get_config(name: str) -> ArchConfig:
 
     if name not in _REGISTRY:
         raise KeyError(f"{name!r} is not ported yet (ported: {sorted(_REGISTRY)}; "
-                       f"the other families are ROADMAP queue 1 item 10)")
+                       f"the other families are ROADMAP queue 1 item 6)")
     return _REGISTRY[name]()
 
 

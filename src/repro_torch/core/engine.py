@@ -16,6 +16,9 @@ The port's copy of ``repro.core.engine`` for one device:
   (plain tensor ops, the analog of ``xla``).  Its counters keep the
   reference's names, with ``gemm_cuda`` for ``gemm_pallas`` and
   ``conv_torch`` for ``conv_xla``.
+* The serve scheduler's bucket ladder: :func:`bucket_for`,
+  :func:`batch_rungs` and :meth:`Engine.plan_gemm_ladder`, exactly the
+  reference's.
 
 Mesh and spatial (H-slab) sharding raise ``NotImplementedError``.
 """
@@ -25,7 +28,7 @@ import collections
 import contextlib
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -47,10 +50,46 @@ __all__ = [
     "ConvPlan",
     "GemmPlan",
     "Engine",
+    "batch_rungs",
+    "bucket_for",
     "plan_cache_for",
+    "register_plan_store",
     "reset_plan_caches",
     "validate_policy",
 ]
+
+
+def bucket_for(length: int, ladder: Sequence[int]) -> Optional[int]:
+    """The bucket-ladder rule: the smallest ladder entry >= length.
+
+    The serve scheduler pads every prefill up to a rung of a small ladder so
+    the engine sees a handful of fixed GEMM shapes, each planned once,
+    instead of one shape per prompt length.  None when the length exceeds
+    every rung (the request cannot be admitted at this ladder).
+    """
+    if length < 0:
+        raise ValueError(f"negative length {length}")
+    best = None
+    for rung in ladder:
+        if rung >= length and (best is None or rung < best):
+            best = rung
+    return best
+
+
+def batch_rungs(slots: int) -> tuple:
+    """Batch-size ladder for coalesced (B, L) prefill launches: powers of two
+    up to ``slots`` plus ``slots`` itself.  A tick's pending prefills for one
+    rung are padded up to the smallest batch rung >= their count, so the
+    engine sees |batch_rungs| x |ladder| prefill shapes in all."""
+    if slots < 1:
+        raise ValueError(f"slots must be >= 1, got {slots}")
+    rungs = set()
+    b = 1
+    while b < slots:
+        rungs.add(b)
+        b *= 2
+    rungs.add(slots)
+    return tuple(sorted(rungs))
 
 
 class PlanRegistry:
@@ -155,9 +194,23 @@ def plan_cache_for(spec: Spec = H100) -> PlanRegistry:
     return reg
 
 
+_EXTRA_PLAN_STORES: list = []
+
+
+def register_plan_store(store) -> None:
+    """Register a derived memo (anything with ``clear()``) to be emptied by
+    :func:`reset_plan_caches`; registering the same object twice is a no-op."""
+    if not any(s is store for s in _EXTRA_PLAN_STORES):
+        _EXTRA_PLAN_STORES.append(store)
+
+
 def reset_plan_caches() -> None:
+    """Drop every cached plan, in place, and every registered derived memo
+    (the scheduler's compiled steps hold templates whose plans just went)."""
     for reg in _REGISTRIES.values():
         reg.clear()
+    for store in _EXTRA_PLAN_STORES:
+        store.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,6 +345,16 @@ class Engine:
         _no_sharding(mesh, partition)
         block = None if self.config.backend == "torch" else self.block_for(m, n, k)
         return GemmPlan(m=m, n=n, k=k, block=block)
+
+    def plan_gemm_ladder(self, ladder: Sequence[int], n: int, k: int, *,
+                         batches: Sequence[int] = (1,), mesh=None,
+                         partition=None) -> dict:
+        """Plan one GEMM per (batch rung x bucket-ladder rung) product, M =
+        batch * rung at fixed N / K: the scheduler's warm-up primitive, so
+        every bucket's shape is in the registry before traffic arrives.
+        Returns {M: plan}."""
+        ms = sorted({int(b) * int(m) for b in batches for m in ladder})
+        return {m: self.plan_gemm(m, n, k, mesh=mesh, partition=partition) for m in ms}
 
     def plan_conv(
         self, x_shape, w_shape, *, stride: int = 1, padding=0,

@@ -16,12 +16,16 @@ template's compute unit; the score / value math has two routes:
   the diagonal, which adds exactly nothing to the online softmax (the
   reference's folded causal schedule, ``_sdpa_folded``, skips them too).
 
-Cache layout per layer: {"k", "v": (B, Hkv, C, D), "pos": (C,) int32}, a
-ring buffer (slot = pos % C) shared by every batch row.  The per-slot
-layout (pos: (B, C)) comes with the scheduler (ROADMAP queue 1 item 7).
+Cache layout per layer: {"k", "v": (B, Hkv, C, D), "pos"}, a ring buffer
+(slot = pos % C): with "pos" (C,) int32 every batch row shares one position
+vector (``prefill`` / ``generate``); the slot-indexed layout of the serve
+scheduler gives each row its own, "pos" (B, C), so rows decode at
+independent positions.  Decode positions live on the device: the write
+slot, the position write and the mask come from the ``t`` tensor, never
+from a host integer, so a CUDA graph can capture the step.
 Sliding windows and non-causal chunked attention belong to families that
-are not ported yet (ROADMAP queue 1 item 10) and raise.  The reference's
-``constrain`` sharding hints are left out until the mesh is ported (item 9).
+are not ported yet (ROADMAP queue 1 item 6) and raise.  The reference's
+``constrain`` sharding hints are left out until the mesh is ported (item 5).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ __all__ = [
     "attention",
     "attention_islands",
     "decode_attention",
+    "decode_positions",
     "init_layer_cache",
     "CHUNKED_THRESHOLD",
 ]
@@ -49,7 +54,7 @@ _NEG = -1e30
 CHUNKED_THRESHOLD = 4096
 _BQ, _BK = 1024, 1024
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1 item 10: the other model families)"
+_NOT_PORTED = "not ported yet (ROADMAP queue 1 item 6: the other model families)"
 
 
 def init_attention(gen: torch.Generator, cfg, *, d_model=None, n_heads=None, n_kv=None,
@@ -69,14 +74,14 @@ def init_attention(gen: torch.Generator, cfg, *, d_model=None, n_heads=None, n_k
 
 def init_layer_cache(batch: int, n_kv: int, cache_len: int, head_dim: int, dtype,
                      per_slot: bool = False, device="cpu") -> dict:
-    """Zero k / v ring cache with one shared (C,) position vector."""
-    if per_slot:
-        raise NotImplementedError("the per-slot cache is not ported yet (ROADMAP "
-                                  "queue 1 item 7: the scheduler)")
+    """Zero k / v ring cache.  ``per_slot`` gives each batch row its own
+    position vector, (B, C) instead of the shared (C,), so rows can decode at
+    independent positions (continuous batching)."""
+    pos_shape = (batch, cache_len) if per_slot else (cache_len,)
     return {
         "k": torch.zeros((batch, n_kv, cache_len, head_dim), dtype=dtype, device=device),
         "v": torch.zeros((batch, n_kv, cache_len, head_dim), dtype=dtype, device=device),
-        "pos": torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+        "pos": torch.full(pos_shape, -1, dtype=torch.int32, device=device),
     }
 
 
@@ -293,8 +298,17 @@ def attention_islands(cfg, *, mode: str, cached: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# decode (one token, ring cache)
+# decode (ring cache; one token, or a chunk per slot)
 # ---------------------------------------------------------------------------
+
+
+def decode_positions(t, device) -> torch.Tensor:
+    """The decode position(s) ``t`` as an int64 tensor on ``device``: an int
+    becomes a 0-d tensor (filled on the device, no host copy), a tensor keeps
+    its shape, 0-d or (B,)."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device=device, dtype=torch.int64)
+    return torch.full((), int(t), dtype=torch.int64, device=device)
 
 
 def decode_attention(
@@ -312,13 +326,27 @@ def decode_attention(
     head_dim: Optional[int] = None,
     use_rope: Optional[bool] = None,
     policy: Optional[NumericsPolicy] = None,
+    n_valid: Optional[torch.Tensor] = None,
+    inplace: bool = False,
 ):
-    """One decode step.  x: (B, 1, d); t: the step's position (an int or a
-    0-d tensor), shared by every batch row.
+    """One decode step.  x: (B, 1, d); t: the position, an int or a 0-d
+    tensor shared by every row, or, with a slot-indexed cache (pos: (B, C)),
+    a (B,) tensor of per-row positions (a 0-d ``t`` then applies to every
+    row).
 
-    Self-attention writes the new kv at slot t % C of a copy of the cache
-    and masks by stored positions; cross-attention reads its static cache.
-    Returns (out, new_cache); the cache passed in is not changed.
+    Self-attention writes the new kv at slot t % C and masks by stored
+    positions; cross-attention reads its static cache.  The slot-indexed
+    path also takes a block x: (B, S, d), row b covering positions t[b] ..
+    t[b]+S-1 (chunked prefill): t[b] < 0 turns lane b off (its cache row is
+    left byte for byte as it was, its output is garbage), and ``n_valid``
+    (B,) limits the writes to the first n_valid[b] of the S tokens (a ragged
+    last chunk; None: all S are real).  Writes gather the incumbent entries,
+    select per the write mask and scatter back, so gated lanes keep their
+    bytes.
+
+    Returns (out, new_cache).  By default the cache passed in is left as it
+    was (the rings are copied); ``inplace=True`` writes into its tensors and
+    returns them, for a caller that gives the cache up (a captured step).
 
     Under a quantized ``policy`` the projections are grid-resident and the
     ring cache holds raws: the new v row is written straight off the GEMM
@@ -333,19 +361,25 @@ def decode_attention(
     eng = tpl.engine
 
     b, s = x.shape[0], x.shape[1]
-    if not cross and cache["pos"].ndim != 1:
-        raise NotImplementedError("per-slot decode is not ported yet (ROADMAP queue 1 "
-                                  "item 7: the scheduler)")
-    if s != 1:
-        raise ValueError(f"decode_attention takes one token per row, got {s}")
-    tpos = int(t)
-    q_positions = torch.tensor([tpos], dtype=torch.int32, device=x.device)
+    per_slot = (not cross) and cache["pos"].ndim == 2
+    tpos = decode_positions(t, x.device)
+    steps = torch.arange(s, device=x.device)
+    if per_slot:
+        tpos = tpos.reshape(-1).expand(b)  # a shared t applies to every row
+        q_positions = tpos[:, None] + steps[None, :]  # (B, S)
+    else:
+        if s != 1:
+            raise ValueError(f"decode_attention on a shared-position cache takes one "
+                             f"token per row, got {s}")
+        tpos = tpos.reshape(())
+        q_positions = tpos.reshape(1)  # (1,)
     xin = eng.quant(x, policy.fmt) if q16 else x
     q = _split_heads(eng.dequant(dense(tpl, p["wq"], xin)) if q16
                      else dense(tpl, p["wq"], xin), h)
     if rope:
         q = apply_rope(q, q_positions, cfg.rope_theta)
 
+    mask = None
     if cross:
         k, v = cache["k"], cache["v"]  # (B,Hkv,T,D) static
         valid = cache["pos"] >= 0
@@ -368,23 +402,42 @@ def decode_attention(
             v_new = _split_heads(vq, kvh)
             if rope:
                 k_new = apply_rope(k_new, q_positions, cfg.rope_theta)
-        slot = tpos % c
-        k = cache["k"].clone()
-        v = cache["v"].clone()
-        pos = cache["pos"].clone()
-        k[:, :, slot] = k_new[:, 0].to(k.dtype)
-        v[:, :, slot] = v_new[:, 0].to(v.dtype)
-        pos[slot] = tpos
-        valid = (pos >= 0) & (pos <= tpos)
-        if window:
-            valid &= pos > tpos - window
+        k, v, pos = ((cache[n] if inplace else cache[n].clone()) for n in ("k", "v", "pos"))
+        if per_slot:
+            # each row writes its own ring slots (qpos % C, distinct within a
+            # row as S <= C): gather the incumbents, select, scatter back
+            nv = (torch.full((b,), s, dtype=torch.int64, device=x.device) if n_valid is None
+                  else torch.as_tensor(n_valid, device=x.device).reshape(-1).expand(b))
+            write = (tpos >= 0)[:, None] & (steps[None, :] < nv[:, None])  # (B, S)
+            slots = torch.remainder(q_positions, c)  # (B, S), non-negative
+            rows = torch.arange(b, device=x.device)[:, None]
+            wm = write[:, :, None, None]
+            k[rows, :, slots] = torch.where(wm, k_new.to(k.dtype), k[rows, :, slots])
+            v[rows, :, slots] = torch.where(wm, v_new.to(v.dtype), v[rows, :, slots])
+            pos[rows, slots] = torch.where(write, q_positions.to(pos.dtype), pos[rows, slots])
+            # causal block mask against the whole ring: (B, S, C)
+            valid = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_positions[:, :, None])
+            if window:
+                valid &= pos[:, None, :] > q_positions[:, :, None] - window
+            mask = valid[:, None]  # (B, 1, S, C)
+        else:
+            slot = torch.remainder(tpos, c).reshape(1)
+            k.index_copy_(2, slot, k_new.transpose(1, 2).to(k.dtype))
+            v.index_copy_(2, slot, v_new.transpose(1, 2).to(v.dtype))
+            pos.index_copy_(0, slot, q_positions.to(pos.dtype))
+            valid = (pos >= 0) & (pos <= tpos)
+            if window:
+                valid &= pos > tpos - window
         new_cache = {"k": k, "v": v, "pos": pos}
 
     if q16:
         # the raw ring cache crosses into the softmax island here
         k = eng.dequant(k, policy.fmt)
         v = eng.dequant(v, policy.fmt)
-    mask = valid[None, None, None, :].expand(b, 1, s, k.shape[2])
+    if mask is None:
+        if valid.ndim == 1:
+            valid = valid[None]
+        mask = valid[:, None, None, :].expand(b, 1, s, k.shape[2])
     out = _sdpa_dense(q, k.transpose(1, 2), v.transpose(1, 2), mask)
     out = out.reshape(b, s, h * hd)
     if q16:

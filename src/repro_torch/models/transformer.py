@@ -10,14 +10,18 @@ for leftover layers, so trees carry across from the JAX package one to one
 ``lax.scan``; the port loops over it in Python.
 
 Entry points: :func:`forward` (teacher-forced logits), :func:`prefill` (the
-prompt, returning the decode cache) and :func:`decode_step` (one token
-against the ring cache), in float or, with a :func:`quantize_params` tree
-and a quantized policy, grid-resident fixed point.
+prompt, returning the decode cache), :func:`decode_step` (one token against
+the ring cache, at one shared position or, on the slot-indexed cache of
+``init_cache(per_slot=True)``, at a position per row) and
+:func:`prefill_chunk_step` (a prompt chunk per slot), in float or, with a
+:func:`quantize_params` tree and a quantized policy, grid-resident fixed
+point.  The serve scheduler's cache maintenance (:func:`insert_cache_slot`,
+:func:`insert_cache_rows`, :func:`clear_cache_rows`) is memory only, bit for
+bit the reference's.
 
 The other families (MoE, recurrent, SSM, cross-attention, encoder-decoder,
-VLM) raise ``NotImplementedError`` (ROADMAP queue 1 item 10);
-``prefill_chunk_step`` and the per-slot cache helpers come with the
-scheduler (item 7), ``calibrate_precision`` with the precision pins.
+VLM) raise ``NotImplementedError`` (ROADMAP queue 1 item 6);
+``calibrate_precision`` comes with the precision pins (items 1 and 3).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from .attention import (
     attention,
     attention_islands,
     decode_attention,
+    decode_positions,
     init_attention,
     init_layer_cache,
 )
@@ -49,10 +54,15 @@ __all__ = [
     "forward",
     "prefill",
     "decode_step",
+    "prefill_chunk_step",
     "init_cache",
+    "insert_cache_slot",
+    "insert_cache_rows",
+    "clear_cache_rows",
+    "copy_cache_",
 ]
 
-_NOT_PORTED = "ROADMAP queue 1 item 10: the other model families"
+_NOT_PORTED = "ROADMAP queue 1 item 6: the other model families"
 
 
 class LayerPlan(NamedTuple):
@@ -237,13 +247,13 @@ def _group_policy(policy, name: str):
 
 
 def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None,
-               cache_len: int = 0, t=None, policy=None):
+               cache_len: int = 0, t=None, policy=None, n_valid=None, inplace=False):
     """Returns (h, new_cache_or_None)."""
     newc = {}
     a_in = norm(cfg, p["norm"], h)
     if mode == "decode":
         out, c = decode_attention(tpl, p["attn"], a_in, cache["attn"], cfg=cfg, t=t,
-                                  policy=policy)
+                                  policy=policy, n_valid=n_valid, inplace=inplace)
         newc["attn"] = c
     else:
         out, c = attention(tpl, p["attn"], a_in, cfg=cfg, positions=positions,
@@ -258,10 +268,12 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None,
 
 
 def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None,
-               cache_len: int = 0, t=None, policy=None):
+               cache_len: int = 0, t=None, policy=None, n_valid=None, inplace=False):
     """Run the stacked groups layer by layer (layer j of every pattern
     position in turn, as the reference's scan does), then the tail layers.
-    Returns (h, cache' or None)."""
+    Returns (h, cache' or None); with ``inplace`` a decode writes into the
+    cache passed in (each layer's rings are views of its stacked leaves)
+    and returns it."""
     blocks = params["blocks"]
     depth = _depth(blocks[0]) if blocks else 0
     block_caches = [[] for _ in pattern]
@@ -270,17 +282,21 @@ def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None,
             c = None if cache is None else _at(cache["blocks"][i], j)
             h, c = _run_layer(tpl, cfg, plan, _at(blocks[i], j), h, positions=positions,
                               mode=mode, cache=c, cache_len=cache_len, t=t,
-                              policy=_group_policy(policy, f"g{i}"))
+                              policy=_group_policy(policy, f"g{i}"), n_valid=n_valid,
+                              inplace=inplace)
             block_caches[i].append(c)
     tail_caches = []
     for j, lp in enumerate(params["tail"]):
         c = None if cache is None else cache["tail"][j]
         h, c = _run_layer(tpl, cfg, pattern[j], lp, h, positions=positions, mode=mode,
                           cache=c, cache_len=cache_len, t=t,
-                          policy=_group_policy(policy, f"tail{j}"))
+                          policy=_group_policy(policy, f"tail{j}"), n_valid=n_valid,
+                          inplace=inplace)
         tail_caches.append(c)
     if mode not in ("prefill", "decode"):
         return h, None
+    if inplace:
+        return h, cache
     return h, {"blocks": tuple(_stack(cs) for cs in block_caches),
                "tail": tuple(tail_caches)}
 
@@ -356,22 +372,52 @@ def prefill(tpl: Template, cfg, params, tokens, *, ctx=None,
 
 
 def decode_step(tpl: Template, cfg, params, token, t, cache,
-                policy: Optional[NumericsPolicy] = None):
-    """One decode step.  token: (B, 1) int; t: the position (an int or a
-    0-d tensor) shared by every row.  Returns (logits (B, V), new_cache);
-    the cache passed in is not changed.  Under a quantized ``policy`` the
-    step is grid-resident end to end."""
-    t = int(t)
+                policy: Optional[NumericsPolicy] = None, *, inplace: bool = False):
+    """One decode step.  token: (B, 1) int; t: the position, an int or a 0-d
+    tensor shared by every row, or a (B,) tensor of per-row positions on a
+    slot-indexed cache (``init_cache(per_slot=True)``; t[b] < 0 turns lane b
+    off).  Returns (logits (B, V), new_cache); the cache passed in is left
+    as it was, unless ``inplace`` (the caller gives it up: the step writes
+    into it and returns it).  ``t`` stays on the device: nothing here reads
+    it back to the host.  Under a quantized ``policy`` the step is
+    grid-resident end to end."""
+    t = decode_positions(t, token.device)
     h = _embed_tokens(cfg, params, token)
     pattern, _, _ = _split(cfg)
     h, cache = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="decode",
-                          positions=t, t=t, cache=cache, policy=policy)
+                          positions=t, t=t, cache=cache, policy=policy, inplace=inplace)
     logits = _head(tpl, cfg, params, h, policy=policy)
     return logits[:, 0], cache
 
 
+def prefill_chunk_step(tpl: Template, cfg, params, tokens, t, n_valid, cache,
+                       policy: Optional[NumericsPolicy] = None, *, inplace: bool = False):
+    """Advance a slot-indexed cache by one prefill chunk per row.
+
+    tokens: (B, S) — row b holds the prompt slice at positions t[b] ..
+    t[b]+n_valid[b]-1, right-padded to the chunk width S; t: (B,), t[b] < 0
+    an inactive lane whose cache row stays byte for byte as it was;
+    n_valid: (B,) real token counts.  Returns (logits (B, V) read at each
+    row's last valid token — meaningful only for rows that finish their
+    prompt with this chunk — and the cache, as :func:`decode_step` does).
+    """
+    dev = tokens.device
+    t = decode_positions(t, dev).reshape(-1)
+    nv = decode_positions(n_valid, dev).reshape(-1)
+    s = tokens.shape[1]
+    h = _embed_tokens(cfg, params, tokens)
+    pattern, _, _ = _split(cfg)
+    h, cache = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="decode",
+                          positions=t, t=t, cache=cache, policy=policy, n_valid=nv,
+                          inplace=inplace)
+    last = torch.clamp(nv - 1, 0, s - 1)
+    h_last = h[torch.arange(h.shape[0], device=dev), last][:, None]
+    logits = _head(tpl, cfg, params, h_last, policy=policy)
+    return logits[:, 0], cache
+
+
 # ---------------------------------------------------------------------------
-# decode-cache construction
+# decode-cache construction and the scheduler's cache maintenance
 # ---------------------------------------------------------------------------
 
 
@@ -383,9 +429,11 @@ def _init_layer_cache(cfg, plan: LayerPlan, batch, cache_len, dtype, per_slot=Fa
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=None, *, per_slot: bool = False,
                policy=None, device="cpu"):
-    """Zero decode cache with the prefill cache's structure.  A quantized
-    ``policy`` stores each group's k / v as its grid's raws (int16, or int8
-    on the int8 rung); an explicit ``dtype`` overrides it."""
+    """Zero decode cache with the prefill cache's structure.  ``per_slot``
+    builds the slot-indexed layout (each self-attention pos vector (B, C))
+    of the continuous-batching scheduler.  A quantized ``policy`` stores
+    each group's k / v as its grid's raws (int16, or int8 on the int8
+    rung); an explicit ``dtype`` overrides it."""
     pattern, g, r = _split(cfg)
 
     def group_dtype(name):
@@ -405,3 +453,119 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=None, *, per_slot: bool = 
                                         device=device)
                       for j in range(r)),
     }
+
+
+def _map_pos(tree, fn):
+    """``tree`` with every self-attention "pos" leaf replaced by fn(pos)."""
+    if isinstance(tree, dict):
+        return {k: ({**v, "pos": fn(v["pos"])} if k == "attn" and isinstance(v, dict)
+                    and "pos" in v else _map_pos(v, fn))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map_pos(x, fn) for x in tree)
+    return tree
+
+
+def _map_leaves(fn, dst, src):
+    """fn(dst_leaf, src_leaf) over two trees of the same structure."""
+    if isinstance(dst, dict):
+        return {k: _map_leaves(fn, dst[k], src[k]) for k in dst}
+    if isinstance(dst, tuple):
+        return tuple(_map_leaves(fn, d, s_) for d, s_ in zip(dst, src))
+    return fn(dst, src)
+
+
+def copy_cache_(cache, new):
+    """Copy every leaf of ``new`` into the same leaf of ``cache``, a cache of
+    the same structure and shapes (an in-place update of the caller's
+    tensors; a leaf the two share is left alone); returns ``cache``."""
+    _map_leaves(lambda d, n: d if n is d else d.copy_(n), cache, new)
+    return cache
+
+
+def _device_of(tree) -> torch.device:
+    while not isinstance(tree, torch.Tensor):
+        tree = next(iter(tree.values() if isinstance(tree, dict) else tree))
+    return tree.device
+
+
+def _trim_cache_positions(cache_part, valid_len):
+    """Invalidate self-attention cache entries at positions >= valid_len
+    (pos := -1): a bucket-padded prefill filled ring slots for its pad
+    positions, which must not become visible to decode."""
+    return _map_pos(cache_part, lambda pos: torch.where(pos < valid_len, pos, -1))
+
+
+def insert_cache_slot(cache, slot: int, row_cache, *, valid_len=None):
+    """Write a batch-1 prefill cache into row ``slot`` of a batched cache.
+
+    ``row_cache`` comes from a batch-1 :func:`prefill` with the cache's
+    cache_len; ``valid_len`` (the real prompt length) invalidates the pad
+    positions a bucket-padded prefill filled.  Leaves stack the batch at
+    axis 1 under "blocks" and axis 0 under "tail"; a per-slot pos row, (C,)
+    in the row cache and (B, C) batched, is told apart by its rank.
+    Returns the new cache (the one passed in is left as it was)."""
+    if valid_len is not None:
+        row_cache = _trim_cache_positions(row_cache, valid_len)
+
+    def ins(batch_axis):
+        def put(dst, src):
+            if src.ndim == dst.ndim:  # a batched leaf: drop its size-1 batch dim
+                src = src.squeeze(batch_axis)
+            out = dst.clone()
+            out.select(batch_axis, slot).copy_(src.to(dst.dtype))
+            return out
+        return put
+
+    return {"blocks": _map_leaves(ins(1), cache["blocks"], row_cache["blocks"]),
+            "tail": _map_leaves(ins(0), cache["tail"], row_cache["tail"])}
+
+
+def _as_index(x, device, dtype=torch.int64):
+    return torch.as_tensor(x, device=device).to(dtype)
+
+
+def insert_cache_rows(cache, rows_cache, *, src_rows, sel, valid_lens, inplace: bool = False):
+    """Scatter rows of a batched (B_pre, L) prefill cache into cache slots.
+
+    For every slot j with ``sel[j]``, source row ``src_rows[j]`` of
+    ``rows_cache`` (same cache_len) is written into slot j and its pad
+    positions >= ``valid_lens[j]`` invalidated (pos = -1); unselected slots
+    keep their bytes.  ``src_rows`` / ``sel`` / ``valid_lens`` are
+    (n_slots,) vectors (src_rows of unselected slots: any row in range).
+    The prefill's shared pos, (C,) per group, is expanded per slot.  Returns
+    the new cache; ``inplace`` writes it into the tensors of ``cache``."""
+    dev = _device_of(cache)
+    src = _as_index(src_rows, dev)
+    selb = _as_index(sel, dev, torch.bool)
+    vl = _as_index(valid_lens, dev, torch.int32)
+    n = selb.shape[0]
+
+    def ins(batch_axis):
+        def put(dst, src_leaf):
+            if src_leaf.ndim < dst.ndim:
+                # shared prefill pos (..., C) -> per-slot rows (..., n, C),
+                # pad positions trimmed to each slot's real length
+                pos = src_leaf.unsqueeze(-2)
+                pos = torch.where(pos < vl[:, None], pos, -1)
+                return torch.where(selb[:, None], pos, dst)
+            gathered = src_leaf.index_select(batch_axis, src)
+            shape = [1] * dst.ndim
+            shape[batch_axis] = n
+            return torch.where(selb.reshape(shape), gathered.to(dst.dtype), dst)
+        return put
+
+    new = {"blocks": _map_leaves(ins(1), cache["blocks"], rows_cache["blocks"]),
+           "tail": _map_leaves(ins(0), cache["tail"], rows_cache["tail"])}
+    return copy_cache_(cache, new) if inplace else new
+
+
+def clear_cache_rows(cache, sel, *, inplace: bool = False):
+    """Invalidate the self-attention pos rows of the selected slots (pos :=
+    -1), before chunked admission streams a prompt into a slot that still
+    holds its previous occupant's entries; k / v bytes are left as they are
+    (pos = -1 hides them).  ``sel``: (n_slots,) bool.  Returns the new
+    cache; ``inplace`` writes it into the tensors of ``cache``."""
+    selb = _as_index(sel, _device_of(cache), torch.bool)
+    new = _map_pos(cache, lambda pos: torch.where(selb[:, None], -1, pos))
+    return copy_cache_(cache, new) if inplace else new

@@ -299,24 +299,24 @@ def test_serve_main_runs_on_cpu_and_refuses_what_is_not_ported():
         out = serve.main(["--device", "cpu", "--backend", backend, "--prompts", "2",
                           "--prompt-len", "8", "--gen", "3"])
         assert out.shape == (2, 3)
-    for flags in (["--backend", "q8"], ["--scheduler"], ["--temperature", "0.7"],
-                  ["--replicas", "2"], ["--shards", "2"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    for flags, item in ((["--backend", "q8"], "items 1 and 3"), (["--replicas", "2"], "item 4"),
+                        (["--shards", "2"], "item 5"), (["--plan-store", "x.json"], "item 2")):
+        with pytest.raises(SystemExit, match=f"not ported yet .ROADMAP queue 1 {item}"):
             serve.main(["--device", "cpu", *flags])
 
 
 def test_unported_paths_raise(setup):
     _, cfg, _, params, tokens = setup
     for change in ({"family": "moe"}, {"abs_pos": True}):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             T.plan_pattern(dataclasses.replace(cfg, **change))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.init_cache(cfg, 2, 8, per_slot=True)
     tpl = default_template("cuda", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        T.prefill(tpl, cfg, params, _tok(tokens), ctx=torch.zeros(2, 4, cfg.d_model))
     q = torch.zeros(1, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tattn._sdpa_chunked(tpl, q, q, q, causal=True, window=4, q_offset=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tattn._sdpa_chunked(tpl, q, q, q, causal=False, window=0, q_offset=0)
 
 
