@@ -44,11 +44,17 @@ non-zero without its result line):
    k = 4) on both routes; "splitk" is timed at VGG16 fc0, decode gate / up
    and the grid head, "wgmma" at the prefill's gate / up and the im2col
    int8 x int8 call (beside ``torch._int_mm``), each beside route "tile",
-   the design that served every q16 GEMM before the routes;
+   the design that served every q16 GEMM before the routes; and the q8
+   serving path's int8 x int8 GEMMs, checked and timed: decode gate / up and
+   the head on "splitk", the prefill's gate / up on "wgmma" (beside
+   ``torch._int_mm``);
 3. the CNN path: ``plan_cnn`` -> ``cnn_forward`` for LeNet, AlexNet and
    VGG16 at full width, batch 8, random weights and biases from a seed
    (each hidden layer fitted onto the activation grid), in float,
-   grid-resident Q2.14 and a forced int8/int16 mix, with every kernel's
+   grid-resident Q2.14, a forced int8/int16 mix and the mix the precision
+   DSE chooses (``calibrate_cnn_precision`` at budget 0.99 on the card,
+   its per-layer drift and plan printed; a second call must replay the pins
+   with no search and no forward), with every kernel's
    launch count set to 0 just before and read just after (each conv per
    route, float and fixed point alike: VGG16 12 "tc" and 1 "cudacore",
    AlexNet 4 and 1, LeNet 0 and 2, with a preparation launch per "tc" call
@@ -71,9 +77,15 @@ non-zero without its result line):
    replayed teacher-forced through the same kernels and through the plain
    ``torch`` backend (float), and the logits are held to stated
    tolerances; the grid-resident replay shows each layer's share of raws at
-   the grid's bounds and the island counts.  Then prefill tokens/s, decode ms/step,
-   peak memory, device time by kernel (``torch.profiler``), each beside the
-   same steps through ``compiled_steps`` (one CUDA graph replay a step);
+   the grid's bounds and the island counts.  A third run, ``q8``, streams
+   the plan of the precision DSE (``calibrate_precision`` at budget 0.99,
+   then, where that leaves no group on int8, the budget-0.0 plan on the same
+   drifts: every GEMM int8 x int8 and an int8 KV cache) under the grid's
+   gates and launch counts, one graph capture, and k / v cache bytes
+   exactly half the grid run's in each int8 group.  Then prefill tokens/s,
+   decode ms/step, peak memory, device time by kernel (``torch.profiler``),
+   each beside the same steps through ``compiled_steps`` (one CUDA graph
+   replay a step);
 6. the serve scheduler: ``ServeScheduler`` on the same qwen2-0.5b, float
    and grid-resident, 8 slots over the ladder (512, 1024, 4096), 32 new
    tokens at most, warmed up, then a bursty ``synthetic_trace`` of 24
@@ -89,8 +101,13 @@ non-zero without its result line):
    "tile", flash once a layer per 4096-rung prefill).  Printed: decode ms a
    step eager against graph, the device's busy share of a replayed step,
    tokens/s by wall time, TTFT p50 / p99, peak memory; then 4 requests with
-   512-token prefill chunks under the same stream gate; then one run of
-   ``serve.main`` at the reference's reduced CLI size.
+   512-token prefill chunks under the same stream gate; then ``serve.main``
+   at the reference's reduced CLI size: the default backend, and ``--backend
+   q8 --precision-budget 0.5`` with and without ``--scheduler``;
+7. the paper's FPGA plane: the port's Table 1, Table 2 and DSE-sweep
+   scripts (``repro_torch.benchmarks``) print their rows; every paper
+   compute unit fits its board and Table 1's conv GOP/s rise from Ultra96 to
+   ZCU102.
 
 ``--gemm-route-study`` adds the float GEMM's design measurements, off by
 default: route "tile" timed beside fc0 and the tied head, and the
@@ -204,6 +221,9 @@ FLOAT_REL_TOL = 0.05
 FLOAT_ARGMAX = 0.75
 Q16_REL_TOL = 0.25
 Q16_ARGMAX = 0.5
+#: the precision DSE's budget (serve's default): a layer (group) drops to the
+#: int8 rung where its solo-flip argmax agreement is at least this
+DSE_BUDGET = 0.99
 
 
 def emit(obj) -> None:
@@ -867,7 +887,9 @@ def phase_main_path(torch, dev):
             sorted((layer, low) for layer in MIXED[net])))
         tcpu = default_template("q16", device="cpu")
         qplan = cnn.plan_cnn(tq, spec, tuple(x.shape))
-        for numerics, policy in (("grid " + pol.fmt.name, pol), ("mixed", mixed)):
+        chosen = phase_cnn_dse(torch, tq, spec, params, x, pol)
+        for numerics, policy in (("grid " + pol.fmt.name, pol), ("mixed", mixed),
+                                 ("dse", chosen)):
             qp = cnn.quantize_cnn_params(tq, spec, params, policy)
             tq.engine.counters.clear()
             before = dict(_build.launches)
@@ -936,6 +958,41 @@ def phase_main_path(torch, dev):
     return runs, launches
 
 
+def phase_cnn_dse(torch, tq, spec, params, x, pol):
+    """The drift-aware precision DSE on the card: ``calibrate_cnn_precision``
+    at ``DSE_BUDGET`` against the calibrated grid ``pol`` (the reference
+    predictions: the per-op q16 forward of the float weights), then a second
+    call that must replay the pins: the same policy, one hit a layer, no
+    search and no forward.  Returns the chosen policy, which the caller
+    holds to the CPU engine bit for bit."""
+    from repro_torch.core.tiling import H100
+    from repro_torch.kernels import _build
+    from repro_torch.models import cnn
+
+    reg = tq.engine.plan_cache
+    names = cnn.cnn_layer_names(spec)
+    t0 = time.perf_counter()
+    chosen = cnn.calibrate_cnn_precision(tq, spec, params, x, budget=DSE_BUDGET, policy=pol)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    pins = {n: reg.precision_for(spec.name, n, H100) for n in names}
+    hits0, misses0 = reg.hits, reg.misses
+    counters0, launches0 = dict(tq.engine.counters), dict(_build.launches)
+    again = cnn.calibrate_cnn_precision(tq, spec, params, x, budget=DSE_BUDGET, policy=pol)
+    if not (again == chosen and reg.misses == misses0 and reg.hits == hits0 + len(names)
+            and dict(tq.engine.counters) == counters0 and dict(_build.launches) == launches0):
+        raise AssertionError(f"{spec.name}: the warm precision DSE did not replay its pins "
+                             f"({reg.hits - hits0} hits, {reg.misses - misses0} misses, "
+                             f"same policy: {again == chosen})")
+    emit({"phase": "cnn_dse", "net": spec.name, "budget": DSE_BUDGET, "base": pol.fmt.name,
+          "drift": {n: p.drift for n, p in pins.items()},
+          "plan": {n: f.name for n, f in chosen.layer_fmts},
+          "int8_layers": sum(f.total_bits == 8 for _, f in chosen.layer_fmts),
+          "layers": len(names), "cold_s": cold_s,
+          "warm": {"hits": len(names), "misses": 0, "forwards": 0}})
+    return chosen
+
+
 def phase_timing(torch, runs):
     from repro_torch.models import cnn
 
@@ -992,6 +1049,7 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
     import torch.nn.functional as F
 
     from repro_torch.core import dse
+    from repro_torch.core.quantization import Q2_6
     from repro_torch.core.tiling import H100
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
@@ -1196,6 +1254,43 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
                     tile_fn=lambda: matmul_q16_cuda(xq, wq, bq, **{**qkw, "block": tile}))
             del xq, got, again, want
         del wq, bq
+
+    # the q8 path's int8 x int8 GEMMs: decode gate / up and the head on
+    # "splitk" (int8 out, and the head's wide int32), the prefill's gate / up
+    # on "wgmma" (one limb product) beside torch._int_mm, which takes m > 16
+    q8_rows = [("decode gate/up", QWEN_PROMPTS, 4864, dm, "splitk", False),
+               ("head", QWEN_PROMPTS, vocab, dm, "splitk", True),
+               ("prefill gate/up", m_prefill, 4864, dm, "wgmma", False)]
+    for j, (name, m, n, k, route, wide) in enumerate(q8_rows):
+        xq = _raws(torch, (m, k), torch.int8, dev, 250 + j)
+        wq = _raws(torch, (k, n), torch.int8, dev, 260 + j)
+        blk = q16_plan_for(xq, wq)
+        assert blk.route == route, (name, blk)
+        # shift 14 keeps most int8 outputs off the rung's bounds at k = 896
+        qkw = dict(fmt=Q2_6, block=blk, shift=0 if wide else 14, bias_shift=0, wide=wide)
+        pkw = dict(shift=0 if wide else 14, bias_shift=0, raw_min=Q2_6.raw_min,
+                   raw_max=Q2_6.raw_max, out_dtype=torch.int32 if wide else torch.int8,
+                   wide=wide)
+        got = matmul_q16_cuda(xq, wq, **qkw)
+        again = matmul_q16_cuda(xq, wq, **qkw)
+        want = matmul_q16_plain(xq, wq, **pkw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"q8 {name}: not repeatable"
+        label = f"q8 {name} ({m},{k})@({k},{n}) int8 x int8{' wide' if wide else ''}"
+        book.check(f"matmul_q16.{route}", f"{label} {_plan(blk)}", got, want, exact=True)
+        book.timing(
+            f"matmul_q16.{route}", f"{label} {_plan(blk)}", record=False,
+            kernel_fn=lambda: matmul_q16_cuda(xq, wq, **qkw),
+            plain_fn=lambda: matmul_q16_plain(xq, wq, **pkw),
+            library_fn=(lambda: torch._int_mm(xq, wq)) if route == "wgmma" else None,
+            library="torch._int_mm (no epilogue)" if route == "wgmma" else
+            "none: torch._int_mm takes m > 16 only",
+            nbytes_=nbytes(xq, wq) + m * n * got.element_size(), ops=2 * m * n * k,
+            peak=PEAK_INT8, bound_note="bytes: each operand read once and the output "
+            "written once; ops at 1979 TOPS dense int8 (one limb product)",
+            extra={"prep_ms": time_ms(lambda: q16_prep_only(xq, wq))}
+            if route == "wgmma" else None)
+        del xq, wq, got, again, want
 
 #: ``--flash-pv-study``: flash_wgmma.cuh's PV step (a fresh accumulator a kv
 #: tile, added to the rescaled O on the CUDA cores) and the variant it
@@ -1411,10 +1506,12 @@ def qwen_params(torch, dev, cfg):
     return params
 
 
-def teacher_forced(torch, tpl, cfg, params, prompts, stream, policy=None, islands=None):
+def teacher_forced(torch, tpl, cfg, params, prompts, stream, policy=None, islands=None,
+                   kv_bytes=None):
     """Per-step logits (B, gen, V) in f32 of the prefill and the decode steps
     fed ``stream`` (the greedy tokens of a ``generate`` run).  ``islands``, a
-    list, receives each step's (quantize, dequantize) counts."""
+    list, receives each step's (quantize, dequantize) counts; ``kv_bytes``, a
+    dict, the bytes of the prefill cache's k / v by precision group."""
     from repro_torch.models import transformer as T
 
     c = tpl.engine.counters
@@ -1429,6 +1526,10 @@ def teacher_forced(torch, tpl, cfg, params, prompts, stream, policy=None, island
     s, gen = prompts.shape[1], stream.shape[1]
     logits, cache = step(lambda: T.prefill(tpl, cfg, params, prompts, cache_len=s + gen,
                                            policy=policy))
+    if kv_bytes is not None:
+        groups = [(f"g{i}", c) for i, c in enumerate(cache["blocks"])]
+        groups += [(f"tail{j}", c) for j, c in enumerate(cache["tail"])]
+        kv_bytes.update({g: nbytes(c["attn"]["k"], c["attn"]["v"]) for g, c in groups})
     out = [logits.float()]
     for i in range(gen - 1):
         logits, cache = step(lambda: T.decode_step(tpl, cfg, params, stream[:, i:i + 1],
@@ -1437,8 +1538,9 @@ def teacher_forced(torch, tpl, cfg, params, prompts, stream, policy=None, island
     return torch.stack(out, dim=1)
 
 
-def compare_logits(torch, got, want, *, rel_tol, argmax_min, what):
-    """``got`` against the plain path's ``want`` on the same stream."""
+def compare_logits(torch, got, want, *, rel_tol, argmax_min, what, gate=True):
+    """``got`` against the plain path's ``want`` on the same stream; with
+    ``gate`` False the numbers are returned, not held to the tolerances."""
     diff = float((got - want).abs().max())
     scale = float(want.abs().max())
     agree = got.argmax(-1) == want.argmax(-1)
@@ -1449,8 +1551,10 @@ def compare_logits(torch, got, want, *, rel_tol, argmax_min, what):
            "argmax_min": argmax_min, "decisive_positions": int(decisive.sum()),
            "decisive_agreement": float(agree[decisive].float().mean())
            if bool(decisive.any()) else None}
-    if not (bool(torch.isfinite(got).all()) and diff / scale <= rel_tol
-            and res["argmax_agreement"] >= argmax_min and bool(agree[decisive].all())):
+    res["within_tolerances"] = (bool(torch.isfinite(got).all()) and diff / scale <= rel_tol
+                                and res["argmax_agreement"] >= argmax_min
+                                and bool(agree[decisive].all()))
+    if gate and not res["within_tolerances"]:
         raise AssertionError(f"{what}: logits off the plain path: {res}")
     return res
 
@@ -1517,6 +1621,7 @@ def phase_serving(torch, dev):
     policy = T.calibrate_policy(tq, cfg, params, cal)
     qp = T.quantize_params(tq, cfg, params, policy)
     torch.cuda.synchronize()
+    q8, q8_all = phase_serving_dse(torch, tq, cfg, params, cal, policy)
     emit({"phase": "serving_setup", "arch": cfg.name, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "heads": f"{cfg.n_heads} padded to {cfg.eff_heads}",
           "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab, "dtype": cfg.dtype,
@@ -1527,8 +1632,11 @@ def phase_serving(torch, dev):
     tf = default_template("cuda")
     tplain = default_template("torch")
     per_prefill = {"matmul_fp": 7 * cfg.n_layers + 1}
-    runs, windows = [], {}
-    for numerics, tpl, pol in (("float", tf, None), ("grid " + policy.fmt.name, tq, policy)):
+    runs, windows, kv = [], {}, {}
+    q8_runs = (("q8", tq, q8),) + ((("q8 all-int8", tq, q8_all),)
+                                   if q8_all is not None and q8_all != q8 else ())
+    for numerics, tpl, pol in (("float", tf, None), ("grid " + policy.fmt.name, tq, policy),
+                               *q8_runs):
         kernel = "matmul_fp" if pol is None else "matmul_q16"
         _build.reset_launches()
         caps0 = sum(CAPTURE_COUNTS.values())
@@ -1541,6 +1649,8 @@ def phase_serving(torch, dev):
         windows[numerics] = launches
         emit({"phase": "serving_launches", "numerics": numerics,
               "decode_graph_captures": captures, **launches})
+        if numerics.startswith("q8") and captures != 1:  # a new (int8) cache signature
+            raise AssertionError(f"{numerics}: {captures} decode graph captures, want 1")
         # flash once a layer a prefill, on route wgmma with its preparation
         # (head dim 64), never in decode
         want = {"flash_attention": cfg.n_layers, "flash_attention.wgmma": cfg.n_layers,
@@ -1569,11 +1679,13 @@ def phase_serving(torch, dev):
         assert stream.shape == (QWEN_PROMPTS, QWEN_GEN)
         # replay the stream teacher-forced through the same kernels (and, on
         # the grid, count islands and clipped raws), then through the plain path
-        tree = params if pol is None else qp
+        tree = params if pol is None else T.quantize_params(tpl, cfg, params, pol)
         eng = tpl.engine
         islands = []
+        kv[numerics] = {}
         with ClipProbe(eng, T, cfg.n_layers) as probe:
-            got = teacher_forced(torch, tpl, cfg, tree, prompts, stream, pol, islands)
+            got = teacher_forced(torch, tpl, cfg, tree, prompts, stream, pol, islands,
+                                 kv[numerics])
         if not torch.equal(got.argmax(-1), stream):
             raise AssertionError(f"{numerics}: the teacher-forced replay does not "
                                  f"reproduce generate's greedy tokens")
@@ -1592,18 +1704,102 @@ def phase_serving(torch, dev):
                 raise AssertionError(f"{numerics}: raws at the grid's bounds: "
                                      f"{probe.shares}")
             extra = {"island_counts": seen, "island_law_prefill": law_p,
-                     "island_law_decode": law_d, "clipped_share_by_layer": probe.shares}
+                     "island_law_decode": law_d, "clipped_share_by_layer": probe.shares,
+                     "kv_cache_bytes": kv[numerics]}
+        if numerics.startswith("q8"):
+            # each int8 group's k / v take exactly half the grid run's bytes
+            grid = kv["grid " + policy.fmt.name]
+            want_kv = {g: b // 2 if pol.fmt_for(g).total_bits == 8 else b
+                       for g, b in grid.items()}
+            if kv[numerics] != want_kv:
+                raise AssertionError(f"q8 cache bytes {kv[numerics]}, want {want_kv}")
+            extra["plan"] = {n: f.name for n, f in pol.layer_fmts}
         plain = teacher_forced(torch, tplain, cfg, params, prompts, stream)
         res = compare_logits(
             torch, got, plain, what=numerics,
             rel_tol=FLOAT_REL_TOL if pol is None else Q16_REL_TOL,
-            argmax_min=FLOAT_ARGMAX if pol is None else Q16_ARGMAX)
+            argmax_min=FLOAT_ARGMAX if pol is None else Q16_ARGMAX,
+            # the all-int8 plan is the one the DSE rejects at these gates:
+            # its distance from the float model is measured, not held
+            gate=numerics != "q8 all-int8")
         emit({"phase": "serving_check", "numerics": numerics,
               "vs": "torch backend, float, same stream", **res, **extra,
               "sample_tokens": stream[0, :8].tolist()})
         del got, plain
         runs.append((numerics, tpl, pol))
     return cfg, params, prompts, runs, windows
+
+
+def phase_serving_dse(torch, tq, cfg, params, cal, policy):
+    """The precision DSE over qwen2-0.5b's groups ("g0": every layer, and
+    "head") on the card, on the calibration batch ``cal``.
+
+    1. ``calibrate_precision`` cold at ``DSE_BUDGET`` with its default
+       reference, as ``serve --backend q8`` runs it: the per-op q16 forward
+       of the float weights on the q16 template.  At qwen2's width that
+       forward's fixed Q2.14 grid saturates, so its argmax says little and
+       no group meets the budget; the budget-0.0 plan on the same drifts
+       (every group and every layer's KV cache on the int8 rung) is printed
+       beside it.
+    2. Where that plan keeps every group on int16 (it is then the grid
+       run), the plan streamed under the gates is the DSE at the stream
+       gate's own budget (``Q16_ARGMAX``) against the float model (``ref``:
+       the argmax of the plain backend's forward), which must put at least
+       the head on the int8 rung.
+
+    Returns (the streamed plan, the budget-0.0 plan or None); the caller
+    also streams the second, every GEMM int8 x int8 and the KV cache int8,
+    and holds it to every gate but the logits'.
+
+    Every plan is printed with its argmax agreement and max |Δlogit| against
+    the float model on ``cal``, and the peak memory the probe trees reach
+    (each probe's tree is released)."""
+    from repro_torch.core.template import default_template
+    from repro_torch.core.tiling import H100
+    from repro_torch.models import transformer as T
+
+    reg = tq.engine.plan_cache
+    names = T.precision_group_names(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    plain = T.forward(default_template("torch"), cfg, params, cal)[0].float()
+    plain_ref, scale = plain.argmax(-1), float(plain.abs().max())
+
+    def versus_float(pol):
+        qp = T.quantize_params(tq, cfg, params, pol)
+        lg = T.forward(tq, cfg, qp, cal, policy=pol)[0]
+        tq.engine.drop_qparams(params, pol)
+        return {"argmax_agreement": float((lg.argmax(-1) == plain_ref).float().mean()),
+                "rel_diff": float((lg - plain).abs().max()) / scale}
+
+    def run(label, budget, **kw):
+        reg.clear()  # drop the last run's pins (and the GEMM plans, re-planned on use)
+        t0 = time.perf_counter()
+        pol = T.calibrate_precision(tq, cfg, params, cal, budget=budget, policy=policy, **kw)
+        torch.cuda.synchronize()
+        out = {"budget": budget, "cold_s": time.perf_counter() - t0,
+               "drift": {n: reg.precision_for(cfg.name, n, H100).drift for n in names},
+               "plan": {n: f.name for n, f in pol.layer_fmts}, "vs_float": versus_float(pol)}
+        plans[label] = out
+        return pol, out["drift"]
+
+    plans, all8 = {}, None
+    chosen, drift = run(f"{DSE_BUDGET}, default ref", DSE_BUDGET)
+    if not any(f.total_bits == 8 for _, f in chosen.layer_fmts):
+        all8, _ = run("0.0, same drifts", 0.0, drift=drift)
+        chosen, _ = run(f"{Q16_ARGMAX} vs float", Q16_ARGMAX, ref=plain_ref)
+        if chosen.fmt_for("head").total_bits != 8:
+            raise AssertionError(f"the DSE at {Q16_ARGMAX} against the float model keeps "
+                                 f"the head on int16: {plans}")
+    torch.cuda.synchronize()
+    emit({"phase": "serving_dse", "arch": cfg.name, "groups": names,
+          "calibration_tokens": list(cal.shape), "base": policy.fmt.name, "plans": plans,
+          "streamed": {n: f.name for n, f in chosen.layer_fmts},
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "resident_bytes_before": resident})
+    del plain
+    return chosen, all8
 
 
 def _qleaves(tree):
@@ -1665,13 +1861,14 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
     """Prefill tokens/s, decode ms/step and peak memory (CUDA events after
     warm-up), then the device time by kernel of one prefill and of four
     decode steps (``torch.profiler``)."""
-    from repro_torch.launch.scheduler import compiled_steps
+    from repro_torch.launch.scheduler import CAPTURE_COUNTS, compiled_steps
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as T
 
     s = prompts.shape[1]
     emit({"phase": "clocks_before_serving_timing", "nvidia_smi": smi_clocks()})
     for numerics, tpl, pol in runs:
+        caps0 = sum(CAPTURE_COUNTS.values())
         tree = params if pol is None else T.quantize_params(tpl, cfg, params, pol)
         clen = s + QWEN_GEN
         prefill = (lambda: T.prefill(tpl, cfg, tree, prompts, cache_len=clen, policy=pol))
@@ -1684,7 +1881,10 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
             for i in range(n):
                 _, c = T.decode_step(tpl, cfg, tree, tok, s + i, c, policy=pol)
 
-        decode_ms = time_ms(decode, target_ms=1.0) / (QWEN_GEN - 1)
+        # the q8 runs are timed through compiled_steps only, as serve runs
+        # them: their eager steps are the grid's code on other raws
+        eager = not numerics.startswith("q8")
+        decode_ms = time_ms(decode, target_ms=1.0) / (QWEN_GEN - 1) if eager else None
         # the same steps through compiled_steps: one CUDA graph replay each
         fns = compiled_steps(tpl, cfg, clen, pol)
         _, _, cache_g = fns.decode_next(tree, tok, s, cache)
@@ -1703,15 +1903,18 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        captures = sum(CAPTURE_COUNTS.values()) - caps0
+        if numerics.startswith("q8") and captures:  # phase 5's capture serves every call
+            raise AssertionError(f"q8: {captures} more decode graph captures while timing")
         emit({"phase": "serving_time", "numerics": numerics, "prompts": QWEN_PROMPTS,
               "prompt_len": s, "gen": QWEN_GEN, "prefill_ms": prefill_ms,
               "prefill_tokens_per_s": QWEN_PROMPTS * s / prefill_ms * 1e3,
               "decode_ms_per_step": decode_ms,
-              "decode_tokens_per_s": QWEN_PROMPTS / decode_ms * 1e3,
+              "decode_tokens_per_s": QWEN_PROMPTS / decode_ms * 1e3 if eager else None,
               "decode_ms_per_step_graph": decode_graph_ms,
               "decode_tokens_per_s_graph": QWEN_PROMPTS / decode_graph_ms * 1e3,
               "generate_s_host_clock": gen_s, "peak_mem_bytes": peak,
-              "resident_bytes_before": resident})
+              "resident_bytes_before": resident, "graph_captures": captures})
 
         _, cache = prefill()
         torch.cuda.synchronize()
@@ -1723,8 +1926,9 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
             for i in range(4):
                 _, c = T.decode_step(tpl, cfg, tree, tok, s + i, c, policy=pol)
 
-        emit({"phase": "serving_profile", "numerics": numerics, "window": "4 decode steps",
-              **profile_window(torch, decode4, host_ops=True)})
+        if eager:
+            emit({"phase": "serving_profile", "numerics": numerics,
+                  "window": "4 decode steps", **profile_window(torch, decode4, host_ops=True)})
         del cache
     emit({"phase": "clocks_after_serving_timing", "nvidia_smi": smi_clocks()})
 
@@ -2027,14 +2231,57 @@ def phase_scheduler_chunked(torch, cfg, params, tpl):
 
 
 def phase_serve_cli(torch):
-    """``serve.main`` at the reference's reduced CLI size, on the card."""
+    """``serve.main`` at the reference's reduced CLI size, on the card: the
+    default backend, then ``--backend q8`` (the precision DSE at budget 0.5)
+    through ``generate`` and through the scheduler; the second q8 run replays
+    the first one's pins (no precision search)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.engine import plan_cache_for
+    from repro_torch.core.tiling import H100
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
 
-    t0 = time.perf_counter()
-    out = serve.main(["--prompts", "2", "--prompt-len", "8", "--gen", "3"])
-    assert out.shape == (2, 3) and out.device.type == "cuda"
-    emit({"phase": "serve_cli", "argv": "--prompts 2 --prompt-len 8 --gen 3",
-          "tokens": out.tolist(), "seconds": time.perf_counter() - t0})
+    size = ["--prompts", "2", "--prompt-len", "8", "--gen", "3"]
+    q8 = ["--backend", "q8", "--precision-budget", "0.5"]
+    reg = plan_cache_for(H100)
+    cfg = reduced(get_config(QWEN_ARCH))
+    for argv in (size, q8 + size, q8 + ["--scheduler"] + size):
+        t0 = time.perf_counter()
+        st0 = reg.stats()
+        out = serve.main(argv)
+        st = reg.stats()
+        if argv[0] == "--backend":
+            assert len(out) == 2 and all(len(row) == 3 for row in out), out
+            # every group of the reduced config pinned from a drift sweep
+            pinned = reg.precision_plan(cfg.name, H100)
+            assert set(pinned) == set(T.precision_group_names(cfg)), pinned
+        else:
+            assert out.shape == (2, 3) and out.device.type == "cuda"
+        emit({"phase": "serve_cli", "argv": " ".join(argv),
+              "tokens": [list(map(int, row)) for row in out],
+              "registry": {k: st[k] - st0[k] for k in ("hits", "misses")},
+              "precision_pins": st["precision"], "seconds": time.perf_counter() - t0})
+
+
+def phase_fpga_tables():
+    """The paper's FPGA plane on the card machine (pure Python, no JAX): the
+    port's Table 1 / Table 2 / DSE-sweep scripts' rows, with
+    ``tests/test_cnn_fpga.py``'s checks: every paper compute unit fits its
+    board, and Table 1's conv GOP/s rise from Ultra96 to ZCU102."""
+    from repro_torch.benchmarks import dse_sweep, table1, table2
+    from repro_torch.core import fpga_model as fm
+
+    rows = table1.run()
+    for board in table1.PAPER:
+        if not table1.instance_for(board).fits():
+            raise AssertionError(f"the paper's compute unit does not fit {board}")
+    gops = [fm.evaluate_network("alexnet", fm.alexnet_layers(), table1.instance_for(b),
+                                batch=4).conv_gops for b in ("Ultra96", "ZCU104", "ZCU102")]
+    if not gops[0] < gops[1] < gops[2]:
+        raise AssertionError(f"Table 1 conv GOP/s do not rise with the board: {gops}")
+    emit({"phase": "fpga_table1", "rows": rows, "conv_gops": gops})
+    emit({"phase": "fpga_table2", **table2.run()})
+    emit({"phase": "fpga_dse_sweep", "fpga": dse_sweep.run_fpga(), "tpu": dse_sweep.run_tpu()})
 
 
 #: the ``kernels`` line: one row per kernel, and for the two GEMMs and the
@@ -2134,10 +2381,13 @@ def main() -> int:
     cfg, params, prompts, serving_runs, serving_windows = phase_serving(torch, dev)
     phase_serving_timing(torch, cfg, params, prompts, serving_runs)
     torch.cuda.empty_cache()
-    serving_windows.update(phase_scheduler(torch, cfg, params, serving_runs))
+    # the scheduler phase serves float and the grid (q8 runs through phase 5)
+    serving_windows.update(phase_scheduler(
+        torch, cfg, params, [r for r in serving_runs if not r[0].startswith("q8")]))
     del params, serving_runs
     torch.cuda.empty_cache()
     phase_serve_cli(torch)
+    phase_fpga_tables()
 
     windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()}}
     kernels = []

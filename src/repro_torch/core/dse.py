@@ -1,7 +1,21 @@
-"""Design-space exploration, device plane (paper §III.E), in the port.
+"""Design-space exploration (paper §III.E), in the port.
 
-The port's copy of the device half of ``repro.core.dse``.  Every search
-takes a spec:
+The port's copy of ``repro.core.dse``.  Its FPGA plane and the precision DSE
+are the reference's line for line, and held to it with ``==``
+(``tests/test_torch_fpga.py``, ``tests/test_torch_precision.py``):
+
+* :func:`explore_board` enumerates (μ, τ, 𝒯, ℭ, λ, Ω) within a board's
+  DSP / BRAM / LUT / FF envelope and ranks the fitting template instances
+  by modeled GOP/s on a network (``fpga_model``);
+* :func:`choose_precision` gives each layer the int8 rung where its
+  solo-flip argmax agreement meets the budget, else the base grid;
+  :func:`search_precision` measures those drifts, reverts int8 layers until
+  the composed network meets the budget and pins the plan in the plan
+  registry, from which :func:`pinned_precision` replays it (the shared
+  body of ``models/cnn.py:calibrate_cnn_precision`` and
+  ``models/transformer.py:calibrate_precision``).
+
+Every device-plane search takes a spec:
 
 * Under a :class:`~repro_torch.core.tiling.TpuSpec` the functions are the
   reference's, line for line: ``explore_tpu_block`` ranks Pallas (bm, bn,
@@ -25,8 +39,6 @@ Flash attention picks its route from the head dim and the dtype
 (:func:`plan_flash`): the tensor cores for the models' head dims, the CUDA
 cores for the reduced configs'.
 
-The FPGA plane (``explore_board``) and ``choose_precision`` are not ported
-yet.
 """
 from __future__ import annotations
 
@@ -34,7 +46,10 @@ import dataclasses
 import itertools
 from typing import Optional, Sequence
 
+from .fpga_model import Board, LayerSpec, TemplateInstance, evaluate_network
 from .tiling import (
+    ConvTiling,
+    FCTiling,
     GpuSpec,
     MatmulBlock,
     Spec,
@@ -45,8 +60,13 @@ from .tiling import (
 )
 
 __all__ = [
+    "DseResult",
     "ConvTileChoice",
     "FlashPlan",
+    "choose_precision",
+    "pinned_precision",
+    "search_precision",
+    "explore_board",
     "explore_tpu_block",
     "explore_conv_spatial",
     "default_block_for",
@@ -73,6 +93,58 @@ __all__ = [
     "gpu_flash_smem",
     "plan_flash",
 ]
+
+
+# ---------------------------------------------------------------------------
+# FPGA plane
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DseResult:
+    instance: TemplateInstance
+    gops: float
+    latency_ms: float
+
+    @property
+    def mu(self) -> int:
+        return self.instance.conv.mu
+
+    @property
+    def tau(self) -> int:
+        return self.instance.conv.tau
+
+
+def explore_board(
+    board: Board,
+    layers: Sequence[LayerSpec],
+    name: str = "net",
+    mu_range: Sequence[int] = (4, 8, 12, 16, 20, 24, 28, 32),
+    tau_range: Sequence[int] = (8, 12, 16, 20, 24, 30, 36, 44, 55, 64),
+    spatial_tiles: Sequence[int] = (13, 14, 26, 27, 28),
+    fc_tiles: Sequence[tuple[int, int]] = ((1024, 64), (2048, 128), (4096, 256)),
+    top: int = 10,
+) -> list[DseResult]:
+    """Exhaustive grid search over the template parameter space for a board:
+    every fitting instance, ranked by modeled GOP/s on ``layers`` (a stable
+    sort, so ties keep the enumeration order)."""
+    results: list[DseResult] = []
+    for mu, tau in itertools.product(mu_range, tau_range):
+        if mu * tau > board.dsp:
+            continue
+        for t_spatial in spatial_tiles:
+            conv = ConvTiling(t_r=t_spatial, t_c=t_spatial, mu=mu, tau=tau)
+            for lam, omega in fc_tiles:
+                fc = FCTiling(lam=lam, omega=omega, mu=mu, tau=tau)
+                inst = TemplateInstance(board=board, conv=conv, fc=fc)
+                if not inst.fits():
+                    continue
+                rep = evaluate_network(name, layers, inst)
+                results.append(
+                    DseResult(instance=inst, gops=rep.gops, latency_ms=rep.latency_ms)
+                )
+    results.sort(key=lambda r: -r.gops)
+    return results[:top]
 
 
 # ---------------------------------------------------------------------------
@@ -856,3 +928,70 @@ def plan_flash(d: int, dtype_bytes: int, spec: Spec) -> FlashPlan:
         raise ValueError(f"flash route {route} at head dim {d} needs {smem} bytes of "
                          f"shared memory, over the {spec.smem_per_block} a block has")
     return FlashPlan(route, bk, smem)
+
+
+# ---------------------------------------------------------------------------
+# per-layer precision assignment (the drift-aware DSE)
+# ---------------------------------------------------------------------------
+
+
+def choose_precision(drift: dict, budget: float, base_fmt, low_fmt) -> dict:
+    """Assign each layer the cheapest activation grid meeting ``budget``.
+
+    ``drift`` maps layer name -> measured *solo-flip* argmax agreement (the
+    network's end-to-end agreement with the all-``base_fmt`` reference when
+    only that layer drops to ``low_fmt``).  A layer gets ``low_fmt`` (int8:
+    half the activation and KV bytes) iff its agreement is >= ``budget``;
+    every other layer keeps ``base_fmt``.  Pure and deterministic: the
+    callers pin the result in the PlanRegistry with ``source="measured"``
+    and the drift attached, so a warm call replays it with no sweep.
+    """
+    if not 0.0 <= budget <= 1.0:
+        raise ValueError(f"precision budget must be in [0, 1], got {budget}")
+    return {
+        layer: low_fmt if agreement >= budget else base_fmt
+        for layer, agreement in drift.items()
+    }
+
+
+def pinned_precision(reg, net: str, names: Sequence[str], spec) -> Optional[tuple]:
+    """The precision DSE's warm path: when the registry ``reg`` pins every
+    layer of ``names`` under ``spec`` (each found pin a hit), the plan as
+    sorted (layer, QFormat) pairs; else None."""
+    pins = {name: reg.precision_for(net, name, spec) for name in names}
+    if not all(p is not None for p in pins.values()):
+        return None
+    return tuple(sorted(((n, p.fmt) for n, p in pins.items()), key=lambda kv: kv[0]))
+
+
+def search_precision(reg, net: str, names: Sequence[str], spec, base_fmt, low_fmt,
+                     budget: float, agreement, drift: Optional[dict] = None) -> tuple:
+    """The precision DSE's cold path over the named layers of one network.
+
+    ``agreement(plan)`` runs the network under ``plan`` (sorted (layer,
+    QFormat) pairs; a layer left out keeps ``base_fmt``) and returns its
+    argmax agreement with the reference.  Each layer's solo-flip drift
+    onto ``low_fmt`` is measured (``drift`` skips the sweep), the layers
+    meeting ``budget`` go to ``low_fmt`` (:func:`choose_precision`), then
+    the int8 layer of lowest drift reverts until the *composed* network
+    meets the budget: solo-flip drifts compose, and the budget holds for
+    the network.  Every choice is pinned in ``reg`` with
+    ``source="measured"`` and its drift; returns the plan.
+    """
+    if drift is None:
+        drift = {name: agreement(((name, low_fmt),)) for name in names}
+    chosen = choose_precision(drift, budget, base_fmt, low_fmt)
+
+    def full_plan():
+        return tuple(sorted(((n, chosen.get(n, base_fmt)) for n in names),
+                            key=lambda kv: kv[0]))
+
+    while agreement(full_plan()) < budget:
+        int8s = [n for n in names if chosen[n].total_bits == 8]
+        if not int8s:
+            break
+        chosen[min(int8s, key=lambda n: (drift[n], n))] = base_fmt
+    for name in names:
+        reg.pin_precision(net, name, chosen.get(name, base_fmt), drift=drift.get(name),
+                          spec=spec, source="measured")
+    return full_plan()

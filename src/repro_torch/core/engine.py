@@ -4,9 +4,11 @@ The port's copy of ``repro.core.engine`` for one device:
 
 * :class:`PlanRegistry` — memoized DSE choices (GEMM plans per kernel and
   direct-conv configurations) per (shape, spec), with hit and miss
-  counters, so a test can assert that a repeated shape costs one search.  It lives in memory;
-  the reference's JSON plan store and ``measure_and_pin`` are not ported
-  yet.
+  counters, so a test can assert that a repeated shape costs one search;
+  and the precision DSE's per-layer pins (:class:`PrecisionChoice`, keyed
+  by (network, layer, spec)), which a warm calibration replays with no
+  forward.  It lives in memory: the reference's JSON plan store and
+  ``measure_and_pin`` are ROADMAP queue 1 item 2.
 * :class:`GemmPlan` / :class:`ConvPlan` — per-layer plans: the conv route
   (direct CUDA conv or im2col GEMM), τ, the Cin chunk and tiles of the
   direct route, the GEMM tile (and, for the float GEMM, its route).
@@ -47,6 +49,7 @@ from .tiling import H100, MatmulBlock, Spec, clamp_block
 
 __all__ = [
     "PlanRegistry",
+    "PrecisionChoice",
     "ConvPlan",
     "GemmPlan",
     "Engine",
@@ -92,17 +95,34 @@ def batch_rungs(slots: int) -> tuple:
     return tuple(sorted(rungs))
 
 
-class PlanRegistry:
-    """Memoized DSE selection: GEMM blocks and direct-conv configurations.
+@dataclasses.dataclass(frozen=True)
+class PrecisionChoice:
+    """One pinned per-layer activation grid (the precision DSE's output).
 
-    ``misses`` counts grid searches actually run, ``hits`` lookups served
-    from the registry: a repeated shape costs exactly one search for the
-    registry's lifetime.
+    ``fmt`` is the layer's *input* activation format (the int8 rung or the
+    network's base int16 grid); ``drift`` the measured solo-flip argmax
+    agreement that justified it (None for a pin not from a sweep).
+    """
+
+    fmt: QFormat
+    drift: Optional[float] = None
+
+
+class PlanRegistry:
+    """Memoized DSE selection: GEMM blocks, direct-conv configurations and
+    per-layer precision pins.
+
+    ``misses`` counts searches actually run, ``hits`` lookups served from
+    the registry: a repeated shape costs exactly one search for the
+    registry's lifetime.  Every precision pin carries ``source`` provenance
+    (``"measured"``: from a drift sweep).
     """
 
     def __init__(self) -> None:
         self._blocks: dict = {}
         self._conv_tiles: dict = {}
+        self._precision: dict = {}
+        self._prec_src: dict = {}
         self.hits = 0
         self.misses = 0
 
@@ -150,12 +170,51 @@ class PlanRegistry:
         self._conv_tiles[key] = choice
         return choice
 
+    # -- per-layer precision pins (the drift-aware DSE) ------------------------
+
+    def precision_for(self, net: str, layer: str, spec: Spec = H100
+                      ) -> Optional[PrecisionChoice]:
+        """The pinned activation grid of one named layer, or None.
+
+        A found pin counts as a hit; a miss is *not* counted here: the
+        precision search is a whole-network drift sweep, so its misses are
+        charged by :meth:`pin_precision` when the sweep ran
+        (``searched=True``).  A warm call replays every layer as hits with
+        zero misses.
+        """
+        ent = self._precision.get((net, layer, spec))
+        if ent is not None:
+            self.hits += 1
+        return ent
+
+    def pin_precision(self, net: str, layer: str, fmt: QFormat, *,
+                      drift: Optional[float] = None, spec: Spec = H100,
+                      source: str = "measured", searched: bool = True) -> PrecisionChoice:
+        """Record one layer's chosen grid (``source="measured"``: the choice
+        came from a drift sweep, not from an analytic model)."""
+        if searched:
+            self.misses += 1
+        choice = PrecisionChoice(fmt=fmt, drift=drift)
+        key = (net, layer, spec)
+        self._precision[key] = choice
+        self._prec_src[key] = source
+        return choice
+
+    def precision_plan(self, net: str, spec: Spec = H100) -> dict:
+        """Every pinned (layer -> QFormat) choice of one network; counts
+        nothing (an inspection helper)."""
+        return {key[1]: ent.fmt for key, ent in self._precision.items()
+                if key[0] == net and key[2] == spec}
+
     def stats(self) -> dict:
+        """Entry counts by kind, the counters, and the measured pins."""
         return {
             "gemm_blocks": len(self._blocks),
             "conv_tiles": len(self._conv_tiles),
+            "precision": len(self._precision),
             "hits": self.hits,
             "misses": self.misses,
+            "measured": sum(1 for s in self._prec_src.values() if s == "measured"),
         }
 
     @contextlib.contextmanager
@@ -174,11 +233,13 @@ class PlanRegistry:
                 into["misses"] = into.get("misses", 0) + delta["misses"]
 
     def __len__(self) -> int:
-        return len(self._blocks) + len(self._conv_tiles)
+        return len(self._blocks) + len(self._conv_tiles) + len(self._precision)
 
     def clear(self) -> None:
         self._blocks.clear()
         self._conv_tiles.clear()
+        self._precision.clear()
+        self._prec_src.clear()
         self.hits = 0
         self.misses = 0
 
@@ -637,8 +698,10 @@ class Engine:
             fmt = self.config.qformat
             block = plan.block if plan is not None and plan.block is not None else \
                 self.block_for(m, n, k, xbits=fmt.total_bits, wbits=fmt.total_bits)
+            # quantize keeps its input's strides; the kernel takes dense raws
+            # (the tied head's w is the embedding table's transposed view)
             qres = kops.matmul_q16(
-                quantize(x2, fmt), quantize(w, fmt),
+                quantize(x2, fmt).contiguous(), quantize(w, fmt).contiguous(),
                 bias=None if bias is None else quantize(bias, fmt),
                 relu=relu, fmt=fmt, block=block,
             )

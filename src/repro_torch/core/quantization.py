@@ -14,7 +14,10 @@ bit for bit against the JAX package on the same inputs (see
   * ``shift_saturate_i32`` — the one write-back ladder: round-half-up
     arithmetic shift of an int32 accumulator, with int32 wrap, then a clip.
     The CUDA kernels run the same arithmetic in ``csrc/common.cuh``.
-  * ``qtensor_matmul_ref`` — the mixed-format GEMM oracle.
+  * ``qtensor_matmul_ref`` — the mixed-format GEMM oracle;
+    ``qmatmul_ref`` / ``qmatmul_real`` — the single-format one, on raws and
+    on real inputs (one GEMM of an FPGA deployment: float -> Q2.14 -> dot
+    -> Q2.14 -> float).
 
 Integer matmuls: CPU ``torch.mm`` on int16 returns int16 and wraps at 16
 bits, so every product here is widened first.  :func:`int_matmul_i32` runs
@@ -47,8 +50,11 @@ __all__ = [
     "dequantize",
     "fake_quant",
     "fake_quant_fmt",
+    "qmatmul_real",
+    "qmatmul_ref",
     "qtensor_matmul_ref",
     "requantize_i32",
+    "requantize_i32_to_i16",
     "shift_saturate_i32",
 ]
 
@@ -290,6 +296,25 @@ def requantize_i32(acc: torch.Tensor, shift: int, fmt: QFormat = Q2_14) -> torch
     output grid."""
     return shift_saturate_i32(acc, shift, fmt.raw_min, fmt.raw_max,
                               fmt.storage_dtype)
+
+
+def requantize_i32_to_i16(acc: torch.Tensor, fmt: QFormat = Q2_14) -> torch.Tensor:
+    """Same-format write-back: the accumulator of a product of two ``fmt``
+    numbers sits at scale 2^(2·frac_bits), so the shift is one frac_bits."""
+    return requantize_i32(acc, fmt.frac_bits, fmt)
+
+
+def qmatmul_ref(xq: torch.Tensor, wq: torch.Tensor, fmt: QFormat = Q2_14) -> torch.Tensor:
+    """Single-format oracle of the fixed-point matmul: xq (m, k) and wq (k, n)
+    raws on ``fmt`` -> (m, n) raws on ``fmt``, an int32 accumulator that
+    wraps, then the saturating write-back."""
+    return requantize_i32_to_i16(int_matmul_i32(xq, wq), fmt)
+
+
+def qmatmul_real(x: torch.Tensor, w: torch.Tensor, fmt: QFormat = Q2_14) -> torch.Tensor:
+    """Quantize real inputs, run :func:`qmatmul_ref`, dequantize: the
+    numerics an FPGA deployment of the paper sees for one GEMM."""
+    return dequantize(qmatmul_ref(quantize(x, fmt), quantize(w, fmt), fmt), fmt)
 
 
 def qtensor_matmul_ref(

@@ -1,6 +1,11 @@
-"""Tile legality and hardware specs for the port's planner.
+"""Loop tiling (paper §III.B): the FPGA tiles, and the port planner's specs.
 
-Two specs live here:
+* :class:`ConvTiling` / :class:`FCTiling` — the paper's conv tiles (𝒯, ℭ,
+  μ, τ) and FC tiles (λ, Ω) on the μ×τ compute unit, a copy of the
+  reference's FPGA plane: they size the BRAM buffers and the per-invocation
+  computation that ``fpga_model`` and ``dse.explore_board`` evaluate.
+
+Two device specs live here:
 
 * :class:`TpuSpec` / ``TPU_V5E`` — a copy of the reference's TPU description,
   kept as *data*: fed to the port's search it must return exactly the
@@ -22,6 +27,8 @@ from typing import Union
 
 __all__ = [
     "CONV_ROUTES",
+    "ConvTiling",
+    "FCTiling",
     "FP_ROUTES",
     "Q16_ROUTES",
     "GpuSpec",
@@ -59,6 +66,85 @@ CONV_ROUTES = ("cudacore", "tc")
 
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# FPGA plane
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTiling:
+    """Conv loop-tiling factors (paper notation: 𝒯, ℭ, μ, τ)."""
+
+    t_r: int  # output-row tile 𝒯
+    t_c: int  # output-col tile ℭ
+    mu: int  # input-channel tile μ  (compute-unit input width)
+    tau: int  # output-channel tile τ (compute-unit output width)
+
+    def eff_spatial(self, r: int, c: int) -> tuple[int, int]:
+        """HLS templates bound the tile loop by min(tile, layer dim)."""
+        return min(self.t_r, r), min(self.t_c, c)
+
+    def num_invocations(self, r: int, c: int, p: int, q: int) -> int:
+        """Tile invocations to cover an output of r x c x q from p channels."""
+        tr, tc = self.eff_spatial(r, c)
+        return (
+            ceil_div(r, tr)
+            * ceil_div(c, tc)
+            * ceil_div(p, self.mu)
+            * ceil_div(q, self.tau)
+        )
+
+    def compute_cycles_per_invocation(self, k: int, r: int = None, c: int = None) -> int:
+        """Fig. 4 dataflow: one μ×τ MAC wave per (spatial, tap) position, an
+        II=1 pipeline over 𝒯'·ℭ'·K² positions (the effective tile)."""
+        tr, tc = self.eff_spatial(r or self.t_r, c or self.t_c)
+        return tr * tc * k * k
+
+    def input_tile_elems(self, k: int, stride: int = 1) -> int:
+        h = stride * self.t_r + k - stride
+        w = stride * self.t_c + k - stride
+        return h * w * self.mu
+
+    def weight_tile_elems(self, k: int) -> int:
+        return self.mu * self.tau * k * k
+
+    def output_tile_elems(self) -> int:
+        return self.t_r * self.t_c * self.tau
+
+
+@dataclasses.dataclass(frozen=True)
+class FCTiling:
+    """FC loop-tiling factors (paper notation: λ, Ω) over the same μ×τ unit:
+    λ / Ω are the BRAM-resident vector tiles, consumed by the compute unit in
+    (μ, τ) sub-blocks (paper Fig. 5)."""
+
+    lam: int  # input-neuron tile λ
+    omega: int  # output-neuron tile Ω
+    mu: int
+    tau: int
+
+    def num_invocations(self, p: int, q: int) -> int:
+        return ceil_div(p, self.lam) * ceil_div(q, self.omega)
+
+    def compute_cycles_per_invocation(self) -> int:
+        # (λ/μ)·(Ω/τ) sub-blocks, each one MAC wave per μ-element column
+        return ceil_div(self.lam, self.mu) * ceil_div(self.omega, self.tau)
+
+    def input_tile_elems(self) -> int:
+        return self.lam
+
+    def weight_tile_elems(self) -> int:
+        return self.lam * self.omega
+
+    def output_tile_elems(self) -> int:
+        return self.omega
+
+
+# ---------------------------------------------------------------------------
+# device plane
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

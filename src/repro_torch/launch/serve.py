@@ -5,17 +5,21 @@ mixed-length request set through the continuous-batching scheduler.
         --backend cuda --prompts 2 --prompt-len 8 --gen 3
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --scheduler --prefill-chunk 8 --prompts 4 --prompt-len 8 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend q8 \\
+        --precision-budget 0.5 --prompts 2 --prompt-len 8 --gen 3
 
 The port's copy of ``repro.launch.serve``: the config is reduced as the
 reference's driver reduces it, the weights are random from ``--seed``, and
 the run goes through :func:`generate` (or, with ``--scheduler``, a
 :class:`ServeScheduler`) on the CUDA kernels (``--backend cuda``, the
 default), grid-resident fixed point (``q16``, after a max-abs calibration
-pass) or plain tensor ops (``torch``).  ``--device cpu`` runs the kernels'
-plain versions.  ``--temperature`` / ``--top-k`` sample each token from a
-per-lane RNG stream, reproducible per ``--seed``.  Replicas, shards, the
-plan store and the int8 mix exit with "not ported yet" and the ROADMAP
-item that brings them.
+pass), mixed int8 / int16 fixed point (``q8``: the q16 template, with the
+precision DSE choosing each layer group's grid at ``--precision-budget``)
+or plain tensor ops (``torch``).  ``--device cpu`` runs the kernels' plain
+versions.  ``--temperature`` / ``--top-k`` sample each token from a
+per-lane RNG stream, reproducible per ``--seed``.  Replicas, shards and the
+plan store exit with "not ported yet" and the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
@@ -122,6 +126,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--backend", default="cuda", choices=["torch", "cuda", "q16", "q8"])
+    ap.add_argument("--precision-budget", type=float, default=0.99,
+                    help="with --backend q8: the least solo-flip argmax agreement at "
+                         "which the precision DSE drops a layer group to the int8 rung")
     ap.add_argument("--device", default="cuda",
                     help="where the template runs: cuda (the kernels) or cpu (their "
                          "plain versions)")
@@ -143,8 +150,6 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--plan-store", default=None)
     args = ap.parse_args(argv)
-    if args.backend == "q8":
-        _not_ported("--backend q8 (the int8 / int16 precision DSE)", "items 1 and 3")
     if args.replicas > 1:
         _not_ported("--replicas (the replica router)", "item 4")
     if args.shards > 1:
@@ -153,16 +158,29 @@ def main(argv=None):
         _not_ported("--plan-store (the JSON plan store)", "item 2")
 
     cfg = reduced(get_config(args.arch))
-    tpl = default_template(args.backend, device=args.device)
+    # q8 is the mixed-precision tier of the q16 template: the kernels take
+    # every int8 / int16 mix, and the precision DSE picks each group's grid
+    backend = "q16" if args.backend == "q8" else args.backend
+    tpl = default_template(backend, device=args.device)
     dev = tpl.engine.device
     params = T.init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     policy = None
-    if args.backend == "q16":
+    if backend == "q16":
         cal = synthetic_batch(args.seed + 1, 7, 2, max(args.prompt_len, 8), cfg.vocab,
                               device=dev)
+        # a calibration error raises, with or without --scheduler: no
+        # fallback to per-op fixed point as in the reference's generate path
         policy = T.calibrate_policy(tpl, cfg, params, cal)
-        print(f"[serve] numerics: q16 grid-resident, activations {policy.fmt.name} "
-              f"(calibrated), weights per-tensor")
+        if args.backend == "q8":
+            policy = T.calibrate_precision(tpl, cfg, params, cal,
+                                           budget=args.precision_budget, policy=policy)
+            n8 = sum(1 for _, f in policy.layer_fmts if f.total_bits == 8)
+            print(f"[serve] numerics: mixed int8/int16 grid-resident, base "
+                  f"{policy.fmt.name}, {n8}/{len(policy.layer_fmts)} groups on the int8 "
+                  f"rung (budget {args.precision_budget})")
+        else:
+            print(f"[serve] numerics: q16 grid-resident, activations {policy.fmt.name} "
+                  f"(calibrated), weights per-tensor")
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               seed=args.seed)
     if not sampling.greedy:
@@ -196,8 +214,9 @@ def main(argv=None):
               f"batch={args.prompts} prompt={args.prompt_len} generated={out.shape[1]} "
               f"tokens in {dt:.2f}s ({args.prompts * args.gen / dt:.1f} tok/s)")
     st = tpl.engine.plan_cache.stats()
-    print(f"[serve] plan registry: {st['gemm_blocks']} GEMM blocks planned, "
-          f"{st['misses']} DSE searches, {st['hits']} cache hits")
+    print(f"[serve] plan registry: {st['gemm_blocks']} GEMM blocks + {st['conv_tiles']} "
+          f"conv tiles planned, {st['precision']} precision pins ({st['measured']} "
+          f"measured), {st['misses']} DSE searches, {st['hits']} cache hits")
     print("[serve] sample generations:")
     for row in out[: min(2, len(out))]:
         print("   ", row.tolist() if isinstance(row, torch.Tensor) else row)

@@ -12,8 +12,11 @@ Layouts are the reference's at every public function: NHWC activations,
 flatten is ``h.reshape(N, -1)`` over NHWC, in (H, W, C) order — so weights
 carried over from the JAX package multiply the same features.
 
-Spatial and mesh sharding, ``calibrate_cnn_precision`` and the FPGA plane
-are not ported yet.
+:func:`calibrate_cnn_precision` is the drift-aware per-layer precision DSE:
+it measures each layer's solo-flip drift onto the int8 rung, picks the
+plan (``core/dse.py:choose_precision``), and pins it in the plan registry,
+from which a second call rebuilds it with no forward.  Spatial and mesh
+sharding are not ported yet (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core import dse
 from repro_torch.core.engine import reset_plan_caches, validate_policy
 from repro_torch.core.quantization import (
     NumericsPolicy,
@@ -29,6 +33,7 @@ from repro_torch.core.quantization import (
     QFormat,
     QTensor,
     fake_quant_fmt,
+    int8_rung,
 )
 from repro_torch.core.template import Template
 
@@ -46,6 +51,7 @@ __all__ = [
     "cnn_layer_names",
     "quantize_cnn_params",
     "calibrate_cnn_policy",
+    "calibrate_cnn_precision",
     "cnn_forward",
 ]
 
@@ -329,6 +335,53 @@ def calibrate_cnn_policy(tpl: Template, spec: CNNSpec, params, x,
     if policy != base:
         tpl.engine.drop_qparams(params, base)  # release the probe tree
     return policy
+
+
+def calibrate_cnn_precision(tpl: Template, spec: CNNSpec, params, x, *,
+                            budget: float = 0.99,
+                            policy: Optional[NumericsPolicy] = None,
+                            drift: Optional[dict] = None, ref=None) -> NumericsPolicy:
+    """The drift-aware per-layer precision DSE for a CNN.
+
+    Warm path: when the plan registry holds a pin for *every* layer of
+    ``spec`` under the template's spec, the mixed policy is rebuilt from
+    the pins: no forward, no search, each layer a registry hit.
+
+    Cold path (:func:`repro_torch.core.dse.search_precision`): measure each
+    layer's *solo-flip* drift (the network run with only that layer's input
+    activations on the int8 rung of the calibrated grid, its argmax
+    agreement with the reference; ``drift`` skips the sweep with rows
+    measured elsewhere), assign int8 wherever the agreement meets
+    ``budget``, revert the int8 layer of lowest agreement until the
+    *composed* network meets the budget, and pin every choice with
+    ``source="measured"``.
+
+    ``ref`` overrides the reference class predictions, an (N,) argmax
+    array; the default is the forward of the float ``params`` on ``tpl``
+    (on a q16 template, the per-op fixed-point forward).
+    """
+    policy = policy or calibrate_cnn_policy(tpl, spec, params, x)
+    eng = tpl.engine
+    names = cnn_layer_names(spec)
+    low = int8_rung(policy.fmt)
+    if low is None:
+        return policy  # the calibrated range has no int8 rung
+    fmts = dse.pinned_precision(eng.plan_cache, spec.name, names, tpl.config.hw)
+    if fmts is None:
+        if ref is None:
+            ref = torch.argmax(cnn_forward(tpl, spec, params, x), dim=-1)
+        ref = torch.as_tensor(ref, device=x.device)
+
+        def probe_agreement(fmts):
+            probe = dataclasses.replace(policy, name="mixed", layer_fmts=fmts)
+            qp = quantize_cnn_params(tpl, spec, params, probe)
+            got = torch.argmax(cnn_forward(tpl, spec, qp, x, policy=probe), dim=-1)
+            eng.drop_qparams(params, probe)  # release the probe tree
+            return float((got == ref).float().mean())
+
+        fmts = dse.search_precision(eng.plan_cache, spec.name, names, tpl.config.hw,
+                                    policy.fmt, low, budget, probe_agreement, drift)
+    return dataclasses.replace(policy, name="mixed", layer_fmts=fmts)
 
 
 def cnn_forward(

@@ -20,8 +20,10 @@ point.  The serve scheduler's cache maintenance (:func:`insert_cache_slot`,
 bit the reference's.
 
 The other families (MoE, recurrent, SSM, cross-attention, encoder-decoder,
-VLM) raise ``NotImplementedError`` (ROADMAP queue 1 item 6);
-``calibrate_precision`` comes with the precision pins (items 1 and 3).
+VLM) raise ``NotImplementedError`` (ROADMAP queue 1 item 6).
+:func:`calibrate_precision` is the drift-aware precision DSE over the
+precision groups (:func:`precision_group_names`): a group on the int8 rung
+gets int8 weights and an int8 KV cache.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import dse
 from repro_torch.core.engine import validate_policy
-from repro_torch.core.quantization import NumericsPolicy, QTensor
+from repro_torch.core.quantization import NumericsPolicy, QTensor, int8_rung
 from repro_torch.core.template import Template
 
 from .attention import (
@@ -50,6 +53,8 @@ __all__ = [
     "init_params",
     "quantize_params",
     "calibrate_policy",
+    "precision_group_names",
+    "calibrate_precision",
     "q16_island_counts",
     "forward",
     "prefill",
@@ -213,6 +218,60 @@ def calibrate_policy(tpl: Template, cfg, params, tokens,
     if policy != base:
         tpl.engine.drop_qparams(params, base)  # release the probe tree
     return policy
+
+
+def precision_group_names(cfg) -> tuple:
+    """Names of the precision groups of ``cfg``'s stack: "g{i}" for pattern
+    position i (every layer stacked there), "tail{j}" for the j-th leftover
+    layer, and "head" for the post-norm quantize feeding the logits."""
+    pattern, _, r = _split(cfg)
+    return (tuple(f"g{i}" for i in range(len(pattern)))
+            + tuple(f"tail{j}" for j in range(r)) + ("head",))
+
+
+def calibrate_precision(tpl: Template, cfg, params, tokens, *, budget: float = 0.99,
+                        policy: Optional[NumericsPolicy] = None,
+                        drift: Optional[dict] = None, ref=None) -> NumericsPolicy:
+    """The drift-aware per-group precision DSE for a transformer.
+
+    Warm path: when the plan registry holds a pin for *every* group of
+    ``cfg`` under the template's spec, the mixed policy is rebuilt from the
+    pins: no forward, no search, each group a registry hit.
+
+    Cold path (:func:`repro_torch.core.dse.search_precision`): measure each
+    group's *solo-flip* drift (the teacher-forced forward over ``tokens``
+    with only that group on the int8 rung of the calibrated grid, its argmax
+    agreement with the reference; ``drift`` skips the sweep), assign int8
+    wherever the agreement meets ``budget``, revert the int8 group of lowest
+    agreement until the composed network meets the budget, and pin every
+    choice with ``source="measured"``.
+
+    ``ref`` overrides the reference predictions, a (B, S) argmax array; the
+    default is the forward of the float ``params`` on ``tpl`` (on a q16
+    template, the per-op fixed-point forward).
+    """
+    policy = policy or calibrate_policy(tpl, cfg, params, tokens)
+    eng = tpl.engine
+    names = precision_group_names(cfg)
+    low = int8_rung(policy.fmt)
+    if low is None:
+        return policy  # the calibrated range has no int8 rung
+    fmts = dse.pinned_precision(eng.plan_cache, cfg.name, names, tpl.config.hw)
+    if fmts is None:
+        if ref is None:
+            ref = torch.argmax(forward(tpl, cfg, params, tokens)[0], dim=-1)
+        ref = torch.as_tensor(ref, device=tokens.device)
+
+        def probe_agreement(fmts):
+            probe = dataclasses.replace(policy, name="mixed", layer_fmts=fmts)
+            qp = quantize_params(tpl, cfg, params, probe)
+            got = torch.argmax(forward(tpl, cfg, qp, tokens, policy=probe)[0], dim=-1)
+            eng.drop_qparams(params, probe)  # release the probe tree
+            return float((got == ref).float().mean())
+
+        fmts = dse.search_precision(eng.plan_cache, cfg.name, names, tpl.config.hw,
+                                    policy.fmt, low, budget, probe_agreement, drift)
+    return dataclasses.replace(policy, name="mixed", layer_fmts=fmts)
 
 
 def q16_island_counts(cfg, *, mode: str = "decode") -> dict:

@@ -200,7 +200,8 @@ def test_registry_memoizes_each_shape_once():
     for _ in range(3):
         reg.block_for(8, 4096, 25088, H100)
         reg.conv_tile_for(226, 226, 64, 3, 3, 224, 224, 64, 1, 4, H100)
-    assert reg.stats() == {"gemm_blocks": 1, "conv_tiles": 1, "hits": 4, "misses": 2}
+    assert reg.stats() == {"gemm_blocks": 1, "conv_tiles": 1, "precision": 0, "hits": 4,
+                           "misses": 2, "measured": 0}
     with reg.scope() as d:
         reg.block_for(8, 4096, 25088, H100)
         reg.block_for(8, 1000, 4096, H100)
