@@ -90,9 +90,11 @@ non-zero without its result line):
    and grid-resident, 8 slots over the ladder (512, 1024, 4096), 32 new
    tokens at most, warmed up, then a bursty ``synthetic_trace`` of 24
    requests (prompts of 64-4096 tokens, half at t = 0, the rest in four
-   bursts) on the system clock, each decode step one replay of the captured
-   CUDA graph.  Gates: a replay and the eager step give the same logits and
-   cache bit for bit at the 8-slot shape; every request completes and no
+   bursts) on the system clock, each decode step one replay of the
+   scheduler's own captured CUDA graph (one graph per cache owner and input
+   signature).  Gates: a replay and the eager step give the same logits and
+   cache bit for bit at the 8-slot shape (anonymous calls, on a graph of
+   their own, released before the trace); every request completes and no
    slot leaks; the trace makes no DSE search and no capture after warm-up;
    each stream, teacher-forced through the unbatched path, within phase 5's
    logit tolerances, a token differing only where the top-2 margin is at
@@ -104,7 +106,27 @@ non-zero without its result line):
    512-token prefill chunks under the same stream gate; then ``serve.main``
    at the reference's reduced CLI size: the default backend, and ``--backend
    q8 --precision-budget 0.5`` with and without ``--scheduler``;
-7. the paper's FPGA plane: the port's Table 1, Table 2 and DSE-sweep
+7. the serving fleet: (a) ``measure_and_pin`` on the H100 spec at qwen2's
+   gate / up (float decode over route splitk's slices, float prefill over
+   both wgmma tiles, grid decode in int16), each candidate timed with CUDA
+   events beside the analytic plan, the pin saved to a JSON store, reloaded
+   and launched; (b) ``ReplicaRouter`` on qwen2-0.5b at full width and
+   depth on the grid: 2 replicas of 4 slots, ladder (256, 512, 1024), 16
+   requests of 64-900 prompt tokens and 8-24 new ones on a virtual clock,
+   replica 0 killed at tick 3 with checkpoints every 2 ticks and a restart a
+   tick later, store saves every 4 ticks with one delayed; gates: the ledger
+   equals a one-replica fault-free run's and is exactly-once, a session was
+   restored from a checkpoint, no DSE search after the first warm-up, no
+   capture but the restarted incarnation's warm-up, the kill releases the
+   dead incarnation's memory and the peak after the restart stays within
+   one replica of the peak before, the store loads; tokens/s of 1 and 2
+   replicas and the restart's cost in ticks and seconds are printed;
+   (c) the CLIs in subprocesses at the reduced size: ``serve --backend q16
+   --scheduler --replicas 2 --plan-store S`` twice (the second with no
+   search), ``scheduler_soak --backend q16`` under ``REPRO_PLAN_ASSERT_WARM=1``
+   on S (after one run that writes S), ``serve --backend q8 --plan-store``
+   twice, ``router_soak --backend q16 --workers 2`` with its real kill;
+8. the paper's FPGA plane: the port's Table 1, Table 2 and DSE-sweep
    scripts (``repro_torch.benchmarks``) print their rows; every paper
    compute unit fits its board and Table 1's conv GOP/s rise from Ultra96 to
    ZCU102.
@@ -117,6 +139,8 @@ planner's bound between routes W and L, and the q16 GEMM's line (split-k
 against wgmma in int16 from m = 1 to 64), which checks its bound at m = 16.
 ``--conv-route-study`` times the conv's CUDA-core route beside each timed
 tensor-core row, float, and fixed point at every VGG16 layer checked.
+``--float-fleet-study`` runs phase 7b's kill in float once more and reports
+whether the ledger diverged, and at what top-2 margin (not a gate).
 ``--flash-pv-study`` builds a variant of flash's route "wgmma" that
 accumulates PV in place into O (the design the committed kernel rejected)
 and reports both designs' ptxas spills, times at the qwen2 prefill shape
@@ -150,6 +174,8 @@ ROUTE_STUDY = False
 CONV_ROUTE_STUDY = False
 #: ``--flash-pv-study``: flash's route wgmma beside a variant with PV in place
 FLASH_PV_STUDY = False
+#: --float-fleet-study: phase 7b's kill in float too, reported, not gated
+FLOAT_FLEET_STUDY = False
 GEMM_TOL_BF16 = 2e-2
 CONV_TOL = 2e-3
 #: the float conv's tensor-core route (3xTF32) against conv2d_plain: the
@@ -2085,10 +2111,12 @@ def phase_scheduler(torch, cfg, params, runs):
         torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
         fns = compiled_steps(tpl, cfg, sched.cache_len, sched.policy)
-        misses0, caps0 = sched.registry.misses, dict(CAPTURE_COUNTS)
+        misses0 = sched.registry.misses
 
         # gate 1: a replay of the captured step and the eager step, at the
-        # same 8-slot state and inputs: the same logits and cache, bit for bit
+        # same 8-slot state and inputs: the same logits and cache, bit for
+        # bit.  These calls are anonymous (no owner): they capture a graph
+        # of their own, beside the scheduler's, released before the trace
         cache, tok, tvec = slot_state(torch, sched, tree)
         lg_e, c_e = T.decode_step(tpl, cfg, tree, tok, tvec, cache, policy=sched.policy)
         _, lg_g, c_g = fns.decode_next(tree, tok, tvec, _clone_tree(cache))
@@ -2107,7 +2135,9 @@ def phase_scheduler(torch, cfg, params, runs):
         if isinstance(prof.get("device_busy_ms"), float):
             prof["device_busy_share_of_event_time"] = prof["device_busy_ms"] / graph_ms
         del cache, c_e, c_g, lg_e
+        fns.decode_next.release(None)
         torch.cuda.empty_cache()
+        caps0 = dict(CAPTURE_COUNTS)
 
         # the trace, through the replayed graph
         trace = sched_trace(cfg, SCHED_REQUESTS)
@@ -2284,6 +2314,387 @@ def phase_fpga_tables():
     emit({"phase": "fpga_dse_sweep", "fpga": dse_sweep.run_fpga(), "tpu": dse_sweep.run_tpu()})
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving fleet (plan store, measured pins, replica router)
+# ---------------------------------------------------------------------------
+
+#: phase 7a: (label, kernel, m, n, k, widths, candidates) at qwen2-0.5b's
+#: gate / up: decode (4 rows) over route splitk's slices, the float prefill
+#: (4 x 4096 rows) over both wgmma tiles
+PIN_CASES = (
+    ("float decode gate/up", "matmul_fp", 4, 4864, 896, {"dtype_bytes": 2}, 5),
+    ("float prefill gate/up", "matmul_fp", 16384, 4864, 896, {"dtype_bytes": 2}, 2),
+    ("grid decode gate/up int16", "matmul_q16", 4, 4864, 896, {"xbits": 16, "wbits": 16}, 5),
+)
+PIN_REPS = 20
+FLEET_REPLICAS = 2
+FLEET_SLOTS = 4
+FLEET_LADDER = (256, 512, 1024)
+FLEET_REQUESTS = 16
+#: prompts 64-900 tokens, budgets 8-24: prompt + generated fits the top rung
+#: on a resume
+FLEET_TRACE_LADDER = (256, 512, 900)
+FLEET_MAX_NEW = 24
+FLEET_MIN_NEW = 8
+FLEET_KILL_TICK = 3
+FLEET_CHECKPOINT_EVERY = 2
+FLEET_STORE_SAVE_EVERY = 4
+#: replica 1's store save due at tick 4 lands two ticks late
+FLEET_DELAYED_SAVE = (1, 4, 2)
+
+
+def phase_measure_and_pin(torch, dev):
+    """``measure_and_pin`` on the H100 spec at gate / up: every candidate
+    timed (CUDA events, the hand-written kernel on its route), the analytic
+    plan's time beside the pinned plan; the store saved, reloaded into a
+    fresh registry, and the next call launching the pinned plan."""
+    import tempfile
+
+    from repro_torch.core.engine import Engine, PlanRegistry
+    from repro_torch.core.quantization import Q2_14, QTensor
+    from repro_torch.core.template import TemplateConfig
+    from repro_torch.core.tiling import H100
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kernel, m, n, k, widths, top in PIN_CASES:
+            reg = PlanRegistry()
+            analytic = reg.block_for(m, n, k, H100, kernel=kernel, **widths)
+            pinned = reg.measure_and_pin(m, n, k, H100, kernel=kernel, top_k=top,
+                                         reps=PIN_REPS, device=dev, **widths)
+            timed = reg.last_measurement
+            if timed[0][0] != analytic or len(timed) != top:
+                raise AssertionError(f"{label}: candidates {timed} do not start at the "
+                                     f"analytic plan {analytic}")
+            path = f"{tmp}/pins.json"
+            reg.save(path)
+            warm = PlanRegistry()
+            warm.load(path)
+            if warm.source_for(m, n, k, H100, kernel=kernel, **widths) != "measured":
+                raise AssertionError(f"{label}: the pin did not come back measured")
+            eng = Engine(TemplateConfig(backend="cuda" if kernel == "matmul_fp" else "q16"),
+                         plan_cache=warm)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            _build.reset_launches()
+            if kernel == "matmul_fp":
+                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                w = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+                eng.matmul(x, w)
+            else:
+                x = torch.randint(-4096, 4096, (m, k), generator=gen, device=dev,
+                                  dtype=torch.int16)
+                w = torch.randint(-4096, 4096, (k, n), generator=gen, device=dev,
+                                  dtype=torch.int16)
+                eng.matmul(QTensor(x, Q2_14), QTensor(w, Q2_14))
+            torch.cuda.synchronize()
+            want = {f"{kernel}.{pinned.route}": 1,
+                    f"{kernel}.splitk_reduce": int(pinned.route == "splitk"
+                                                   and pinned.splits > 1)}
+            got = {name: _build.launches[name] for name in want}
+            if got != want or warm.misses != 0:
+                raise AssertionError(f"{label}: the reloaded pin launched {got}, want "
+                                     f"{want} ({warm.misses} searches)")
+            rows.append({"case": label, "kernel": kernel, "shape": [m, n, k], **widths,
+                         "candidates": [{"plan": _plan(b), "ms": 1e3 * s} for b, s in timed],
+                         "analytic": _plan(analytic), "analytic_ms": 1e3 * timed[0][1],
+                         "pinned": _plan(pinned),
+                         "pinned_ms": 1e3 * min(s for _, s in timed),
+                         "reloaded_launch": got})
+    seconds = time.perf_counter() - t0
+    emit({"phase": "measure_and_pin", "nvidia_smi": nvidia_smi(), "reps": PIN_REPS,
+          "rows": rows, "seconds": seconds})
+
+
+def fleet_trace(cfg):
+    """Phase 7b's trace, all at t = 0, with the same rids (0..n-1) each call,
+    so that runs compare session by session."""
+    from repro_torch.launch.scheduler import synthetic_trace
+
+    trace = synthetic_trace(FLEET_REQUESTS, seed=SEED, vocab=cfg.vocab,
+                            ladder=FLEET_TRACE_LADDER, max_new=FLEET_MAX_NEW,
+                            min_len=SCHED_MIN_LEN, min_new=FLEET_MIN_NEW)
+    for i, r in enumerate(trace):
+        r.rid = i
+    return trace
+
+
+def _fleet_router(cfg, params, tpl, pol, n, **kw):
+    from repro_torch.launch.router import ReplicaRouter
+    from repro_torch.launch.scheduler import SchedulerConfig, ServeScheduler, VirtualClock
+
+    def make(rid, clock):
+        return ServeScheduler(cfg, params, tpl=tpl, policy=pol, clock=clock,
+                              sched=SchedulerConfig(ladder=FLEET_LADDER, slots=FLEET_SLOTS,
+                                                    max_new_limit=FLEET_MAX_NEW))
+
+    return ReplicaRouter(make, n, clock=VirtualClock(), **kw)
+
+
+def _fleet_run(torch, router, trace):
+    t0 = time.perf_counter()
+    router.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(s) for s in router.ledger.as_dict().values())
+    return {"ticks": router.tick_index, "wall_s": wall, "tokens": tokens,
+            "tokens_per_s": tokens / wall}
+
+
+def phase_fleet(torch, cfg, params, tpl, pol):
+    """The in-process fleet on qwen2-0.5b at full width and depth on the
+    grid: a one-replica fault-free run (the ledger to hold), a two-replica
+    fault-free run (the restart's cost), then two replicas with replica 0
+    killed mid-decode, checkpoints every two ticks, a restart a tick later
+    and periodic store saves with one delayed.  Gates: the ledger equals the
+    one-replica run's and every session was served exactly once; a session
+    was restored from a checkpoint; no DSE search after the first warm-up;
+    no capture but the restarted incarnation's warm-up; the kill releases
+    the dead incarnation's device memory and the peak after the restart
+    stays within one replica's cache and graph of the peak before it; the
+    store loads.  Returns the killed run's launch window."""
+    import tempfile
+
+    from repro_torch.core.engine import PlanRegistry
+    from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import CAPTURE_COUNTS
+    from repro_torch.runtime.failover import FaultPlan
+
+    t_phase = time.perf_counter()
+    reg = tpl.engine.plan_cache
+    ref = _fleet_router(cfg, params, tpl, pol, 1)
+    misses0 = reg.misses  # the first warm-up planned everything
+    one = _fleet_run(torch, ref, fleet_trace(cfg))
+    want = ref.ledger.as_dict()
+    ref.replicas[0].sched.release()
+    del ref
+    torch.cuda.empty_cache()
+    two = _fleet_router(cfg, params, tpl, pol, FLEET_REPLICAS)
+    clean = _fleet_run(torch, two, fleet_trace(cfg))
+    two.verify_against(want)
+    for rep in two.replicas:
+        rep.sched.release()
+    del two
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"{tmp}/fleet_store.json"
+        mem0 = torch.cuda.memory_allocated()
+        # the level before the kill includes the replicas' warm-ups, as the
+        # level after the restart includes the new incarnation's
+        torch.cuda.reset_peak_memory_stats()
+        router = _fleet_router(
+            cfg, params, tpl, pol, FLEET_REPLICAS,
+            fault_plan=FaultPlan(kills=((FLEET_KILL_TICK, 0),),
+                                 delayed_saves=(FLEET_DELAYED_SAVE,)),
+            checkpoint_dir=f"{tmp}/ckpt", checkpoint_every=FLEET_CHECKPOINT_EVERY,
+            restart_delay=1, store_path=store, store_save_every=FLEET_STORE_SAVE_EVERY)
+        per_replica = (torch.cuda.memory_allocated() - mem0) / FLEET_REPLICAS
+        mem, warm = {}, {}
+        tick, start = router.tick, router._start
+
+        def timed_tick():
+            if router.tick_index == FLEET_KILL_TICK:
+                torch.cuda.synchronize()
+                mem["allocated_before_kill"] = torch.cuda.memory_allocated()
+                mem["peak_before_kill"] = torch.cuda.max_memory_allocated()
+            ev = tick()
+            if ev["killed"]:
+                mem["allocated_after_kill"] = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            return ev
+
+        def timed_start(rep, at):
+            t1 = time.perf_counter()
+            start(rep, at)
+            torch.cuda.synchronize()
+            if at > 0:
+                warm["restart_warmup_s"] = time.perf_counter() - t1
+
+        router.tick, router._start = timed_tick, timed_start
+        caps0 = sum(CAPTURE_COUNTS.values())
+        _build.reset_launches()
+        killed = _fleet_run(torch, router, fleet_trace(cfg))
+        launches = dict(_build.launches)
+        captures = sum(CAPTURE_COUNTS.values()) - caps0
+        peak_after = torch.cuda.max_memory_allocated()
+        router.verify_against(want)
+        router.assert_exactly_once()
+        PlanRegistry().load(store)
+        c = router.counters
+        if c["killed"] != 1 or c["restarted"] != 1 or c["restored_sessions"] < 1:
+            raise AssertionError(f"fleet: the kill did not restore a session: {dict(c)}")
+        if reg.misses != misses0:
+            raise AssertionError(f"fleet: {reg.misses - misses0} DSE searches after the "
+                                 f"first warm-up")
+        if captures != c["restarted"]:
+            raise AssertionError(f"fleet: {captures} captures during the run, want only the "
+                                 f"restarted incarnation's warm-up")
+        if not mem["allocated_after_kill"] < mem["allocated_before_kill"]:
+            raise AssertionError(f"fleet: the kill released no device memory: {mem}")
+        if peak_after > mem["peak_before_kill"] + per_replica:
+            raise AssertionError(f"fleet: peak {peak_after} after the restart, over "
+                                 f"{mem['peak_before_kill']} + one replica ({per_replica})")
+        delayed = [e for e in router.store_save_log
+                   if (e["replica"], e["due"]) == FLEET_DELAYED_SAVE[:2]]
+        if not delayed or delayed[0]["actual"] != sum(FLEET_DELAYED_SAVE[1:]):
+            raise AssertionError(f"fleet: the delayed save: {router.store_save_log}")
+        kernel = "matmul_q16"
+        if launches[f"{kernel}.wgmma"] == 0 or launches[f"{kernel}.splitk"] == 0 or \
+                launches["matmul_fp"] or launches[f"{kernel}.tile"]:
+            raise AssertionError(f"fleet: launches by route {launches}")
+        emit({"phase": "fleet", "numerics": "grid " + pol.fmt.name,
+              "nvidia_smi": nvidia_smi(), "replicas": FLEET_REPLICAS,
+              "slots": FLEET_SLOTS, "ladder": FLEET_LADDER, "requests": FLEET_REQUESTS,
+              "prompt_lens": [len(r.prompt) for r in fleet_trace(cfg)],
+              "one_replica": one, "two_replicas": clean, "two_replicas_killed": killed,
+              "restart_cost_ticks": killed["ticks"] - clean["ticks"],
+              "restart_cost_s": killed["wall_s"] - clean["wall_s"],
+              "restart_warmup_s": warm["restart_warmup_s"],
+              "memory_bytes": {**mem, "peak_after_restart": peak_after,
+                               "per_replica": per_replica},
+              "captures_during_run": captures, "dse_searches_after_first_warmup": 0,
+              "counters": dict(c), "duplicates_suppressed":
+              router.ledger.duplicates_suppressed, "store_save_log": router.store_save_log,
+              "graveyard": [inc for rep in router.replicas for inc, _ in rep.graveyard],
+              "ledger_equals_one_replica": True, "stats_line": router.stats_line(),
+              "seconds": time.perf_counter() - t_phase})
+        for rep in router.replicas:
+            rep.sched.release()
+        del router
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_float_fleet_study(torch, cfg, params, tpl):
+    """The fleet's kill in float (a finding, not a gate): which sessions'
+    streams diverge from the one-replica run once a resumed session
+    re-prefills through a bucket, and the top-2 margin of the one-replica
+    run's token at each first divergence (its exact-length prefill)."""
+    import tempfile
+
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.failover import FaultPlan
+
+    t0 = time.perf_counter()
+    ref = _fleet_router(cfg, params, tpl, None, 1)
+    ref.run(fleet_trace(cfg))
+    want = ref.ledger.as_dict()
+    ref.replicas[0].sched.release()
+    del ref
+    row = {"phase": "float_fleet_study", "nvidia_smi": nvidia_smi()}
+    with tempfile.TemporaryDirectory() as tmp:
+        router = _fleet_router(cfg, params, tpl, None, FLEET_REPLICAS,
+                               fault_plan=FaultPlan(kills=((FLEET_KILL_TICK, 0),)),
+                               checkpoint_dir=f"{tmp}/ckpt",
+                               checkpoint_every=FLEET_CHECKPOINT_EVERY)
+        trace = fleet_trace(cfg)
+        try:
+            router.run(trace)
+        except RuntimeError as err:  # a re-emitted token that differs
+            row["ledger_error"] = str(err)
+        got = router.ledger.as_dict()
+        moved = {rid for rid, recs in router.assignments.items() if len(recs) > 1}
+        row["counters"] = dict(router.counters)
+        for rep in router.replicas:
+            if rep.sched is not None:
+                rep.sched.release()
+        del router
+    flips = []
+    for r in trace:
+        a, b = got.get(r.rid, []), want[r.rid]
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if pos is None:
+            continue
+        seq = list(r.prompt) + list(b[:pos])
+        logits, _ = T.prefill(tpl, cfg, params, torch.tensor([seq], device=tpl.engine.device))
+        top2 = torch.topk(logits[0].float(), 2).values
+        flips.append({"rid": r.rid, "position": pos, "resumed": r.rid in moved,
+                      "top2_margin": float(top2[0] - top2[1])})
+    row.update(ledger_diverged=bool(flips) or "ledger_error" in row,
+               sessions=len(trace), diverged_sessions=len(flips), flips=flips,
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    torch.cuda.empty_cache()
+
+
+def _run_cli(argv, env=None):
+    """One CLI run in a subprocess from the checkout; its stdout."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
+    res = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"{' '.join(argv)} exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def _searches(out: str) -> int:
+    import re
+
+    return int(re.search(r"(\d+) DSE searches", out).group(1))
+
+
+def phase_fleet_cli(torch):
+    """The fleet's CLIs in subprocesses at the reference's reduced size, in
+    three chains at once: ``serve --backend q16 --scheduler --replicas 2
+    --plan-store S`` twice (the second warm, 0 searches), then
+    ``scheduler_soak --backend q16`` once writing S and once under
+    ``REPRO_PLAN_ASSERT_WARM=1`` on S; ``serve --backend q8 --plan-store S2``
+    twice (the second with no search); ``router_soak --backend q16 --workers
+    2``.  Each exits 0; its last line is printed."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    size = ["--prompts", "4", "--prompt-len", "8", "--gen", "3"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        store, store2 = f"{tmp}/serve.json", f"{tmp}/q8.json"
+        serve = ["repro_torch.launch.serve"]
+        soak = ["repro_torch.benchmarks.scheduler_soak", "--backend", "q16"]
+
+        def fleet_chain():
+            argv = serve + ["--backend", "q16", "--scheduler", "--replicas", "2",
+                            "--plan-store", store] + size
+            cold, warm = _run_cli(argv), _run_cli(argv)
+            if _searches(cold) == 0 or _searches(warm) != 0:
+                raise AssertionError(f"serve --replicas 2: {_searches(cold)} then "
+                                     f"{_searches(warm)} DSE searches")
+            env = {"REPRO_TORCH_PLAN_STORE": store}
+            _run_cli(soak + ["--save-store"], env)
+            gated = _run_cli(soak, dict(env, REPRO_PLAN_ASSERT_WARM="1"))
+            if "warm start OK" not in gated:
+                raise AssertionError(f"scheduler_soak warm gate:\n{gated[-2000:]}")
+            return [("serve q16 --replicas 2 (cold)", cold), ("serve q16 --replicas 2 "
+                    "(warm)", warm), ("scheduler_soak q16 (warm gate)", gated)]
+
+        def q8_chain():
+            argv = serve + ["--backend", "q8", "--precision-budget", "0.5",
+                            "--plan-store", store2] + size
+            cold, warm = _run_cli(argv), _run_cli(argv)
+            if _searches(warm) != 0:
+                raise AssertionError(f"serve q8 warm: {_searches(warm)} DSE searches")
+            return [("serve q8 (cold)", cold), ("serve q8 (warm)", warm)]
+
+        def router_soak():
+            return [("router_soak q16 --workers 2",
+                     _run_cli(["repro_torch.benchmarks.router_soak", "--backend", "q16",
+                               "--workers", "2"]))]
+
+        with ThreadPoolExecutor(3) as pool:
+            futures = [pool.submit(f) for f in (fleet_chain, q8_chain, router_soak)]
+            outs = [item for fut in futures for item in fut.result()]
+    for name, out in outs:
+        lines = [ln for ln in out.strip().splitlines() if ln.strip()]
+        searches = [ln for ln in lines if "DSE searches" in ln]
+        emit({"phase": "fleet_cli", "run": name, "last_line": lines[-1][:600],
+              **({"registry_line": searches[-1]} if searches else {})})
+    emit({"phase": "fleet_cli", "seconds": time.perf_counter() - t0})
+
+
 #: the ``kernels`` line: one row per kernel, and for the two GEMMs and the
 #: two convs one per route of the main paths (record name -> kernel, route,
 #: source, TPU kernel); the GEMMs' route "tile" serves no main-path call and
@@ -2334,7 +2745,7 @@ def _build_kernels():
 
 
 def main() -> int:
-    global ROUTE_STUDY, CONV_ROUTE_STUDY, FLASH_PV_STUDY
+    global ROUTE_STUDY, CONV_ROUTE_STUDY, FLASH_PV_STUDY, FLOAT_FLEET_STUDY
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gemm-route-study", action="store_true",
                     help="also time the float GEMM's design alternatives (route "
@@ -2345,9 +2756,12 @@ def main() -> int:
     ap.add_argument("--flash-pv-study", action="store_true",
                     help="also build and measure flash's route wgmma with PV accumulated "
                          "in place (spills, time, error against the emulation)")
+    ap.add_argument("--float-fleet-study", action="store_true",
+                    help="also run phase 7b's replica kill in float and report whether "
+                         "the ledger diverged, and at what top-2 margin (not gated)")
     args = ap.parse_args()
     ROUTE_STUDY, CONV_ROUTE_STUDY = args.gemm_route_study, args.conv_route_study
-    FLASH_PV_STUDY = args.flash_pv_study
+    FLASH_PV_STUDY, FLOAT_FLEET_STUDY = args.flash_pv_study, args.float_fleet_study
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: no src/repro_torch beside this script; run it from the "
               "root of a checkout", file=sys.stderr)
@@ -2384,9 +2798,16 @@ def main() -> int:
     # the scheduler phase serves float and the grid (q8 runs through phase 5)
     serving_windows.update(phase_scheduler(
         torch, cfg, params, [r for r in serving_runs if not r[0].startswith("q8")]))
-    del params, serving_runs
+    torch.cuda.empty_cache()
+    phase_measure_and_pin(torch, dev)
+    _, tq, grid_policy = next(r for r in serving_runs if r[0].startswith("grid"))
+    serving_windows["fleet grid"] = phase_fleet(torch, cfg, params, tq, grid_policy)
+    if FLOAT_FLEET_STUDY:
+        phase_float_fleet_study(torch, cfg, params, serving_runs[0][1])
+    del params, serving_runs, tq, grid_policy
     torch.cuda.empty_cache()
     phase_serve_cli(torch)
+    phase_fleet_cli(torch)
     phase_fpga_tables()
 
     windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()}}

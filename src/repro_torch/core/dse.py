@@ -76,6 +76,9 @@ __all__ = [
     "q16_block_legal",
     "q16_limb_products",
     "default_conv_tile_for",
+    "conv_choice_from_doc",
+    "conv_choice_to_doc",
+    "explore_gemm_plans",
     "direct_conv_vmem",
     "direct_conv_hbm_traffic",
     "direct_conv_ideal_traffic",
@@ -357,6 +360,61 @@ def q16_block_legal(block: MatmulBlock, m: int, n: int, k: int, *, xbits: int,
     return False
 
 
+def explore_gemm_plans(m: int, n: int, k: int, spec: Spec = TPU_V5E, *,
+                       kernel: str = "matmul_fp", dtype_bytes: int = 4, xbits: int = 16,
+                       wbits: int = 16, top: int = 3) -> list[MatmulBlock]:
+    """The legal plans of one GEMM kernel for one call, best first: the
+    candidates ``measure_and_pin`` times.
+
+    Under a TpuSpec: :func:`explore_tpu_block`'s blocks (the reference's).
+    Under a GpuSpec: the planner's own pick first, then its route's other
+    plans, then the other routes' in the planner's route order (for m <=
+    ``splitk_max_m``: "splitk", "wgmma", "tile"; above: "wgmma", "tile").
+    Route "splitk" offers slices of half, twice and four times the planned
+    one and the whole of k, ranked by how near their grid comes to the
+    planner's ``_SPLITK_WAVES`` blocks per SM; routes "wgmma" and "tile"
+    offer each compiled tile, ranked by :func:`_gpu_block_score`.  Every
+    plan is legal for the kernel (:func:`fp_block_legal` /
+    :func:`q16_block_legal`)."""
+    if kernel not in ("matmul_fp", "matmul_q16"):
+        raise ValueError(f"no GEMM kernel {kernel!r}")
+    if not isinstance(spec, GpuSpec):
+        return [blk for blk, _ in explore_tpu_block(m, n, k, spec, top=top)]
+    fp = kernel == "matmul_fp"
+    if fp:
+        analytic = default_fp_block_for(m, n, k, spec, dtype_bytes=dtype_bytes)
+
+        def legal(blk):
+            return fp_block_legal(blk, m, n, k, dtype_bytes=dtype_bytes, spec=spec)
+    else:
+        analytic = default_q16_block_for(m, n, k, spec, xbits=xbits, wbits=wbits)
+
+        def legal(blk):
+            return q16_block_legal(blk, m, n, k, xbits=xbits, wbits=wbits, spec=spec)
+
+    by_route: dict = {"splitk": [], "wgmma": [], "tile": []}
+    if m <= spec.splitk_max_m:
+        base = _splitk_block(m, n, k, spec)
+        target = _SPLITK_WAVES * spec.sms
+        cols = ceil_div(n, spec.splitk_cols)
+        whole = ceil_div(k, 64) * 64
+        pieces = {base.bk, base.bk // 2, 2 * base.bk, 4 * base.bk, whole}
+        plans = [dataclasses.replace(base, bk=p, splits=ceil_div(k, p))
+                 for p in sorted(pieces) if 64 <= p <= whole and p % 64 == 0]
+        by_route["splitk"] = sorted(plans, key=lambda b: (abs(cols * b.splits - target),
+                                                          b.bk))
+    tiles = spec.wgmma_tiles if fp else spec.q16_wgmma_tiles
+    for route, compiled in (("wgmma", tiles), ("tile", spec.gemm_tiles)):
+        by_route[route] = sorted(
+            (MatmulBlock(*t, route=route) for t in compiled),
+            key=lambda b: (-_gpu_block_score(b, m, n, spec), -b.bn, -b.bm))
+    order = ("splitk", "wgmma", "tile") if m <= spec.splitk_max_m else ("wgmma", "tile")
+    ranked = [analytic]
+    for route in order:
+        ranked += [blk for blk in by_route[route] if blk != analytic and legal(blk)]
+    return ranked[:top]
+
+
 # ---------------------------------------------------------------------------
 # direct conv: the TPU model (the reference's, unchanged)
 # ---------------------------------------------------------------------------
@@ -484,6 +542,31 @@ class ConvTileChoice:
     splits: int = 1
     sub_rows: int = 0
     sub_cols: int = 0
+
+
+def conv_choice_to_doc(choice: ConvTileChoice) -> dict:
+    """JSON-serializable form of a ConvTileChoice (the plan store's schema:
+    the reference's fields and the port's route fields)."""
+    return dataclasses.asdict(choice)
+
+
+def conv_choice_from_doc(doc: dict) -> ConvTileChoice:
+    """Inverse of :func:`conv_choice_to_doc`; bit-identical round trip."""
+    return ConvTileChoice(
+        tau=int(doc["tau"]),
+        tile_rows=int(doc["tile_rows"]),
+        spatial_tiles=int(doc["spatial_tiles"]),
+        vmem_bytes=int(doc["vmem_bytes"]),
+        score=float(doc["score"]),
+        tile_cols=int(doc.get("tile_cols", 0)),
+        col_tiles=int(doc.get("col_tiles", 1)),
+        halo_mode=str(doc.get("halo_mode", "")),
+        cin_chunk=int(doc.get("cin_chunk", 0)),
+        route=str(doc.get("route", "")),
+        splits=int(doc.get("splits", 1)),
+        sub_rows=int(doc.get("sub_rows", 0)),
+        sub_cols=int(doc.get("sub_cols", 0)),
+    )
 
 
 def _conv_tile_score(

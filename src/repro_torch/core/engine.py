@@ -7,8 +7,20 @@ The port's copy of ``repro.core.engine`` for one device:
   counters, so a test can assert that a repeated shape costs one search;
   and the precision DSE's per-layer pins (:class:`PrecisionChoice`, keyed
   by (network, layer, spec)), which a warm calibration replays with no
-  forward.  It lives in memory: the reference's JSON plan store and
-  ``measure_and_pin`` are ROADMAP queue 1 item 2.
+  forward.  Every entry carries ``source`` provenance (``"analytic"`` or
+  ``"measured"``; a measured entry outranks an analytic one in every
+  merge).  :meth:`PlanRegistry.measure_and_pin` times the top-K legal plans
+  of a GEMM kernel (on the card: its hand-written kernel under CUDA events)
+  and pins the fastest.
+* The JSON plan store: :meth:`PlanRegistry.save` / :meth:`~PlanRegistry.load`
+  and, over every per-spec registry, :func:`save_plan_store` (a flock'd
+  read-merge-write, staged and fsync'd), :func:`load_plan_store` and
+  :func:`warm_start_plan_store`, at ``$REPRO_TORCH_PLAN_STORE`` by default.
+  Its schema is the port's own (format ``"repro-torch-plan-store"``, version
+  1): the reference's sections and fields, plus each GEMM entry's kernel,
+  dtype or operand widths, route and splits, each conv choice's route
+  fields, and spec documents tagged with their kind (``"gpu"`` or
+  ``"tpu"``).  A reference store is rejected, never read by accident.
 * :class:`GemmPlan` / :class:`ConvPlan` — per-layer plans: the conv route
   (direct CUDA conv or im2col GEMM), τ, the Cin chunk and tiles of the
   direct route, the GEMM tile (and, for the float GEMM, its route).
@@ -29,7 +41,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import glob
+import json
 import math
+import os
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -45,20 +61,29 @@ from .quantization import (
     quantize,
     quantize_qtensor,
 )
-from .tiling import H100, MatmulBlock, Spec, clamp_block
+from .tiling import H100, GpuSpec, MatmulBlock, Spec, TpuSpec, clamp_block
 
 __all__ = [
+    "PLAN_STORE_ENV",
+    "PLAN_STORE_FORMAT",
+    "PLAN_STORE_VERSION",
     "PlanRegistry",
+    "PlanStoreError",
     "PrecisionChoice",
     "ConvPlan",
     "GemmPlan",
     "Engine",
     "batch_rungs",
     "bucket_for",
+    "default_plan_store_path",
+    "load_plan_store",
     "plan_cache_for",
+    "plan_store_stats",
     "register_plan_store",
     "reset_plan_caches",
+    "save_plan_store",
     "validate_policy",
+    "warm_start_plan_store",
 ]
 
 
@@ -95,6 +120,27 @@ def batch_rungs(slots: int) -> tuple:
     return tuple(sorted(rungs))
 
 
+# ---------------------------------------------------------------------------
+# plan registry (memoized DSE, persistent + measured-time overwrite)
+# ---------------------------------------------------------------------------
+
+#: the port's own store format: its GEMM keys, plans and specs carry fields
+#: the reference's lack, so it never reads (or is read as) a reference store
+PLAN_STORE_FORMAT = "repro-torch-plan-store"
+PLAN_STORE_VERSION = 1
+#: env var naming the default plan-store path: the serve driver and the
+#: soak benchmarks warm-start from it and write new plans back
+PLAN_STORE_ENV = "REPRO_TORCH_PLAN_STORE"
+
+_SPEC_KINDS = {"gpu": GpuSpec, "tpu": TpuSpec}
+GEMM_KERNELS = ("matmul_fp", "matmul_q16")
+
+
+class PlanStoreError(ValueError):
+    """A plan store file is unreadable, corrupted, version-mismatched or of
+    another format."""
+
+
 @dataclasses.dataclass(frozen=True)
 class PrecisionChoice:
     """One pinned per-layer activation grid (the precision DSE's output).
@@ -108,23 +154,129 @@ class PrecisionChoice:
     drift: Optional[float] = None
 
 
+def _lists(v):
+    return [_lists(x) for x in v] if isinstance(v, (tuple, list)) else v
+
+
+def _tuples(v):
+    """JSON lists back into tuples, all the way down: a spec built from
+    lists would be unhashable and unequal to its own constant."""
+    return tuple(_tuples(x) for x in v) if isinstance(v, (tuple, list)) else v
+
+
+def _spec_to_doc(spec: Spec) -> dict:
+    kind = next(k for k, cls in _SPEC_KINDS.items() if isinstance(spec, cls))
+    return {"kind": kind, **{k: _lists(v) for k, v in dataclasses.asdict(spec).items()}}
+
+
+def _spec_from_doc(doc: dict) -> Spec:
+    if not isinstance(doc, dict):
+        raise PlanStoreError(f"bad spec document {doc!r}")
+    fields = dict(doc)
+    kind = fields.pop("kind", None)
+    cls = _SPEC_KINDS.get(kind)
+    if cls is None:
+        raise PlanStoreError(f"unknown spec kind {kind!r} in plan store")
+    try:
+        return cls(**{k: _tuples(v) for k, v in fields.items()})
+    except TypeError as err:
+        raise PlanStoreError(f"unrecognized {cls.__name__} fields in plan store: "
+                             f"{err}") from err
+
+
+def _gemm_key(kernel: str, m: int, n: int, k: int, spec: Spec, dtype_bytes: int,
+              xbits: int, wbits: int) -> tuple:
+    """The registry key of one GEMM call: the float GEMM plans from the
+    dtype, the q16 GEMM from its operands' widths."""
+    if kernel == "matmul_fp":
+        return (kernel, m, n, k, dtype_bytes, spec)
+    if kernel == "matmul_q16":
+        return (kernel, m, n, k, xbits, wbits, spec)
+    raise ValueError(f"no GEMM kernel {kernel!r}")
+
+
+def _time_plans(m: int, n: int, k: int, candidates, *, kernel: str, dtype_bytes: int,
+                xbits: int, wbits: int, reps: int, device) -> list:
+    """Each candidate's mean seconds per call on seeded random operands.  On
+    a CUDA device: the hand-written kernel on the plan's route, one untimed
+    launch, then ``reps`` launches between CUDA events.  On the CPU: the
+    plain version under ``time.perf_counter`` (the mechanism, not a
+    measurement of any plan)."""
+    from repro_torch.kernels import matmul_fp as kfp
+    from repro_torch.kernels import matmul_q16 as kq
+    from repro_torch.kernels import ops as kops
+
+    dev = torch.device(device)
+    gen = torch.Generator().manual_seed(0)
+    if kernel == "matmul_fp":
+        dtype = {4: torch.float32, 2: torch.bfloat16}[dtype_bytes]
+        x = (torch.randn((m, k), generator=gen) * 0.3).to(dev, dtype)
+        w = (torch.randn((k, n), generator=gen) * 0.3).to(dev, dtype)
+        if dev.type == "cuda":
+            def run(blk):
+                return kops.matmul_fp(x, w, block=blk)
+        else:
+            def run(blk):
+                return kfp.matmul_fp_plain(x, w)
+    else:
+        def raws(shape, bits):
+            dt = {8: torch.int8, 16: torch.int16}[bits]
+            info = torch.iinfo(dt)
+            return torch.randint(info.min, info.max + 1, shape, generator=gen).to(dev, dt)
+
+        x, w = raws((m, k), xbits), raws((k, n), wbits)
+        if dev.type == "cuda":
+            def run(blk):
+                return kops.matmul_q16(x, w, block=blk)
+        else:
+            def run(blk):
+                return kq.matmul_q16_plain(x, w, None, shift=14, bias_shift=14,
+                                           raw_min=-32768, raw_max=32767,
+                                           out_dtype=torch.int16)
+    times = []
+    for blk in candidates:
+        run(blk)  # builds / first-touches outside the timed region
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+            start.record()
+            for _ in range(reps):
+                run(blk)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3 / reps)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run(blk)
+            times.append((time.perf_counter() - t0) / reps)
+    return times
+
+
 class PlanRegistry:
     """Memoized DSE selection: GEMM blocks, direct-conv configurations and
     per-layer precision pins.
 
     ``misses`` counts searches actually run, ``hits`` lookups served from
     the registry: a repeated shape costs exactly one search for the
-    registry's lifetime.  Every precision pin carries ``source`` provenance
-    (``"measured"``: from a drift sweep).
+    registry's lifetime, or none once loaded from a store (:meth:`load`) or
+    pinned by :meth:`measure_and_pin`.  Every entry carries ``source``
+    provenance: ``"analytic"`` (the planner's score) or ``"measured"``
+    (timed launches; a precision pin from a drift sweep).
     """
 
     def __init__(self) -> None:
         self._blocks: dict = {}
         self._conv_tiles: dict = {}
         self._precision: dict = {}
+        self._block_src: dict = {}
+        self._conv_src: dict = {}
         self._prec_src: dict = {}
         self.hits = 0
         self.misses = 0
+        #: the last :meth:`measure_and_pin`'s timings: [(plan, seconds)]
+        self.last_measurement: list = []
 
     def block_for(self, m: int, n: int, k: int, spec: Spec = H100, *,
                   kernel: str = "matmul_q16", dtype_bytes: int = 4, xbits: int = 16,
@@ -135,12 +287,7 @@ class PlanRegistry:
         ("matmul_q16") from its operands' widths ``xbits`` / ``wbits``, 8 or
         16, whose limb products shape its tensor-core tile
         (:func:`dse.default_q16_block_for`)."""
-        if kernel == "matmul_fp":
-            key = (kernel, m, n, k, dtype_bytes, spec)
-        elif kernel == "matmul_q16":
-            key = (kernel, m, n, k, xbits, wbits, spec)
-        else:
-            raise ValueError(f"no GEMM kernel {kernel!r}")
+        key = _gemm_key(kernel, m, n, k, spec, dtype_bytes, xbits, wbits)
         blk = self._blocks.get(key)
         if blk is None:
             self.misses += 1
@@ -149,6 +296,7 @@ class PlanRegistry:
             else:
                 blk = dse.default_q16_block_for(m, n, k, spec, xbits=xbits, wbits=wbits)
             self._blocks[key] = blk
+            self._block_src[key] = "analytic"
         else:
             self.hits += 1
         return blk
@@ -168,6 +316,7 @@ class PlanRegistry:
             hp, wp, cin, kh, kw, ho, wo, cout, stride, spec, in_bytes
         )
         self._conv_tiles[key] = choice
+        self._conv_src[key] = "analytic"
         return choice
 
     # -- per-layer precision pins (the drift-aware DSE) ------------------------
@@ -206,15 +355,59 @@ class PlanRegistry:
         return {key[1]: ent.fmt for key, ent in self._precision.items()
                 if key[0] == net and key[2] == spec}
 
+    # -- measured-time autotune ------------------------------------------------
+
+    def measure_and_pin(self, m: int, n: int, k: int, spec: Spec = H100, *,
+                        kernel: str = "matmul_fp", dtype_bytes: int = 4, xbits: int = 16,
+                        wbits: int = 16, candidates: Optional[Sequence[MatmulBlock]] = None,
+                        top_k: int = 3, reps: int = 2, device="cuda") -> MatmulBlock:
+        """Time the top-K legal plans of ``kernel`` for one call
+        (:func:`dse.explore_gemm_plans`, or ``candidates``) with real
+        launches and pin the fastest under :meth:`block_for`'s key with
+        ``source="measured"``.
+
+        On a CUDA ``device`` each plan launches the hand-written kernel on
+        its route, timed with CUDA events after one untimed launch; on the
+        CPU the plain version runs under ``time.perf_counter`` (the
+        reference's ``interpret=True``: the mechanism, measure, pick, pin
+        and persist, ships; the numbers mean nothing).  The timings stay in
+        :attr:`last_measurement`.
+        """
+        if candidates is None:
+            candidates = dse.explore_gemm_plans(m, n, k, spec, kernel=kernel,
+                                                dtype_bytes=dtype_bytes, xbits=xbits,
+                                                wbits=wbits, top=top_k)
+        if not candidates:
+            candidates = [clamp_block(m, n, k, MatmulBlock(128, 128, 128), spec)]
+        times = _time_plans(m, n, k, candidates, kernel=kernel, dtype_bytes=dtype_bytes,
+                            xbits=xbits, wbits=wbits, reps=reps, device=device)
+        self.last_measurement = list(zip(candidates, times))
+        best = min(self.last_measurement, key=lambda ct: ct[1])[0]
+        key = _gemm_key(kernel, m, n, k, spec, dtype_bytes, xbits, wbits)
+        self._blocks[key] = best
+        self._block_src[key] = "measured"
+        return best
+
+    # -- provenance / stats ----------------------------------------------------
+
+    def source_for(self, m: int, n: int, k: int, spec: Spec = H100, *,
+                   kernel: str = "matmul_q16", dtype_bytes: int = 4, xbits: int = 16,
+                   wbits: int = 16) -> Optional[str]:
+        """The provenance of one GEMM entry (:meth:`block_for`'s key), or None."""
+        return self._block_src.get(_gemm_key(kernel, m, n, k, spec, dtype_bytes, xbits,
+                                             wbits))
+
     def stats(self) -> dict:
-        """Entry counts by kind, the counters, and the measured pins."""
+        """Entry counts by kind, the counters, and the measured entries."""
+        measured = sum(1 for src in (*self._block_src.values(), *self._conv_src.values(),
+                                     *self._prec_src.values()) if src == "measured")
         return {
             "gemm_blocks": len(self._blocks),
             "conv_tiles": len(self._conv_tiles),
             "precision": len(self._precision),
             "hits": self.hits,
             "misses": self.misses,
-            "measured": sum(1 for s in self._prec_src.values() if s == "measured"),
+            "measured": measured,
         }
 
     @contextlib.contextmanager
@@ -236,12 +429,209 @@ class PlanRegistry:
         return len(self._blocks) + len(self._conv_tiles) + len(self._precision)
 
     def clear(self) -> None:
-        self._blocks.clear()
-        self._conv_tiles.clear()
-        self._precision.clear()
-        self._prec_src.clear()
+        for d in (self._blocks, self._conv_tiles, self._precision, self._block_src,
+                  self._conv_src, self._prec_src):
+            d.clear()
         self.hits = 0
         self.misses = 0
+
+    # -- serialization ---------------------------------------------------------
+
+    def to_doc(self) -> dict:
+        """The registry as a versioned, JSON-serializable document."""
+        specs: list = []
+        spec_ix: dict = {}
+
+        def six(spec) -> int:
+            if spec not in spec_ix:
+                spec_ix[spec] = len(specs)
+                specs.append(_spec_to_doc(spec))
+            return spec_ix[spec]
+
+        def order(key):  # a deterministic artifact: by spec, then by key
+            return (repr(key[-1]), key[:-1])
+
+        gemm = []
+        for key, blk in sorted(self._blocks.items(), key=lambda kv: order(kv[0])):
+            kernel, m, n, k = key[:4]
+            widths = ({"dtype_bytes": key[4]} if kernel == "matmul_fp"
+                      else {"xbits": key[4], "wbits": key[5]})
+            gemm.append({"spec": six(key[-1]), "kernel": kernel, "key": [m, n, k], **widths,
+                         "block": [blk.bm, blk.bn, blk.bk], "route": blk.route,
+                         "splits": blk.splits,
+                         "source": self._block_src.get(key, "analytic")})
+        conv = [
+            {
+                "spec": six(key[-1]),
+                "key": list(key[:-1]),
+                "choice": None if choice is None else dse.conv_choice_to_doc(choice),
+                "source": self._conv_src.get(key, "analytic"),
+            }
+            for key, choice in sorted(self._conv_tiles.items(), key=lambda kv: order(kv[0]))
+        ]
+        precision = [
+            {
+                "spec": six(key[-1]),
+                "key": list(key[:-1]),  # [net, layer]
+                "fmt": [ent.fmt.int_bits, ent.fmt.frac_bits, ent.fmt.total_bits],
+                "drift": ent.drift,
+                "source": self._prec_src.get(key, "measured"),
+            }
+            for key, ent in sorted(self._precision.items(), key=lambda kv: order(kv[0]))
+        ]
+        return {"format": PLAN_STORE_FORMAT, "version": PLAN_STORE_VERSION, "specs": specs,
+                "gemm": gemm, "conv": conv, "precision": precision}
+
+    def merge_doc(self, doc: dict) -> int:
+        """Merge a :meth:`to_doc` document into this registry.
+
+        Loaded entries count as neither hits nor misses (a later lookup of a
+        loaded entry is a hit) and overwrite existing ones, except that a
+        measured entry is never replaced by an analytic one.  Returns the
+        number of entries merged; raises :class:`PlanStoreError` on another
+        format (the reference's store included), another version, or any
+        structural fault, and then merges nothing.
+        """
+        blocks: dict = {}
+        block_src: dict = {}
+        conv_tiles: dict = {}
+        conv_src: dict = {}
+        precision: dict = {}
+        prec_src: dict = {}
+        try:
+            if doc.get("format") != PLAN_STORE_FORMAT:
+                raise PlanStoreError(f"not a plan store of this package (format="
+                                     f"{doc.get('format')!r}, want {PLAN_STORE_FORMAT!r})")
+            if doc.get("version") != PLAN_STORE_VERSION:
+                raise PlanStoreError(f"plan store version {doc.get('version')!r} does not "
+                                     f"match this build's version {PLAN_STORE_VERSION}")
+            specs = [_spec_from_doc(d) for d in doc["specs"]]
+
+            def spec_at(ix):
+                if not isinstance(ix, int) or not 0 <= ix < len(specs):
+                    raise PlanStoreError(f"bad spec index {ix!r}")
+                return specs[ix]
+
+            for e in doc["gemm"]:
+                if len(e["key"]) != 3 or len(e["block"]) != 3:
+                    raise PlanStoreError(f"bad gemm entry: key={e['key']!r} "
+                                         f"block={e['block']!r}")
+                kernel = e["kernel"]
+                if kernel == "matmul_fp":
+                    widths = (int(e["dtype_bytes"]), 0, 0)
+                elif kernel == "matmul_q16":
+                    widths = (0, int(e["xbits"]), int(e["wbits"]))
+                    if not set(widths[1:]) <= {8, 16}:
+                        raise PlanStoreError(f"bad q16 widths {widths[1:]!r}")
+                else:
+                    raise PlanStoreError(f"bad gemm kernel {kernel!r}")
+                m, nn, k = (int(v) for v in e["key"])
+                key = _gemm_key(kernel, m, nn, k, spec_at(e["spec"]), *widths)
+                blocks[key] = MatmulBlock(*(int(v) for v in e["block"]),
+                                          route=str(e["route"]), splits=int(e["splits"]))
+                block_src[key] = str(e.get("source", "analytic"))
+            for e in doc["conv"]:
+                key = tuple(int(v) for v in e["key"]) + (spec_at(e["spec"]),)
+                if len(key) != 11:
+                    raise PlanStoreError(f"bad conv key of length {len(key)}")
+                choice = e["choice"]
+                conv_tiles[key] = None if choice is None else dse.conv_choice_from_doc(choice)
+                conv_src[key] = str(e.get("source", "analytic"))
+            for e in doc["precision"]:
+                if len(e["key"]) != 2 or len(e["fmt"]) != 3:
+                    raise PlanStoreError(f"bad precision entry: key={e['key']!r} "
+                                         f"fmt={e['fmt']!r}")
+                net, layer = (str(v) for v in e["key"])
+                key = (net, layer, spec_at(e["spec"]))
+                ib, fb, tb = (int(v) for v in e["fmt"])
+                drift = e.get("drift")
+                precision[key] = PrecisionChoice(fmt=QFormat(ib, fb, tb),
+                                                 drift=None if drift is None else float(drift))
+                prec_src[key] = str(e.get("source", "measured"))
+        except PlanStoreError:
+            raise
+        except (AttributeError, KeyError, IndexError, TypeError, ValueError) as err:
+            raise PlanStoreError(f"corrupted plan store: {err!r}") from err
+        # commit only after the whole document validated: a rejected store
+        # never leaves a half-merged registry behind
+        self._merge_entries(self._blocks, self._block_src, blocks, block_src)
+        self._merge_entries(self._conv_tiles, self._conv_src, conv_tiles, conv_src)
+        self._merge_entries(self._precision, self._prec_src, precision, prec_src)
+        return len(blocks) + len(conv_tiles) + len(precision)
+
+    @staticmethod
+    def _merge_entries(dst_vals: dict, dst_src: dict, vals: dict, srcs: dict) -> None:
+        """Merge entry maps; an existing *measured* entry outranks an
+        incoming analytic one (a concurrent analytic writer never silently
+        downgrades a timed pin)."""
+        for key, val in vals.items():
+            src = srcs.get(key, "analytic")
+            if dst_src.get(key) == "measured" and src != "measured":
+                continue
+            dst_vals[key] = val
+            dst_src[key] = src
+
+    def merge_from(self, other: "PlanRegistry", spec: Optional[Spec] = None) -> None:
+        """Copy ``other``'s entries into this registry (incoming wins, except
+        over a measured entry); ``spec`` restricts the copy to one hardware
+        spec's entries.  Counters are untouched: merges are not lookups."""
+        def of(entries):
+            return {k: v for k, v in entries.items() if spec is None or k[-1] == spec}
+
+        self._merge_entries(self._blocks, self._block_src, of(other._blocks),
+                            other._block_src)
+        self._merge_entries(self._conv_tiles, self._conv_src, of(other._conv_tiles),
+                            other._conv_src)
+        self._merge_entries(self._precision, self._prec_src, of(other._precision),
+                            other._prec_src)
+
+    def specs(self) -> set:
+        """The distinct hardware specs this registry holds entries for."""
+        return {key[-1] for d in (self._blocks, self._conv_tiles, self._precision)
+                for key in d}
+
+    def gemm_shapes(self, spec: Spec = H100) -> list:
+        """The distinct (m, n, k) GEMM shapes planned for ``spec``, sorted."""
+        return sorted({key[1:4] for key in self._blocks if key[-1] == spec})
+
+    def save(self, path: str) -> str:
+        """Write the registry as versioned JSON, stage then commit: the temp
+        file ``{path}.tmp.{pid}`` is fsync'd before the ``os.replace``, and
+        the directory after it.  A crash before the rename leaves the old
+        store untouched (and a stale temp file, which the next
+        :func:`save_plan_store` removes under its lock)."""
+        doc = self.to_doc()
+        tmp = f"{path}.tmp.{os.getpid()}"
+        parent = os.path.dirname(os.path.abspath(path))
+        os.makedirs(parent, exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1)
+            f.write("\n")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        try:  # make the rename itself durable
+            dfd = os.open(parent, os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:
+            pass
+        return path
+
+    def load(self, path: str) -> int:
+        """Merge a persisted store into this registry; returns entries loaded."""
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except OSError as err:
+            raise PlanStoreError(f"cannot read plan store {path!r}: {err}") from err
+        except json.JSONDecodeError as err:
+            raise PlanStoreError(f"corrupted plan store {path!r}: {err}") from err
+        if not isinstance(doc, dict):
+            raise PlanStoreError(f"corrupted plan store {path!r}: not a JSON object")
+        return self.merge_doc(doc)
 
 
 _REGISTRIES: dict = {}
@@ -272,6 +662,112 @@ def reset_plan_caches() -> None:
         reg.clear()
     for store in _EXTRA_PLAN_STORES:
         store.clear()
+
+
+# ---------------------------------------------------------------------------
+# the persisted plan store (every per-spec registry <-> one JSON file)
+# ---------------------------------------------------------------------------
+
+
+def default_plan_store_path() -> Optional[str]:
+    """The ``REPRO_TORCH_PLAN_STORE`` path, or None when unset or empty."""
+    return os.environ.get(PLAN_STORE_ENV) or None
+
+
+@contextlib.contextmanager
+def _store_write_lock(path: str):
+    """Serialize the read-merge-write save cycle across processes sharing one
+    store with an advisory flock on ``{path}.lock`` (the OS drops it when a
+    holder dies).  Without fcntl the save is the unserialized atomic write."""
+    try:
+        import fcntl
+    except ImportError:  # pragma: no cover - non-POSIX platforms
+        yield
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(f"{path}.lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lockf, fcntl.LOCK_UN)
+
+
+def _store_path(path: Optional[str]) -> str:
+    path = path or default_plan_store_path()
+    if path is None:
+        raise ValueError(f"no plan-store path given and {PLAN_STORE_ENV} is unset")
+    return path
+
+
+def save_plan_store(path: Optional[str] = None) -> str:
+    """Write every process-global registry into one JSON store.
+
+    Under the lock, the entries already on disk are merged in first (this
+    process's entries win, except over a measured one), so writers sharing
+    a store add to rather than overwrite each other's plans; an unusable
+    file on disk is replaced.  Temp files of writers that died between
+    staging and commit are removed."""
+    path = _store_path(path)
+    with _store_write_lock(path):
+        merged = PlanRegistry()
+        if os.path.exists(path):
+            try:
+                merged.load(path)
+            except PlanStoreError:
+                pass
+        for reg in _REGISTRIES.values():
+            merged.merge_from(reg)
+        out = merged.save(path)
+        # every writer stages under this lock, so any temp sibling seen here
+        # is an orphan
+        for stale in glob.glob(f"{path}.tmp.*"):
+            try:
+                os.unlink(stale)
+            except OSError:
+                pass
+        return out
+
+
+def load_plan_store(path: Optional[str] = None, *, missing_ok: bool = False) -> int:
+    """Load a store into the per-spec global registries; returns the entries
+    loaded (0 when ``missing_ok`` and the file does not exist)."""
+    path = _store_path(path)
+    if missing_ok and not os.path.exists(path):
+        return 0
+    stage = PlanRegistry()
+    n = stage.load(path)
+    for spec in stage.specs():
+        plan_cache_for(spec).merge_from(stage, spec)
+    return n
+
+
+def warm_start_plan_store(path: Optional[str] = None) -> tuple:
+    """Warm start from ``path`` (default ``$REPRO_TORCH_PLAN_STORE``) when it
+    exists: (path, entries loaded), or (None, 0) when no store is named.
+    An unusable store (corrupt, another version, a reference store) warns
+    and cold-starts: a warm-start cache is never a startup failure
+    (:func:`load_plan_store` stays strict)."""
+    path = path or default_plan_store_path()
+    if path is None:
+        return None, 0
+    try:
+        return path, load_plan_store(path, missing_ok=True)
+    except PlanStoreError as err:
+        import warnings
+
+        warnings.warn(f"ignoring unusable plan store {path!r}: {err}")
+        return path, 0
+
+
+def plan_store_stats() -> dict:
+    """:meth:`PlanRegistry.stats` summed over every per-spec registry."""
+    total = dict.fromkeys(("gemm_blocks", "conv_tiles", "precision", "hits", "misses",
+                           "measured"), 0)
+    for reg in _REGISTRIES.values():
+        for k, v in reg.stats().items():
+            total[k] += v
+    return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,6 +896,18 @@ class Engine:
                 m, n, k, self.config.hw, kernel="matmul_fp",
                 dtype_bytes=torch.finfo(dtype).bits // 8)
         return self.plan_cache.block_for(m, n, k, self.config.hw, xbits=xbits, wbits=wbits)
+
+    def measure_and_pin(self, m: int, n: int, k: int, *, dtype=torch.float32,
+                        xbits: int = 16, wbits: int = 16, **kw) -> MatmulBlock:
+        """Measured-time autotune for this engine's spec and GEMM kernel
+        (the cuda backend's float GEMM at ``dtype``, the q16 backend's at the
+        widths) on its device: :meth:`PlanRegistry.measure_and_pin`, pinned
+        under the key :meth:`block_for` reads."""
+        kernel = "matmul_fp" if self.config.backend == "cuda" else "matmul_q16"
+        return self.plan_cache.measure_and_pin(
+            m, n, k, self.config.hw, kernel=kernel,
+            dtype_bytes=torch.finfo(dtype).bits // 8, xbits=xbits, wbits=wbits,
+            device=self.device, **kw)
 
     def plan_gemm(self, m: int, n: int, k: int, *, mesh=None,
                   partition=None) -> GemmPlan:

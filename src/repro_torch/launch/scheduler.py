@@ -31,14 +31,17 @@ traffic into the few GEMM shapes the plan registry holds plans for:
 config, cache_len, policy) setup, the port's analogue of the reference's
 jitted, cache-donating closures.  On a CUDA template each decode step is
 ONE captured CUDA graph, replayed once a tick: the first call for an input
-signature runs one eager warm-up step (which plans, builds the kernels and
-sets their shared-memory attributes), then captures the step with
-``torch.cuda.graph``; the graph owns the cache passed in (the caller gives
-it up, as the reference's donated argument) and writes the new k / v rows
-into it in place.  A capture or replay that fails raises; there is no eager
-fallback on the card.  On a CPU template the closures run eagerly, with the
-same signatures and the same in-place cache contract.  Prefill and the
-chunk step are not captured: they are device-bound.
+signature and cache owner runs one eager warm-up step (which plans, builds
+the kernels and sets their shared-memory attributes), then captures the
+step with ``torch.cuda.graph``; the graph owns the cache passed in (the
+caller gives it up, as the reference's donated argument) and writes the new
+k / v rows into it in place.  Each owner (a scheduler passes itself as
+``owner``) has graphs of its own, so two live schedulers on one setup never
+decode in one cache; an owner's graphs go when it is released or dropped.
+A capture or replay that fails raises; there is no eager fallback on the
+card.  On a CPU template the closures run eagerly, with the same signatures
+and the same in-place cache contract.  Prefill and the chunk step are not
+captured: they are device-bound.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import collections
 import dataclasses
 import itertools
 import time
+import weakref
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -241,9 +245,10 @@ def _pick(logits, sampling, seed, lanes, positions, temperature):
 # ---------------------------------------------------------------------------
 
 #: (kind, cfg.name, cache_len) -> captures: each CUDA graph a decode step
-#: captured (on a CPU template: each input signature the step first met,
-#: what a CUDA template would capture).  A repeated ``generate()`` or
-#: scheduler tick with unchanged shapes must not grow these counts.
+#: captured, one per (input signature, cache owner) (on a CPU template: each
+#: such pair the step first met, what a CUDA template would capture).  A
+#: repeated ``generate()`` or scheduler tick with unchanged shapes must not
+#: grow these counts.
 CAPTURE_COUNTS: collections.Counter = collections.Counter()
 
 _STEP_FNS: dict = {}
@@ -262,7 +267,7 @@ class StepFns(NamedTuple):
     prefill: object      # (params, tokens (B,L), ctx, last_pos) -> (logits, cache)
     decode: object       # (params, token (B,1), t, cache) -> (logits, cache')
     chunk: object        # (params, tokens (B,S), t, n_valid, cache) -> (logits, cache')
-    decode_next: object  # (params, token, t, cache, sampling, lanes, positions)
+    decode_next: object  # (params, token, t, cache, sampling, lanes, positions, owner)
                          #   -> (next tokens (B,), logits (B,V), cache')
 
 
@@ -311,13 +316,35 @@ class _Graph(NamedTuple):
 class _DecodeStep:
     """``decode_next`` of one setup: on a CUDA template, one CUDA graph per
     input signature (params tree, token / t shapes, cache shapes, sampling
-    setting), replayed per call; on a CPU template, the eager step."""
+    setting) and cache owner, replayed per call; on a CPU template, the
+    eager step (with the same bookkeeping of what would be captured).
+
+    ``owner`` None is the anonymous caller (``generate``): its graphs adopt
+    whatever cache they are handed, copying it in.  Any other owner gets
+    graphs of its own, dropped (graph, its memory pool and the cache it
+    holds) by :meth:`release` or when the owner is garbage-collected."""
 
     def __init__(self, tpl: Template, cfg, cache_len: int, policy: NumericsPolicy):
         self.tpl, self.cfg, self.cache_len, self.policy = tpl, cfg, cache_len, policy
         self.cuda = tpl.engine.device.type == "cuda"
-        self.graphs: dict = {}
-        self.seen: set = set()
+        self.graphs: dict = {}  # (signature, id(owner) or None) -> _Graph (CPU: None)
+        self._owners: dict = {}  # id(owner) -> weakref.finalize
+
+    def release(self, owner) -> int:
+        """Drop every graph ``owner`` owns (None: the anonymous caller's);
+        returns how many."""
+        oid = None if owner is None else id(owner)
+        fin = self._owners.pop(oid, None)
+        if fin is not None:
+            fin.detach()
+        return self._drop(oid)
+
+    def _drop(self, oid) -> int:
+        self._owners.pop(oid, None)
+        keys = [key for key in self.graphs if key[1] == oid]
+        for key in keys:
+            del self.graphs[key]
+        return len(keys)
 
     def eager(self, params, token, t, cache, sampling=None, seed=0, lanes=0, positions=0,
               temperature=1.0):
@@ -332,23 +359,28 @@ class _DecodeStep:
         return (id(params), tuple(token.shape), t_shape, pick,
                 tuple((tuple(x.shape), x.dtype) for x in _leaves(cache)))
 
-    def __call__(self, params, token, t, cache, sampling=None, lanes=None, positions=None):
-        key = self._signature(params, token, t, cache, sampling)
-        if key not in self.seen:
-            self.seen.add(key)
+    def __call__(self, params, token, t, cache, sampling=None, lanes=None, positions=None,
+                 owner=None):
+        oid = None if owner is None else id(owner)
+        key = (self._signature(params, token, t, cache, sampling), oid)
+        new = key not in self.graphs
+        if new:
             CAPTURE_COUNTS["decode", self.cfg.name, self.cache_len] += 1
+            if oid is not None and oid not in self._owners:
+                self._owners[oid] = weakref.finalize(owner, self._drop, oid)
         b = token.shape[0]
         lanes = np.arange(b) if lanes is None else lanes
         positions = 0 if positions is None else positions
         seed = 0 if sampling is None else sampling.seed
         if not self.cuda:
+            self.graphs[key] = None
             dev = self.tpl.engine.device
             token, t, lanes, positions = (_on(x, dev) for x in (token, t, lanes, positions))
             temp = None if sampling is None else sampling.temperature
             return self.eager(params, token, t, cache, sampling, seed, lanes, positions, temp)
-        g = self.graphs.get(key)
-        if g is None:
-            g = self.graphs[key] = self._capture(params, token, t, cache, sampling)
+        if new:
+            self.graphs[key] = self._capture(params, token, t, cache, sampling)
+        g = self.graphs[key]
         for dst, value in ((g.token, token), (g.t, t), (g.seed, seed), (g.lanes, lanes),
                            (g.positions, positions)):
             _fill(dst, value)
@@ -414,7 +446,7 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
     decode(params, token, t, cache)          -> (logits (B, V), cache')
     chunk(params, tokens, t, n_valid, cache) -> (logits (B, V), cache')
     decode_next(params, token, t, cache, sampling=None, lanes=None,
-                positions=None)              -> (tokens (B,), logits, cache')
+                positions=None, owner=None)  -> (tokens (B,), logits, cache')
 
     Keyed by (template object, config, cache_len, numerics policy): repeated
     ``generate()`` calls and every scheduler tick reuse one set of closures.
@@ -426,7 +458,9 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
     of the logits).  ``decode_next`` picks the next
     tokens inside the step: argmax, or with ``sampling`` (temperature > 0)
     the lane draw of :func:`sample_tokens` at ``lanes`` / ``positions``
-    (ints or (B,) vectors).  A quantized policy expects the matching
+    (ints or (B,) vectors).  ``owner`` (a scheduler) gets graphs and a cache
+    of its own; ``decode_next.release(owner)`` drops them.  A quantized
+    policy expects the matching
     :func:`repro_torch.models.transformer.quantize_params` tree as params.
     """
     if mesh is not None or rules is not None:
@@ -655,8 +689,8 @@ class ServeScheduler:
 
     def warmup(self) -> dict:
         """Run every (batch rung x bucket) prefill, the chunk step and the
-        coalesced decode step once: every plan (and, on a CUDA template, the
-        decode step's graph) is made here, scoped per bucket, so a trace
+        coalesced decode step once: every plan (and, on a CUDA template, this
+        scheduler's own decode graph) is made here, scoped per bucket, so a trace
         replayed afterwards makes no DSE search and no capture.  Returns the
         per-bucket hit / miss deltas."""
         slots = self.sched.slots
@@ -678,7 +712,8 @@ class ServeScheduler:
         tok = np.zeros((slots, 1), np.int64)
         with self.registry.scope() as decode_delta:
             self._decode_next(self.exec_params, tok, np.zeros((slots,), np.int64), cache,
-                              self.sampling, np.arange(slots), np.zeros((slots,), np.int64))
+                              self.sampling, np.arange(slots), np.zeros((slots,), np.int64),
+                              owner=self)
         self.counters["warmup_decode_misses"] += decode_delta["misses"]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -933,7 +968,7 @@ class ServeScheduler:
                 tvec[slot] = req.t_next
             toks, logits, self.cache = self._decode_next(
                 self.exec_params, tok, tvec, self.cache, self.sampling,
-                np.arange(slots, dtype=np.int64), np.maximum(tvec + 1, 0))
+                np.arange(slots, dtype=np.int64), np.maximum(tvec + 1, 0), owner=self)
             next_tok = toks.cpu().numpy()  # the tick's one read of the device
             self.counters["decode_steps"] += 1
             self.counters["slot_steps"] += len(decoding)
@@ -962,6 +997,14 @@ class ServeScheduler:
             return False
         self.history.append(event)
         return event
+
+    def release(self) -> None:
+        """Give up this scheduler's device state: its KV cache and the CUDA
+        graphs (with their memory pools) its decode steps own.  A router
+        calls it on the incarnation it kills; dropping the scheduler does the
+        same once it is garbage-collected."""
+        self._decode_next.release(self)
+        self.cache = None
 
     def export_sessions(self) -> list:
         """JSON-serializable snapshots of every in-flight session: active

@@ -17,9 +17,18 @@ pass), mixed int8 / int16 fixed point (``q8``: the q16 template, with the
 precision DSE choosing each layer group's grid at ``--precision-budget``)
 or plain tensor ops (``torch``).  ``--device cpu`` runs the kernels' plain
 versions.  ``--temperature`` / ``--top-k`` sample each token from a
-per-lane RNG stream, reproducible per ``--seed``.  Replicas, shards and the
-plan store exit with "not ported yet" and the ROADMAP item that brings
-them.
+per-lane RNG stream, reproducible per ``--seed``.  ``--scheduler --replicas
+N`` routes the request set across N scheduler replicas behind a
+:class:`~repro_torch.launch.router.ReplicaRouter` (tokens drain into its
+exactly-once ledger).  ``--plan-store PATH`` (default
+``$REPRO_TORCH_PLAN_STORE``) warm-starts the plan registry from a JSON store
+and writes the run's plans back to it: a warm run makes no DSE search.
+``--shards`` exits with "not ported yet" and the ROADMAP item that brings
+it.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --backend q16 \
+        --scheduler --replicas 2 --plan-store /tmp/plans.json --prompts 4 \
+        --prompt-len 8 --gen 3
 """
 from __future__ import annotations
 
@@ -30,8 +39,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.engine import (
+    PLAN_STORE_ENV,
+    save_plan_store,
+    warm_start_plan_store,
+)
 from repro_torch.core.template import default_template
 from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.launch.router import ReplicaRouter
 from repro_torch.launch.scheduler import (
     Request,
     SamplingParams,
@@ -44,7 +59,7 @@ from repro_torch.launch.scheduler import (
 )
 from repro_torch.models import transformer as T
 
-__all__ = ["generate", "main", "run_scheduler"]
+__all__ = ["generate", "main", "run_router", "run_scheduler"]
 
 
 def generate(cfg, params, tokens, ctx=None, *, gen: int = 16, cache_len=None,
@@ -118,6 +133,26 @@ def run_scheduler(cfg, params, tpl, *, requests: int, prompt_len: int, gen: int,
     return sched
 
 
+def run_router(cfg, params, tpl, *, replicas: int, requests: int, prompt_len: int, gen: int,
+               seed: int, policy=None, sampling=None) -> ReplicaRouter:
+    """Serve the request set of :func:`run_scheduler` across ``replicas``
+    scheduler replicas (each as :func:`run_scheduler` configures one)
+    behind a :class:`ReplicaRouter` on the system clock; the tokens drain
+    into the router's exactly-once ledger."""
+    ladder = tuple(sorted({max(4, prompt_len // 2), prompt_len, 2 * prompt_len}))
+
+    def make_sched(rid, clock):
+        return ServeScheduler(
+            cfg, params, tpl=tpl, clock=clock, policy=policy, sampling=sampling,
+            sched=SchedulerConfig(ladder=ladder, slots=4, max_new_limit=max(gen, 1),
+                                  max_queue=max(256, requests)),
+        )
+
+    router = ReplicaRouter(make_sched, replicas, clock=SystemClock(), tick_dt=0.0)
+    router.run(_trace(cfg, requests=requests, prompt_len=prompt_len, gen=gen, seed=seed))
+    return router
+
+
 def _not_ported(what: str, item: str):
     raise SystemExit(f"{what} is not ported yet (ROADMAP queue 1 {item})")
 
@@ -146,16 +181,20 @@ def main(argv=None):
                          "slot in fixed-width chunks beside decode (0 = whole bucket)")
     ap.add_argument("--scheduler", action="store_true",
                     help="serve through the continuous-batching scheduler")
-    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="with --scheduler: route the requests across N scheduler "
+                         "replicas behind the ReplicaRouter")
     ap.add_argument("--shards", type=int, default=1)
-    ap.add_argument("--plan-store", default=None)
+    ap.add_argument("--plan-store", default=None,
+                    help=f"JSON plan-store path (default: ${PLAN_STORE_ENV})")
     args = ap.parse_args(argv)
-    if args.replicas > 1:
-        _not_ported("--replicas (the replica router)", "item 4")
     if args.shards > 1:
         _not_ported("--shards (tensor-parallel decode)", "item 5")
-    if args.plan_store:
-        _not_ported("--plan-store (the JSON plan store)", "item 2")
+
+    # a restart with a populated store makes no DSE search
+    store_path, n = warm_start_plan_store(args.plan_store)
+    if n:
+        print(f"[serve] plan store: warm-started {n} entries from {store_path}")
 
     cfg = reduced(get_config(args.arch))
     # q8 is the mixed-precision tier of the q16 template: the kernels take
@@ -187,7 +226,23 @@ def main(argv=None):
         print(f"[serve] sampling: temperature={sampling.temperature} "
               f"top_k={sampling.top_k} seed={sampling.seed} (per-lane RNG)")
     t0 = time.perf_counter()
-    if args.scheduler:
+    if args.scheduler and args.replicas > 1:
+        try:
+            router = run_router(cfg, params, tpl, replicas=args.replicas,
+                                requests=args.prompts, prompt_len=args.prompt_len,
+                                gen=args.gen, seed=args.seed, policy=policy,
+                                sampling=sampling)
+        except ValueError as err:
+            raise SystemExit(f"--replicas: {err}") from err
+        dt = time.perf_counter() - t0
+        ledger = router.ledger.as_dict()
+        n_tok = sum(len(row) for row in ledger.values())
+        print(f"[serve] arch={cfg.name} backend={args.backend} device={dev} router "
+              f"replicas={args.replicas} requests={args.prompts} generated={n_tok} tokens "
+              f"in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
+        print(f"[serve] {router.stats_line()}")
+        out = [ledger[r] for r in sorted(ledger)]
+    elif args.scheduler:
         try:
             sched = run_scheduler(cfg, params, tpl, requests=args.prompts,
                                   prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
@@ -217,6 +272,10 @@ def main(argv=None):
     print(f"[serve] plan registry: {st['gemm_blocks']} GEMM blocks + {st['conv_tiles']} "
           f"conv tiles planned, {st['precision']} precision pins ({st['measured']} "
           f"measured), {st['misses']} DSE searches, {st['hits']} cache hits")
+    if store_path:
+        save_plan_store(store_path)
+        print(f"[serve] plan store: saved to {store_path} ({len(tpl.engine.plan_cache)} "
+              f"entries of this spec, {st['measured']} measured)")
     print("[serve] sample generations:")
     for row in out[: min(2, len(out))]:
         print("   ", row.tolist() if isinstance(row, torch.Tensor) else row)

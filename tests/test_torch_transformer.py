@@ -294,15 +294,18 @@ def test_synthetic_batch_keeps_the_recurrence():
     assert torch.equal(toks, synthetic_batch(3, 1, 4, 50, 1000))
 
 
-def test_serve_main_runs_on_cpu_and_refuses_what_is_not_ported():
+def test_serve_main_runs_on_cpu_and_refuses_what_is_not_ported(tmp_path):
     for backend in ("cuda", "q16", "q8", "torch"):
         out = serve.main(["--device", "cpu", "--backend", backend, "--prompts", "2",
                           "--prompt-len", "8", "--gen", "3"])
         assert out.shape == (2, 3)
-    for flags, item in ((["--replicas", "2"], "item 4"), (["--shards", "2"], "item 5"),
-                        (["--plan-store", "x.json"], "item 2")):
-        with pytest.raises(SystemExit, match=f"not ported yet .ROADMAP queue 1 {item}"):
-            serve.main(["--device", "cpu", *flags])
+    # the replica router and the plan store are ported (ROADMAP queue 1 items 2, 4)
+    store = tmp_path / "plans.json"
+    out = serve.main(["--device", "cpu", "--scheduler", "--replicas", "2", "--plan-store",
+                      str(store), "--prompts", "3", "--prompt-len", "8", "--gen", "3"])
+    assert len(out) == 3 and all(len(row) == 3 for row in out) and store.exists()
+    with pytest.raises(SystemExit, match="not ported yet .ROADMAP queue 1 item 5"):
+        serve.main(["--device", "cpu", "--shards", "2"])
 
 
 def test_unported_paths_raise(setup):
