@@ -129,7 +129,27 @@ non-zero without its result line):
 8. the paper's FPGA plane: the port's Table 1, Table 2 and DSE-sweep
    scripts (``repro_torch.benchmarks``) print their rows; every paper
    compute unit fits its board and Table 1's conv GOP/s rise from Ultra96 to
-   ZCU102.
+   ZCU102;
+9. sharding on ``torch.distributed`` ("shards"): two ranks on the one card
+   over ``gloo`` (``launch/mesh.py:spawn_ranks``; gloo takes no CUDA tensor
+   for send / recv, so every collective is staged through the host, and
+   two ranks on one card are not a multi-card time).  (a) VGG16 and AlexNet
+   at 224², batch 8, full width, phase 3's weights and grid, with H cut
+   into S = 2 slabs: once as the one-process slab-major simulation
+   (``plan_cnn(spatial=2)``) and once over the ranks (``spatial="data"``,
+   each rank its slab, only the halo rows exchanged); gates: grid logits
+   bit-identical to the unsharded forward, float within 2e-3 (max |Δ|
+   printed beside the reference's own 1e-5), a warm forward plans nothing;
+   printed: launches by route, the halo bytes against a full gather's, ms a
+   forward.  (b) qwen2-0.5b at full width and depth, tensor-parallel over a
+   2-way "model" axis (column shards, activations gathered at the seams,
+   decode eager), float and Q4.12, a ``ServeScheduler`` of 4 slots over the
+   ladder (256, 512) on a short ``synthetic_trace``: token streams
+   byte-identical to the single-device scheduler on the card, and after a
+   plan-store round trip a warm restart searches nothing and streams the
+   same tokens; printed: eager ms a meshed decode step beside the
+   single-device replayed step.  (c) ``serve --scheduler --shards 2`` in a
+   subprocess exits 0.
 
 ``--gemm-route-study`` adds the float GEMM's design measurements, off by
 default: route "tile" timed beside fc0 and the tied head, and the
@@ -156,8 +176,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import functools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -2738,6 +2760,337 @@ FLASH_ROUTES = {
 }
 
 
+# -- phase 9: sharding ---------------------------------------------------------
+
+SHARDS_NETS = ("alexnet", "vgg16")
+SHARDS_S = 2
+#: the reference's tolerance for a spatial float forward
+#: (``tests/test_spatial_shard.py``), printed beside the measured error
+SHARDS_REF_TOL = 1e-5
+SHARDS_SLOTS = 4
+SHARDS_LADDER = (256, 512)
+SHARDS_REQUESTS = 6
+SHARDS_MAX_NEW = 8
+SHARDS_MIN_LEN = 64
+SHARDS_FORWARD_REPS = 3
+SHARDS_DIR = ROOT / "build" / "shards_phase"
+
+
+def shards_trace(cfg):
+    """The phase's request set: ``synthetic_trace`` over (256, 512), all at
+    t = 0 (every rank sees the same ticks)."""
+    from repro_torch.launch.scheduler import synthetic_trace
+
+    return synthetic_trace(SHARDS_REQUESTS, seed=SEED, vocab=cfg.vocab,
+                           ladder=SHARDS_LADDER, max_new=SHARDS_MAX_NEW,
+                           min_len=SHARDS_MIN_LEN)
+
+
+def _timed_decode(torch, sched) -> list:
+    """Wrap the scheduler's decode step: each call's wall time between two
+    synchronizations of the card, in ms."""
+    inner, times = sched._decode_next, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    timed.release = inner.release
+    sched._decode_next = timed
+    return times
+
+
+def shards_serve(torch, cfg, params, pol, mesh, store):
+    """The phase's scheduler run (``mesh``: this rank's tensor-parallel
+    share): warm-up, the trace, then (``store``) a plan-store round trip and
+    a warm restart.  Returns the record."""
+    from repro_torch.core.engine import load_plan_store, reset_plan_caches, save_plan_store
+    from repro_torch.core.template import default_template
+    from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import (CAPTURE_COUNTS, SchedulerConfig,
+                                              ServeScheduler, VirtualClock, replay_trace)
+
+    def run():
+        tpl = default_template("cuda" if pol is None else "q16")
+        sched = ServeScheduler(cfg, params, tpl=tpl, policy=pol, clock=VirtualClock(),
+                               mesh=mesh,
+                               sched=SchedulerConfig(ladder=SHARDS_LADDER, slots=SHARDS_SLOTS,
+                                                     max_new_limit=SHARDS_MAX_NEW))
+        misses0 = sched.registry.misses
+        sched.warmup()
+        warm = sched.registry.misses - misses0
+        times = _timed_decode(torch, sched)
+        trace = shards_trace(cfg)
+        caps0 = sum(CAPTURE_COUNTS.values())
+        _build.reset_launches()
+        misses0 = sched.registry.misses
+        replay_trace(sched, trace, tick=0.0)
+        torch.cuda.synchronize()
+        rec = {"streams": [list(r.generated) for r in trace],
+               "warmup_misses": warm, "trace_misses": sched.registry.misses - misses0,
+               "launches": dict(_build.launches),
+               "captures": sum(CAPTURE_COUNTS.values()) - caps0,
+               "decode_steps": int(sched.counters["decode_steps"]),
+               "meshed_eager_steps": int(sched.counters["meshed_eager_decode_steps"]),
+               "warmup_shard_misses": int(sched.counters["warmup_shard_misses"]),
+               "decode_ms": times}
+        sched.release()
+        return rec
+
+    cold = run()
+    if store is None:
+        return cold
+    save_plan_store(str(store))
+    reset_plan_caches()
+    cold["store_entries"] = load_plan_store(str(store))
+    cold["warm_restart"] = run()
+    return cold
+
+
+def shards_rank(payload, rank, world, dev):
+    """One of the phase's two ranks on the card: the spatial forwards with a
+    slab each over "data", then tensor-parallel decode over "model"."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.template import default_template
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import cnn
+    from repro_torch.parallel.sharding import SERVE_RULES, use_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = torch.load(payload["path"], map_location=dev, weights_only=False)
+    out = {"spatial": {}}
+    mesh = Mesh((world,), ("data",)).init_groups()
+    _build.reset_launches()
+    with use_mesh(mesh, SERVE_RULES):
+        for net in SHARDS_NETS:
+            spec = cnn.CNN_ZOO[net]
+            params, x, pol = data[net]
+            tf, tq = default_template("cuda"), default_template("q16")
+            qp = cnn.quantize_cnn_params(tq, spec, params, pol)
+            plan_f = cnn.plan_cnn(tf, spec, tuple(x.shape), mesh=mesh, spatial="data")
+            plan_q = cnn.plan_cnn(tq, spec, tuple(x.shape), mesh=mesh, spatial="data")
+            yf = cnn.cnn_forward(tf, spec, params, x, plan=plan_f)
+            yq = cnn.cnn_forward(tq, spec, qp, x, policy=pol, plan=plan_q)
+            torch.cuda.synchronize()
+            out["spatial"][net] = {"float": yf, "grid": yq}
+    out["spatial_launches"] = dict(_build.launches)
+    with use_mesh(mesh, SERVE_RULES):
+        for net in SHARDS_NETS:
+            spec = cnn.CNN_ZOO[net]
+            params, x, pol = data[net]
+            tf, tq = default_template("cuda"), default_template("q16")
+            qp = cnn.quantize_cnn_params(tq, spec, params, pol)
+            plan_f = cnn.plan_cnn(tf, spec, tuple(x.shape), mesh=mesh, spatial="data")
+            plan_q = cnn.plan_cnn(tq, spec, tuple(x.shape), mesh=mesh, spatial="data")
+            rec = out["spatial"][net]
+            with tf.engine.plan_cache.scope() as warm:
+                for numerics, fwd in (
+                        ("float", lambda: cnn.cnn_forward(tf, spec, params, x, plan=plan_f)),
+                        ("grid", lambda: cnn.cnn_forward(tq, spec, qp, x, policy=pol,
+                                                         plan=plan_q))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(SHARDS_FORWARD_REPS):
+                        fwd()
+                    torch.cuda.synchronize()
+                    rec[f"{numerics}_ms"] = 1e3 * (time.perf_counter() - t0) / SHARDS_FORWARD_REPS
+            rec["warm_misses"] = warm["misses"]
+    del data
+    torch.cuda.empty_cache()
+    cfg = get_config(QWEN_ARCH)
+    params = qwen_params(torch, dev, cfg)
+    tp = Mesh((1, world), ("data", "model")).init_groups()
+    for numerics, pol in (("float", None), ("grid", payload["grid_policy"])):
+        store = Path(payload["store_dir"]) / f"{numerics}-rank{rank}.json"
+        out[numerics] = shards_serve(torch, cfg, params, pol, tp, store)
+    return out
+
+
+def _mean(xs) -> float:
+    return sum(xs) / max(len(xs), 1)
+
+
+def _halo_bytes(spec, plan, itemsize):
+    """The modeled bytes one forward's halo exchanges move, and a full
+    gather's at every seam, per ``sharding.spatial_halo_bytes`` /
+    ``spatial_gather_bytes``."""
+    from repro_torch.parallel.sharding import spatial_gather_bytes, spatial_halo_bytes
+
+    halo = gather = 0
+    ww, ch = spec.input_hw, spec.input_ch
+    for (cout, k, stride, pad, pool), cp, ph in zip(spec.convs, plan.convs, plan.pool_halos):
+        hs = cp.halo
+        halo += spatial_halo_bytes(hs, BATCH, ww + 2 * pad, ch, itemsize)
+        gather += spatial_gather_bytes(hs.h, BATCH, ww, ch, hs.shards, itemsize)
+        ww, ch = (ww + 2 * pad - k) // stride + 1, cout
+        if ph is not None:
+            halo += spatial_halo_bytes(ph, BATCH, ww, ch, itemsize)
+            gather += spatial_gather_bytes(ph.h, BATCH, ww, ch, ph.shards, itemsize)
+            ww //= pool
+    return halo, gather
+
+
+def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
+    """Phase 9 (module docstring).  ``cnn_state``: {net: (float params, x,
+    grid policy)} from phase 3.  Returns the launch windows of the ranks'
+    main paths (summed over the ranks)."""
+    from repro_torch.core.template import default_template
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import cnn
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SHARDS_DIR, ignore_errors=True)
+    SHARDS_DIR.mkdir(parents=True)
+    # (a, i): the unsharded forwards and the one-process slab-major simulation
+    want, sim = {}, {}
+    for net in SHARDS_NETS:
+        spec = cnn.CNN_ZOO[net]
+        p, x, pol = cnn_state[net]
+        tf, tq = default_template("cuda"), default_template("q16")
+        qp = cnn.quantize_cnn_params(tq, spec, p, pol)
+        want[net] = {"float": cnn.cnn_forward(tf, spec, p, x),
+                     "grid": cnn.cnn_forward(tq, spec, qp, x, policy=pol)}
+        plan_f = cnn.plan_cnn(tf, spec, tuple(x.shape), spatial=SHARDS_S)
+        plan_q = cnn.plan_cnn(tq, spec, tuple(x.shape), spatial=SHARDS_S)
+        before = dict(_build.launches)
+        sim[net] = {"float": cnn.cnn_forward(tf, spec, p, x, plan=plan_f),
+                    "grid": cnn.cnn_forward(tq, spec, qp, x, policy=pol, plan=plan_q)}
+        torch.cuda.synchronize()
+        sim[net]["launches"] = {k: n - before[k] for k, n in _build.launches.items()
+                                if n != before[k]}
+        with tf.engine.plan_cache.scope() as warm:
+            for numerics, fwd in (
+                    ("float", lambda: cnn.cnn_forward(tf, spec, p, x, plan=plan_f)),
+                    ("grid", lambda: cnn.cnn_forward(tq, spec, qp, x, policy=pol,
+                                                     plan=plan_q))):
+                sim[net][f"{numerics}_ms"] = time_ms(fwd)
+        sim[net]["warm_misses"] = warm["misses"]
+        sim[net]["bytes"] = {f"{kind}_{what}": n for kind, item in (("float", 4), ("grid", 2))
+                             for what, n in zip(("halo", "full_gather"),
+                                                _halo_bytes(spec, plan_q, item))}
+        sim[net]["describe"] = plan_q.describe()
+    torch.save({net: cnn_state[net] for net in SHARDS_NETS}, SHARDS_DIR / "payload.pt")
+
+    # (b): the single-device scheduler on the card, the streams' reference
+    single = {}
+    for numerics, pol in (("float", None), ("grid", grid_policy)):
+        single[numerics] = shards_serve(torch, cfg, params, pol, None, None)
+    torch.cuda.empty_cache()
+
+    # (a, ii) and (b) on two ranks of the card
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(functools.partial(
+        shards_rank, {"path": str(SHARDS_DIR / "payload.pt"), "grid_policy": grid_policy,
+                      "store_dir": str(SHARDS_DIR)}), SHARDS_S, device="cuda")
+    ranks_s = time.perf_counter() - t0
+
+    for net in SHARDS_NETS:
+        w_f, w_q = want[net]["float"].float().cpu(), want[net]["grid"].float().cpu()
+        rows = [("one-process simulation", sim[net])] + [
+            (f"rank {r}", rec["spatial"][net]) for r, rec in enumerate(ranks)]
+        errs = {}
+        for name, rec in rows:
+            got_q = torch.as_tensor(rec["grid"]).float().cpu()
+            if not torch.equal(got_q, w_q):
+                raise AssertionError(f"shards {net}: {name}'s grid logits differ from the "
+                                     f"unsharded forward (max {float((got_q - w_q).abs().max())})")
+            err = float((torch.as_tensor(rec["float"]).float().cpu() - w_f).abs().max())
+            if not err <= E2E_TOL:
+                raise AssertionError(f"shards {net}: {name}'s float logits miss the unsharded "
+                                     f"forward by {err} > {E2E_TOL}")
+            if rec["warm_misses"]:
+                raise AssertionError(f"shards {net}: {name}'s warm forward planned "
+                                     f"{rec['warm_misses']} shapes")
+            errs[name] = err
+        emit({"phase": "shards_spatial", "net": net, "batch": BATCH, "shards": SHARDS_S,
+              "nvidia_smi": nvidia_smi(), "grid_bit_identical_to_unsharded": True,
+              "float_max_abs_err_vs_unsharded": errs, "float_tol": E2E_TOL,
+              "reference_float_tol": SHARDS_REF_TOL,
+              "within_reference_tol": {k: v <= SHARDS_REF_TOL for k, v in errs.items()},
+              "simulation_launches": sim[net]["launches"],
+              "simulation_ms": {k: sim[net][f"{k}_ms"] for k in ("float", "grid")},
+              "ranks_ms_gloo_host_staged": {k: ranks[0]["spatial"][net][f"{k}_ms"]
+                                            for k in ("float", "grid")},
+              "modeled_bytes": sim[net]["bytes"], "plan": sim[net]["describe"]})
+
+    for numerics in ("float", "grid"):
+        ref = single[numerics]
+        for r, rec in enumerate(ranks):
+            got = rec[numerics]
+            if got["streams"] != ref["streams"]:
+                bad = [i for i, (a, b) in enumerate(zip(got["streams"], ref["streams"]))
+                       if a != b]
+                raise AssertionError(f"shards {numerics}: rank {r}'s streams differ from the "
+                                     f"single-device scheduler at requests {bad}")
+            warm = got["warm_restart"]
+            searches = {k: warm[k] for k in ("warmup_misses", "trace_misses",
+                                             "warmup_shard_misses")}
+            if warm["streams"] != ref["streams"] or any(searches.values()):
+                raise AssertionError(f"shards {numerics}: rank {r}'s warm restart: "
+                                     f"{searches}, streams equal "
+                                     f"{warm['streams'] == ref['streams']}")
+            if got["trace_misses"] or got["captures"] or \
+                    got["meshed_eager_steps"] != got["decode_steps"]:
+                raise AssertionError(f"shards {numerics}: rank {r}: {got['trace_misses']} "
+                                     f"searches in the trace, {got['captures']} captures, "
+                                     f"{got['meshed_eager_steps']} eager of "
+                                     f"{got['decode_steps']} steps")
+        kernel = "matmul_fp" if numerics == "float" else "matmul_q16"
+        r0 = ranks[0][numerics]
+        emit({"phase": "shards_decode", "numerics": numerics, "arch": QWEN_ARCH,
+              "mesh": {"data": 1, "model": SHARDS_S}, "slots": SHARDS_SLOTS,
+              "ladder": SHARDS_LADDER, "requests": SHARDS_REQUESTS,
+              "nvidia_smi": nvidia_smi(), "streams_byte_identical": True,
+              "tokens": sum(len(s) for s in ref["streams"]),
+              "cold_warmup_misses_rank0": r0["warmup_misses"],
+              "warmup_shard_misses_rank0": r0["warmup_shard_misses"],
+              "store_entries_rank0": r0["store_entries"],
+              "warm_restart_searches": 0,
+              "decode_ms_per_step_meshed_eager_gloo": _mean(r0["decode_ms"]),
+              "decode_ms_per_step_single_device_replayed": _mean(ref["decode_ms"]),
+              "launches_rank0": {k: v for k, v in r0["launches"].items()
+                                 if v and k.startswith(kernel)}})
+
+    spatial = dict.fromkeys(_build.launches, 0)
+    for rec in ranks:
+        for k, v in rec["spatial_launches"].items():
+            spatial[k] += int(v)
+    emit({"phase": "shards_spatial_launches", "ranks": SHARDS_S,
+          "both_nets_both_numerics": {k: v for k, v in spatial.items() if v}})
+
+    # (c) the CLI
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--scheduler",
+                          "--shards", str(SHARDS_S), "--prompts", "4", "--prompt-len", "8",
+                          "--gen", "3"], capture_output=True, text=True, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"serve --shards {SHARDS_S} exited {res.returncode}:\n"
+                             f"{res.stderr[-3000:]}")
+    emit({"phase": "shards_cli", "argv": f"serve --scheduler --shards {SHARDS_S}",
+          "rc": 0, "seconds": time.perf_counter() - t0,
+          "stdout_tail": res.stdout.strip().splitlines()[-3:]})
+    windows = {"shards spatial": spatial}
+    for numerics in ("float", "grid"):
+        total = dict.fromkeys(_build.launches, 0)
+        for rec in ranks:
+            for k, v in rec[numerics]["launches"].items():
+                total[k] += int(v)
+        windows[f"shards decode {numerics}"] = total
+    emit({"phase": "shards", "seconds": time.perf_counter() - t_phase,
+          "ranks_seconds": ranks_s})
+    shutil.rmtree(SHARDS_DIR, ignore_errors=True)
+    return windows
+
+
 def _build_kernels():
     from repro_torch.kernels import _build
 
@@ -2790,6 +3143,11 @@ def main() -> int:
     runs, cnn_launches = phase_main_path(torch, dev)
     phase_timing(torch, runs)
     phase_profile(torch, runs)
+    # phase 9's weights: each net's float tree, input and calibrated grid
+    cnn_state = {net: (next(r[4] for r in runs if r[0] == net and r[1] == "float"),
+                       next(r[5] for r in runs if r[0] == net),
+                       next(r[6] for r in runs if r[0] == net and r[1].startswith("grid")))
+                 for net in SHARDS_NETS}
     del runs
     torch.cuda.empty_cache()
     cfg, params, prompts, serving_runs, serving_windows = phase_serving(torch, dev)
@@ -2804,13 +3162,15 @@ def main() -> int:
     serving_windows["fleet grid"] = phase_fleet(torch, cfg, params, tq, grid_policy)
     if FLOAT_FLEET_STUDY:
         phase_float_fleet_study(torch, cfg, params, serving_runs[0][1])
-    del params, serving_runs, tq, grid_policy
+    shard_windows = phase_shards(torch, dev, cnn_state, cfg, params, grid_policy)
+    del params, serving_runs, tq, grid_policy, cnn_state
     torch.cuda.empty_cache()
     phase_serve_cli(torch)
     phase_fleet_cli(torch)
     phase_fpga_tables()
 
-    windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()}}
+    windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()},
+               **shard_windows}
     kernels = []
     for key, (name, gemm_route, source, replaces) in KERNEL_META.items():
         row = book.rows[key]

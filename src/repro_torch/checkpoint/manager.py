@@ -15,8 +15,8 @@ layout, so either package restores the other's checkpoints:
 * **Tensors** leave the device through ``.cpu().numpy()``; a bf16 leaf is
   stored as its raw int16 view with ``"bfloat16"`` recorded as its dtype.
   :func:`restore` puts each array on the device (and in the dtype) of the
-  target tree's leaf.  Elastic restore onto shardings waits for the mesh
-  (ROADMAP queue 1 item 5).
+  target tree's leaf; with ``shardings`` (the elastic re-shard) each rank
+  gets its slice of every leaf (``parallel.sharding.shard_tree``).
 """
 from __future__ import annotations
 
@@ -139,11 +139,14 @@ def _rebuild(tree, loaded: dict, prefix=()):
 def restore(directory: str, step: int, target_tree: Any,
             shardings: Optional[Any] = None) -> Any:
     """Load checkpoint ``step`` into the structure of ``target_tree``; each
-    leaf lands on its target leaf's device and dtype.  ``shardings`` (the
-    reference's elastic re-shard) is not ported yet."""
-    if shardings is not None:
-        raise NotImplementedError("restore onto shardings is not ported yet (ROADMAP "
-                                  "queue 1 item 5)")
+    leaf lands on its target leaf's device and dtype.
+
+    ``shardings``: a tree of ``parallel.sharding.NamedSharding`` (the
+    structure of ``target_tree``, or a prefix of it; from
+    ``tree_shardings`` / ``column_parallel_shardings`` on a mesh with
+    ranks): the elastic re-shard, each leaf restored as this rank's slice
+    of it.  ``target_tree`` then holds the logical (whole) shapes the
+    checkpoint was saved at."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -160,7 +163,12 @@ def restore(directory: str, step: int, target_tree: Any,
     missing = set(flat_target) - set(loaded)
     if missing:
         raise KeyError(f"target keys missing from checkpoint: {sorted(missing)[:5]}")
-    return _rebuild(target_tree, loaded)
+    tree = _rebuild(target_tree, loaded)
+    if shardings is None:
+        return tree
+    from repro_torch.parallel.sharding import shard_tree
+
+    return shard_tree(tree, shardings)
 
 
 def manifest_extra(directory: str, step: int) -> dict:

@@ -10,7 +10,10 @@ turns its leaves into numpy arrays (``np.asarray``) and hands them over:
   given as ``(raw, (int_bits, frac_bits, total_bits))``;
 * :func:`transformer_params_from_numpy` takes a transformer tree (nested
   dicts, the stacked ``blocks`` and ``tail`` tuples) whose leaves are float
-  arrays or quantized ``(raw, (int_bits, frac_bits, total_bits))`` pairs.
+  arrays or quantized ``(raw, (int_bits, frac_bits, total_bits))`` pairs;
+* :func:`transformer_shard_from_numpy` carries such a tree into the calling
+  rank's shard through the port's column-parallel plan
+  (``parallel.sharding.column_parallel_shardings``).
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 
 from repro_torch.core.quantization import QFormat, QTensor
 
-__all__ = ["cnn_params_from_numpy", "qparams_from_numpy", "transformer_params_from_numpy"]
+__all__ = ["cnn_params_from_numpy", "qparams_from_numpy", "transformer_params_from_numpy",
+           "transformer_shard_from_numpy"]
 
 
 def _tree(tree, leaf):
@@ -66,3 +70,17 @@ def transformer_params_from_numpy(tree, device="cpu"):
     if isinstance(tree, tuple):
         return tuple(transformer_params_from_numpy(v, device) for v in tree)
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def transformer_shard_from_numpy(tree, mesh, axes, rules=None, device="cpu"):
+    """The calling rank's column-parallel shard of a transformer tree (as
+    :func:`transformer_params_from_numpy` takes it): ``axes`` is the tree's
+    logical axes (``models.transformer.param_axes``, with an untied
+    ``lm_head`` entry for a quantized tree's head), ``rules`` default
+    ``DECODE_RULES``; ``mesh`` must have ranks."""
+    from repro_torch.parallel.sharding import (DECODE_RULES, column_parallel_shardings,
+                                               shard_tree)
+
+    params = transformer_params_from_numpy(tree, device)
+    return shard_tree(params, column_parallel_shardings(mesh, rules or DECODE_RULES,
+                                                        params, axes))

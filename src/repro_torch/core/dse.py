@@ -255,8 +255,43 @@ def _wgmma_block(m: int, n: int, spec: GpuSpec) -> MatmulBlock:
     return MatmulBlock(bm, bn, bk, route="wgmma")
 
 
+def _local_fp_block(m: int, n: int, k: int, logical: tuple, spec: GpuSpec, *,
+                    dtype_bytes: int) -> MatmulBlock:
+    """A shard's plan: the logical shape's route and k order, the rest picked
+    at the local shape.
+
+    The float GEMM's sums depend on how k is cut: route "splitk" sums its
+    ``splits`` slices of ``bk`` rows in slice order, and route "splitk" sizes
+    them from n (``want`` blocks per SM), so a column shard planned at its
+    own n would cut k finer and sum in another order.  Here the route, ``bk``
+    and ``splits`` are the logical plan's; only what leaves the order as it
+    is follows the local shape: split-k's padded row count, the output tile
+    of "wgmma" / "tile" among the compiled tiles of that ``bk``.  Raises
+    when the local shape cannot take the logical route.
+    """
+    if logical[2] != k:
+        raise ValueError(f"a local GEMM keeps its contraction whole: local k={k}, "
+                         f"logical {tuple(logical)}")
+    want = default_fp_block_for(*logical, spec, dtype_bytes=dtype_bytes)
+    if want.route == "splitk":
+        rows = min(r for r in spec.splitk_rows if r >= m)
+        blk = MatmulBlock(rows, spec.splitk_cols, want.bk, route="splitk",
+                          splits=want.splits)
+    else:
+        tiles = spec.wgmma_tiles if want.route == "wgmma" else spec.gemm_tiles
+        same = [MatmulBlock(*t, route=want.route) for t in tiles if t[2] == want.bk]
+        ok = [b for b in same
+              if fp_block_legal(b, m, n, k, dtype_bytes=dtype_bytes, spec=spec)]
+        blk = max(ok, key=lambda b: (_gpu_block_score(b, m, n, spec), b.bn),
+                  default=None)
+    if blk is None or not fp_block_legal(blk, m, n, k, dtype_bytes=dtype_bytes, spec=spec):
+        raise ValueError(f"the local GEMM ({m}, {n}, {k}) cannot keep the k order of "
+                         f"its logical plan {want} for {tuple(logical)}")
+    return blk
+
+
 def default_fp_block_for(m: int, n: int, k: int, spec: Spec = TPU_V5E, *,
-                         dtype_bytes: int = 4) -> MatmulBlock:
+                         dtype_bytes: int = 4, logical: tuple = ()) -> MatmulBlock:
     """The float GEMM's plan for one call: its route, then the route's tile.
 
     Under a GpuSpec: m <= ``splitk_max_m`` streams w on route "splitk" (any
@@ -267,9 +302,14 @@ def default_fp_block_for(m: int, n: int, k: int, spec: Spec = TPU_V5E, *,
     "tile" with :func:`default_block_for`'s tile.  Every route reads w in
     either layout, (k, n) or the transposed view of an (n, k) matrix, with
     the same plan.  Under a TpuSpec it is :func:`default_block_for`.
+
+    ``logical``: the (m, n, k) a shard's local call belongs to; the plan
+    then keeps that shape's k order (:func:`_local_fp_block`).
     """
     if not isinstance(spec, GpuSpec):
         return default_block_for(m, n, k, spec)
+    if logical and tuple(logical) != (m, n, k):
+        return _local_fp_block(m, n, k, tuple(logical), spec, dtype_bytes=dtype_bytes)
     if m <= spec.splitk_max_m:
         return _splitk_block(m, n, k, spec)
     if dtype_bytes == 2 and k % 8 == 0 and n % 8 == 0:

@@ -1,6 +1,6 @@
 """The execution-plan engine: plan-then-execute for the unified compute unit.
 
-The port's copy of ``repro.core.engine`` for one device:
+The port's copy of ``repro.core.engine``:
 
 * :class:`PlanRegistry` — memoized DSE choices (GEMM plans per kernel and
   direct-conv configurations) per (shape, spec), with hit and miss
@@ -33,8 +33,15 @@ The port's copy of ``repro.core.engine`` for one device:
 * The serve scheduler's bucket ladder: :func:`bucket_for`,
   :func:`batch_rungs` and :meth:`Engine.plan_gemm_ladder`, exactly the
   reference's.
-
-Mesh and spatial (H-slab) sharding raise ``NotImplementedError``.
+* Sharding (``repro_torch.parallel.sharding``): ``plan_gemm(mesh=)`` and
+  ``plan_conv(mesh=)`` plan a layer's local (per-shard) shape;
+  ``plan_conv(spatial=)`` plans an H-slab seam (:attr:`ConvPlan.halo`),
+  which :meth:`Engine.conv2d` runs through the halo exchange.  A rank's
+  GEMM on a column shard of its weight (a shard-marked ``w``) plans its
+  local shape with the logical shape's k order, so a float result is the
+  unsharded one bit for bit, and its output carries the shard mark; a
+  shard-marked contraction dim of ``x`` is gathered first.  A local float
+  plan is keyed by its logical shape as well (the store's ``"logical"``).
 """
 from __future__ import annotations
 
@@ -49,6 +56,8 @@ import time
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.parallel import sharding as sh
 
 from . import dse
 from .quantization import (
@@ -185,14 +194,23 @@ def _spec_from_doc(doc: dict) -> Spec:
 
 
 def _gemm_key(kernel: str, m: int, n: int, k: int, spec: Spec, dtype_bytes: int,
-              xbits: int, wbits: int) -> tuple:
+              xbits: int, wbits: int, logical: tuple = ()) -> tuple:
     """The registry key of one GEMM call: the float GEMM plans from the
-    dtype, the q16 GEMM from its operands' widths."""
+    dtype, the q16 GEMM from its operands' widths.  A shard's local call
+    is keyed by its logical shape too: the float plan keeps that shape's k
+    order, and either kernel's local entries stay apart from the shapes
+    planned as themselves (``gemm_shapes``)."""
+    tail = (tuple(logical),) if logical else ()
     if kernel == "matmul_fp":
-        return (kernel, m, n, k, dtype_bytes, spec)
+        return (kernel, m, n, k, dtype_bytes, *tail, spec)
     if kernel == "matmul_q16":
-        return (kernel, m, n, k, xbits, wbits, spec)
+        return (kernel, m, n, k, xbits, wbits, *tail, spec)
     raise ValueError(f"no GEMM kernel {kernel!r}")
+
+
+def _key_logical(key: tuple) -> tuple:
+    """The logical shape a local plan's key holds, else ()."""
+    return key[-2] if len(key) == (7 if key[0] == "matmul_fp" else 8) else ()
 
 
 def _time_plans(m: int, n: int, k: int, candidates, *, kernel: str, dtype_bytes: int,
@@ -280,20 +298,24 @@ class PlanRegistry:
 
     def block_for(self, m: int, n: int, k: int, spec: Spec = H100, *,
                   kernel: str = "matmul_q16", dtype_bytes: int = 4, xbits: int = 16,
-                  wbits: int = 16) -> MatmulBlock:
+                  wbits: int = 16, logical: tuple = ()) -> MatmulBlock:
         """The memoized GEMM plan of one kernel for one call.  The key holds
         the kernel: the float GEMM ("matmul_fp") plans a route from the
-        dtype as well (:func:`dse.default_fp_block_for`), the q16 GEMM
+        dtype as well (:func:`dse.default_fp_block_for`; ``logical``, a
+        shard's logical (m, n, k), keeps that shape's k order), the q16 GEMM
         ("matmul_q16") from its operands' widths ``xbits`` / ``wbits``, 8 or
         16, whose limb products shape its tensor-core tile
         (:func:`dse.default_q16_block_for`)."""
-        key = _gemm_key(kernel, m, n, k, spec, dtype_bytes, xbits, wbits)
+        if tuple(logical) == (m, n, k):
+            logical = ()
+        key = _gemm_key(kernel, m, n, k, spec, dtype_bytes, xbits, wbits, logical)
         blk = self._blocks.get(key)
         if blk is None:
             self.misses += 1
             if kernel == "matmul_fp":
-                blk = dse.default_fp_block_for(m, n, k, spec, dtype_bytes=dtype_bytes)
-            else:
+                blk = dse.default_fp_block_for(m, n, k, spec, dtype_bytes=dtype_bytes,
+                                               logical=logical)
+            else:  # exact under any split: a local call plans as its own shape
                 blk = dse.default_q16_block_for(m, n, k, spec, xbits=xbits, wbits=wbits)
             self._blocks[key] = blk
             self._block_src[key] = "analytic"
@@ -456,7 +478,9 @@ class PlanRegistry:
             kernel, m, n, k = key[:4]
             widths = ({"dtype_bytes": key[4]} if kernel == "matmul_fp"
                       else {"xbits": key[4], "wbits": key[5]})
+            logical = _key_logical(key)
             gemm.append({"spec": six(key[-1]), "kernel": kernel, "key": [m, n, k], **widths,
+                         **({"logical": list(logical)} if logical else {}),
                          "block": [blk.bm, blk.bn, blk.bk], "route": blk.route,
                          "splits": blk.splits,
                          "source": self._block_src.get(key, "analytic")})
@@ -526,7 +550,10 @@ class PlanRegistry:
                 else:
                     raise PlanStoreError(f"bad gemm kernel {kernel!r}")
                 m, nn, k = (int(v) for v in e["key"])
-                key = _gemm_key(kernel, m, nn, k, spec_at(e["spec"]), *widths)
+                logical = tuple(int(v) for v in e.get("logical", ()))
+                if logical and len(logical) != 3:
+                    raise PlanStoreError(f"bad gemm logical shape {logical!r}")
+                key = _gemm_key(kernel, m, nn, k, spec_at(e["spec"]), *widths, logical)
                 blocks[key] = MatmulBlock(*(int(v) for v in e["block"]),
                                           route=str(e["route"]), splits=int(e["splits"]))
                 block_src[key] = str(e.get("source", "analytic"))
@@ -591,8 +618,10 @@ class PlanRegistry:
                 for key in d}
 
     def gemm_shapes(self, spec: Spec = H100) -> list:
-        """The distinct (m, n, k) GEMM shapes planned for ``spec``, sorted."""
-        return sorted({key[1:4] for key in self._blocks if key[-1] == spec})
+        """The distinct (m, n, k) GEMM shapes planned for ``spec`` as
+        themselves (not as a shard's local shape), sorted."""
+        return sorted({key[1:4] for key in self._blocks
+                       if key[-1] == spec and not _key_logical(key)})
 
     def save(self, path: str) -> str:
         """Write the registry as versioned JSON, stage then commit: the temp
@@ -772,12 +801,17 @@ def plan_store_stats() -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
-    """Pre-resolved plan for one GEMM shape (block None on the torch backend)."""
+    """Pre-resolved plan for one GEMM shape (block None on the torch backend).
+
+    (m, n, k) is the shape the kernel executes: under a mesh the local
+    per-shard shape, and ``logical`` the global shape it came from (empty
+    when planned unsharded or the mesh splits nothing)."""
 
     m: int
     n: int
     k: int
     block: Optional[MatmulBlock]
+    logical: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -796,6 +830,10 @@ class ConvPlan:
         "cudacore" or "tc", for float and fixed point alike; "" otherwise).
         Route "tc" walks sub-tiles of sub_rows x sub_cols pixels and cuts its
         Cin chunks ``splits`` ways.
+    halo: a cross-shard spatial seam (a ``SpatialHalo``): the layer runs per
+        H slab in the slab-major (S, N, lx, W, C) layout through
+        :meth:`Engine._conv2d_spatial`; ``pad`` is then 0 (the exchange's
+        zero fill is the H padding, and W is pre-padded by ``halo.pad``).
     """
 
     route: str
@@ -815,6 +853,7 @@ class ConvPlan:
     splits: int = 1
     sub_rows: int = 0
     sub_cols: int = 0
+    halo: Optional[object] = None  # SpatialHalo
 
 
 def _resolve_pad(padding, kh: int) -> int:
@@ -833,13 +872,6 @@ def validate_policy(config, policy: Optional[NumericsPolicy]) -> NumericsPolicy:
             f"the template is configured with backend={config.backend!r}"
         )
     return policy
-
-
-def _no_sharding(mesh, partition=None, spatial=None) -> None:
-    if mesh is not None or partition is not None or spatial is not None:
-        raise NotImplementedError(
-            "mesh / spatial sharding is not ported yet (single device only)"
-        )
 
 
 class Engine:
@@ -883,10 +915,11 @@ class Engine:
     # -- planning ------------------------------------------------------------
 
     def block_for(self, m: int, n: int, k: int, *, dtype=torch.float32, xbits: int = 16,
-                  wbits: int = 16) -> MatmulBlock:
+                  wbits: int = 16, logical: tuple = ()) -> MatmulBlock:
         """The GEMM plan for one call: config override or cached DSE.  The
         cuda backend plans the float GEMM (its route follows m and
-        ``dtype``), the q16 backend the fixed-point GEMM (its route follows
+        ``dtype``; ``logical``, a shard's logical shape, fixes its k
+        order), the q16 backend the fixed-point GEMM (its route follows
         m, its tile the raws' widths ``xbits`` / ``wbits``; the default,
         16 and 16, plans a tile every width mix takes)."""
         if self.config.block is not None:
@@ -894,8 +927,9 @@ class Engine:
         if self.config.backend == "cuda":
             return self.plan_cache.block_for(
                 m, n, k, self.config.hw, kernel="matmul_fp",
-                dtype_bytes=torch.finfo(dtype).bits // 8)
-        return self.plan_cache.block_for(m, n, k, self.config.hw, xbits=xbits, wbits=wbits)
+                dtype_bytes=torch.finfo(dtype).bits // 8, logical=logical)
+        return self.plan_cache.block_for(m, n, k, self.config.hw, xbits=xbits, wbits=wbits,
+                                         logical=logical)
 
     def measure_and_pin(self, m: int, n: int, k: int, *, dtype=torch.float32,
                         xbits: int = 16, wbits: int = 16, **kw) -> MatmulBlock:
@@ -911,9 +945,19 @@ class Engine:
 
     def plan_gemm(self, m: int, n: int, k: int, *, mesh=None,
                   partition=None) -> GemmPlan:
-        _no_sharding(mesh, partition)
-        block = None if self.config.backend == "torch" else self.block_for(m, n, k)
-        return GemmPlan(m=m, n=n, k=k, block=block)
+        """Plan one GEMM; with ``mesh`` (and optionally a partition over
+        (M, N[, K]); default ``launch.mesh.gemm_partition``) the local
+        per-shard shape, with the logical shape's k order (a float plan is
+        keyed by both)."""
+        logical = ()
+        if mesh is not None:
+            local = sh.local_gemm_shape(m, n, k, mesh=mesh, partition=partition)
+            if local != (m, n, k):
+                logical = (m, n, k)
+            m, n, k = local
+        block = (None if self.config.backend == "torch"
+                 else self.block_for(m, n, k, logical=logical))
+        return GemmPlan(m=m, n=n, k=k, block=block, logical=logical)
 
     def plan_gemm_ladder(self, ladder: Sequence[int], n: int, k: int, *,
                          batches: Sequence[int] = (1,), mesh=None,
@@ -938,9 +982,29 @@ class Engine:
         the CUDA cores), τ, the Cin chunk and, on the tensor-core route, the
         sub-tile; this adds that route's Cin split for the batch.
         When no configuration fits, the layer takes the im2col GEMM route
-        with a planned tile.  ``route`` forces a route.
+        with a planned tile.  ``route`` forces a route.  With ``mesh`` the
+        layer's local shard is planned (batch over the partition's M axes,
+        Cout over its N axes).
+
+        ``spatial`` (a shard count, a mesh axis name, or a chained
+        ``SpatialHalo``) plans the H-slab partition instead: the kernel runs
+        at the halo-augmented ``win``-row window with the padding folded
+        into the exchange's zero fill, and the plan carries the seam in
+        ``plan.halo``; batch and Cout stay whole, so ``partition`` does not
+        apply.
         """
-        _no_sharding(mesh, partition, spatial)
+        if spatial is not None:
+            n, h, wd, cin = x_shape
+            kh = w_shape[0]
+            pad = _resolve_pad(padding, kh)
+            hs = spatial if isinstance(spatial, sh.SpatialHalo) else sh.plan_spatial_halo(
+                h, kh, stride, pad, *sh.spatial_shards(spatial, mesh))
+            inner = self.plan_conv((n, hs.win, wd + 2 * pad, cin), w_shape,
+                                   stride=stride, padding=0, route=route)
+            return dataclasses.replace(inner, halo=hs)
+        if mesh is not None:
+            x_shape, w_shape = sh.local_conv_shapes(x_shape, w_shape, mesh=mesh,
+                                                    partition=partition)
         n, h, wd, cin = x_shape
         kh, kw, _, cout = w_shape
         pad = _resolve_pad(padding, kh)
@@ -992,7 +1056,7 @@ class Engine:
         self.counters["quantize_calls"] += 1
         if self._calibrating:
             self._act_maxabs = max(self._act_maxabs, float(x.abs().max()))
-        return QTensor(quantize(x, fmt), fmt)
+        return sh.carry_marks(x, QTensor(quantize(x, fmt), fmt))
 
     def calibrate_activation_format(self, run, *, total_bits: int = 16) -> QFormat:
         """Run ``run()`` (an eager forward over a calibration batch) with
@@ -1012,8 +1076,8 @@ class Engine:
         """QTensor (or raw + fmt) -> float: a counted island entry."""
         self.counters["dequantize_calls"] += 1
         if isinstance(q, QTensor):
-            return dequantize(q.raw, q.fmt, dtype)
-        return dequantize(q, fmt or self.config.qformat, dtype)
+            return sh.carry_marks(q, dequantize(q.raw, q.fmt, dtype))
+        return sh.carry_marks(q, dequantize(q, fmt or self.config.qformat, dtype))
 
     def quantize_weight(
         self,
@@ -1090,6 +1154,29 @@ class Engine:
             )
         return bias.raw, bias_shift
 
+    # -- shards: the column-parallel GEMM -------------------------------------
+
+    @staticmethod
+    def _shard_operands(x, w) -> tuple:
+        """Returns (x, w's column mark or None).  A contraction stays whole:
+        an ``x`` whose K dim holds a shard (the product of an elementwise
+        op on column-parallel outputs) is gathered when ``w`` holds K whole."""
+        xk = [mk for mk in sh.shard_marks(x) if mk[0] == -1]
+        wk = [mk for mk in sh.shard_marks(w) if mk[0] == -2]
+        if xk and not wk:
+            x = sh.gather(x, -1, xk[0][1])
+        wn = [mk for mk in sh.shard_marks(w) if mk[0] == -1]
+        return x, (wn[0] if wn else None)
+
+    @staticmethod
+    def _logical_gemm(m: int, n: int, k: int, wn) -> tuple:
+        """The logical (m, n, k) of a rank's local GEMM: n from ``w``'s
+        column mark, m from the step's data split (``sharding.batch_split``);
+        () when the call is its own logical shape."""
+        f = sh.active_batch_split() if sh.active_mesh() is not None else 1
+        logical = (m * f, wn[2] if wn else n, k)
+        return () if logical == (m, n, k) else logical
+
     def _qmatmul(self, x, w, *, bias=None, relu: bool = False,
                  out_fmt: Optional[QFormat] = None, wide: bool = False,
                  plan: Optional[GemmPlan] = None):
@@ -1101,6 +1188,7 @@ class Engine:
 
         x = self._quant_operand(x)
         w = self._quant_operand(w)
+        x, wn = self._shard_operands(x, w)
         out_fmt = out_fmt or x.fmt
         lead = x.shape[:-1]
         k = x.shape[-1]
@@ -1112,18 +1200,20 @@ class Engine:
         self.counters["gemm_q16"] += 1
         block = plan.block if plan is not None and plan.block is not None else \
             self.block_for(m, n, k, xbits=8 * x.raw.element_size(),
-                           wbits=8 * w.raw.element_size())
+                           wbits=8 * w.raw.element_size(),
+                           logical=self._logical_gemm(m, n, k, wn))
         out = kops.matmul_q16(
             x2.raw, w.raw, bias=b_raw, relu=relu, fmt=out_fmt,
             shift=acc_frac - out_fmt.frac_bits, bias_shift=bias_shift,
             wide=wide, block=block,
         )
+        marks = () if wn is None else (wn,)
         if wide:
             self.counters["dequantize_calls"] += 1
             # int32 -> f32 rounds to nearest even and 2^-f is exact: the
             # same bits as the reference's out.astype(f32) * 2.0 ** -acc_frac
-            return (out.float() * 2.0 ** -acc_frac).reshape(*lead, n)
-        return QTensor(out.reshape(*lead, n), out_fmt)
+            return sh.mark_shard((out.float() * 2.0 ** -acc_frac).reshape(*lead, n), marks)
+        return sh.mark_shard(QTensor(out.reshape(*lead, n), out_fmt), marks)
 
     def _qconv2d(self, x, w, *, stride: int = 1, padding=0, bias=None,
                  relu: bool = False, out_fmt: Optional[QFormat] = None,
@@ -1134,6 +1224,8 @@ class Engine:
         x = self._quant_operand(x)
         w = self._quant_operand(w)
         out_fmt = out_fmt or x.fmt
+        if plan is not None and plan.halo is not None:
+            return self._conv2d_spatial(x, w, bias=bias, relu=relu, qout=out_fmt, plan=plan)
         if plan is None:
             plan = self.plan_conv(x.shape, w.shape, stride=stride, padding=padding)
         if plan.route == "torch":
@@ -1180,6 +1272,7 @@ class Engine:
         if x.ndim == 1:
             return self.matmul(x[None, :], w, bias=bias, relu=relu, qout=qout,
                                plan=plan)[0]
+        x, wn = self._shard_operands(x, w)
         lead = x.shape[:-1]
         k = x.shape[-1]
         n = w.shape[-1]
@@ -1194,7 +1287,8 @@ class Engine:
 
             self.counters["gemm_cuda"] += 1
             block = plan.block if plan is not None and plan.block is not None else \
-                self.block_for(m, n, k, dtype=x.dtype)
+                self.block_for(m, n, k, dtype=x.dtype,
+                               logical=self._logical_gemm(m, n, k, wn))
             out = kops.matmul_fp(x2.contiguous(), w, bias=bias, relu=relu,
                                  qout=qout, block=block)
         elif backend == "q16":
@@ -1205,7 +1299,8 @@ class Engine:
             self.counters["dequantize_calls"] += 1
             fmt = self.config.qformat
             block = plan.block if plan is not None and plan.block is not None else \
-                self.block_for(m, n, k, xbits=fmt.total_bits, wbits=fmt.total_bits)
+                self.block_for(m, n, k, xbits=fmt.total_bits, wbits=fmt.total_bits,
+                               logical=self._logical_gemm(m, n, k, wn))
             # quantize keeps its input's strides; the kernel takes dense raws
             # (the tied head's w is the embedding table's transposed view)
             qres = kops.matmul_q16(
@@ -1216,7 +1311,7 @@ class Engine:
             out = dequantize(qres, fmt, dtype=x.dtype)
         else:  # pragma: no cover - config validation
             raise ValueError(f"unknown backend {backend!r}")
-        return out.reshape(*lead, n)
+        return sh.mark_shard(out.reshape(*lead, n), () if wn is None else (wn,))
 
     def linear(self, x, w, b=None, *, relu: bool = False,
                qout: Optional[QFormat] = None, wide: bool = False,
@@ -1236,6 +1331,8 @@ class Engine:
         from repro_torch.kernels import ops as kops
 
         self._check_device(x, w, bias)
+        if plan is not None and plan.halo is not None and not isinstance(x, QTensor):
+            return self._conv2d_spatial(x, w, bias=bias, relu=relu, qout=qout, plan=plan)
         if isinstance(x, QTensor) or isinstance(w, QTensor):
             return self._qconv2d(x, w, stride=stride, padding=padding, bias=bias,
                                  relu=relu, out_fmt=qout, plan=plan)
@@ -1278,3 +1375,33 @@ class Engine:
             splits=plan.splits, sub_rows=plan.sub_rows, sub_cols=plan.sub_cols,
         )
         return dequantize(qres, fmt, dtype=x.dtype)
+
+    def _conv2d_spatial(self, x, w, *, bias, relu, qout, plan: ConvPlan):
+        """One spatially-sharded conv seam.
+
+        ``x`` is slab-major (S, N, lx, W, C), a float tensor or a QTensor;
+        on a mesh axis (``plan.halo.axis``) this rank's slab, S = 1.  The
+        halo rows come from the neighbour slabs, W is pre-padded by the
+        conv's ``pad`` (the H zeros came with the exchange), the slabs fold
+        into the batch for the planned kernel, and the slab layout comes
+        back with the ragged tail shard's rows past the global extent set
+        to zero, so the next seam's halo reads stay exact.  No contraction
+        crosses a slab, so every output row is the unsharded kernel's.
+        """
+        hs = plan.halo
+        inner = dataclasses.replace(plan, halo=None)
+        self.counters["conv_spatial"] += 1
+        quant = isinstance(x, QTensor)
+        v = sh.constrain_slabs(x.raw if quant else x, hs.axis)
+        ext = sh.halo_exchange(v, hs)  # (S, N, win, W, C)
+        if hs.pad:
+            ext = torch.nn.functional.pad(ext, (0, 0, hs.pad, hs.pad))
+        s, n = ext.shape[0], ext.shape[1]
+        flat = ext.reshape(s * n, *ext.shape[2:]).contiguous()  # the kernels read dense
+        out = self.conv2d(QTensor(flat, x.fmt) if quant else flat, w, bias=bias,
+                          relu=relu, qout=qout, plan=inner)
+        qres = isinstance(out, QTensor)
+        ov = out.raw if qres else out
+        ov = ov.reshape(s, n, *ov.shape[1:])
+        ov = sh.constrain_slabs(sh.mask_slab_rows(ov, hs), hs.axis)
+        return QTensor(ov, out.fmt) if qres else ov

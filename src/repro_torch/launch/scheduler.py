@@ -42,6 +42,20 @@ A capture or replay that fails raises; there is no eager fallback on the
 card.  On a CPU template the closures run eagerly, with the same signatures
 and the same in-place cache contract.  Prefill and the chunk step are not
 captured: they are device-bound.
+
+**Tensor-parallel decode** (``mesh=``, default rules ``DECODE_RULES``):
+every rank of the mesh runs the same scheduler loop on the same trace.
+Parameters are column-parallel (each rank holds the columns its GEMMs
+produce, every contraction whole), activations are gathered at the
+model's seams, the slot-indexed KV cache is sharded over slots on the data
+axes, and the tokens (and logits) of a step are gathered over the data
+axes before the host decides anything, so a rank's stream is byte for byte
+the single-device stream.  Prefill runs every row on every data rank; each
+rank keeps its own slots' rows.  A CUDA graph cannot hold a ``gloo``
+collective (the ranks of one card), so a meshed decode step runs eagerly
+and is counted in :data:`MESHED_EAGER_COUNTS`; ``CAPTURE_COUNTS`` stays 0
+for a meshed owner.  Capturing NCCL collectives (several cards) is left
+for later.
 """
 from __future__ import annotations
 
@@ -65,9 +79,12 @@ from repro_torch.core.quantization import NumericsPolicy
 from repro_torch.core.template import Template, default_template
 from repro_torch.kernels import _build
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import DECODE_RULES
 
 __all__ = [
     "CAPTURE_COUNTS",
+    "MESHED_EAGER_COUNTS",
     "Request",
     "SamplingParams",
     "SchedulerConfig",
@@ -251,6 +268,10 @@ def _pick(logits, sampling, seed, lanes, positions, temperature):
 #: grow these counts.
 CAPTURE_COUNTS: collections.Counter = collections.Counter()
 
+#: (kind, cfg.name, cache_len) -> meshed steps run eagerly (a gloo
+#: collective cannot be captured)
+MESHED_EAGER_COUNTS: collections.Counter = collections.Counter()
+
 _STEP_FNS: dict = {}
 #: LRU bound: ``generate()``'s default cache_len is s + gen, so prompt-length
 #: diversity would otherwise pin a graph and its cache per length forever
@@ -258,6 +279,7 @@ _STEP_FNS_MAX = 64
 # emptied with the plan caches: the closures hold templates whose plans went
 register_plan_store(_STEP_FNS)
 register_plan_store(CAPTURE_COUNTS)
+register_plan_store(MESHED_EAGER_COUNTS)
 
 
 class StepFns(NamedTuple):
@@ -437,6 +459,91 @@ class _DecodeStep:
                       counters)
 
 
+#: activation names whose sharding the port's seams do not carry through
+#: (they would hand attention a shard of its heads or its keys)
+_SHARDED_ACTIVATIONS = ("act_heads", "kv_heads", "heads", "seq_kv", "seq_act",
+                        "act_embed")
+
+
+def _check_rules(mesh, rules) -> None:
+    """The port's meshed steps run column-parallel rules: every activation
+    but the batch whole (``DECODE_RULES`` and its data-axis variants)."""
+    bad = [n for n in _SHARDED_ACTIVATIONS if sh.axis_size(mesh, rules.get(n)) > 1]
+    if bad:
+        raise ValueError(f"the port's meshed decode runs column-parallel rules "
+                         f"(DECODE_RULES): these rules shard {bad}")
+
+
+class _MeshedSteps:
+    """The meshed closures of one setup: each call enters ``use_mesh``; the
+    chunk and decode steps run this rank's rows of the batch (the data-axis
+    shard of the slot-indexed cache it holds) under ``batch_split``, and
+    gather their tokens and logits over the data axes.  Eager: a gloo
+    collective cannot sit inside a CUDA graph."""
+
+    def __init__(self, tpl: Template, cfg, cache_len: int, policy, mesh, rules):
+        self.tpl, self.cfg, self.cache_len, self.policy = tpl, cfg, cache_len, policy
+        self.mesh, self.rules = mesh, rules
+        self.batch = rules.get("batch")
+        self.step = _DecodeStep(tpl, cfg, cache_len, policy)
+
+    def _rows(self, b: int):
+        lo, hi = sh.local_rows(b, self.mesh, self.batch)
+        dev = self.tpl.engine.device
+
+        def take(x):
+            x = _on(x, dev)
+            if isinstance(x, torch.Tensor) and x.ndim and x.shape[0] == b:
+                return x[lo:hi]
+            return x
+
+        return take, b // (hi - lo), (lo, hi) != (0, b)
+
+    def _gather(self, split: bool, *xs):
+        return tuple(sh.gather(x, 0, self.batch) if split else x for x in xs)
+
+    def prefill(self, params, tokens, ctx, last_pos):
+        with sh.use_mesh(self.mesh, self.rules):
+            return T.prefill(self.tpl, self.cfg, params, tokens, ctx=ctx,
+                             cache_len=self.cache_len, last_pos=last_pos,
+                             policy=self.policy)
+
+    def chunk(self, params, tokens, t, n_valid, cache):
+        take, f, split = self._rows(tokens.shape[0])
+        with sh.use_mesh(self.mesh, self.rules), sh.batch_split(f):
+            logits, cache = T.prefill_chunk_step(
+                self.tpl, self.cfg, params, take(tokens), take(t), take(n_valid), cache,
+                policy=self.policy, inplace=True)
+            (logits,) = self._gather(split, logits)
+        return logits, cache
+
+    def decode_next(self, params, token, t, cache, sampling=None, lanes=None,
+                    positions=None, owner=None):
+        b = token.shape[0]
+        take, f, split = self._rows(b)
+        lanes = np.arange(b) if lanes is None else lanes
+        positions = 0 if positions is None else positions
+        seed = 0 if sampling is None else sampling.seed
+        temp = None if sampling is None else sampling.temperature
+        MESHED_EAGER_COUNTS["decode", self.cfg.name, self.cache_len] += 1
+        with sh.use_mesh(self.mesh, self.rules), sh.batch_split(f):
+            toks, logits, cache = self.step.eager(
+                params, take(token), take(t), cache, sampling, seed, take(lanes),
+                take(positions), temp)
+            toks, logits = self._gather(split, toks, logits)
+        return toks, logits, cache
+
+    __call__ = decode_next  # the StepFns' decode_next
+
+    def decode(self, params, token, t, cache):
+        _, logits, cache = self.decode_next(params, token, t, cache)
+        return logits, cache
+
+    @staticmethod
+    def release(owner) -> int:
+        return 0  # nothing captured
+
+
 def compiled_steps(tpl: Template, cfg, cache_len: int,
                    policy: Optional[NumericsPolicy] = None, *, mesh=None,
                    rules=None) -> StepFns:
@@ -462,13 +569,29 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
     of its own; ``decode_next.release(owner)`` drops them.  A quantized
     policy expects the matching
     :func:`repro_torch.models.transformer.quantize_params` tree as params.
+
+    With ``mesh`` (a mesh with ranks; ``rules`` default ``DECODE_RULES``)
+    the closures are this rank's tensor-parallel steps
+    (:class:`_MeshedSteps`: under ``use_mesh``, the chunk and decode steps
+    on this rank's slot rows, tokens and logits gathered over the data
+    axes, decode eager), memoized apart from the unmeshed ones; the params
+    are this rank's shard tree and the cache its slot shard.
     """
-    if mesh is not None or rules is not None:
-        raise NotImplementedError("tensor-parallel decode is not ported yet (ROADMAP "
-                                  "queue 1 item 5)")
     policy = validate_policy(tpl.config, policy)
-    key = (id(tpl), cfg, int(cache_len), policy)
+    if mesh is not None:
+        rules = rules or DECODE_RULES
+        if not mesh.has_groups:
+            raise ValueError(f"meshed steps run on ranks (spawn_ranks); {mesh} is a "
+                             f"layout only")
+        _check_rules(mesh, rules)
+    else:
+        rules = None
+    key = (id(tpl), cfg, int(cache_len), policy, None if mesh is None else id(mesh),
+           rules)
     entry = _STEP_FNS.pop(key, None)
+    if entry is None and mesh is not None:
+        m = _MeshedSteps(tpl, cfg, int(cache_len), policy, mesh, rules)
+        entry = ((tpl, mesh), StepFns(m.prefill, m.decode, m.chunk, m))
     if entry is None:
         def _prefill(params, tokens, ctx, last_pos):
             return T.prefill(tpl, cfg, params, tokens, ctx=ctx, cache_len=cache_len,
@@ -485,8 +608,8 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
                                         policy=policy, inplace=True)
 
         entry = (tpl, StepFns(_prefill, _decode, _chunk, decode_next))
-        while len(_STEP_FNS) >= _STEP_FNS_MAX:
-            _STEP_FNS.pop(next(iter(_STEP_FNS)))
+    while len(_STEP_FNS) >= _STEP_FNS_MAX:
+        _STEP_FNS.pop(next(iter(_STEP_FNS)))
     _STEP_FNS[key] = entry  # (re-)insert at the LRU tail; holds tpl, so its id stays
     return entry[1]
 
@@ -617,6 +740,14 @@ class ServeScheduler:
     ``logit_sink``, when set, is called as ``sink(request, logits_row)`` for
     every token picked (a check's hook: it keeps the scheduler's own logits
     beside its stream).
+
+    ``mesh`` (a mesh with ranks, see ``launch/mesh.py:spawn_ranks``) runs
+    this rank's share of tensor-parallel decode under ``rules`` (default
+    ``DECODE_RULES``): its column shard of the parameters, its slots of the
+    KV cache (the slots divide over the data axes), every host decision on
+    tokens gathered from all ranks (module docstring).  Warm-up then also
+    plans every GEMM shape it met at its local extent
+    (``counters["warmup_shard_misses"]``).
     """
 
     def __init__(self, cfg, params, *, sched: Optional[SchedulerConfig] = None,
@@ -633,9 +764,6 @@ class ServeScheduler:
             raise ValueError(
                 f"scheduler requires full-attention mixers without context inputs; "
                 f"{cfg.name} ({cfg.family}) has {bad or 'cross-attention'}")
-        if mesh is not None or rules is not None:
-            raise NotImplementedError("the scheduler's tensor-parallel decode is not "
-                                      "ported yet (ROADMAP queue 1 item 5)")
         T.plan_pattern(cfg)  # the families the port runs
         self.cfg = cfg
         self.params = params
@@ -655,10 +783,33 @@ class ServeScheduler:
         if self.sched.prefill_chunk < 0 or self.sched.prefill_chunk > self.cache_len:
             raise ValueError(f"prefill_chunk {self.sched.prefill_chunk} must be in "
                              f"[0, cache_len={self.cache_len}]")
+        # -- tensor-parallel decode: column-parallel params, slot-sharded cache
+        self.mesh = mesh
+        self.rules = (rules or DECODE_RULES) if mesh is not None else None
+        self._rows = (0, self.sched.slots)
+        if mesh is not None:
+            if not mesh.has_groups:
+                raise ValueError(f"a meshed scheduler runs on ranks (spawn_ranks); "
+                                 f"{mesh} is a layout only")
+            batch = self.rules.get("batch")
+            data_shards = sh.axis_size(mesh, batch)
+            if data_shards > 1 and self.sched.slots % data_shards:
+                raise ValueError(
+                    f"slots={self.sched.slots} must divide over the {data_shards}-way "
+                    f"data axes to shard the per-slot KV cache")
+            axes = T.param_axes(cfg)
+            if "lm_head" in self.exec_params and "lm_head" not in axes:
+                # quantize_params materializes an int16 head for tied
+                # embeddings; give it the untied head's logical axes
+                axes = dict(axes, lm_head={"w": ("embed", "vocab")})
+            self.exec_params = sh.shard_tree(
+                self.exec_params,
+                sh.column_parallel_shardings(mesh, self.rules, self.exec_params, axes))
+            self._rows = sh.local_rows(self.sched.slots, mesh, batch)
         self.engine = self.tpl.engine
         self.registry = self.engine.plan_cache
         self._prefill, _, self._chunk, self._decode_next = compiled_steps(
-            self.tpl, cfg, self.cache_len, self.policy)
+            self.tpl, cfg, self.cache_len, self.policy, mesh=self.mesh, rules=self.rules)
         #: batch sizes a coalesced prefill launch is padded up to
         self._batch_rungs = ((1,) if self.sched.prefill_mode == "sequential"
                              else batch_rungs(self.sched.slots))
@@ -677,10 +828,21 @@ class ServeScheduler:
         self.results: dict = {}  # rid -> Request (completed)
 
     def _make_cache(self):
-        """A fresh slot-indexed KV cache on the template's device."""
-        return T.init_cache(self.cfg, self.sched.slots, self.cache_len, per_slot=True,
-                            policy=self.policy if self.policy.quantized else None,
-                            device=self.device)
+        """A fresh slot-indexed KV cache on the template's device; under a
+        mesh this rank's slots of it (``cache_axes``, with the per-slot pos
+        rows sharded with their slots: a rank holds only its slots' rows)."""
+        cache = T.init_cache(self.cfg, self.sched.slots, self.cache_len, per_slot=True,
+                             policy=self.policy if self.policy.quantized else None,
+                             device=self.device)
+        if self.mesh is None:
+            return cache
+        axes = _slot_pos_axes(cache, T.cache_axes(self.cfg, cache))
+        return sh.shard_tree(cache, sh.tree_shardings(self.mesh, self.rules, cache, axes))
+
+    def _local(self, a: np.ndarray) -> np.ndarray:
+        """This rank's slot rows of a per-slot host vector."""
+        lo, hi = self._rows
+        return a[lo:hi]
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device, torch.int64)
@@ -715,6 +877,14 @@ class ServeScheduler:
                               self.sampling, np.arange(slots), np.zeros((slots,), np.int64),
                               owner=self)
         self.counters["warmup_decode_misses"] += decode_delta["misses"]
+        if self.mesh is not None:
+            # the local plan of every logical GEMM shape warm-up met, so a
+            # store a meshed run saved warms a restart completely (the
+            # steps above plan their own local calls already)
+            with self.registry.scope() as shard_delta:
+                for shape in self.registry.gemm_shapes(self.engine.config.hw):
+                    self.engine.plan_gemm(*shape, mesh=self.mesh)
+            self.counters["warmup_shard_misses"] += shard_delta["misses"]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return {b: dict(s) for b, s in self.bucket_stats.items()}
@@ -855,9 +1025,10 @@ class ServeScheduler:
                 sel[r.slot] = True
                 src[r.slot] = i
                 vlen[r.slot] = r.prefill_target
-        if sel.any():
-            self.cache = T.insert_cache_rows(self.cache, rows_cache, src_rows=src,
-                                             sel=sel, valid_lens=vlen, inplace=True)
+        if self._local(sel).any():  # this rank's slots (every slot off a mesh)
+            self.cache = T.insert_cache_rows(
+                self.cache, rows_cache, src_rows=self._local(src), sel=self._local(sel),
+                valid_lens=self._local(vlen), inplace=True)
 
     # -- the event loop body -------------------------------------------------
 
@@ -920,7 +1091,7 @@ class ServeScheduler:
             sel = np.zeros((self.sched.slots,), bool)
             for r in chunked:
                 sel[r.slot] = True
-            self.cache = T.clear_cache_rows(self.cache, sel, inplace=True)
+            self.cache = T.clear_cache_rows(self.cache, self._local(sel), inplace=True)
 
         # ONE fixed-shape chunk launch streams every mid-prefill slot forward
         pending = [r for r in self.active.values() if r.prefilled < r.prefill_target]
@@ -971,6 +1142,8 @@ class ServeScheduler:
                 np.arange(slots, dtype=np.int64), np.maximum(tvec + 1, 0), owner=self)
             next_tok = toks.cpu().numpy()  # the tick's one read of the device
             self.counters["decode_steps"] += 1
+            if self.mesh is not None:
+                self.counters["meshed_eager_decode_steps"] += 1
             self.counters["slot_steps"] += len(decoding)
             event["decoded"] = len(decoding)
             event["launches"] += 1
@@ -1072,6 +1245,19 @@ class ServeScheduler:
 # ---------------------------------------------------------------------------
 # trace replay (the simulation harness: the loop production uses)
 # ---------------------------------------------------------------------------
+
+
+def _slot_pos_axes(cache, axes):
+    """``cache_axes`` with each per-slot pos ((B, C), stacked (L, B, C))
+    sharded over "batch" like its k / v rows."""
+    if isinstance(cache, dict):
+        return {k: (((None,) * (v.ndim - 2) + ("batch", None))
+                    if k == "pos" and isinstance(v, torch.Tensor) and v.ndim >= 2
+                    else _slot_pos_axes(v, axes[k]))
+                for k, v in cache.items()}
+    if isinstance(cache, tuple):
+        return tuple(_slot_pos_axes(c, a) for c, a in zip(cache, axes))
+    return axes
 
 
 def replay_trace(sched: ServeScheduler, requests: Sequence[Request], *,

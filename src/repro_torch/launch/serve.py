@@ -23,16 +23,25 @@ N`` routes the request set across N scheduler replicas behind a
 exactly-once ledger).  ``--plan-store PATH`` (default
 ``$REPRO_TORCH_PLAN_STORE``) warm-starts the plan registry from a JSON store
 and writes the run's plans back to it: a warm run makes no DSE search.
-``--shards`` exits with "not ported yet" and the ROADMAP item that brings
-it.
+``--scheduler --shards N`` runs tensor-parallel decode over an N-way
+"model" axis: N ranks (``launch/mesh.py:spawn_ranks``), each serving the
+same requests on its column shard of the weights, the token streams byte
+for byte the single-device ones; only rank 0 prints.  On one card the ranks
+share it over ``gloo`` and decode eagerly (no CUDA graph holds a gloo
+collective).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --backend q16 \
         --scheduler --replicas 2 --plan-store /tmp/plans.json --prompts 4 \
         --prompt-len 8 --gen 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --scheduler \
+        --shards 2 --prompts 4 --prompt-len 8 --gen 3
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import io
 import time
 
 import numpy as np
@@ -46,6 +55,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.template import default_template
 from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.launch.mesh import Mesh, spawn_ranks
 from repro_torch.launch.router import ReplicaRouter
 from repro_torch.launch.scheduler import (
     Request,
@@ -59,7 +69,7 @@ from repro_torch.launch.scheduler import (
 )
 from repro_torch.models import transformer as T
 
-__all__ = ["generate", "main", "run_router", "run_scheduler"]
+__all__ = ["generate", "main", "run_router", "run_scheduler", "shards_mesh"]
 
 
 def generate(cfg, params, tokens, ctx=None, *, gen: int = 16, cache_len=None,
@@ -112,17 +122,32 @@ def _trace(cfg, *, requests: int, prompt_len: int, gen: int, seed: int) -> list:
     return trace
 
 
+def shards_mesh(shards: int):
+    """An ("data", "model") mesh with a ``shards``-way model axis over this
+    process group's ranks, its groups made (1 = no mesh, single-device
+    decode).  Call it on every rank, inside ``spawn_ranks``."""
+    import torch.distributed as dist
+
+    if shards <= 1:
+        return None
+    n = dist.get_world_size()
+    if n % shards:
+        raise SystemExit(f"--shards {shards} does not divide the {n} ranks")
+    return Mesh((n // shards, shards), ("data", "model")).init_groups()
+
+
 def run_scheduler(cfg, params, tpl, *, requests: int, prompt_len: int, gen: int,
                   seed: int, clock=None, policy=None, sampling=None,
-                  prefill_chunk: int = 0) -> ServeScheduler:
+                  prefill_chunk: int = 0, mesh=None) -> ServeScheduler:
     """Serve a mixed-length synthetic request set, all arriving at t = 0,
     through the continuous-batching scheduler (4 slots, the ladder
     {prompt_len // 2, prompt_len, 2 * prompt_len}); ``prefill_chunk`` > 0
-    streams long prompts in chunks beside decode."""
+    streams long prompts in chunks beside decode; ``mesh`` runs this rank's
+    share of tensor-parallel decode."""
     ladder = tuple(sorted({max(4, prompt_len // 2), prompt_len, 2 * prompt_len}))
     sched = ServeScheduler(
         cfg, params, tpl=tpl, clock=clock or SystemClock(), policy=policy,
-        sampling=sampling,
+        sampling=sampling, mesh=mesh,
         # the whole burst must fit the queue: rejection is not the policy here
         sched=SchedulerConfig(ladder=ladder, slots=4, max_new_limit=max(gen, 1),
                               max_queue=max(256, requests), prefill_chunk=prefill_chunk),
@@ -134,16 +159,17 @@ def run_scheduler(cfg, params, tpl, *, requests: int, prompt_len: int, gen: int,
 
 
 def run_router(cfg, params, tpl, *, replicas: int, requests: int, prompt_len: int, gen: int,
-               seed: int, policy=None, sampling=None) -> ReplicaRouter:
+               seed: int, policy=None, sampling=None, mesh=None) -> ReplicaRouter:
     """Serve the request set of :func:`run_scheduler` across ``replicas``
-    scheduler replicas (each as :func:`run_scheduler` configures one)
-    behind a :class:`ReplicaRouter` on the system clock; the tokens drain
-    into the router's exactly-once ledger."""
+    scheduler replicas (each as :func:`run_scheduler` configures one, each
+    on the same tensor-parallel ``mesh`` or none) behind a
+    :class:`ReplicaRouter` on the system clock; the tokens drain into the
+    router's exactly-once ledger."""
     ladder = tuple(sorted({max(4, prompt_len // 2), prompt_len, 2 * prompt_len}))
 
     def make_sched(rid, clock):
         return ServeScheduler(
-            cfg, params, tpl=tpl, clock=clock, policy=policy, sampling=sampling,
+            cfg, params, tpl=tpl, clock=clock, policy=policy, sampling=sampling, mesh=mesh,
             sched=SchedulerConfig(ladder=ladder, slots=4, max_new_limit=max(gen, 1),
                                   max_queue=max(256, requests)),
         )
@@ -153,8 +179,13 @@ def run_router(cfg, params, tpl, *, replicas: int, requests: int, prompt_len: in
     return router
 
 
-def _not_ported(what: str, item: str):
-    raise SystemExit(f"{what} is not ported yet (ROADMAP queue 1 {item})")
+def _rank_serve(args, rank: int, world: int, device):
+    """One rank of ``--shards``: the run on this rank's mesh; only rank 0
+    prints."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out) if rank else contextlib.nullcontext():
+        _serve(args, mesh=shards_mesh(args.shards))
+    return rank
 
 
 def main(argv=None):
@@ -184,13 +215,25 @@ def main(argv=None):
     ap.add_argument("--replicas", type=int, default=1,
                     help="with --scheduler: route the requests across N scheduler "
                          "replicas behind the ReplicaRouter")
-    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--shards", type=int, default=1,
+                    help="with --scheduler: run the decode tensor-parallel over an "
+                         "N-way model axis, on N ranks (bitwise the single-device "
+                         "streams)")
     ap.add_argument("--plan-store", default=None,
                     help=f"JSON plan-store path (default: ${PLAN_STORE_ENV})")
     args = ap.parse_args(argv)
     if args.shards > 1:
-        _not_ported("--shards (tensor-parallel decode)", "item 5")
+        if not args.scheduler:
+            raise SystemExit("--shards N serves through --scheduler (tensor-parallel "
+                             "decode)")
+        spawn_ranks(functools.partial(_rank_serve, args), args.shards, device=args.device)
+        return None
+    return _serve(args)
 
+
+def _serve(args, mesh=None):
+    """The run ``main`` parses its arguments for (``mesh``: this rank's
+    tensor-parallel mesh under ``--shards``)."""
     # a restart with a populated store makes no DSE search
     store_path, n = warm_start_plan_store(args.plan_store)
     if n:
@@ -231,14 +274,15 @@ def main(argv=None):
             router = run_router(cfg, params, tpl, replicas=args.replicas,
                                 requests=args.prompts, prompt_len=args.prompt_len,
                                 gen=args.gen, seed=args.seed, policy=policy,
-                                sampling=sampling)
+                                sampling=sampling, mesh=mesh)
         except ValueError as err:
             raise SystemExit(f"--replicas: {err}") from err
         dt = time.perf_counter() - t0
         ledger = router.ledger.as_dict()
         n_tok = sum(len(row) for row in ledger.values())
         print(f"[serve] arch={cfg.name} backend={args.backend} device={dev} router "
-              f"replicas={args.replicas} requests={args.prompts} generated={n_tok} tokens "
+              f"replicas={args.replicas} shards={args.shards} requests={args.prompts} "
+              f"generated={n_tok} tokens "
               f"in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
         print(f"[serve] {router.stats_line()}")
         out = [ledger[r] for r in sorted(ledger)]
@@ -247,13 +291,14 @@ def main(argv=None):
             sched = run_scheduler(cfg, params, tpl, requests=args.prompts,
                                   prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
                                   policy=policy, sampling=sampling,
-                                  prefill_chunk=args.prefill_chunk)
+                                  prefill_chunk=args.prefill_chunk, mesh=mesh)
         except ValueError as err:  # admission policy lives in ServeScheduler
             raise SystemExit(f"--scheduler: {err}") from err
         dt = time.perf_counter() - t0
         n_tok = sched.counters["tokens"]
         print(f"[serve] arch={cfg.name} backend={args.backend} device={dev} scheduler "
-              f"requests={args.prompts} generated={n_tok} tokens in {dt:.2f}s "
+              f"shards={args.shards} requests={args.prompts} generated={n_tok} tokens "
+              f"in {dt:.2f}s "
               f"({n_tok / dt:.1f} tok/s)")
         print(f"[serve] {sched.stats_line()}")
         out = [sched.results[r].generated for r in sorted(sched.results)]

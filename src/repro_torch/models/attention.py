@@ -24,8 +24,14 @@ independent positions.  Decode positions live on the device: the write
 slot, the position write and the mask come from the ``t`` tensor, never
 from a host integer, so a CUDA graph can capture the step.
 Sliding windows and non-causal chunked attention belong to families that
-are not ported yet (ROADMAP queue 1 item 6) and raise.  The reference's
-``constrain`` sharding hints are left out until the mesh is ported (item 5).
+are not ported yet (ROADMAP queue 1 item 6) and raise.
+
+Sharding seams (``parallel.sharding.constrain``): each projection's output
+passes a seam before it is split into heads.  Under a mesh, a column shard
+of wq / wk / wv (``qkv`` over "model") yields a column shard of q / k / v,
+which the seam gathers where the rules replicate the heads
+(``DECODE_RULES``), so attention and the cache see whole heads; without a
+mesh every seam is a no-op.
 """
 from __future__ import annotations
 
@@ -36,11 +42,13 @@ import torch
 from repro_torch.core.quantization import NumericsPolicy, QTensor
 from repro_torch.core.template import Template
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.sharding import constrain
 
 from .layers import apply_rope, dense, init_dense
 
 __all__ = [
     "init_attention",
+    "attention_axes",
     "attention",
     "attention_islands",
     "decode_attention",
@@ -70,6 +78,27 @@ def init_attention(gen: torch.Generator, cfg, *, d_model=None, n_heads=None, n_k
         "wv": init_dense(gen, d, kv * hd, bias=bias, dtype=dtype, lead=lead),
         "wo": init_dense(gen, h * hd, d, dtype=dtype, scale=(h * hd) ** -0.5, lead=lead),
     }
+
+
+def attention_axes(cfg, bias=None) -> dict:
+    """Logical axes of :func:`init_attention`'s tree."""
+    bias = cfg.qkv_bias if bias is None else bias
+    ax = {
+        "wq": {"w": ("embed", "qkv")},
+        "wk": {"w": ("embed", "qkv")},
+        "wv": {"w": ("embed", "qkv")},
+        "wo": {"w": ("qkv", "embed")},
+    }
+    if bias:
+        for k in ("wq", "wk", "wv"):
+            ax[k]["b"] = ("qkv",)
+    return ax
+
+
+def _proj(tpl: Template, p, x, heads: str):
+    """A q / k / v projection through its seam: a column shard is gathered
+    where the rules replicate ``heads``."""
+    return constrain(dense(tpl, p, x), "batch", None, heads)
 
 
 def init_layer_cache(batch: int, n_kv: int, cache_len: int, head_dim: int, dtype,
@@ -154,6 +183,9 @@ def _sdpa_chunked(tpl: Template, q, k, v, *, causal: bool, window: int,
         raise NotImplementedError(f"sliding-window chunked attention is {_NOT_PORTED}")
     if not causal:
         raise NotImplementedError(f"non-causal chunked attention is {_NOT_PORTED}")
+    q = constrain(q, "batch", None, "act_heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
     if tpl.config.backend == "torch":
         out = _online_softmax_chunked(qf, kf, vf, q_offset=q_offset, bq=_BQ, bk=_BK)
@@ -205,20 +237,23 @@ def attention(
     if q16:
         xin = eng.quant(x, policy.fmt)
         src_in = xin if kv_source is None else eng.quant(kv_source, policy.fmt)
-        q = _split_heads(eng.dequant(dense(tpl, p["wq"], xin)), h)
-        kq = dense(tpl, p["wk"], src_in)  # QTensor, stays on the grid
-        vq = dense(tpl, p["wv"], src_in)
+        q = _split_heads(eng.dequant(_proj(tpl, p["wq"], xin, "act_heads")), h)
+        kq = _proj(tpl, p["wk"], src_in, "kv_heads")  # QTensor, stays on the grid
+        vq = _proj(tpl, p["wv"], src_in, "kv_heads")
         k = _split_heads(eng.dequant(kq), kvh)
         v = _split_heads(eng.dequant(vq), kvh)
     else:
-        q = _split_heads(dense(tpl, p["wq"], x), h)
+        q = _split_heads(_proj(tpl, p["wq"], x, "act_heads"), h)
         src = x if kv_source is None else kv_source
-        k = _split_heads(dense(tpl, p["wk"], src), kvh)
-        v = _split_heads(dense(tpl, p["wv"], src), kvh)
+        k = _split_heads(_proj(tpl, p["wk"], src, "kv_heads"), kvh)
+        v = _split_heads(_proj(tpl, p["wv"], src, "kv_heads"), kvh)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
+    q = constrain(q, "batch", None, "act_heads", None)
     if rope and kv_source is None:
         k = apply_rope(k, positions, cfg.rope_theta)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
 
     sq, st = q.shape[1], k.shape[1]
     is_causal = causal and kv_source is None
@@ -235,6 +270,7 @@ def attention(
             mask = m[None, None].expand(x.shape[0], 1, sq, st)
         out = _sdpa_dense(q, k, v, mask)
 
+    out = constrain(out, "batch", None, "act_heads", None)
     out = out.reshape(x.shape[0], x.shape[1], h * hd)
     if q16:
         out = eng.dequant(dense(tpl, p["wo"], eng.quant(out, policy.fmt)))
@@ -374,8 +410,8 @@ def decode_attention(
         tpos = tpos.reshape(())
         q_positions = tpos.reshape(1)  # (1,)
     xin = eng.quant(x, policy.fmt) if q16 else x
-    q = _split_heads(eng.dequant(dense(tpl, p["wq"], xin)) if q16
-                     else dense(tpl, p["wq"], xin), h)
+    q = _proj(tpl, p["wq"], xin, "act_heads")
+    q = _split_heads(eng.dequant(q) if q16 else q, h)
     if rope:
         q = apply_rope(q, q_positions, cfg.rope_theta)
 
@@ -386,8 +422,8 @@ def decode_attention(
         new_cache = cache
     else:
         c = cache["k"].shape[2]
-        kq = dense(tpl, p["wk"], xin)
-        vq = dense(tpl, p["wv"], xin)
+        kq = _proj(tpl, p["wk"], xin, "kv_heads")
+        vq = _proj(tpl, p["wv"], xin, "kv_heads")
         if q16:
             # v never leaves the grid; k crosses only for the RoPE island
             v_new = vq.reshape(b, s, kvh, hd).raw

@@ -1,5 +1,5 @@
 """The paper's case-study networks (AlexNet / VGG16 / LeNet) on the unified
-compute unit, in the port (single device).
+compute unit, in the port.
 
 Conv and FC layers run on the template's compute unit (the CUDA direct conv
 / im2col GEMM / fixed point), with bias and ReLU fused into the write-back;
@@ -15,8 +15,14 @@ carried over from the JAX package multiply the same features.
 :func:`calibrate_cnn_precision` is the drift-aware per-layer precision DSE:
 it measures each layer's solo-flip drift onto the int8 rung, picks the
 plan (``core/dse.py:choose_precision``), and pins it in the plan registry,
-from which a second call rebuilds it with no forward.  Spatial and mesh
-sharding are not ported yet (ROADMAP queue 1 item 5).
+from which a second call rebuilds it with no forward.
+
+``plan_cnn(spatial=)`` shards the feature maps by H slabs across shards
+(a shard count: the slab-major simulation on one device; a mesh axis name:
+one slab per rank of that axis, under ``use_mesh``): every conv and pool
+exchanges only its halo rows with the neighbour slabs, and the conv -> FC
+flatten gathers the slabs.  ``plan_cnn(mesh=)`` plans each layer's local
+shape under a batch / Cout partition.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from repro_torch.core.quantization import (
     int8_rung,
 )
 from repro_torch.core.template import Template
+from repro_torch.parallel import sharding as sh
 
 __all__ = [
     "CNNSpec",
@@ -117,6 +124,66 @@ def _maxpool(x, w: int):
     return v.amax(dim=(2, 4))
 
 
+# -- spatial (H-slab) sharding helpers ----------------------------------------
+
+
+def _on_raw(x, f):
+    """Apply ``f`` to a float tensor or to a QTensor's raws (layout ops are
+    grid-transparent)."""
+    return QTensor(f(x.raw), x.fmt) if isinstance(x, QTensor) else f(x)
+
+
+def _to_slabs(x, shards: int, axis: Optional[str] = None):
+    """NHWC -> slab-major (S, N, lx, W, C) with ``lx = ceil(H / S)`` and a
+    zero tail (buffer row ``r`` of slab ``s`` holds global row ``s·lx + r``,
+    zero beyond H).  On a mesh axis this rank keeps its own slab, (1, N,
+    lx, W, C)."""
+
+    def f(v):
+        n, h, w, c = v.shape
+        lx = -(-h // shards)
+        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, shards * lx - h))
+        slabs = vp.reshape(n, shards, lx, w, c).movedim(1, 0)
+        mesh = sh.mesh_over(axis)
+        if mesh is not None:
+            i = mesh.coords[axis]
+            slabs = slabs[i:i + 1]
+        return slabs.contiguous()
+
+    return _on_raw(x, f)
+
+
+def _gather_slabs(x, h: int, axis: Optional[str] = None):
+    """Slab-major (S, N, l, W, C) -> NHWC (N, h, W, C): the conv -> FC
+    flatten seam (on a mesh axis, an all-gather of the ranks' slabs first).
+    Correct for a ragged tail shard by the slab invariant: the buffer rows
+    past the global extent are zeros and land past row ``h``."""
+
+    def f(v):
+        if sh.mesh_over(axis) is not None:
+            v = sh.gather(v, 0, axis)
+        s, n, l = v.shape[0], v.shape[1], v.shape[2]
+        return v.movedim(0, 1).reshape(n, s * l, *v.shape[3:])[:, :h].contiguous()
+
+    return _on_raw(x, f)
+
+
+def _maxpool_spatial(x, w: int, ph):
+    """Spatially-sharded max pool: a halo op with ``kh = stride = w``,
+    ``pad = 0``: exchange the (up, dn) rows the seam needs, pool each
+    shard's window, and re-zero the ragged tail rows."""
+
+    def f(v):
+        v = sh.constrain_slabs(v, ph.axis)
+        ext = sh.halo_exchange(v, ph)  # (S, N, win, W, C)
+        s, n = ext.shape[0], ext.shape[1]
+        out = _maxpool(ext.reshape(s * n, *ext.shape[2:]), w)
+        out = out.reshape(s, n, *out.shape[1:])
+        return sh.constrain_slabs(sh.mask_slab_rows(out, ph), ph.axis)
+
+    return _on_raw(x, f)
+
+
 def init_cnn(gen: torch.Generator, spec: CNNSpec, dtype=torch.float32,
              scale: float = 0.5, device="cpu"):
     """He-style init, scaled into the Q2.14 representable range [-2, 2).
@@ -188,9 +255,15 @@ class NetworkPlan:
 
     convs: tuple  # ConvPlan per conv stage
     fcs: tuple  # GemmPlan per FC layer
+    # spatial (H-slab) sharding; shards == 1 means unsharded
+    spatial: int = 1  # H-slab shard count S
+    spatial_axis: Optional[str] = None  # mesh axis the slab dim shards over
+    pool_halos: tuple = ()  # per conv stage: SpatialHalo of its pool, or None
+    feat_h: int = 0  # global H entering the conv -> FC flatten gather
 
     def describe(self) -> list[str]:
-        """One line per layer: route, τ, Cin chunk, tiles, on-chip bytes."""
+        """One line per layer: route, τ, Cin chunk, tiles, on-chip bytes,
+        and a spatial seam's halo (``halo=S2(up1,dn1,win114)``)."""
         lines = []
         for i, cp in enumerate(self.convs):
             if cp.spatial_tiles > 1 or cp.col_tiles > 1:
@@ -206,9 +279,13 @@ class NetworkPlan:
                 chunk = f" kernel={cp.conv_route}{chunk}"
             if cp.conv_route == "tc":
                 chunk += f" sub={cp.sub_rows}x{cp.sub_cols} splits={cp.splits}"
+            halo = ""
+            if cp.halo is not None:
+                halo = (f" halo=S{cp.halo.shards}"
+                        f"(up{cp.halo.up},dn{cp.halo.dn},win{cp.halo.win})")
             lines.append(
                 f"conv{i}: route={cp.route} tau={cp.tau}{chunk} {tiling} "
-                f"smem={cp.vmem_bytes / 2**10:.1f}KiB gemm={cp.gemm}"
+                f"smem={cp.vmem_bytes / 2**10:.1f}KiB gemm={cp.gemm}{halo}"
             )
         for i, gp in enumerate(self.fcs):
             blk = (gp.block.bm, gp.block.bn, gp.block.bk) if gp.block else None
@@ -243,24 +320,67 @@ def plan_cnn(
 ) -> NetworkPlan:
     """Compile the network's kernel routes and tiles once.
 
-    Memoized per (template config, spec, input shape, forced route): every
-    later call returns the same plan object, so the DSE runs at most once
-    per distinct layer shape.  ``force_route`` overrides conv routing (e.g.
-    "im2col").  ``mesh`` / ``partition`` / ``spatial`` are not ported yet
-    and raise ``NotImplementedError``.
+    Memoized per (template config, spec, input shape, forced route, mesh
+    topology and partition, spatial (shards, axis)): every later call
+    returns the same plan object, so the DSE runs at most once per distinct
+    layer shape.  ``force_route`` overrides conv routing (e.g. "im2col").
+    With ``mesh`` every layer is planned at its local shape (batch over the
+    partition's M axes, Cout / FC widths over its N axes).
+
+    ``spatial`` (a shard count, or a mesh axis name under ``use_mesh``)
+    plans the H-slab partition instead: each conv and pool at its
+    halo-augmented local slab, the seams chained (each layer's slab layout
+    is the previous layer's per-shard output rows), batch and Cout whole,
+    and the FCs at the logical shape (the flatten seam gathers the slabs).
     """
-    if mesh is not None or partition is not None or spatial is not None:
-        raise NotImplementedError("sharded CNN plans are not ported yet")
-    key = (tpl.config, spec, tuple(input_shape), force_route)
+    spatial_n, spatial_ax = 1, None
+    if spatial is not None:
+        spatial_n, spatial_ax = sh.spatial_shards(spatial, mesh)
+    mesh_key = None
+    if mesh is not None:
+        mesh_key = (tuple((a, mesh.shape[a]) for a in mesh.axis_names), partition)
+    key = (tpl.config, spec, tuple(input_shape), force_route, mesh_key,
+           (spatial_n, spatial_ax))
     plan = _NETWORK_PLANS.get(key)
     if plan is not None:
         return plan
     eng = tpl.engine
     n, hh, ww, ch = input_shape
+    if spatial_n > 1:
+        lx = -(-hh // spatial_n)  # the _to_slabs layout of the input
+        convs, pool_halos = [], []
+        for cout, k, stride, pad, pool in spec.convs:
+            hs = sh.plan_spatial_halo(hh, k, stride, pad, spatial_n, axis=spatial_ax,
+                                      lx=lx)
+            convs.append(eng.plan_conv((n, hh, ww, ch), (k, k, ch, cout), stride=stride,
+                                       padding=pad, route=force_route, spatial=hs))
+            lx = hs.lo
+            hh = (hh + 2 * pad - k) // stride + 1
+            ww = (ww + 2 * pad - k) // stride + 1
+            if pool:
+                ph = sh.plan_spatial_halo(hh, pool, pool, 0, spatial_n, axis=spatial_ax,
+                                          lx=lx)
+                pool_halos.append(ph)
+                lx = ph.lo
+                hh //= pool
+                ww //= pool
+            else:
+                pool_halos.append(None)
+            ch = cout
+        fan = hh * ww * ch
+        fcs = []
+        for wd in (*spec.fcs, spec.n_classes):
+            fcs.append(eng.plan_gemm(n, wd, fan))
+            fan = wd
+        plan = NetworkPlan(convs=tuple(convs), fcs=tuple(fcs), spatial=spatial_n,
+                           spatial_axis=spatial_ax, pool_halos=tuple(pool_halos),
+                           feat_h=hh)
+        _NETWORK_PLANS[key] = plan
+        return plan
     convs = []
     for cout, k, stride, pad, pool in spec.convs:
         cp = eng.plan_conv((n, hh, ww, ch), (k, k, ch, cout), stride=stride,
-                           padding=pad, route=force_route)
+                           padding=pad, route=force_route, mesh=mesh, partition=partition)
         convs.append(cp)
         hh = (hh + 2 * cp.pad - k) // stride + 1
         ww = (ww + 2 * cp.pad - k) // stride + 1
@@ -271,7 +391,7 @@ def plan_cnn(
     fan = hh * ww * ch
     fcs = []
     for wd in (*spec.fcs, spec.n_classes):
-        fcs.append(eng.plan_gemm(n, wd, fan))
+        fcs.append(eng.plan_gemm(n, wd, fan, mesh=mesh, partition=partition))
         fan = wd
     plan = NetworkPlan(convs=tuple(convs), fcs=tuple(fcs))
     _NETWORK_PLANS[key] = plan
@@ -404,21 +524,35 @@ def cnn_forward(
     once, every conv / FC (ReLU fused) and maxpool stays on the integer
     grid, each layer writes its successor's input grid in-kernel, and the
     only dequantization is the classifier's exact int32 read-out.
+
+    A spatial ``plan`` (``plan_cnn(spatial=)``) runs the conv stack on H
+    slabs: the input is cut into slabs, every conv and pool exchanges its
+    halo rows, and the flatten gathers the slabs back; on a mesh axis each
+    rank computes its own slab and every rank returns the whole logits.
     """
     plan = plan or plan_cnn(tpl, spec, tuple(x.shape))
+    halos = plan.pool_halos or (None,) * len(plan.convs)
+
+    def pool_of(h, pool, ph):
+        return _maxpool_spatial(h, pool, ph) if ph is not None else _maxpool(h, pool)
+
     if policy is not None and policy.quantized and isinstance(
         params["convs"][0]["w"], QTensor
     ):
         names = cnn_layer_names(spec)
         h = tpl.quant(x, policy.fmt_for(names[0]))
+        if plan.spatial > 1:
+            h = _to_slabs(h, plan.spatial, plan.spatial_axis)
         nc = len(plan.convs)
-        for i, (p, (cout, k, stride, pad, pool), cp) in enumerate(
-            zip(params["convs"], spec.convs, plan.convs)
+        for i, (p, (cout, k, stride, pad, pool), cp, ph) in enumerate(
+            zip(params["convs"], spec.convs, plan.convs, halos)
         ):
             h = tpl.conv2d(h, p["w"], stride=stride, padding=pad, bias=p["b"],
                            relu=True, qout=policy.fmt_for(names[i + 1]), plan=cp)
             if pool:
-                h = _maxpool(h, pool)
+                h = pool_of(h, pool, ph)
+        if plan.spatial > 1:
+            h = _gather_slabs(h, plan.feat_h, plan.spatial_axis)
         h = h.reshape(h.shape[0], -1)
         last = len(params["fcs"]) - 1
         for i, (p, gp) in enumerate(zip(params["fcs"], plan.fcs)):
@@ -431,12 +565,16 @@ def cnn_forward(
     fq = (lambda a: fake_quant_fmt(a, fmt)) if quantized else (lambda a: a)
     qo = fmt if quantized else None
     h = fq(x)
-    for p, (cout, k, stride, pad, pool), cp in zip(params["convs"], spec.convs,
-                                                   plan.convs):
+    if plan.spatial > 1:
+        h = _to_slabs(h, plan.spatial, plan.spatial_axis)
+    for p, (cout, k, stride, pad, pool), cp, ph in zip(params["convs"], spec.convs,
+                                                       plan.convs, halos):
         h = tpl.conv2d(h, fq(p["w"]), stride=stride, padding=pad,
                        bias=fq(p["b"]), relu=True, qout=qo, plan=cp)
         if pool:
-            h = _maxpool(h, pool)
+            h = pool_of(h, pool, ph)
+    if plan.spatial > 1:
+        h = _gather_slabs(h, plan.feat_h, plan.spatial_axis)
     h = h.reshape(h.shape[0], -1)
     last = len(params["fcs"]) - 1
     for i, (p, gp) in enumerate(zip(params["fcs"], plan.fcs)):

@@ -6,6 +6,12 @@ tensor ops (the "PS plane"), with the reference's casts: ``rms_norm`` and
 ``layer_norm`` compute in f32 and return the input's dtype, RoPE angles are
 f32.  Initializers draw from a ``torch.Generator`` on its own device, so a
 CUDA generator builds a full-width model on the card directly.
+
+The MLP's hidden activation passes the reference's sharding seam
+(``constrain(h, "batch", None, "mlp")``): on a rank holding column shards
+of gate / up it is a column shard itself (its shard mark carried through
+the elementwise product), which the down projection's GEMM gathers, since
+its weight holds the contraction whole.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantization import NumericsPolicy, QTensor
 from repro_torch.core.template import Template
+from repro_torch.parallel.sharding import carry_marks, constrain
 
 __all__ = [
     "init_dense",
@@ -28,6 +35,7 @@ __all__ = [
     "apply_rope",
     "init_mlp",
     "mlp",
+    "mlp_axes",
     "sinusoidal_positions",
 ]
 
@@ -111,6 +119,17 @@ def init_mlp(gen: torch.Generator, cfg, d_model: Optional[int] = None,
     }
 
 
+def mlp_axes(cfg) -> dict:
+    """Logical axes of :func:`init_mlp`'s tree."""
+    if cfg.act == "swiglu":
+        return {
+            "gate": {"w": ("embed", "mlp")},
+            "up": {"w": ("embed", "mlp")},
+            "down": {"w": ("mlp", "embed")},
+        }
+    return {"up": {"w": ("embed", "mlp")}, "down": {"w": ("mlp", "embed")}}
+
+
 def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
@@ -124,16 +143,19 @@ def mlp(tpl: Template, cfg, p, x, policy: Optional[NumericsPolicy] = None):
     if policy is not None and policy.quantized and isinstance(p["up"]["w"], QTensor):
         eng = tpl.engine
         xq = eng.quant(x, policy.fmt)
+        u = eng.dequant(dense(tpl, p["up"], xq))
         if cfg.act == "swiglu":
-            h = F.silu(eng.dequant(dense(tpl, p["gate"], xq))) * eng.dequant(
-                dense(tpl, p["up"], xq))
+            h = carry_marks(u, F.silu(eng.dequant(dense(tpl, p["gate"], xq))) * u)
         else:
-            h = _gelu(eng.dequant(dense(tpl, p["up"], xq)))
+            h = carry_marks(u, _gelu(u))
+        h = constrain(h, "batch", None, "mlp")
         return eng.dequant(dense(tpl, p["down"], eng.quant(h, policy.fmt)))
+    u = dense(tpl, p["up"], x)
     if cfg.act == "swiglu":
-        h = F.silu(dense(tpl, p["gate"], x)) * dense(tpl, p["up"], x)
+        h = carry_marks(u, F.silu(dense(tpl, p["gate"], x)) * u)
     else:
-        h = _gelu(dense(tpl, p["up"], x))
+        h = carry_marks(u, _gelu(u))
+    h = constrain(h, "batch", None, "mlp")
     return dense(tpl, p["down"], h)
 
 

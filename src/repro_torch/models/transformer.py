@@ -21,6 +21,12 @@ bit the reference's.
 
 The other families (MoE, recurrent, SSM, cross-attention, encoder-decoder,
 VLM) raise ``NotImplementedError`` (ROADMAP queue 1 item 6).
+
+Sharding: :func:`param_axes` and :func:`cache_axes` name each leaf's logical
+axes, and the layers pass the reference's ``constrain`` seams
+(``parallel.sharding``).  On a rank of a column-parallel mesh
+(``DECODE_RULES``) the entry points return whole logits: a vocab-sharded
+head's output is gathered before it is read.
 :func:`calibrate_precision` is the drift-aware precision DSE over the
 precision groups (:func:`precision_group_names`): a group on the int8 rung
 gets int8 weights and an int8 KV cache.
@@ -36,21 +42,26 @@ from repro_torch.core import dse
 from repro_torch.core.engine import validate_policy
 from repro_torch.core.quantization import NumericsPolicy, QTensor, int8_rung
 from repro_torch.core.template import Template
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import constrain
 
 from .attention import (
     attention,
+    attention_axes,
     attention_islands,
     decode_attention,
     decode_positions,
     init_attention,
     init_layer_cache,
 )
-from .layers import init_mlp, init_norm, mlp, mlp_islands, norm
+from .layers import init_mlp, init_norm, mlp, mlp_axes, mlp_islands, norm
 
 __all__ = [
     "LayerPlan",
     "plan_pattern",
     "init_params",
+    "param_axes",
+    "cache_axes",
     "quantize_params",
     "calibrate_policy",
     "precision_group_names",
@@ -128,13 +139,37 @@ def init_params(gen: torch.Generator, cfg, dtype=None):
     return params
 
 
+def _layer_axes(cfg, plan: LayerPlan) -> dict:
+    return {"norm": None, "attn": attention_axes(cfg), "ffn_norm": None,
+            "ffn": mlp_axes(cfg)}
+
+
+def _stack_axes(ax):
+    """Prepend the (unsharded) stacked-layer axis to every logical-axes leaf."""
+    if sh.is_axes_leaf(ax):
+        return None if ax is None else (None, *ax)
+    return {k: _stack_axes(v) for k, v in ax.items()}
+
+
+def param_axes(cfg) -> dict:
+    """Logical axes tree of :func:`init_params`'s tree (a None leaf
+    replicates its whole subtree)."""
+    pattern, g, r = _split(cfg)
+    ax = {"embed": ("vocab", "embed"), "final_norm": None}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = {"w": ("embed", "vocab")}
+    ax["blocks"] = tuple(_stack_axes(_layer_axes(cfg, p)) for p in pattern)
+    ax["tail"] = tuple(_layer_axes(cfg, pattern[j]) for j in range(r))
+    return ax
+
+
 def _at(tree, j: int):
-    """Layer ``j`` of a stacked tree."""
+    """Layer ``j`` of a stacked tree (a shard keeps its marks)."""
     if isinstance(tree, dict):
         return {k: _at(v, j) for k, v in tree.items()}
     if isinstance(tree, QTensor):
-        return QTensor(tree.raw[j], tree.fmt)
-    return tree[j]
+        return sh.carry_marks(tree, QTensor(tree.raw[j], tree.fmt))
+    return sh.carry_marks(tree, tree[j])
 
 
 def _stack(trees: list):
@@ -315,14 +350,21 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None,
                                   policy=policy, n_valid=n_valid, inplace=inplace)
         newc["attn"] = c
     else:
+        a_in = constrain(a_in, "batch", "seq_act", "act_embed")
         out, c = attention(tpl, p["attn"], a_in, cfg=cfg, positions=positions,
                            cache_len=cache_len if mode == "prefill" else 0,
                            policy=policy)
         if mode == "prefill":
             newc["attn"] = c
+        out = constrain(out, "batch", "seq_act", "act_embed")
     h = h + out
     f_in = norm(cfg, p["ffn_norm"], h)
-    h = h + mlp(tpl, cfg, p["ffn"], f_in, policy=policy)
+    if mode != "decode":
+        f_in = constrain(f_in, "batch", "seq_act", "act_embed")
+    out = mlp(tpl, cfg, p["ffn"], f_in, policy=policy)
+    if mode != "decode":
+        out = constrain(out, "batch", "seq_act", "act_embed")
+    h = constrain(h + out, "batch", "seq_act", "act_embed")
     return h, (newc or None)
 
 
@@ -366,7 +408,7 @@ def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None,
 
 
 def _embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens]
+    return constrain(params["embed"][tokens], "batch", "seq_act", "act_embed")
 
 
 def _head(tpl, cfg, params, h, *, policy=None):
@@ -376,11 +418,15 @@ def _head(tpl, cfg, params, h, *, policy=None):
         # the logits boundary: quantize the post-norm hidden once, read the
         # int32 accumulator out exactly (logits never saturate on the grid)
         hq = tpl.quant(h, policy.fmt_for("head"))
-        return tpl.matmul(hq, head, wide=True)
-    # the tied head multiplies by embed's transposed view: the float GEMM
-    # kernel reads it in place
-    w = params["embed"].T if cfg.tie_embeddings else head
-    return tpl.matmul(h, w)
+        logits = tpl.matmul(hq, head, wide=True)
+    else:
+        # the tied head multiplies by embed's transposed view: the float GEMM
+        # kernel reads it in place
+        w = params["embed"].T if cfg.tie_embeddings else head
+        logits = tpl.matmul(h, w)
+    # a vocab-sharded head's logits stay sharded at the seam; the entry
+    # points gather them whole before they are read
+    return sh.replicated(constrain(logits, "batch", "seq_act", "vocab"))
 
 
 def _no_ctx(ctx) -> None:
@@ -512,6 +558,44 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=None, *, per_slot: bool = 
                                         device=device)
                       for j in range(r)),
     }
+
+
+def cache_axes(cfg, cache_shapes) -> dict:
+    """Logical axes tree of a cache tree (mirrors :func:`init_cache`): the
+    k / v rings (batch, kv_heads, seq, head_dim) shard (batch, seq_kv);
+    pos vectors replicate.  Stacked leaves get a None prefix."""
+
+    def by_name(name, stacked):
+        pre = (None,) if stacked else ()
+        if name in ("k", "v"):
+            return pre + ("batch", None, "seq_kv", None)
+        if name == "pos":
+            return None
+        if name == "h":
+            return pre + ("batch", "rec")
+        if name == "state":
+            return pre + ("batch", "act_heads", None, None)
+        if name == "conv":
+            return pre + ("batch", None, "ssm_inner")
+        return None
+
+    def walk(tree, stacked):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out[k] = walk(v, stacked)
+                elif isinstance(v, tuple):
+                    out[k] = tuple(walk(x, stacked) for x in v)
+                else:
+                    out[k] = by_name(k, stacked)
+            return out
+        if isinstance(tree, tuple):
+            return tuple(walk(x, stacked) for x in tree)
+        return None
+
+    return {"blocks": tuple(walk(b, True) for b in cache_shapes["blocks"]),
+            "tail": tuple(walk(tc, False) for tc in cache_shapes["tail"])}
 
 
 def _map_pos(tree, fn):

@@ -1,10 +1,14 @@
 """The port's atomic checkpoints and fault-tolerance runtime, on the CPU.
 
 * The reference's ``tests/test_checkpoint_failover.py`` cases that need
-  neither training nor a mesh, on the port: the save / restore round trip,
-  atomicity, shape mismatches, rotation, the restart loop, heartbeats,
-  stragglers and the elastic remesh plan.  Restoring onto shardings raises
-  "not ported yet" (ROADMAP queue 1 item 5).
+  no training, on the port: the save / restore round trip, atomicity, shape
+  mismatches, rotation, the restart loop, heartbeats, stragglers and the
+  elastic remesh plan.
+* Restoring onto shardings (the elastic re-shard) on the four ranks of a
+  (2, 2) ("data", "model") mesh: each rank gets its column-parallel slice
+  of every leaf, the same slice of the reference's tree that the
+  reference's ``column_parallel_shardings`` names; ``convert`` carries the
+  reference's numpy tree into the same shards.
 * Against the reference: both packages write equal manifests for the same
   tree, and each restores the other's arrays bit for bit; ``FaultPlan``,
   ``HeartbeatMonitor``, ``detect_stragglers`` and ``plan_elastic_remesh``
@@ -32,6 +36,10 @@ from repro_torch.runtime import (
     plan_elastic_remesh,
     run_with_restarts,
 )
+
+
+#: a hung collective fails the test instead of the run
+RANKS_TIMEOUT_S = 300
 
 
 def _np_tree(seed=0):
@@ -118,9 +126,96 @@ def test_manager_rotation(tmp_path):
 
 
 def test_restore_onto_shardings_not_ported(tmp_path):
+    """Restoring onto shardings: a None sharding keeps the whole leaf (the
+    reference's default placement); a placement on a mesh without ranks (a
+    layout only) is refused."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import NamedSharding, PartitionSpec
+
     save(str(tmp_path), 2, {"w": torch.ones((4, 4))})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        restore(str(tmp_path), 2, {"w": torch.ones((4, 4))}, shardings={"w": None})
+    out = restore(str(tmp_path), 2, {"w": torch.ones((4, 4))}, shardings={"w": None})
+    assert torch.equal(out["w"], torch.ones((4, 4)))
+    layout = NamedSharding(make_test_mesh(), PartitionSpec(None, "model"))
+    with pytest.raises(ValueError, match="ranks"):
+        restore(str(tmp_path), 2, {"w": torch.ones((4, 4))}, shardings={"w": layout})
+
+
+@pytest.fixture(scope="module")
+def sharded_restore(tmp_path_factory):
+    """Four ranks restore one checkpoint of a reduced qwen2 tree onto their
+    column-parallel shardings, and convert the reference's tree directly."""
+    import functools
+
+    from repro.configs import get_config as j_get_config
+    from repro.configs import reduced as j_reduced
+    from repro.models import transformer as JT
+    from repro_torch.convert import transformer_params_from_numpy
+    from repro_torch.launch.mesh import spawn_ranks
+
+    import torch_shard_cases
+
+    cfg_j = j_reduced(j_get_config("qwen2-0.5b"))
+    params_np = jax.tree_util.tree_map(np.asarray,
+                                       JT.init_params(jax.random.PRNGKey(3), cfg_j))
+    directory = str(tmp_path_factory.mktemp("ckpt"))
+    save(directory, 5, transformer_params_from_numpy(params_np))
+    payload = {"params": params_np, "directory": directory, "step": 5}
+    ranks = spawn_ranks(functools.partial(torch_shard_cases.checkpoint_case, payload), 4,
+                        device="cpu", timeout=RANKS_TIMEOUT_S)
+    return cfg_j, params_np, ranks
+
+
+def _ref_slice(arr, spec, coords, sizes):
+    """The slice of ``arr`` a rank at ``coords`` holds under the reference's
+    PartitionSpec ``spec``."""
+    for d, axes in enumerate(tuple(spec)):
+        if axes is None:
+            continue
+        idx, n = 0, 1
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            idx, n = idx * sizes[a] + coords[a], n * sizes[a]
+        step = arr.shape[d] // n
+        arr = np.take(arr, range(idx * step, (idx + 1) * step), axis=d)
+    return arr
+
+
+def test_restore_onto_shardings_gives_each_rank_its_slice(sharded_restore):
+    from jax.sharding import AbstractMesh, NamedSharding as JNamedSharding
+
+    from repro.models import transformer as JT
+    from repro.parallel import sharding as JS
+
+    cfg_j, params_np, ranks = sharded_restore
+    sizes = {"data": 2, "model": 2}
+    specs = JS.column_parallel_shardings(AbstractMesh((2, 2), ("data", "model")),
+                                         JS.DECODE_RULES, params_np,
+                                         JT.param_axes(cfg_j))
+    want_specs = {}
+
+    def walk(spec_tree, arr_tree, prefix=()):
+        if isinstance(spec_tree, JNamedSharding):
+            if isinstance(arr_tree, (dict, tuple, list)):
+                for key, leaf in M._walk(arr_tree):
+                    want_specs[M._name(prefix + key)] = spec_tree.spec
+            else:
+                want_specs[M._name(prefix)] = spec_tree.spec
+            return
+        items = spec_tree.items() if isinstance(spec_tree, dict) else enumerate(spec_tree)
+        for k, sub in items:
+            walk(sub, arr_tree[k], prefix + (k,))
+
+    walk(specs, params_np)
+    flat = {M._name(key): leaf for key, leaf in M._walk(params_np)}
+    sharded = 0
+    for rec in ranks:
+        for which in ("restored", "converted"):
+            got = rec[which]
+            assert set(got) == set(flat)
+            for name, arr in flat.items():
+                want = _ref_slice(arr, want_specs[name], rec["coords"], sizes)
+                np.testing.assert_array_equal(got[name], want, err_msg=name)
+                sharded += got[name].shape != arr.shape
+    assert sharded > 0
 
 
 # ---------------------------------------------------------------------------

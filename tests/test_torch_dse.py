@@ -228,11 +228,16 @@ def test_plan_cnn_is_memoized_and_warm_plans_nothing():
 
 
 def test_sharded_plans_are_not_ported():
+    """Sharded plans: ``plan_cnn(spatial=)`` plans a halo seam per conv and
+    pool; ``plan_gemm(mesh=)`` plans the local shape of a mesh layout with
+    its logical shape (the sharding tests hold both to the reference)."""
+    from repro_torch.launch.mesh import make_test_mesh
+
     tpl = default_template("cuda", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcnn.plan_cnn(tpl, tcnn.LENET, (2, 32, 32, 1), spatial=2)
-    with pytest.raises(NotImplementedError):
-        tpl.engine.plan_gemm(8, 8, 8, mesh=object())
+    plan = tcnn.plan_cnn(tpl, tcnn.LENET, (2, 32, 32, 1), spatial=2)
+    assert plan.spatial == 2 and all(cp.halo is not None for cp in plan.convs)
+    gp = tpl.engine.plan_gemm(8, 8, 8, mesh=make_test_mesh())
+    assert (gp.m, gp.n, gp.k, gp.logical) == (4, 4, 8, (8, 8, 8))
 
 
 # -- the float GEMM's routes (csrc/matmul_fp.cu) ------------------------------

@@ -151,7 +151,9 @@ def test_unsupported_families_and_policies_rejected(setup, case):
     """Padding is unsound for recurrent / SSM state, cross-attention and
     windowed rings, and a quantized policy needs the q16 backend: refused
     at construction, as the reference refuses them.  A family the port does
-    not run yet and the mesh branch raise NotImplementedError."""
+    not run yet raises NotImplementedError; a mesh without ranks (a layout
+    only) is refused: the meshed scheduler runs on ranks (the sharded
+    decode tests)."""
     cfg, params, tpl, _, _ = setup
     kw, err = {}, ValueError
     if case in ("mamba2-1.3b", "recurrentgemma-9b", "whisper-medium"):
@@ -161,7 +163,9 @@ def test_unsupported_families_and_policies_rejected(setup, case):
     elif case == "q16 policy on cuda":
         kw["policy"] = NumericsPolicy("q16")
     elif case == "mesh":
-        kw["mesh"], err = object(), NotImplementedError
+        from repro_torch.launch.mesh import make_test_mesh
+
+        kw["mesh"] = make_test_mesh()
     else:
         cfg, err = dataclasses.replace(cfg, family="moe"), NotImplementedError
     with pytest.raises(err, match="requires the 'q16' backend" if "policy" in kw else None):

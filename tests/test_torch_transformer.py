@@ -304,7 +304,9 @@ def test_serve_main_runs_on_cpu_and_refuses_what_is_not_ported(tmp_path):
     out = serve.main(["--device", "cpu", "--scheduler", "--replicas", "2", "--plan-store",
                       str(store), "--prompts", "3", "--prompt-len", "8", "--gen", "3"])
     assert len(out) == 3 and all(len(row) == 3 for row in out) and store.exists()
-    with pytest.raises(SystemExit, match="not ported yet .ROADMAP queue 1 item 5"):
+    # tensor-parallel decode (ROADMAP queue 1 item 5) serves through the
+    # scheduler: --shards without it is refused
+    with pytest.raises(SystemExit, match="--shards N serves through --scheduler"):
         serve.main(["--device", "cpu", "--shards", "2"])
 
 
