@@ -37,7 +37,11 @@ non-zero without its result line):
    ``ref.attention_split_bf16``, the emulation of its arithmetic, at 1e-4
    (bf16: one bf16 step relative plus 2^-12); "wgmma" is timed at the qwen2 prefill
    shape beside its preparation launch, the plain version and SDPA (bounds
-   in split bf16 and f32), "simt" at a head-dim-32 GQA case of 1024 tokens.  The q16 GEMM is checked bit for bit on the
+   in split bf16 and f32), and non-causal at q (2, 16, 4096, 64) (the
+   chunked route of an encoder layer), "simt" at a head-dim-32 GQA case of
+   1024 tokens.  Phase 10's expert GEMMs, granite-moe's (128, 1536) @
+   (1536, 512) on "wgmma" and (2, 1536) @ (1536, 512) on "splitk" in bf16,
+   are checked and timed beside ``torch.matmul``.  The q16 GEMM is checked bit for bit on the
    route its plan names ("splitk" for m <= 16, "wgmma" above) at every q16
    GEMM shape of both main paths, the im2col route's int8 x int8 and int16
    x int8, and the two wrap-around cases (raws -1 at k = 40,960, -32768 at
@@ -149,7 +153,30 @@ non-zero without its result line):
    plan-store round trip a warm restart searches nothing and streams the
    same tokens; printed: eager ms a meshed decode step beside the
    single-device replayed step.  (c) ``serve --scheduler --shards 2`` in a
-   subprocess exits 0.
+   subprocess exits 0;
+10. the other model families ("families"): ``generate`` on the ``cuda``
+   backend in bf16, ``init_params`` weights from the seed, 16 greedy
+   tokens after each prompt:
+   granite-moe-3b-a800m, mamba2-1.3b and recurrentgemma-9b on 2 x 4096
+   tokens, whisper-medium on 2 x 432 after a 2 x 1500 x 1024 frame context,
+   llama-3.2-vision-90b at full width cut to 5 layers (one period: 4 self +
+   1 gated cross; ``reduced``) on 2 x 1024 after a 2 x 1600 x 8192 image
+   context; the VLM's cross gates are set to 0.5 (init_params's 0 would
+   zero the cross layer's output).  Gates per config: launches by route
+   counted over generate
+   (flash once a layer only in granite's prefill, on "wgmma"; every GEMM on
+   the route its m sends it to, counted from the model's structure; no
+   "tile", q16 or conv launch), the prefill's and every teacher-forced
+   decode step's logits against the plain ``torch`` backend (phase 5's
+   float gates; where the plain bf16 path itself sits more than 5 % of the
+   logit scale from the same weights in f32, the kernel path is held to
+   sit at most 1.25x as far from them instead of within 5 % of the plain
+   path), two replayed decode steps equal to the eager ones bit for
+   bit in logits and the whole cache, recurrent states moving.  Printed:
+   prefill tokens/s, decode ms a step eager and replayed, peak memory.
+   Then granite through ``ServeScheduler`` (4 slots, ladder (256, 512), 6
+   requests of ``synthetic_trace``): replay = eager at the 4-slot shape,
+   every request completes.
 
 ``--gemm-route-study`` adds the float GEMM's design measurements, off by
 default: route "tile" timed beside fc0 and the tied head, and the
@@ -1125,6 +1152,9 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
         ("GQA D32 S1024", 2, 8, 2, 1024, 1024, 32, True, 0, torch.float32, 256),
         ("qwen2-0.5b prefill", QWEN_PROMPTS, 16, 2, QWEN_PROMPT_LEN, QWEN_PROMPT_LEN, 64,
          True, 0, torch.float32, 1024),
+        # the chunked route of a non-causal layer (whisper's encoder at 4096
+        # frames or more): the model passes causal=False
+        ("non-causal encoder", 2, 16, 16, 4096, 4096, 64, False, 0, torch.float32, 1024),
     ]
     split_err = 0.0
     for i, (name, b, hq, hkv, sq, sk, d, causal, q_offset, dtype, blk) in enumerate(fa_cases):
@@ -1169,6 +1199,20 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
                 nbytes_=nbytes(q, k, v) + nbytes(q), ops=4 * d * b * hq * pairs,
                 peak=PEAK_F32)
             del qc, ke, ve
+        if name == "non-causal encoder":  # no main-path call at this size: timed here
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            book.timing(
+                "flash_attention.wgmma", f"{name} q{tuple(q.shape)} kv{tuple(k.shape)} f32 "
+                "non-causal", record=False,
+                kernel_fn=lambda: ops.flash_attention(q, k, v, bq=blk, bk=blk, **kw),
+                plain_fn=lambda: flash_attention_plain(q, k, v, bk=blk, **kw),
+                library_fn=lambda: F.scaled_dot_product_attention(qc, kc, vc),
+                library="F.scaled_dot_product_attention (f32, non-causal)",
+                nbytes_=nbytes(q, k, v) + nbytes(q), ops=3 * 4 * d * b * hq * sq * sk,
+                peak=PEAK_BF16,
+                bound_note="three bf16 products (split precision) per f32 product at "
+                           "the bf16 peak")
+            del qc, kc, vc
         if name.startswith("qwen2"):
             g = hq // hkv
             qc = q.contiguous()  # the library call gets dense, expanded heads
@@ -1262,6 +1306,31 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
                     if route == "wgmma" or ROUTE_STUDY else None)
             del x, got, again, want
         del w, b
+
+    # phase 10's expert GEMMs: granite-moe's (cap, d) @ (d, ff) per (group,
+    # expert), at prefill (cap 128, route wgmma) and at decode (cap 2, route
+    # splitk), each beside torch.matmul on the same call
+    for j, (m, route) in enumerate(((FAMILY_EXPERT_CAP_PREFILL, "wgmma"),
+                                    (FAMILY_EXPERT_CAP_DECODE, "splitk"))):
+        k, n = GRANITE_D, GRANITE_FF
+        x = _randn(torch, (m, k), dev, 270 + j).to(torch.bfloat16)
+        w = _randn(torch, (k, n), dev, 275 + j, k ** -0.5).to(torch.bfloat16)
+        blk = plan_for(x, w)
+        assert blk.route == route, (m, blk)
+        got = matmul_fp_cuda(x, w, block=blk)
+        again = matmul_fp_cuda(x, w, block=blk)
+        want = matmul_fp_plain(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"granite expert m={m}: route {route} not repeatable"
+        label = f"granite-moe expert gate/up ({m},{k})@({k},{n}) bf16 {_plan(blk)}"
+        book.check(f"matmul_fp.{route}", label, got, want, exact=False, tol=GEMM_TOL_BF16)
+        book.timing(
+            f"matmul_fp.{route}", label, record=False,
+            kernel_fn=lambda: matmul_fp_cuda(x, w, block=blk),
+            plain_fn=lambda: matmul_fp_plain(x, w),
+            library_fn=lambda: torch.matmul(x, w), library="torch.matmul (cuBLAS, bf16)",
+            nbytes_=nbytes(x, w) + m * n * 2, ops=2 * m * n * k, peak=PEAK_BF16)
+        del x, w, got, again, want
 
     # every distinct grid GEMM of a qwen2 layer in int16, at prefill (route
     # wgmma) and at decode (route splitk), and the grid head (m = 4, w
@@ -1555,9 +1624,10 @@ def qwen_params(torch, dev, cfg):
 
 
 def teacher_forced(torch, tpl, cfg, params, prompts, stream, policy=None, islands=None,
-                   kv_bytes=None):
-    """Per-step logits (B, gen, V) in f32 of the prefill and the decode steps
-    fed ``stream`` (the greedy tokens of a ``generate`` run).  ``islands``, a
+                   kv_bytes=None, ctx=None):
+    """Per-step logits (B, gen, V) in f32 of the prefill (over ``ctx`` too,
+    for an encoder-decoder or VLM config) and the decode steps fed
+    ``stream`` (the greedy tokens of a ``generate`` run).  ``islands``, a
     list, receives each step's (quantize, dequantize) counts; ``kv_bytes``, a
     dict, the bytes of the prefill cache's k / v by precision group."""
     from repro_torch.models import transformer as T
@@ -1572,8 +1642,8 @@ def teacher_forced(torch, tpl, cfg, params, prompts, stream, policy=None, island
         return res
 
     s, gen = prompts.shape[1], stream.shape[1]
-    logits, cache = step(lambda: T.prefill(tpl, cfg, params, prompts, cache_len=s + gen,
-                                           policy=policy))
+    logits, cache = step(lambda: T.prefill(tpl, cfg, params, prompts, ctx=ctx,
+                                           cache_len=s + gen, policy=policy))
     if kv_bytes is not None:
         groups = [(f"g{i}", c) for i, c in enumerate(cache["blocks"])]
         groups += [(f"tail{j}", c) for j, c in enumerate(cache["tail"])]
@@ -3091,6 +3161,357 @@ def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
     return windows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the other model families through generate, at full width
+# ---------------------------------------------------------------------------
+
+#: (config, depth cut or None, prompts, prompt length); 16 greedy tokens each
+FAMILY_RUNS = (
+    ("granite-moe-3b-a800m", None, 2, 4096),
+    ("mamba2-1.3b", None, 2, 4096),
+    ("recurrentgemma-9b", None, 2, 4096),
+    ("whisper-medium", None, 2, 432),  # + 16 = whisper's 448-token decoder context
+    # 100 layers are 180 GB of weights: one period of 4 self + 1 gated cross
+    # layer, ~13 GB, at full width
+    ("llama-3.2-vision-90b", 5, 2, 1024),
+)
+FAMILY_GEN = 16
+#: a VLM's cross gates: init_params starts them at 0 (tanh(0) = 0), where the
+#: cross layer runs but adds nothing to the logits
+FAMILY_CROSS_GATE = 0.5
+#: phase 10's logit gate where bf16 itself misses phase 5's 5 %: the kernel
+#: path's max |Δlogit| from the f32 model at most this times the plain bf16
+#: path's (the two paths' distances sit within 8 % of each other on all five
+#: configs of phase 10, NVIDIA H100 80GB HBM3 at 700 W)
+FAMILY_F32_RATIO = 1.25
+FAMILY_SCHED_SLOTS = 4
+FAMILY_SCHED_LADDER = (256, 512)
+FAMILY_SCHED_REQUESTS = 6
+FAMILY_SCHED_MAX_NEW = 16
+#: granite-moe's expert GEMMs: d 1536 -> ff 512, m = the GShard capacity of a
+#: 512-token group at prefill (2 x 4096 tokens: 16 groups, capacity 128) and
+#: of the 2-token decode group (capacity 2); phase 10 asserts both
+GRANITE_D, GRANITE_FF = 1536, 512
+FAMILY_EXPERT_CAP_PREFILL, FAMILY_EXPERT_CAP_DECODE = 128, 2
+
+
+def family_params(torch, dev, cfg):
+    """``init_params`` on the card's generator (seed 0) in the config's bf16,
+    with a VLM's cross gates set to ``FAMILY_CROSS_GATE``."""
+    from repro_torch.models import transformer as T
+
+    params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    for blk in (*params["blocks"], *params["tail"]):
+        if "cross_gate" in blk:
+            blk["cross_gate"].fill_(FAMILY_CROSS_GATE)
+    return params
+
+
+def _f32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_f32_tree(v) for v in tree)
+    return tree.float()
+
+
+def family_gemms(cfg, batch: int, prompt_len: int) -> dict:
+    """The float GEMM calls of one prefill and of one decode step by route,
+    from the model's structure: attention q / k / v / o, a cross layer's q /
+    o (its k / v only at prefill, over the context), RG-LRU in_x / in_y /
+    gate_a / gate_x / out, SSD in / out, the MLP's 3 (swiglu) or 2 (gelu),
+    an MoE layer's 3 per (group, expert) at the group's capacity, whisper's
+    encoder at prefill, the head at the last positions.  A call's route is
+    the planner's by its m: "splitk" up to 16 rows, "wgmma" above (bf16)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    pattern, g, r = T._split(cfg)
+    plans = list(pattern) * g + list(pattern[:r])
+    mlp = 3 if cfg.act == "swiglu" else 2
+    ctx = T._ctx_len(cfg)
+
+    def calls(mode):
+        rows = batch * (prompt_len if mode == "prefill" else 1)
+        out = [(batch, 1)]  # the head
+        if mode == "prefill" and cfg.family == "encdec":
+            out.append((batch * ctx, cfg.n_encoder_layers * (4 + mlp)))
+        for plan in plans:
+            out.append((rows, {"rec": 5, "ssm": 2}.get(plan.mixer, 4)))
+            if plan.cross:
+                out.append((rows, 2))
+                if mode == "prefill":
+                    out.append((batch * ctx, 2))
+            if plan.moe:
+                xt, _, cap = moe._groups(cfg, torch_meta((batch, rows // batch, cfg.d_model)))
+                out.append((cap, xt.shape[0] * cfg.n_experts * 3))
+            elif plan.mixer != "ssm":
+                out.append((rows, mlp))
+        by = {"wgmma": 0, "splitk": 0}
+        for m, n in out:
+            by["splitk" if m <= 16 else "wgmma"] += n
+        return by
+
+    return {"prefill": calls("prefill"), "decode": calls("decode")}
+
+
+def torch_meta(shape):
+    """An empty tensor of ``shape`` with no storage (shape arithmetic)."""
+    import torch
+
+    return torch.empty(shape, device="meta")
+
+
+def _once_ms(torch, fn) -> float:
+    """Device time of one call of ``fn`` (CUDA events), for calls too long
+    to repeat; the caller has run ``fn``'s path once before."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _recurrent_leaves(tree):
+    """The recurrent states of a cache tree (RG-LRU "h", SSD "state")."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in ([v] if k in ("h", "state") else _recurrent_leaves(v))]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _recurrent_leaves(v)]
+    return []
+
+
+def phase_families(torch, dev):
+    """The other families through ``generate`` on the cuda backend at full
+    width, bf16, ``init_params`` weights from the seed: granite-moe, mamba2,
+    recurrentgemma, whisper and llama-3.2-vision (depth cut).  Per config:
+    launches by route over generate (flash only in granite's prefill, one a
+    layer; every GEMM on the route its m sends it to, counted by the model's
+    structure; no tile, q16 or conv launch), the prefill's and every
+    teacher-forced decode step's logits against the plain ``torch`` backend
+    (phase 5's gates, or where bf16 itself misses them the f32 floor: see
+    the module docstring), two replayed decode steps bit for bit the eager ones
+    in logits and in the whole cache (recurrent states moving); printed:
+    prefill tokens/s, decode ms a step eager and replayed, peak memory.
+    Then granite through ``ServeScheduler`` (4 slots, ladder (256, 512), 6
+    requests): replay = eager at the 4-slot shape, every request completes.
+    Returns the launch windows."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.template import default_template
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import (
+        CAPTURE_COUNTS,
+        SchedulerConfig,
+        ServeScheduler,
+        SystemClock,
+        compiled_steps,
+        replay_trace,
+        synthetic_trace,
+    )
+    from repro_torch.launch.serve import draw_context, generate
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    tf, tplain = default_template("cuda"), default_template("torch")
+    windows = {}
+    t_phase = time.perf_counter()
+    for name, depth, b, s in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        reduced_line = None
+        if depth is not None:
+            reduced_line = f"n_layers {cfg.n_layers} -> {depth} (one cross period)"
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        params = family_params(torch, dev, cfg)
+        prompts = synthetic_batch(SEED, 0, b, s, cfg.vocab, device=dev)
+        ctx = draw_context(cfg, b, seed=SEED, device=dev, dtype=params["embed"].dtype)
+        clen = s + FAMILY_GEN
+        if cfg.family == "moe":
+            caps = [moe._groups(cfg, torch_meta((b, n, cfg.d_model)))[2] for n in (s, 1)]
+            want_caps = [FAMILY_EXPERT_CAP_PREFILL, FAMILY_EXPERT_CAP_DECODE]
+            if (caps != want_caps or (cfg.d_model, cfg.d_ff) != (GRANITE_D, GRANITE_FF)):
+                raise AssertionError(f"{name}: expert GEMMs at capacities {caps}, d "
+                                     f"{cfg.d_model}, ff {cfg.d_ff}; phase 2 checks "
+                                     f"{want_caps}, {GRANITE_D}, {GRANITE_FF}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        caps0 = sum(CAPTURE_COUNTS.values())
+        t1 = time.perf_counter()
+        stream = generate(cfg, params, prompts, ctx, gen=FAMILY_GEN, tpl=tf)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(_build.launches)
+        windows[f"{name} generate"] = launches
+        captures = sum(CAPTURE_COUNTS.values()) - caps0
+        if stream.shape != (b, FAMILY_GEN):
+            raise AssertionError(f"{name}: generate returned {tuple(stream.shape)}")
+        # launches by route: the prefill's GEMMs on wgmma (its head on
+        # splitk), every decode GEMM on splitk, over the prefill and the
+        # decode steps (generate's, plus the capture's eager warm-up step)
+        n = family_gemms(cfg, b, s)
+        steps = FAMILY_GEN - 1 + captures
+        flash = cfg.n_layers if cfg.family == "moe" else 0  # granite: 4096 >= threshold
+        want = {"matmul_fp.wgmma": n["prefill"]["wgmma"] + steps * n["decode"]["wgmma"],
+                "matmul_fp.splitk": n["prefill"]["splitk"] + steps * n["decode"]["splitk"],
+                "matmul_fp.tile": 0, "matmul_q16": 0, "conv2d": 0, "conv2d_q16": 0,
+                "flash_attention": flash, "flash_attention.wgmma": flash,
+                "flash_attention.prep": flash, "flash_attention.simt": 0}
+        want["matmul_fp"] = want["matmul_fp.wgmma"] + want["matmul_fp.splitk"]
+        for key, count in want.items():
+            if launches[key] != count:
+                raise AssertionError(f"{name}: {key} launched {launches[key]} times, want "
+                                     f"{count} ({n}, {steps} decode steps)")
+        # the logits against the plain backend, teacher-forced on the stream
+        got = teacher_forced(torch, tf, cfg, params, prompts, stream, ctx=ctx)
+        if not torch.equal(got.argmax(-1), stream):
+            raise AssertionError(f"{name}: the teacher-forced replay does not reproduce "
+                                 f"generate's greedy tokens")
+        plain = teacher_forced(torch, tplain, cfg, params, prompts, stream, ctx=ctx)
+        check = compare_logits(torch, got, plain, rel_tol=FLOAT_REL_TOL,
+                               argmax_min=FLOAT_ARGMAX, what=f"{name} vs plain", gate=False)
+        # the same weights in f32 on the plain backend: how far each bf16
+        # path sits from the model it rounds
+        p32 = _f32_tree(params)
+        ref = teacher_forced(torch, tplain, cfg, p32, prompts, stream,
+                             ctx=None if ctx is None else ctx.float())
+        scale = float(ref.abs().max())
+        floor = {"kernel_rel_diff": float((got - ref).abs().max()) / scale,
+                 "plain_bf16_rel_diff": float((plain - ref).abs().max()) / scale,
+                 "ratio_max": FAMILY_F32_RATIO}
+        # phase 5's gates; where the plain bf16 path itself sits more than
+        # 5 % of the logit scale from the f32 model, two bf16 paths cannot be
+        # held within 5 % of each other, and the kernel path is held instead
+        # to sit as close to the f32 model as the plain bf16 path does
+        at_floor = (floor["plain_bf16_rel_diff"] > FLOAT_REL_TOL and floor["kernel_rel_diff"]
+                    <= FAMILY_F32_RATIO * floor["plain_bf16_rel_diff"])
+        check["vs_f32_plain"] = floor
+        check["rel_gate"] = ("5 % of the logit scale" if check["rel_diff"] <= FLOAT_REL_TOL
+                             else "bf16 floor" if at_floor else "missed")
+        if not (bool(torch.isfinite(got).all()) and check["rel_gate"] != "missed"
+                and check["argmax_agreement"] >= FLOAT_ARGMAX
+                and check["decisive_agreement"] in (None, 1.0)):
+            raise AssertionError(f"{name}: logits off the plain path: {check}")
+        del got, plain, p32, ref
+        # two replayed decode steps against two eager ones, bit for bit, in
+        # logits and in the whole cache (generate's graph: same signature)
+        fns = compiled_steps(tf, cfg, clen, None)
+        _, cache = T.prefill(tf, cfg, params, prompts, ctx=ctx, cache_len=clen)
+        c_e, c_g = _clone_tree(cache), _clone_tree(cache)
+        rec0 = [x.clone() for x in _recurrent_leaves(cache)]
+        for i in range(2):
+            tok = stream[:, i:i + 1]
+            lg_e, c_e = T.decode_step(tf, cfg, params, tok, s + i, c_e)
+            _, lg_g, c_g = fns.decode_next(params, tok, s + i, c_g)
+            torch.cuda.synchronize()
+            if not (torch.equal(lg_e, lg_g) and _tree_equal(torch, c_e, c_g)):
+                raise AssertionError(f"{name}: replayed decode step {i} differs from the "
+                                     f"eager step: max |Δlogit| "
+                                     f"{float((lg_e.float() - lg_g.float()).abs().max())}")
+        moved = [not torch.equal(a, x) for a, x in zip(rec0, _recurrent_leaves(c_g))]
+        if rec0 and not all(moved):
+            raise AssertionError(f"{name}: {moved.count(False)} recurrent states did not "
+                                 f"move over two replayed steps")
+        if sum(CAPTURE_COUNTS.values()) - caps0 != captures:
+            raise AssertionError(f"{name}: the replay check captured a new graph")
+        # times: one prefill, one eager decode step, replayed steps
+        prefill_ms = _once_ms(torch, lambda: T.prefill(tf, cfg, params, prompts, ctx=ctx,
+                                                       cache_len=clen))
+        tok = stream[:, 2:3]
+        eager_ms = _once_ms(torch, lambda: T.decode_step(tf, cfg, params, tok, s + 2, c_e))
+        graph_ms = time_ms(lambda: fns.decode_next(params, tok, s + 2, c_g), target_ms=50.0)
+        emit({"phase": "families", "arch": name, "reduced": reduced_line,
+              "family": cfg.family, "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab, "dtype": cfg.dtype, "prompts": b, "prompt_len": s,
+              "ctx": None if ctx is None else list(ctx.shape), "gen": FAMILY_GEN,
+              "nvidia_smi": nvidia_smi(), "vs": "torch backend, bf16, same stream",
+              **check, "replay_equals_eager": True, "recurrent_states_moved": len(rec0),
+              "gemm_calls": n, "decode_graph_captures": captures,
+              "launches": {k: v for k, v in launches.items() if v},
+              "prefill_ms": prefill_ms, "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
+              "decode_ms_per_step_eager": eager_ms, "decode_ms_per_step_graph": graph_ms,
+              "generate_s_host_clock": generate_s, "peak_mem_bytes": peak,
+              "sample_tokens": stream[0, :8].tolist(),
+              "config_s": time.perf_counter() - t0})
+        fns.decode_next.release(None)
+        del cache, c_e, c_g, fns, stream, prompts, ctx
+        if cfg.family == "moe":
+            windows["granite scheduler"] = family_scheduler(torch, cfg, params, tf)
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": "families_done", "seconds": time.perf_counter() - t_phase})
+    return windows
+
+
+def family_scheduler(torch, cfg, params, tpl):
+    """granite-moe through ``ServeScheduler``: warm-up, a replayed step equal
+    to the eager step bit for bit at the 4-slot shape, then 6 requests of
+    ``synthetic_trace`` (seed 0) that must all complete; no tile, q16 or
+    conv launch, no flash (the rungs stay below the chunked threshold)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import (
+        SchedulerConfig,
+        ServeScheduler,
+        SystemClock,
+        compiled_steps,
+        replay_trace,
+        synthetic_trace,
+    )
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    sched = ServeScheduler(cfg, params, tpl=tpl, clock=SystemClock(),
+                           sched=SchedulerConfig(ladder=FAMILY_SCHED_LADDER,
+                                                 slots=FAMILY_SCHED_SLOTS,
+                                                 max_new_limit=FAMILY_SCHED_MAX_NEW))
+    sched.warmup()
+    fns = compiled_steps(tpl, cfg, sched.cache_len, sched.policy)
+    cache, tok, tvec = slot_state(torch, sched, params)
+    lg_e, c_e = T.decode_step(tpl, cfg, params, tok, tvec, cache)
+    _, lg_g, c_g = fns.decode_next(params, tok, tvec, _clone_tree(cache))
+    torch.cuda.synchronize()
+    if not (torch.equal(lg_e, lg_g) and _tree_equal(torch, c_e, c_g)):
+        raise AssertionError(f"granite scheduler: the graph replay differs from the eager "
+                             f"step: max |Δlogit| "
+                             f"{float((lg_e.float() - lg_g.float()).abs().max())}")
+    del cache, c_e, c_g, lg_e
+    fns.decode_next.release(None)
+    trace = synthetic_trace(FAMILY_SCHED_REQUESTS, seed=SEED, vocab=cfg.vocab,
+                            ladder=FAMILY_SCHED_LADDER, max_new=FAMILY_SCHED_MAX_NEW)
+    _build.reset_launches()
+    t1 = sched.clock.now()
+    replay_trace(sched, trace, tick=0.0)
+    torch.cuda.synchronize()
+    wall_s = sched.clock.now() - t1
+    launches = dict(_build.launches)
+    c = sched.counters
+    if not (c["completed"] == len(trace) == len(sched.results) and not sched.active
+            and sched._free == list(range(FAMILY_SCHED_SLOTS))):
+        raise AssertionError(f"granite scheduler: the trace did not complete: {dict(c)}")
+    for key in ("matmul_fp.tile", "matmul_q16", "conv2d", "conv2d_q16", "flash_attention"):
+        if launches[key]:
+            raise AssertionError(f"granite scheduler: {key} launched {launches[key]} times")
+    if not (launches["matmul_fp.wgmma"] and launches["matmul_fp.splitk"]):
+        raise AssertionError(f"granite scheduler: GEMM routes {launches}")
+    emit({"phase": "families_scheduler", "arch": cfg.name, "slots": FAMILY_SCHED_SLOTS,
+          "ladder": FAMILY_SCHED_LADDER, "requests": len(trace),
+          "prompt_lens": [len(r.prompt) for r in trace], "graph_equals_eager": True,
+          "completed": c["completed"], "tokens": c["tokens"], "trace_wall_s": wall_s,
+          "tokens_per_s": c["tokens"] / wall_s, "launches": {k: v for k, v in
+                                                               launches.items() if v},
+          "stats_line": sched.stats_line(), "seconds": time.perf_counter() - t0})
+    sched.release()
+    del sched, fns
+    return launches
+
+
 def _build_kernels():
     from repro_torch.kernels import _build
 
@@ -3165,12 +3586,14 @@ def main() -> int:
     shard_windows = phase_shards(torch, dev, cnn_state, cfg, params, grid_policy)
     del params, serving_runs, tq, grid_policy, cnn_state
     torch.cuda.empty_cache()
+    family_windows = phase_families(torch, dev)
+    torch.cuda.empty_cache()
     phase_serve_cli(torch)
     phase_fleet_cli(torch)
     phase_fpga_tables()
 
     windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()},
-               **shard_windows}
+               **shard_windows, **family_windows}
     kernels = []
     for key, (name, gemm_route, source, replaces) in KERNEL_META.items():
         row = book.rows[key]

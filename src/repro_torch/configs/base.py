@@ -3,15 +3,17 @@
 The port's copy of ``repro.configs.base``: every architecture is a frozen
 :class:`ArchConfig` (the same fields and defaults, so a config prints the
 same in both packages); :func:`reduced` derives the small variant of the
-same family that the CPU tests run.  The registry holds the families the
-port runs; others arrive with their families (ROADMAP queue 1 item 6).
+same family that the CPU tests run.  The registry holds every config the
+reference registers; the input shapes of the dry-run matrix live in
+:data:`SHAPES`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-__all__ = ["ArchConfig", "register", "get_config", "all_configs", "reduced"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "register", "get_config", "all_configs",
+           "reduced", "shape_applicable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +85,10 @@ class ArchConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
+    @property
     def attends_full(self) -> bool:
         """True when sequence mixing is quadratic full attention everywhere."""
         if self.family == "ssm":
@@ -90,6 +96,73 @@ class ArchConfig:
         if self.family == "hybrid" and self.window:
             return False
         return True
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab
+        qkv = d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
+        attn = qkv + self.n_heads * self.head_dim * d
+        if self.act == "swiglu":
+            mlp = 3 * d * ff
+        else:
+            mlp = 2 * d * ff
+        if self.family == "moe":
+            mlp = self.n_experts * 3 * d * ff + d * self.n_experts  # + router
+        per_layer = attn + mlp
+        total = self.n_layers * per_layer
+        if self.family == "ssm":
+            di, ds, g, nh = self.d_inner, self.ssm_state, self.ssm_ngroups, self.ssm_nheads
+            in_proj = d * (2 * di + 2 * g * ds + nh)
+            out_proj = di * d
+            total = self.n_layers * (in_proj + out_proj + self.ssm_conv * (di + 2 * g * ds))
+        if self.family == "hybrid" and self.pattern:
+            # rec layers replace attn with linear-recurrent block of ~3*d*d
+            n_rec = sum(1 for i in range(self.n_layers) if self.pattern[i % len(self.pattern)] == "rec")
+            n_att = self.n_layers - n_rec
+            rec = 3 * d * d
+            total = n_att * (attn + mlp) + n_rec * (rec + mlp)
+        if self.family == "encdec":
+            enc = self.n_encoder_layers * (attn + mlp)
+            dec = self.n_layers * (2 * attn + mlp)  # self + cross
+            total = enc + dec
+        if self.family == "vlm" and self.cross_attn_period:
+            n_cross = self.n_layers // self.cross_attn_period
+            total = (self.n_layers - n_cross) * (attn + mlp) + n_cross * (attn + mlp + attn)
+        embed = v * d * (1 if self.tie_embeddings else 2)
+        return total + embed
+
+    def n_params_active(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.family != "moe" or not self.n_experts:
+            return self.n_params()
+        d, ff = self.d_model, self.d_ff
+        qkv = d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
+        attn = qkv + self.n_heads * self.head_dim * d
+        mlp_active = self.top_k * 3 * d * ff + d * self.n_experts
+        embed = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + mlp_active) + embed
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence per step
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 _REGISTRY: dict[str, Callable[[], ArchConfig]] = {}
@@ -104,9 +177,6 @@ def register(fn: Callable[[], ArchConfig]) -> Callable[[], ArchConfig]:
 def get_config(name: str) -> ArchConfig:
     from repro_torch import configs as _c  # noqa: F401  (populates the registry)
 
-    if name not in _REGISTRY:
-        raise KeyError(f"{name!r} is not ported yet (ported: {sorted(_REGISTRY)}; "
-                       f"the other families are ROADMAP queue 1 item 6)")
     return _REGISTRY[name]()
 
 
@@ -114,6 +184,13 @@ def all_configs() -> dict[str, ArchConfig]:
     from repro_torch import configs as _c  # noqa: F401
 
     return {k: v() for k, v in _REGISTRY.items()}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether a dry-run cell runs (DESIGN.md §5 skip rules)."""
+    if shape.name == "long_500k" and cfg.attends_full:
+        return False, "full quadratic attention: 512k decode skipped per spec"
+    return True, ""
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

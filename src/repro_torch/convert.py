@@ -8,9 +8,11 @@ turns its leaves into numpy arrays (``np.asarray``) and hands them over:
   (K, K, Cin, Cout) conv weights and (k, n) FC weights;
 * :func:`qparams_from_numpy` takes the same tree with quantized leaves
   given as ``(raw, (int_bits, frac_bits, total_bits))``;
-* :func:`transformer_params_from_numpy` takes a transformer tree (nested
-  dicts, the stacked ``blocks`` and ``tail`` tuples) whose leaves are float
-  arrays or quantized ``(raw, (int_bits, frac_bits, total_bits))`` pairs;
+* :func:`transformer_params_from_numpy` takes a transformer tree of any
+  family (nested dicts, the stacked ``blocks`` and ``tail`` tuples, the
+  encoder subtree; leaves of any rank, the 0-d ``cross_gate`` and the
+  (E, d, ff) expert stacks alike) whose leaves are float arrays or
+  quantized ``(raw, (int_bits, frac_bits, total_bits))`` pairs;
 * :func:`transformer_shard_from_numpy` carries such a tree into the calling
   rank's shard through the port's column-parallel plan
   (``parallel.sharding.column_parallel_shardings``).

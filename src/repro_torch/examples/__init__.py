@@ -1,0 +1,1 @@
+"""Example programs of the port (``python -m repro_torch.examples.<name>``)."""

@@ -35,7 +35,9 @@ signature and cache owner runs one eager warm-up step (which plans, builds
 the kernels and sets their shared-memory attributes), then captures the
 step with ``torch.cuda.graph``; the graph owns the cache passed in (the
 caller gives it up, as the reference's donated argument) and writes the new
-k / v rows into it in place.  Each owner (a scheduler passes itself as
+k / v rows, and a recurrent layer's new state and conv history, into it in
+place (so every replay advances them); a cross layer's context k / v are
+read, never written.  Each owner (a scheduler passes itself as
 ``owner``) has graphs of its own, so two live schedulers on one setup never
 decode in one cache; an owner's graphs go when it is released or dropped.
 A capture or replay that fails raises; there is no eager fallback on the
@@ -55,7 +57,12 @@ rank keeps its own slots' rows.  A CUDA graph cannot hold a ``gloo``
 collective (the ranks of one card), so a meshed decode step runs eagerly
 and is counted in :data:`MESHED_EAGER_COUNTS`; ``CAPTURE_COUNTS`` stays 0
 for a meshed owner.  Capturing NCCL collectives (several cards) is left
-for later.
+for later.  The meshed steps run the dense family only.
+
+**Admission** is the reference's: padding a prompt is sound only for
+full-attention mixers, so the scheduler serves the dense and MoE families
+and refuses the SSM, the windowed hybrid, encoder-decoder and VLM
+(``ValueError``); ``generate`` serves every family.
 """
 from __future__ import annotations
 
@@ -431,23 +438,23 @@ class _DecodeStep:
         _fill(st["token"], token)
         _fill(st["t"], t)
 
-        def step():
-            return self.eager(params, st["token"], st["t"], cache, sampling, st["seed"],
+        def step(c):
+            return self.eager(params, st["token"], st["t"], c, sampling, st["seed"],
                               st["lanes"], st["positions"], st["temperature"])
 
         # warm-up: plans, loads the kernels' libraries, sets their shared
-        # memory attributes.  It writes the step's rows into ``cache``, which
-        # the replay then writes again, the same bytes
+        # memory attributes.  It steps a copy of ``cache``: a recurrent state
+        # stepped here and again by the replay would advance twice
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            step()
+            step(T._map_leaves(lambda leaf, _: leaf.clone(), cache, cache))
         torch.cuda.current_stream(dev).wait_stream(side)
         eng = self.tpl.engine
         launches0, counters0 = dict(_build.launches), collections.Counter(eng.counters)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            tokens, logits, _ = step()
+            tokens, logits, _ = step(cache)
         launches = {k: n - launches0[k] for k, n in _build.launches.items() if n != launches0[k]}
         counters = collections.Counter(
             {k: n - counters0[k] for k, n in eng.counters.items() if n != counters0[k]})
@@ -579,6 +586,7 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
     """
     policy = validate_policy(tpl.config, policy)
     if mesh is not None:
+        _check_meshed(cfg)
         rules = rules or DECODE_RULES
         if not mesh.has_groups:
             raise ValueError(f"meshed steps run on ranks (spawn_ranks); {mesh} is a "
@@ -718,14 +726,13 @@ class SchedulerConfig:
 # ---------------------------------------------------------------------------
 
 
-def _mixers(cfg) -> tuple:
-    """The sequence mixers of one pattern period, by the reference's rule
-    (``repro.models.transformer.plan_pattern``), for the admission check."""
-    if cfg.family == "ssm":
-        return ("ssm",)
-    if cfg.family == "hybrid":
-        return tuple("local" if m == "attn" else "rec" for m in cfg.pattern)
-    return ("attn",)
+def _check_meshed(cfg) -> None:
+    """The meshed steps run the dense family only: the others' sharding
+    (expert, recurrent and context leaves) is not ported yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"meshed serving of the {cfg.family!r} family ({cfg.name}) is not ported yet "
+            f"(ROADMAP queue 1: the meshed serving of the new families)")
 
 
 class ServeScheduler:
@@ -755,16 +762,18 @@ class ServeScheduler:
                  policy: Optional[NumericsPolicy] = None,
                  sampling: Optional[SamplingParams] = None,
                  mesh=None, rules=None) -> None:
+        pattern = T.plan_pattern(cfg)
         # "local" with a real window is unsound too: its ring is only
         # window-sized, so a padded prefill longer than the window evicts
         # real keys for pad keys that trimming then voids
-        bad = [m for m in _mixers(cfg)
-               if not (m == "attn" or (m == "local" and not cfg.window))]
-        if bad or cfg.family in ("encdec", "vlm"):
+        bad = [p.mixer for p in pattern
+               if not (p.mixer == "attn" or (p.mixer == "local" and not cfg.window))]
+        if bad or any(p.cross for p in pattern) or cfg.family in ("encdec", "vlm"):
             raise ValueError(
                 f"scheduler requires full-attention mixers without context inputs; "
                 f"{cfg.name} ({cfg.family}) has {bad or 'cross-attention'}")
-        T.plan_pattern(cfg)  # the families the port runs
+        if mesh is not None:
+            _check_meshed(cfg)
         self.cfg = cfg
         self.params = params
         self.tpl = tpl or default_template()

@@ -11,13 +11,15 @@ mixed-length request set through the continuous-batching scheduler.
 The port's copy of ``repro.launch.serve``: the config is reduced as the
 reference's driver reduces it, the weights are random from ``--seed``, and
 the run goes through :func:`generate` (or, with ``--scheduler``, a
-:class:`ServeScheduler`) on the CUDA kernels (``--backend cuda``, the
-default), grid-resident fixed point (``q16``, after a max-abs calibration
-pass), mixed int8 / int16 fixed point (``q8``: the q16 template, with the
-precision DSE choosing each layer group's grid at ``--precision-budget``)
-or plain tensor ops (``torch``).  ``--device cpu`` runs the kernels' plain
-versions.  ``--temperature`` / ``--top-k`` sample each token from a
-per-lane RNG stream, reproducible per ``--seed``.  ``--scheduler --replicas
+:class:`ServeScheduler`; it admits the dense and MoE families) on the CUDA
+kernels (``--backend cuda``, the default), grid-resident fixed point
+(``q16``, after a max-abs calibration pass), mixed int8 / int16 fixed point
+(``q8``: the q16 template, with the precision DSE choosing each layer
+group's grid at ``--precision-budget``) or plain tensor ops (``torch``).
+``--device cpu`` runs the kernels' plain versions.  ``--arch`` takes every
+registered config; an encoder-decoder or VLM config gets a context drawn
+from ``--seed`` (:func:`draw_context`).  ``--temperature`` / ``--top-k``
+sample each token from a per-lane RNG stream, reproducible per ``--seed``.  ``--scheduler --replicas
 N`` routes the request set across N scheduler replicas behind a
 :class:`~repro_torch.launch.router.ReplicaRouter` (tokens drain into its
 exactly-once ledger).  ``--plan-store PATH`` (default
@@ -69,7 +71,7 @@ from repro_torch.launch.scheduler import (
 )
 from repro_torch.models import transformer as T
 
-__all__ = ["generate", "main", "run_router", "run_scheduler", "shards_mesh"]
+__all__ = ["draw_context", "generate", "main", "run_router", "run_scheduler", "shards_mesh"]
 
 
 def generate(cfg, params, tokens, ctx=None, *, gen: int = 16, cache_len=None,
@@ -108,6 +110,20 @@ def generate(cfg, params, tokens, ctx=None, *, gen: int = 16, cache_len=None,
         tok = tok.clone()  # the step's output buffer is rewritten by its next call
         out.append(tok)
     return torch.stack(out, dim=1)
+
+
+def draw_context(cfg, batch: int, *, seed: int, device, dtype=torch.float32):
+    """The context input of an encoder-decoder or VLM config, as the
+    reference's serve script draws it (N(0, 0.1²)): whisper's frame embeddings
+    (batch, n_frames, d) or the image embeddings (batch, n_image_tokens, d),
+    from a generator seeded with ``seed`` on ``device``; None for the other
+    families."""
+    if cfg.family not in ("encdec", "vlm"):
+        return None
+    n = cfg.n_frames if cfg.family == "encdec" else cfg.n_image_tokens
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ctx = torch.randn((batch, n, cfg.d_model), generator=gen, device=device) * 0.1
+    return ctx.to(dtype)
 
 
 def _trace(cfg, *, requests: int, prompt_len: int, gen: int, seed: int) -> list:
@@ -305,7 +321,9 @@ def _serve(args, mesh=None):
     else:
         tokens = synthetic_batch(args.seed, 0, args.prompts, args.prompt_len, cfg.vocab,
                                  device=dev)
-        out = generate(cfg, params, tokens, gen=args.gen, tpl=tpl, policy=policy,
+        ctx = draw_context(cfg, args.prompts, seed=args.seed, device=dev,
+                           dtype=params["embed"].dtype)
+        out = generate(cfg, params, tokens, ctx, gen=args.gen, tpl=tpl, policy=policy,
                        sampling=sampling)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

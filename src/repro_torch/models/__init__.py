@@ -1,6 +1,6 @@
-"""The CNN zoo (LeNet / AlexNet / VGG16), and the dense transformer
-(``layers``, ``attention``, ``transformer``; the other families are not
-ported yet)."""
+"""The CNN zoo (LeNet / AlexNet / VGG16), and the transformer of every
+family (``layers``, ``attention``, ``transformer``, with the MoE FFN in
+``moe``, the Mamba2 SSD in ``ssm`` and the RG-LRU in ``rglru``)."""
 from .cnn import (
     ALEXNET,
     CNN_ZOO,

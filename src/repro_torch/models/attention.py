@@ -7,14 +7,19 @@ template's compute unit; the score / value math has two routes:
 * dense — full (B, H, S, T) scores in f32; used while the key length stays
   below :data:`CHUNKED_THRESHOLD`, and by every decode step.
 * chunked — online softmax over kv blocks, for key lengths from
-  :data:`CHUNKED_THRESHOLD` on.  On the ``cuda`` and ``q16`` backends it is
-  the hand-written flash-attention kernel (``kernels.ops.flash_attention``;
-  its plain version for CPU tensors), on ``torch`` a plain online softmax
-  over (q chunk, kv chunk) pairs, the analogue of the reference's XLA-plane
-  ``_sdpa_chunked``.  Both take q / k / v in f32 and return q's dtype, as
-  the reference's route does; both skip the kv chunks that lie wholly above
-  the diagonal, which adds exactly nothing to the online softmax (the
-  reference's folded causal schedule, ``_sdpa_folded``, skips them too).
+  :data:`CHUNKED_THRESHOLD` on, the analogue of the reference's XLA-plane
+  ``_sdpa_chunked``.  On the ``cuda`` and ``q16`` backends a call with no
+  window at a head dim the flash-attention kernel is compiled for (the
+  spec's ``flash_head_dims`` and ``flash_wgmma_head_dims``) runs that
+  kernel (``kernels.ops.flash_attention``; its plain version for CPU
+  tensors), causal or not.  A sliding window, a head dim the kernel is not
+  compiled for (recurrentgemma's 256) and the ``torch`` backend take a
+  plain online softmax over (q chunk, kv chunk) pairs.  Both take q / k / v
+  in f32 and return q's dtype, as the reference's route does; both skip
+  the kv chunks that add exactly nothing to the online softmax: those
+  wholly above the diagonal and, under a window, those wholly left of it
+  (the reference's folded causal schedule, ``_sdpa_folded``, skips the
+  first kind too).
 
 Cache layout per layer: {"k", "v": (B, Hkv, C, D), "pos"}, a ring buffer
 (slot = pos % C): with "pos" (C,) int32 every batch row shares one position
@@ -22,9 +27,10 @@ vector (``prefill`` / ``generate``); the slot-indexed layout of the serve
 scheduler gives each row its own, "pos" (B, C), so rows decode at
 independent positions.  Decode positions live on the device: the write
 slot, the position write and the mask come from the ``t`` tensor, never
-from a host integer, so a CUDA graph can capture the step.
-Sliding windows and non-causal chunked attention belong to families that
-are not ported yet (ROADMAP queue 1 item 6) and raise.
+from a host integer, so a CUDA graph can capture the step.  A
+sliding-window layer's ring holds ``min(window, cache_len)`` slots;
+cross-attention reads a static cache of the context's keys and values,
+filled once by the prefill.
 
 Sharding seams (``parallel.sharding.constrain``): each projection's output
 passes a seam before it is split into heads.  Under a mesh, a column shard
@@ -61,8 +67,6 @@ _NEG = -1e30
 #: use the chunked route when the key length reaches this
 CHUNKED_THRESHOLD = 4096
 _BQ, _BK = 1024, 1024
-
-_NOT_PORTED = "not ported yet (ROADMAP queue 1 item 6: the other model families)"
 
 
 def init_attention(gen: torch.Generator, cfg, *, d_model=None, n_heads=None, n_kv=None,
@@ -139,9 +143,13 @@ def _sdpa_dense(q, k, v, mask) -> torch.Tensor:
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
-def _online_softmax_chunked(q, k, v, *, q_offset: int, bq: int, bk: int):
-    """The torch backend's chunked route: causal online softmax over (q chunk,
-    kv chunk) pairs in f32.  q: (B,S,H,D); k / v: (B,T,Hkv,D) f32."""
+def _online_softmax_chunked(q, k, v, *, causal: bool, window: int, q_offset: int,
+                            bq: int, bk: int):
+    """The plain chunked route: online softmax over (q chunk, kv chunk) pairs
+    in f32, causal (under a ``window``: key ``c`` visible from row ``r`` when
+    ``r - window < c <= r``) or not.  q: (B,S,H,D); k / v: (B,T,Hkv,D) f32.
+    A kv chunk wholly above the diagonal or wholly left of the window is
+    skipped: it adds exactly nothing to the online softmax."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -152,16 +160,23 @@ def _online_softmax_chunked(q, k, v, *, q_offset: int, bq: int, bk: int):
     for q0 in range(0, s, bq):
         qc = q[:, q0:q0 + bq].reshape(b, -1, hkv, g, d).permute(0, 2, 3, 1, 4)
         n = qc.shape[3]
-        rows = q_offset + q0 + torch.arange(n, device=q.device)[:, None]
+        first, last = q_offset + q0, q_offset + q0 + n - 1  # this chunk's rows
+        rows = first + torch.arange(n, device=q.device)[:, None]
         m = torch.full((b, hkv, g, n), _NEG, dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((b, hkv, g, n, d), dtype=torch.float32, device=q.device)
         for k0 in range(0, t, bk):
-            if k0 > q_offset + q0 + n - 1:
+            if causal and k0 > last:
                 break  # this and every later kv chunk lies above the diagonal
+            if causal and window and k0 + bk - 1 <= first - window:
+                continue  # wholly left of every row's window
             srt = torch.matmul(qc, kg[:, :, :, k0:k0 + bk].transpose(-1, -2)) * scale
-            cols = k0 + torch.arange(srt.shape[-1], device=q.device)[None, :]
-            srt = torch.where(rows >= cols, srt, _NEG)
+            if causal:
+                cols = k0 + torch.arange(srt.shape[-1], device=q.device)[None, :]
+                valid = rows >= cols
+                if window:
+                    valid &= (rows - cols) < window
+                srt = torch.where(valid, srt, _NEG)
             m_new = torch.maximum(m, srt.amax(-1))
             p = torch.exp(srt - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -173,26 +188,36 @@ def _online_softmax_chunked(q, k, v, *, q_offset: int, bq: int, bk: int):
     return out
 
 
+def _flash_route(tpl: Template, window: int, head_dim: int) -> bool:
+    """Whether a chunked call runs the flash-attention kernel: the cuda and
+    q16 backends, no window, a head dim the kernel is compiled for."""
+    hw = tpl.config.hw
+    dims = (*getattr(hw, "flash_head_dims", ()), *getattr(hw, "flash_wgmma_head_dims", ()))
+    return tpl.config.backend != "torch" and not window and head_dim in dims
+
+
 def _sdpa_chunked(tpl: Template, q, k, v, *, causal: bool, window: int,
                   q_offset: int) -> torch.Tensor:
     """Chunked attention over (_BQ, _BK) blocks, memory O(_BQ·_BK) per head.
     q: (B,S,H,D); k / v: (B,T,Hkv,D); rows are global positions q_offset+i,
-    cols 0..T-1.  The cuda / q16 backends run the flash-attention kernel,
-    torch a plain online softmax; both in f32, returning q's dtype."""
-    if window:
-        raise NotImplementedError(f"sliding-window chunked attention is {_NOT_PORTED}")
-    if not causal:
-        raise NotImplementedError(f"non-causal chunked attention is {_NOT_PORTED}")
+    cols 0..T-1.  The flash-attention kernel where :func:`_flash_route`
+    says so, else the plain online softmax; both in f32, returning q's
+    dtype."""
     q = constrain(q, "batch", None, "act_heads", None)
     k = constrain(k, "batch", None, "kv_heads", None)
     v = constrain(v, "batch", None, "kv_heads", None)
     qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
-    if tpl.config.backend == "torch":
-        out = _online_softmax_chunked(qf, kf, vf, q_offset=q_offset, bq=_BQ, bk=_BK)
-    else:
+    t = k.shape[1]
+    if _flash_route(tpl, window, q.shape[-1]):
+        # a non-causal call takes kv blocks that divide the key length (the
+        # reference kernel's rule); the kernel masks its own ragged tile
+        bk = _BK if causal or t % min(_BK, t) == 0 else t
         out = kops.flash_attention(qf.transpose(1, 2), kf.transpose(1, 2),
-                                   vf.transpose(1, 2), causal=True, q_offset=q_offset,
-                                   bq=_BQ, bk=_BK).transpose(1, 2)
+                                   vf.transpose(1, 2), causal=causal, q_offset=q_offset,
+                                   bq=_BQ, bk=bk).transpose(1, 2)
+    else:
+        out = _online_softmax_chunked(qf, kf, vf, causal=causal, window=window,
+                                      q_offset=q_offset, bq=_BQ, bk=_BK)
     return out.to(q.dtype)
 
 

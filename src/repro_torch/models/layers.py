@@ -37,6 +37,8 @@ __all__ = [
     "mlp",
     "mlp_axes",
     "sinusoidal_positions",
+    "causal_conv",
+    "gelu",
 ]
 
 
@@ -130,7 +132,7 @@ def mlp_axes(cfg) -> dict:
     return {"up": {"w": ("embed", "mlp")}, "down": {"w": ("mlp", "embed")}}
 
 
-def _gelu(x):
+def gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
@@ -147,14 +149,14 @@ def mlp(tpl: Template, cfg, p, x, policy: Optional[NumericsPolicy] = None):
         if cfg.act == "swiglu":
             h = carry_marks(u, F.silu(eng.dequant(dense(tpl, p["gate"], xq))) * u)
         else:
-            h = carry_marks(u, _gelu(u))
+            h = carry_marks(u, gelu(u))
         h = constrain(h, "batch", None, "mlp")
         return eng.dequant(dense(tpl, p["down"], eng.quant(h, policy.fmt)))
     u = dense(tpl, p["up"], x)
     if cfg.act == "swiglu":
         h = carry_marks(u, F.silu(dense(tpl, p["gate"], x)) * u)
     else:
-        h = carry_marks(u, _gelu(u))
+        h = carry_marks(u, gelu(u))
     h = constrain(h, "batch", None, "mlp")
     return dense(tpl, p["down"], h)
 
@@ -173,3 +175,20 @@ def sinusoidal_positions(n: int, d: int, dtype=torch.float32, device="cpu") -> t
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / (10000.0 ** (2 * dim / d))
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
+
+
+def causal_conv(x, w, b, state=None):
+    """Depthwise causal conv over time (the recurrent blocks' short conv).
+    x: (B,S,C), w: (W,C), b: (C,); ``state``: the W-1 inputs before x (zeros
+    when None).  Returns (y, new_state), the state the last W-1 inputs."""
+    width = w.shape[0]
+    if state is None:
+        hist = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        hist = state.to(x.dtype)
+    xp = torch.cat([hist, x], dim=1)  # (B, S+W-1, C)
+    y = torch.zeros_like(x)
+    for i in range(width):
+        y = y + xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
+    new_state = xp[:, -(width - 1):, :].clone() if width > 1 else hist
+    return y + b[None, None, :], new_state

@@ -1,0 +1,166 @@
+"""Mixture-of-Experts FFN with grouped capacity-based dispatch (GShard style),
+in the port.
+
+The port's copy of ``repro.models.moe``.  Tokens split into groups of
+``cfg.moe_group``; each group routes its tokens top-k over the experts, and
+each expert takes at most ``cap`` tokens a group (``capacity_factor``),
+queued choice-major (every first choice before any second choice); a
+token that overflows loses that choice (the residual path keeps it).  The
+dispatch and combine tensors are dense (G, S, E, C) one-hots, so the whole
+routing is fixed-shape tensor work: no host sync, no boolean indexing, no
+``nonzero``, and a decode step that holds an MoE layer captures into one
+CUDA graph.
+
+The expert FFNs are GEMMs on the template's compute unit: on the ``cuda``
+and ``q16`` backends one ``tpl.matmul`` per (group, expert), as the
+reference's ``vmap`` of ``tpl.matmul`` over (group, expert) issues them; on
+``torch`` one batched ``einsum`` a projection, as the reference's ``xla``
+branch.  The per-(group, expert) loop costs G·E·3 launches a layer (a
+grouped launch over (group, expert) is a later lever).  Routing, dispatch
+and combine are plain tensor ops (the "PS plane").
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.template import Template
+
+from .layers import init_dense
+
+__all__ = ["init_moe", "moe_axes", "moe_ffn", "moe_ffn_dense_ref"]
+
+
+def init_moe(gen: torch.Generator, cfg, dtype=torch.float32, *, lead: tuple = ()):
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dev = gen.device
+
+    def experts(shape, scale):
+        return (torch.randn((*lead, *shape), generator=gen, device=dev) * scale).to(dtype)
+
+    return {
+        "router": init_dense(gen, d, e, dtype=torch.float32, lead=lead),
+        "gate": experts((e, d, ff), d ** -0.5),
+        "up": experts((e, d, ff), d ** -0.5),
+        "down": experts((e, ff, d), ff ** -0.5),
+    }
+
+
+def moe_axes(cfg) -> dict:
+    return {
+        "router": {"w": ("embed", None)},
+        "gate": ("experts", "embed", "expert_mlp"),
+        "up": ("experts", "embed", "expert_mlp"),
+        "down": ("experts", "expert_mlp", "embed"),
+    }
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an index outside [0, n) gives a row of zeros."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _route(cfg, router_w, xt):
+    """Top-k routing for flat token groups.  xt: (G, S, d).  Returns (gates
+    (G,S,k) normalized, idx (G,S,k), probs (G,S,E))."""
+    logits = torch.einsum("gsd,de->gse", xt.to(torch.float32), router_w.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, idx, probs
+
+
+def _groups(cfg, x):
+    """(B, S, d) -> the padded token groups (G, S_g, d), the token count and
+    the capacity a group gives each expert."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    sg = min(getattr(cfg, "moe_group", 512) or 512, t)
+    xt = x.reshape(t, d)
+    pad = (-t) % sg
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+    xt = xt.reshape(-1, sg, d)
+    cap = min(int(max(k, -(-sg * k // e) * cfg.capacity_factor)), sg)
+    return xt, t, cap
+
+
+def _queue_positions(cfg, idx):
+    """Each (token, choice)'s place in its expert's queue, choice-major (all
+    first choices queue before any second choice), and the one-hots of the
+    choices (G, S, k, E)."""
+    g, sg, k = idx.shape
+    e = cfg.n_experts
+    onehot = _one_hot(idx, e, torch.int32)  # (G, S, k, E)
+    cm = onehot.permute(0, 2, 1, 3)  # (G, k, S, E) choice-major
+    cum = torch.cumsum(cm.reshape(g, k * sg, e), dim=1).reshape(g, k, sg, e)
+    pos = (cum - cm).permute(0, 2, 1, 3)  # back to (G, S, k, E)
+    return (pos * onehot).sum(-1), onehot
+
+
+def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
+    """x: (B, S, d) -> ((B, S, d), the Switch-style load-balancing aux loss)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    xt, t, cap = _groups(cfg, x)
+    g, sg = xt.shape[0], xt.shape[1]
+    gates, idx, probs = _route(cfg, p["router"]["w"], xt)
+    pos, onehot = _queue_positions(cfg, idx)
+    keep = pos < cap
+
+    # combine weights (G, S, E, C) built choice by choice (k is small), so
+    # the (G, S, k, E, C) intermediate never exists
+    dt = x.dtype
+    combine = torch.zeros((g, sg, e, cap), dtype=dt, device=x.device)
+    for j in range(k):
+        oe = _one_hot(idx[:, :, j], e, dt)  # (G,S,E)
+        oc = _one_hot(pos[:, :, j], cap, dt)  # (G,S,C); a dropped choice is all zeros
+        w = (gates[:, :, j] * keep[:, :, j]).to(dt)  # (G,S)
+        combine = combine + w[..., None, None] * oe[..., None] * oc[:, :, None, :]
+    dispatch = (combine > 0).to(dt)
+    ex_in = torch.einsum("gsec,gsd->gecd", dispatch, xt)  # (G, E, C, d)
+
+    if tpl.config.backend == "torch":
+        def bmm(a, w):
+            return torch.einsum("gecd,edf->gecf", a, w.to(a.dtype))
+    else:
+        def bmm(a, w):
+            return torch.stack([torch.stack([tpl.matmul(a[gi, ei], w[ei])
+                                             for ei in range(e)])
+                                for gi in range(g)])
+    h = F.silu(bmm(ex_in, p["gate"])) * bmm(ex_in, p["up"])
+    ex_out = bmm(h, p["down"])
+
+    out = torch.einsum("gsec,gecd->gsd", combine, ex_out).reshape(g * sg, d)[:t]
+    out = out.reshape(b, s, d)
+
+    # Switch-style load-balancing aux loss (mean over groups)
+    density = onehot.to(torch.float32).sum(2).mean(1)  # (G, E) routed fraction
+    router_prob = probs.mean(1)  # (G, E)
+    aux = e * torch.mean(torch.sum(density * router_prob, dim=-1))
+    return out.to(x.dtype), aux
+
+
+def moe_ffn_dense_ref(cfg, p, x: torch.Tensor):
+    """Oracle: every expert computed for every token, weighted by the same
+    top-k gates with the same capacity-drop mask.  O(T·E·ff): tests only."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    xt, t, cap = _groups(cfg, x)
+    g, sg = xt.shape[0], xt.shape[1]
+    gates, idx, _ = _route(cfg, p["router"]["w"], xt)
+    pos, _ = _queue_positions(cfg, idx)
+    keep = pos < cap
+
+    def expert(eid):
+        h = F.silu(xt @ p["gate"][eid]) * (xt @ p["up"][eid])
+        return h @ p["down"][eid]
+
+    alle = torch.stack([expert(i) for i in range(e)], dim=2)  # (G,S,E,d)
+    w = torch.zeros((g, sg, e), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        oe = _one_hot(idx[:, :, j], e, x.dtype)
+        w = w + (gates[:, :, j] * keep[:, :, j]).to(x.dtype)[..., None] * oe
+    out = torch.einsum("gse,gsed->gsd", w, alle).reshape(g * sg, d)[:t]
+    return out.reshape(b, s, d).to(x.dtype)

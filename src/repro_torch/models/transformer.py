@@ -1,8 +1,19 @@
-"""The transformer LM, dense family, in the port.
+"""The transformer LM, every family, in the port.
 
-The port's copy of ``repro.models.transformer`` for the dense GQA stack
-(qwen2-0.5b and its relatives): every layer is attention followed by an
-MLP, each behind a pre-norm with a residual add.  The parameter tree keeps
+The port's copy of ``repro.models.transformer``, one model definition for
+every config:
+
+    dense   — qwen2.5-32b, internlm2-1.8b, mistral-nemo-12b, qwen2-0.5b
+    moe     — granite-moe-3b-a800m, phi3.5-moe-42b-a6.6b
+    hybrid  — recurrentgemma-9b (RG-LRU + local attention, pattern 2:1)
+    ssm     — mamba2-1.3b (attention-free SSD)
+    encdec  — whisper-medium (encoder + cross-attending decoder)
+    vlm     — llama-3.2-vision-90b (gated cross-attention image layers)
+
+Every layer is described by a :class:`LayerPlan` (its sequence mixer, a
+cross-attention sub-layer or not, an MoE FFN or not); a model is a
+repeating pattern of plans, each mixer and FFN behind a pre-norm with a
+residual add.  The parameter tree keeps
 the reference's stacked layout, ``params["blocks"]`` a tuple over pattern
 positions whose leaves carry a leading layer axis, plus ``params["tail"]``
 for leftover layers, so trees carry across from the JAX package one to one
@@ -19,12 +30,17 @@ point.  The serve scheduler's cache maintenance (:func:`insert_cache_slot`,
 :func:`insert_cache_rows`, :func:`clear_cache_rows`) is memory only, bit for
 bit the reference's.
 
-The other families (MoE, recurrent, SSM, cross-attention, encoder-decoder,
-VLM) raise ``NotImplementedError`` (ROADMAP queue 1 item 6).
+Context inputs (``ctx``): whisper's encoder runs once over the frame
+embeddings at each forward / prefill; the cross-attention layers attend to
+its output (or to the VLM's image embeddings), and their decode caches
+hold the context's keys and values, static across decode steps.  Grid-
+resident fixed point runs the dense full-attention stack only (the
+reference's rule); training is not ported (ROADMAP queue 1 item 7).
 
 Sharding: :func:`param_axes` and :func:`cache_axes` name each leaf's logical
 axes, and the layers pass the reference's ``constrain`` seams
-(``parallel.sharding``).  On a rank of a column-parallel mesh
+(``parallel.sharding``); the meshed steps run the dense family only.  On a
+rank of a column-parallel mesh
 (``DECODE_RULES``) the entry points return whole logits: a vocab-sharded
 head's output is gathered before it is read.
 :func:`calibrate_precision` is the drift-aware precision DSE over the
@@ -45,6 +61,9 @@ from repro_torch.core.template import Template
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import constrain
 
+from . import moe as moe_mod
+from . import rglru as rec_mod
+from . import ssm as ssm_mod
 from .attention import (
     attention,
     attention_axes,
@@ -54,7 +73,15 @@ from .attention import (
     init_attention,
     init_layer_cache,
 )
-from .layers import init_mlp, init_norm, mlp, mlp_axes, mlp_islands, norm
+from .layers import (
+    init_mlp,
+    init_norm,
+    mlp,
+    mlp_axes,
+    mlp_islands,
+    norm,
+    sinusoidal_positions,
+)
 
 __all__ = [
     "LayerPlan",
@@ -78,22 +105,29 @@ __all__ = [
     "copy_cache_",
 ]
 
-_NOT_PORTED = "ROADMAP queue 1 item 6: the other model families"
-
-
 class LayerPlan(NamedTuple):
-    mixer: str  # "attn" (the dense family's only mixer in the port)
+    mixer: str  # "attn" | "local" | "attn_nc" | "rec" | "ssm"
     cross: bool  # followed by a cross-attention sub-layer
     moe: bool  # FFN is a mixture of experts
 
 
+#: whisper's encoder layers: non-causal self-attention and an MLP
+_ENC_PLAN = LayerPlan("attn_nc", False, False)
+
+
 def plan_pattern(cfg) -> tuple:
-    """One pattern period of layer plans (dense: one full-attention layer)."""
-    if cfg.family != "dense" or cfg.abs_pos:
-        what = (f"the {cfg.family!r} family" if cfg.family != "dense"
-                else "absolute sinusoidal positions")
-        raise NotImplementedError(f"{cfg.name}: {what} not ported yet ({_NOT_PORTED})")
-    return (LayerPlan("attn", False, False),)
+    """One pattern period of layer plans."""
+    if cfg.family == "ssm":
+        return (LayerPlan("ssm", False, False),)
+    if cfg.family == "hybrid":
+        return tuple(LayerPlan("local" if m == "attn" else "rec", False, False)
+                     for m in cfg.pattern)
+    if cfg.family == "vlm":
+        p = cfg.cross_attn_period
+        return tuple(LayerPlan("attn", i == p - 1, False) for i in range(p))
+    if cfg.family == "encdec":
+        return (LayerPlan("attn", True, False),)
+    return (LayerPlan("attn", False, cfg.family == "moe"),)
 
 
 def _split(cfg):
@@ -112,17 +146,32 @@ def _dtype(name) -> torch.dtype:
 
 
 def _init_layer(gen, cfg, plan: LayerPlan, dtype, lead: tuple = ()):
-    return {
-        "norm": init_norm(cfg, dtype, device=gen.device, lead=lead),
-        "attn": init_attention(gen, cfg, dtype=dtype, lead=lead),
-        "ffn_norm": init_norm(cfg, dtype, device=gen.device, lead=lead),
-        "ffn": init_mlp(gen, cfg, dtype=dtype, lead=lead),
-    }
+    dev = gen.device
+    p = {"norm": init_norm(cfg, dtype, device=dev, lead=lead)}
+    if plan.mixer in ("attn", "local", "attn_nc"):
+        p["attn"] = init_attention(gen, cfg, dtype=dtype, lead=lead)
+    elif plan.mixer == "rec":
+        p["rec"] = rec_mod.init_rglru(gen, cfg, dtype=dtype, lead=lead)
+    elif plan.mixer == "ssm":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype=dtype, lead=lead)
+    else:  # pragma: no cover
+        raise ValueError(plan.mixer)
+    if plan.cross:
+        p["cross_norm"] = init_norm(cfg, dtype, device=dev, lead=lead)
+        p["cross"] = init_attention(gen, cfg, bias=False, dtype=dtype, lead=lead)
+        if cfg.family == "vlm":
+            p["cross_gate"] = torch.zeros(lead, dtype=dtype, device=dev)
+    if plan.mixer != "ssm":  # a mamba2 block has no FFN of its own
+        p["ffn_norm"] = init_norm(cfg, dtype, device=dev, lead=lead)
+        p["ffn"] = (moe_mod.init_moe(gen, cfg, dtype=dtype, lead=lead) if plan.moe
+                    else init_mlp(gen, cfg, dtype=dtype, lead=lead))
+    return p
 
 
 def init_params(gen: torch.Generator, cfg, dtype=None):
     """Random parameters in the config's dtype, drawn from ``gen`` on its own
-    device; the reference's initializers and scales, not its numbers."""
+    device; the reference's initializers and scales, not its numbers (a
+    VLM's ``cross_gate`` starts at 0, as there)."""
     dtype = _dtype(dtype or cfg.dtype)
     pattern, g, r = _split(cfg)
     d, v = cfg.d_model, cfg.vocab
@@ -136,12 +185,31 @@ def init_params(gen: torch.Generator, cfg, dtype=None):
         params["lm_head"] = {"w": table((d, v))}
     params["blocks"] = tuple(_init_layer(gen, cfg, p, dtype, lead=(g,)) for p in pattern)
     params["tail"] = tuple(_init_layer(gen, cfg, pattern[j], dtype) for j in range(r))
+    if cfg.family == "encdec":
+        params["encoder"] = {
+            "blocks": (_init_layer(gen, cfg, _ENC_PLAN, dtype, lead=(cfg.n_encoder_layers,)),),
+            "final_norm": init_norm(cfg, dtype, device=dev),
+        }
     return params
 
 
 def _layer_axes(cfg, plan: LayerPlan) -> dict:
-    return {"norm": None, "attn": attention_axes(cfg), "ffn_norm": None,
-            "ffn": mlp_axes(cfg)}
+    ax = {"norm": None}
+    if plan.mixer in ("attn", "local", "attn_nc"):
+        ax["attn"] = attention_axes(cfg)
+    elif plan.mixer == "rec":
+        ax["rec"] = rec_mod.rglru_axes(cfg)
+    elif plan.mixer == "ssm":
+        ax["ssm"] = ssm_mod.ssm_axes(cfg)
+    if plan.cross:
+        ax["cross_norm"] = None
+        ax["cross"] = attention_axes(cfg, bias=False)
+        if cfg.family == "vlm":
+            ax["cross_gate"] = None
+    if plan.mixer != "ssm":
+        ax["ffn_norm"] = None
+        ax["ffn"] = moe_mod.moe_axes(cfg) if plan.moe else mlp_axes(cfg)
+    return ax
 
 
 def _stack_axes(ax):
@@ -160,6 +228,9 @@ def param_axes(cfg) -> dict:
         ax["lm_head"] = {"w": ("embed", "vocab")}
     ax["blocks"] = tuple(_stack_axes(_layer_axes(cfg, p)) for p in pattern)
     ax["tail"] = tuple(_layer_axes(cfg, pattern[j]) for j in range(r))
+    if cfg.family == "encdec":
+        ax["encoder"] = {"blocks": (_stack_axes(_layer_axes(cfg, _ENC_PLAN)),),
+                         "final_norm": None}
     return ax
 
 
@@ -205,7 +276,12 @@ def quantize_params(tpl: Template, cfg, params, policy: NumericsPolicy):
     policy = validate_policy(tpl.config, policy)
     if not policy.quantized:
         return params
-    _split(cfg)  # the dense family only
+    pattern = plan_pattern(cfg)
+    bad = [lp.mixer for lp in pattern if lp.mixer != "attn"]
+    if bad or any(lp.cross or lp.moe for lp in pattern):
+        raise ValueError(f"NumericsPolicy('q16') supports dense full-attention stacks "
+                         f"only; {cfg.name} ({cfg.family}) has "
+                         f"{bad or 'cross-attention / MoE layers'}")
     eng = tpl.engine
 
     def build():
@@ -340,66 +416,134 @@ def _group_policy(policy, name: str):
 # ---------------------------------------------------------------------------
 
 
-def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None,
+def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, ctx=None,
                cache_len: int = 0, t=None, policy=None, n_valid=None, inplace=False):
-    """Returns (h, new_cache_or_None)."""
+    """One layer.  Returns (h, new_cache_or_None, aux): aux is the MoE FFN's
+    load-balancing loss (0 for any other FFN).  ``mode``: "fwd", "prefill"
+    or "decode"; ``inplace`` (decode) writes the layer's new cache entries
+    into the tensors of ``cache``."""
     newc = {}
-    a_in = norm(cfg, p["norm"], h)
-    if mode == "decode":
-        out, c = decode_attention(tpl, p["attn"], a_in, cache["attn"], cfg=cfg, t=t,
-                                  policy=policy, n_valid=n_valid, inplace=inplace)
-        newc["attn"] = c
-    else:
-        a_in = constrain(a_in, "batch", "seq_act", "act_embed")
-        out, c = attention(tpl, p["attn"], a_in, cfg=cfg, positions=positions,
-                           cache_len=cache_len if mode == "prefill" else 0,
-                           policy=policy)
-        if mode == "prefill":
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    if plan.mixer in ("attn", "local", "attn_nc"):
+        window = cfg.window if plan.mixer == "local" else 0
+        a_in = norm(cfg, p["norm"], h)
+        if mode == "decode":
+            out, c = decode_attention(tpl, p["attn"], a_in, cache["attn"], cfg=cfg, t=t,
+                                      window=window, policy=policy, n_valid=n_valid,
+                                      inplace=inplace)
             newc["attn"] = c
-        out = constrain(out, "batch", "seq_act", "act_embed")
-    h = h + out
-    f_in = norm(cfg, p["ffn_norm"], h)
-    if mode != "decode":
-        f_in = constrain(f_in, "batch", "seq_act", "act_embed")
-    out = mlp(tpl, cfg, p["ffn"], f_in, policy=policy)
-    if mode != "decode":
-        out = constrain(out, "batch", "seq_act", "act_embed")
-    h = constrain(h + out, "batch", "seq_act", "act_embed")
-    return h, (newc or None)
+        else:
+            a_in = constrain(a_in, "batch", "seq_act", "act_embed")
+            clen = 0
+            if mode == "prefill":
+                clen = min(window, cache_len) if window else cache_len
+            out, c = attention(tpl, p["attn"], a_in, cfg=cfg, positions=positions,
+                               causal=plan.mixer != "attn_nc", window=window,
+                               cache_len=clen, policy=policy)
+            if mode == "prefill":
+                newc["attn"] = c
+            out = constrain(out, "batch", "seq_act", "act_embed")
+        h = h + out
+    else:  # the recurrent mixers: RG-LRU ("rec") and Mamba2 SSD ("ssm")
+        mod, block, step = ((rec_mod, rec_mod.rglru_block, rec_mod.rglru_decode_step)
+                            if plan.mixer == "rec" else
+                            (ssm_mod, ssm_mod.ssm_block, ssm_mod.ssm_decode_step))
+        a_in = norm(cfg, p["norm"], h)
+        if mode == "decode":
+            out, c = step(tpl, cfg, p[plan.mixer], a_in, cache[plan.mixer], inplace=inplace)
+            newc[plan.mixer] = c
+        elif mode == "prefill":
+            out, c = block(tpl, cfg, p[plan.mixer], a_in, return_cache=True)
+            newc[plan.mixer] = c
+        else:
+            out = block(tpl, cfg, p[plan.mixer], a_in)
+        if mode != "decode":
+            out = constrain(out, "batch", "seq_act", "act_embed")
+        h = h + out
+
+    if plan.cross:
+        c_in = norm(cfg, p["cross_norm"], h)
+        if mode == "decode":
+            out, _ = decode_attention(tpl, p["cross"], c_in, cache["cross"], cfg=cfg, t=t,
+                                      cross=True)
+            newc["cross"] = cache["cross"]  # static across decode steps
+        else:
+            clen = ctx.shape[1] if mode == "prefill" else 0
+            out, c = attention(tpl, p["cross"], c_in, cfg=cfg, positions=positions,
+                               kv_source=ctx, cache_len=clen)
+            if mode == "prefill":
+                newc["cross"] = c
+        if "cross_gate" in p:
+            out = torch.tanh(p["cross_gate"]).to(out.dtype) * out
+        if mode != "decode":
+            out = constrain(out, "batch", "seq_act", "act_embed")
+        h = h + out
+
+    if plan.mixer != "ssm":
+        f_in = norm(cfg, p["ffn_norm"], h)
+        if mode != "decode":
+            f_in = constrain(f_in, "batch", "seq_act", "act_embed")
+        if plan.moe:
+            out, aux = moe_mod.moe_ffn(tpl, cfg, p["ffn"], f_in)
+        else:
+            out = mlp(tpl, cfg, p["ffn"], f_in, policy=policy)
+        if mode != "decode":
+            out = constrain(out, "batch", "seq_act", "act_embed")
+        h = h + out
+    h = constrain(h, "batch", "seq_act", "act_embed")
+    return h, (newc or None), aux
 
 
-def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None,
+def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None, ctx=None,
                cache_len: int = 0, t=None, policy=None, n_valid=None, inplace=False):
     """Run the stacked groups layer by layer (layer j of every pattern
     position in turn, as the reference's scan does), then the tail layers.
-    Returns (h, cache' or None); with ``inplace`` a decode writes into the
-    cache passed in (each layer's rings are views of its stacked leaves)
-    and returns it."""
+    Returns (h, cache' or None, aux summed over the layers); with
+    ``inplace`` a decode writes into the cache passed in (each layer's
+    entries are views of its stacked leaves) and returns it."""
     blocks = params["blocks"]
     depth = _depth(blocks[0]) if blocks else 0
     block_caches = [[] for _ in pattern]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j in range(depth):
         for i, plan in enumerate(pattern):
             c = None if cache is None else _at(cache["blocks"][i], j)
-            h, c = _run_layer(tpl, cfg, plan, _at(blocks[i], j), h, positions=positions,
-                              mode=mode, cache=c, cache_len=cache_len, t=t,
-                              policy=_group_policy(policy, f"g{i}"), n_valid=n_valid,
-                              inplace=inplace)
+            h, c, a = _run_layer(tpl, cfg, plan, _at(blocks[i], j), h, positions=positions,
+                                 mode=mode, cache=c, ctx=ctx, cache_len=cache_len, t=t,
+                                 policy=_group_policy(policy, f"g{i}"), n_valid=n_valid,
+                                 inplace=inplace)
             block_caches[i].append(c)
+            aux = aux + a
     tail_caches = []
     for j, lp in enumerate(params["tail"]):
         c = None if cache is None else cache["tail"][j]
-        h, c = _run_layer(tpl, cfg, pattern[j], lp, h, positions=positions, mode=mode,
-                          cache=c, cache_len=cache_len, t=t,
-                          policy=_group_policy(policy, f"tail{j}"), n_valid=n_valid,
-                          inplace=inplace)
+        h, c, a = _run_layer(tpl, cfg, pattern[j], lp, h, positions=positions, mode=mode,
+                             cache=c, ctx=ctx, cache_len=cache_len, t=t,
+                             policy=_group_policy(policy, f"tail{j}"), n_valid=n_valid,
+                             inplace=inplace)
         tail_caches.append(c)
+        aux = aux + a
     if mode not in ("prefill", "decode"):
-        return h, None
+        return h, None, aux
     if inplace:
-        return h, cache
+        return h, cache, aux
     return h, {"blocks": tuple(_stack(cs) for cs in block_caches),
-               "tail": tuple(tail_caches)}
+               "tail": tuple(tail_caches)}, aux
+
+
+def _encode(tpl, cfg, enc_params, frames):
+    """Whisper's encoder over precomputed frame embeddings (the stub
+    frontend): sinusoidal positions, non-causal layers, a final norm."""
+    nf = frames.shape[1]
+    h = frames + sinusoidal_positions(nf, cfg.d_model, frames.dtype, frames.device)[None]
+    h = constrain(h, "batch", "ctx", "act_embed")
+    blocks = enc_params["blocks"][0]
+    positions = torch.arange(nf, device=h.device)
+    for j in range(_depth(blocks)):
+        h, _, _ = _run_layer(tpl, cfg, _ENC_PLAN, _at(blocks, j), h, positions=positions,
+                             mode="fwd")
+    return norm(cfg, enc_params["final_norm"], h)
 
 
 # ---------------------------------------------------------------------------
@@ -429,43 +573,63 @@ def _head(tpl, cfg, params, h, *, policy=None):
     return sh.replicated(constrain(logits, "batch", "seq_act", "vocab"))
 
 
-def _no_ctx(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError(f"context inputs (encoder frames, image embeddings) "
-                                  f"are not ported yet ({_NOT_PORTED})")
+def _context(tpl, cfg, params, ctx):
+    """The context the cross-attention layers read: whisper's encoder output
+    over ``ctx`` (frame embeddings), else ``ctx`` itself (image embeddings,
+    or None)."""
+    if cfg.family == "encdec":
+        return _encode(tpl, cfg, params["encoder"], ctx)
+    return ctx
 
 
-def forward(tpl: Template, cfg, params, tokens, *, ctx=None,
+def _sinusoid_at(t, d: int, dtype):
+    """Sinusoidal position rows at positions ``t`` (a device tensor of any
+    shape): (*t.shape, d), the rows of :func:`sinusoidal_positions`."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=t.device)
+    angle = t.to(torch.float32)[..., None] / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
+
+
+def forward(tpl: Template, cfg, params, tokens, *, ctx=None, mode: str = "fwd",
             policy: Optional[NumericsPolicy] = None):
     """Teacher-forced full-sequence forward.  tokens: (B, S) -> (logits
-    (B, S, V), aux).  A quantized ``policy`` runs the stack grid-resident on
-    the matching :func:`quantize_params` tree; aux is 0 (no MoE).  The
-    reference's ``mode`` (train / fwd) has no counterpart: the port does
-    not train yet."""
-    _no_ctx(ctx)
+    (B, S, V), aux, the MoE layers' load-balancing loss summed, 0 without
+    MoE).  ``ctx``: whisper's frame embeddings (B, n_frames, d) or the VLM's
+    image embeddings (B, n_image_tokens, d).  A quantized ``policy`` runs
+    the stack grid-resident on the matching :func:`quantize_params` tree.
+    ``mode`` "fwd"; the reference's "train" (its rematerialized training
+    forward) raises: the port does not train yet (ROADMAP queue 1 item 7)."""
+    if mode != "fwd":
+        raise NotImplementedError(f"forward(mode={mode!r}): training is not ported yet "
+                                  f"(ROADMAP queue 1 item 7); the port runs mode='fwd'")
     s = tokens.shape[1]
     h = _embed_tokens(cfg, params, tokens)
+    if cfg.abs_pos:
+        h = h + sinusoidal_positions(s, cfg.d_model, h.dtype, h.device)[None]
+    ctx = _context(tpl, cfg, params, ctx)
     pattern, _, _ = _split(cfg)
     positions = torch.arange(s, device=h.device)
-    h, _ = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="fwd",
-                      positions=positions, policy=policy)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h, _, aux = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="fwd",
+                           positions=positions, ctx=ctx, policy=policy)
     return _head(tpl, cfg, params, h, policy=policy), aux
 
 
 def prefill(tpl: Template, cfg, params, tokens, *, ctx=None,
             cache_len: Optional[int] = None, last_pos=None,
             policy: Optional[NumericsPolicy] = None):
-    """Process the prompt; return (logits (B, V) at ``last_pos`` — default
-    the final position; a scalar or a (B,) vector — and the decode cache)."""
-    _no_ctx(ctx)
+    """Process the prompt (and ``ctx``, as :func:`forward`); return (logits
+    (B, V) at ``last_pos`` — default the final position; a scalar or a (B,)
+    vector — and the decode cache)."""
     s = tokens.shape[1]
     cache_len = cache_len or s
     h = _embed_tokens(cfg, params, tokens)
+    if cfg.abs_pos:
+        h = h + sinusoidal_positions(s, cfg.d_model, h.dtype, h.device)[None]
+    ctx = _context(tpl, cfg, params, ctx)
     pattern, _, _ = _split(cfg)
-    h, cache = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="prefill",
-                          positions=torch.arange(s, device=h.device), cache_len=cache_len,
-                          policy=policy)
+    h, cache, _ = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="prefill",
+                             positions=torch.arange(s, device=h.device), ctx=ctx,
+                             cache_len=cache_len, policy=policy)
     if last_pos is None:
         h_last = h[:, -1:]
     else:
@@ -483,14 +647,17 @@ def decode_step(tpl: Template, cfg, params, token, t, cache,
     slot-indexed cache (``init_cache(per_slot=True)``; t[b] < 0 turns lane b
     off).  Returns (logits (B, V), new_cache); the cache passed in is left
     as it was, unless ``inplace`` (the caller gives it up: the step writes
-    into it and returns it).  ``t`` stays on the device: nothing here reads
-    it back to the host.  Under a quantized ``policy`` the step is
-    grid-resident end to end."""
+    into it, recurrent states included, and returns it).  ``t`` stays on
+    the device: nothing here reads it back to the host.  Under a quantized
+    ``policy`` the step is grid-resident end to end."""
     t = decode_positions(t, token.device)
     h = _embed_tokens(cfg, params, token)
+    if cfg.abs_pos:
+        pe = _sinusoid_at(t.reshape(-1), cfg.d_model, h.dtype)  # (1 or B, d)
+        h = h + pe[:, None]
     pattern, _, _ = _split(cfg)
-    h, cache = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="decode",
-                          positions=t, t=t, cache=cache, policy=policy, inplace=inplace)
+    h, cache, _ = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="decode",
+                             positions=t, t=t, cache=cache, policy=policy, inplace=inplace)
     logits = _head(tpl, cfg, params, h, policy=policy)
     return logits[:, 0], cache
 
@@ -511,10 +678,12 @@ def prefill_chunk_step(tpl: Template, cfg, params, tokens, t, n_valid, cache,
     nv = decode_positions(n_valid, dev).reshape(-1)
     s = tokens.shape[1]
     h = _embed_tokens(cfg, params, tokens)
+    if cfg.abs_pos:
+        h = h + _sinusoid_at(t[:, None] + torch.arange(s, device=dev), cfg.d_model, h.dtype)
     pattern, _, _ = _split(cfg)
-    h, cache = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="decode",
-                          positions=t, t=t, cache=cache, policy=policy, n_valid=nv,
-                          inplace=inplace)
+    h, cache, _ = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="decode",
+                             positions=t, t=t, cache=cache, policy=policy, n_valid=nv,
+                             inplace=inplace)
     last = torch.clamp(nv - 1, 0, s - 1)
     h_last = h[torch.arange(h.shape[0], device=dev), last][:, None]
     logits = _head(tpl, cfg, params, h_last, policy=policy)
@@ -526,19 +695,46 @@ def prefill_chunk_step(tpl: Template, cfg, params, tokens, t, n_valid, cache,
 # ---------------------------------------------------------------------------
 
 
+def _ctx_len(cfg) -> int:
+    if cfg.family == "encdec":
+        return cfg.n_frames
+    if cfg.family == "vlm":
+        return cfg.n_image_tokens
+    return 0
+
+
 def _init_layer_cache(cfg, plan: LayerPlan, batch, cache_len, dtype, per_slot=False,
                       device="cpu"):
-    return {"attn": init_layer_cache(batch, cfg.n_kv_heads, cache_len, cfg.head_dim, dtype,
-                                     per_slot=per_slot, device=device)}
+    c = {}
+    if plan.mixer in ("attn", "local"):
+        clen = (min(cfg.window, cache_len) if plan.mixer == "local" and cfg.window
+                else cache_len)
+        c["attn"] = init_layer_cache(batch, cfg.n_kv_heads, clen, cfg.head_dim, dtype,
+                                     per_slot=per_slot, device=device)
+    elif plan.mixer == "rec":
+        c["rec"] = rec_mod.init_rglru_cache(cfg, batch, dtype, device=device)
+    elif plan.mixer == "ssm":
+        c["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, dtype, device=device)
+    if plan.cross:
+        tctx = _ctx_len(cfg)
+        cc = init_layer_cache(batch, cfg.n_kv_heads, tctx, cfg.head_dim, dtype,
+                              device=device)
+        cc["pos"] = torch.arange(tctx, dtype=torch.int32, device=device)  # as if prefilled
+        c["cross"] = cc
+    return c
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=None, *, per_slot: bool = False,
                policy=None, device="cpu"):
-    """Zero decode cache with the prefill cache's structure.  ``per_slot``
-    builds the slot-indexed layout (each self-attention pos vector (B, C))
-    of the continuous-batching scheduler.  A quantized ``policy`` stores
-    each group's k / v as its grid's raws (int16, or int8 on the int8
-    rung); an explicit ``dtype`` overrides it."""
+    """Zero decode cache with the prefill cache's structure: a k / v ring per
+    attention layer (a sliding-window layer's of ``min(window, cache_len)``
+    slots), an RG-LRU's state ``h`` (f32) and conv history, an SSD's state
+    (f32) and conv history, a cross layer's context k / v (every position
+    valid, as if prefilled).  ``per_slot`` builds the slot-indexed layout
+    (each self-attention pos vector (B, C)) of the continuous-batching
+    scheduler.  A quantized ``policy`` stores each group's k / v as its
+    grid's raws (int16, or int8 on the int8 rung); an explicit ``dtype``
+    overrides it."""
     pattern, g, r = _split(cfg)
 
     def group_dtype(name):
@@ -546,17 +742,13 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=None, *, per_slot: bool = 
             return policy.fmt_for(name).storage_dtype
         return _dtype(dtype or cfg.dtype)
 
-    def stacked(plan, name):
-        one = _init_layer_cache(cfg, plan, batch, cache_len, group_dtype(name),
-                                per_slot=per_slot, device=device)
-        return _stack([one] * g)
+    def one(plan, name):
+        return _init_layer_cache(cfg, plan, batch, cache_len, group_dtype(name),
+                                 per_slot=per_slot, device=device)
 
     return {
-        "blocks": tuple(stacked(p, f"g{i}") for i, p in enumerate(pattern)),
-        "tail": tuple(_init_layer_cache(cfg, pattern[j], batch, cache_len,
-                                        group_dtype(f"tail{j}"), per_slot=per_slot,
-                                        device=device)
-                      for j in range(r)),
+        "blocks": tuple(_stack([one(p, f"g{i}")] * g) for i, p in enumerate(pattern)),
+        "tail": tuple(one(pattern[j], f"tail{j}") for j in range(r)),
     }
 
 
@@ -618,6 +810,19 @@ def _map_leaves(fn, dst, src):
     return fn(dst, src)
 
 
+def _map_rows(fn, dst, src):
+    """:func:`_map_leaves` over the leaves that hold batch rows: a cross
+    layer's "pos" (the context positions every row shares) keeps ``dst``'s."""
+    if isinstance(dst, dict):
+        return {k: ({**_map_rows(fn, {n: v for n, v in dst[k].items() if n != "pos"},
+                                 src[k]), "pos": dst[k]["pos"]}
+                    if k == "cross" else _map_rows(fn, dst[k], src[k]))
+                for k in dst}
+    if isinstance(dst, tuple):
+        return tuple(_map_rows(fn, d, s_) for d, s_ in zip(dst, src))
+    return fn(dst, src)
+
+
 def copy_cache_(cache, new):
     """Copy every leaf of ``new`` into the same leaf of ``cache``, a cache of
     the same structure and shapes (an in-place update of the caller's
@@ -646,7 +851,9 @@ def insert_cache_slot(cache, slot: int, row_cache, *, valid_len=None):
     cache_len; ``valid_len`` (the real prompt length) invalidates the pad
     positions a bucket-padded prefill filled.  Leaves stack the batch at
     axis 1 under "blocks" and axis 0 under "tail"; a per-slot pos row, (C,)
-    in the row cache and (B, C) batched, is told apart by its rank.
+    in the row cache and (B, C) batched, is told apart by its rank.  A
+    recurrent state or conv history is a batched leaf like k / v; a cross
+    layer's context positions are shared and stay as they are.
     Returns the new cache (the one passed in is left as it was)."""
     if valid_len is not None:
         row_cache = _trim_cache_positions(row_cache, valid_len)
@@ -660,8 +867,8 @@ def insert_cache_slot(cache, slot: int, row_cache, *, valid_len=None):
             return out
         return put
 
-    return {"blocks": _map_leaves(ins(1), cache["blocks"], row_cache["blocks"]),
-            "tail": _map_leaves(ins(0), cache["tail"], row_cache["tail"])}
+    return {"blocks": _map_rows(ins(1), cache["blocks"], row_cache["blocks"]),
+            "tail": _map_rows(ins(0), cache["tail"], row_cache["tail"])}
 
 
 def _as_index(x, device, dtype=torch.int64):
@@ -676,8 +883,9 @@ def insert_cache_rows(cache, rows_cache, *, src_rows, sel, valid_lens, inplace: 
     positions >= ``valid_lens[j]`` invalidated (pos = -1); unselected slots
     keep their bytes.  ``src_rows`` / ``sel`` / ``valid_lens`` are
     (n_slots,) vectors (src_rows of unselected slots: any row in range).
-    The prefill's shared pos, (C,) per group, is expanded per slot.  Returns
-    the new cache; ``inplace`` writes it into the tensors of ``cache``."""
+    The prefill's shared pos, (C,) per group, is expanded per slot; a cross
+    layer's context positions stay as they are.  Returns the new cache;
+    ``inplace`` writes it into the tensors of ``cache``."""
     dev = _device_of(cache)
     src = _as_index(src_rows, dev)
     selb = _as_index(sel, dev, torch.bool)
@@ -698,8 +906,8 @@ def insert_cache_rows(cache, rows_cache, *, src_rows, sel, valid_lens, inplace: 
             return torch.where(selb.reshape(shape), gathered.to(dst.dtype), dst)
         return put
 
-    new = {"blocks": _map_leaves(ins(1), cache["blocks"], rows_cache["blocks"]),
-           "tail": _map_leaves(ins(0), cache["tail"], rows_cache["tail"])}
+    new = {"blocks": _map_rows(ins(1), cache["blocks"], rows_cache["blocks"]),
+           "tail": _map_rows(ins(0), cache["tail"], rows_cache["tail"])}
     return copy_cache_(cache, new) if inplace else new
 
 

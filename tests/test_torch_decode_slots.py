@@ -432,7 +432,7 @@ def test_q16_per_slot_layer_on_the_reference_input(setup, q16, s, t, n_valid):
                                       positions=jnp.asarray(tv, jnp.int32), mode="decode",
                                       cache=_j(c_in), t=jnp.asarray(tv, jnp.int32),
                                       policy=pol_j, n_valid=nv_j)
-        out, c = T._run_layer(tpl, cfg, plan, T._at(qp["blocks"][0], layer),
+        out, c, _ = T._run_layer(tpl, cfg, plan, T._at(qp["blocks"][0], layer),
                               torch.from_numpy(np.array(h_j)), positions=None, mode="decode",
                               cache=_t(c_in), t=torch.from_numpy(tv), policy=pol, n_valid=nv)
         a, w = c["attn"], c_j["attn"]

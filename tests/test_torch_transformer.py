@@ -51,6 +51,8 @@ from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.kernels import matmul_fp
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.scheduler import ServeScheduler, compiled_steps
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as T
 
@@ -311,18 +313,23 @@ def test_serve_main_runs_on_cpu_and_refuses_what_is_not_ported(tmp_path):
 
 
 def test_unported_paths_raise(setup):
+    """What the port still refuses: training (the reference's forward in
+    mode "train"; ROADMAP queue 1 item 7) and the meshed serving of every
+    family but the dense one (compiled_steps and ServeScheduler on a mesh)."""
     _, cfg, _, params, tokens = setup
-    for change in ({"family": "moe"}, {"abs_pos": True}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            T.plan_pattern(dataclasses.replace(cfg, **change))
     tpl = default_template("cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.prefill(tpl, cfg, params, _tok(tokens), ctx=torch.zeros(2, 4, cfg.d_model))
-    q = torch.zeros(1, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tattn._sdpa_chunked(tpl, q, q, q, causal=True, window=4, q_offset=0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tattn._sdpa_chunked(tpl, q, q, q, causal=False, window=0, q_offset=0)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        T.forward(tpl, cfg, params, _tok(tokens), mode="train")
+    mesh = make_test_mesh()
+    for name in ("granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-9b",
+                 "whisper-medium", "llama-3.2-vision-90b"):
+        other = reduced(get_config(name))
+        with pytest.raises(NotImplementedError, match="meshed serving"):
+            compiled_steps(tpl, other, 32, mesh=mesh)
+    moe = reduced(get_config("granite-moe-3b-a800m"))
+    with pytest.raises(NotImplementedError, match="meshed serving"):
+        ServeScheduler(moe, T.init_params(torch.Generator().manual_seed(0), moe), tpl=tpl,
+                       mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +435,7 @@ def test_q16_each_layer_on_the_reference_input(setup, q16):
         out_j, c_j, _ = JT._run_layer(tpl_j, cfg_j, plan_j, p_j, h_j,
                                       positions=jnp.arange(s), mode="prefill",
                                       cache_len=s, policy=pol_j)
-        out, c = T._run_layer(tpl, cfg, plan, T._at(qp["blocks"][0], layer),
+        out, c, _ = T._run_layer(tpl, cfg, plan, T._at(qp["blocks"][0], layer),
                               torch.from_numpy(np.array(h_j)), positions=torch.arange(s),
                               mode="prefill", cache_len=s, policy=pol)
         assert np.array_equal(c["attn"]["v"].numpy(), np.asarray(c_j["attn"]["v"])), layer
