@@ -176,7 +176,33 @@ non-zero without its result line):
    prefill tokens/s, decode ms a step eager and replayed, peak memory.
    Then granite through ``ServeScheduler`` (4 slots, ladder (256, 512), 6
    requests of ``synthetic_trace``): replay = eager at the 4-slot shape,
-   every request completes.
+   every request completes;
+11. training ("train"), every step on the ``torch`` template (autograd over
+   plain tensor ops, as the reference trains on its ``xla`` backend; no
+   hand-written kernel has a backward): (a) qwen2-0.5b at full width and
+   depth (bf16, remat on, 493,961,216 parameters) through
+   ``launch/train.main``, 8 steps of 8 x 1024 tokens in 2 microbatches,
+   once fault-free and once failing at step 6 with checkpoints every 4
+   (into a directory under ``build/`` that the phase deletes).  Gates:
+   every loss finite, the last two below the first, one failure and a
+   restart at 4, the restarted run's losses equal to the fault-free run's
+   bit for bit, step 0 within 1 % (loss) and 5 % (grad norm) of the same
+   weights and batch in f32, no kernel launched.  Printed: ms a step,
+   tokens/s, peak memory, checkpoint save and restore seconds, the share
+   of the bf16 dense peak that 6·N·D reaches.  (b) The LeNet QAT example
+   (``repro_torch.examples.train_lenet_q214``): 60 float and 30 QAT steps
+   at batch 32, then the grid deploy and the precision DSE on the ``q16``
+   template.  Gates: the last QAT loss below the first float loss, the
+   deployed logits (grid and the DSE's plan) bit-identical to the CPU
+   engine's on the same quantized weights and images, the q16 conv on
+   "cudacore" and the q16 GEMM on "splitk" launched and counted, no float
+   kernel.  (c) One ``loss_fn`` forward and backward a family at full
+   width, depth cut to one period (whisper: one decoder and one encoder
+   layer; llama-3.2-vision: one self and one gated cross layer), bf16, no
+   optimizer state, 1 x 1024 tokens (whisper 1 x 432 after 1500 frames,
+   llama-vision after 1600 image tokens).  Gates: the loss and every grad
+   finite, the loss within 1 % and the grad norm within 5 % of the same
+   weights' f32 pass.  Printed: ms and peak memory.
 
 ``--gemm-route-study`` adds the float GEMM's design measurements, off by
 default: route "tile" timed beside fc0 and the tied head, and the
@@ -3512,6 +3538,322 @@ def family_scheduler(torch, cfg, params, tpl):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+#: qwen2-0.5b through launch/train.main at full width and depth (bf16, remat
+#: on): 8 steps of 8 x 1024 tokens in 2 microbatches; run B fails at step 6
+#: and resumes from its step-4 checkpoint
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_PARAMS = 493_961_216
+TRAIN_ARGV = ("--full", "--batch", "8", "--seq", "1024", "--accum", "2", "--lr", "1e-3",
+              "--steps", "8", "--log-every", "1", "--seed", str(SEED))
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 6
+#: step 0 of the bf16 run against the same weights and batch in f32 on the card
+TRAIN_F32_LOSS_TOL, TRAIN_F32_GNORM_TOL = 0.01, 0.05
+#: the same gates for phase 11c's one loss_fn forward and backward a family
+FAMILY_TRAIN_RUNS = (
+    # (config, tokens, what the depth cut keeps)
+    ("granite-moe-3b-a800m", 1024, "one layer (the period)"),
+    ("mamba2-1.3b", 1024, "one layer (the period)"),
+    ("recurrentgemma-9b", 1024, "one period: rec, rec, local attention"),
+    ("whisper-medium", 432, "one decoder and one encoder layer"),
+    ("llama-3.2-vision-90b", 1024, "one self and one gated cross layer"),
+)
+BF16_PEAK = 989e12
+#: device time of a train step by kernel name: cuBLAS's GEMMs ("nvjet",
+#: "gemm"), softmax, reductions, elementwise, indexing and copies
+TRAIN_PROFILE_GROUPS = ("nvjet", "gemm", "softmax", "reduce_kernel", "elementwise_kernel",
+                        "index", "CatArrayBatchedCopy")
+
+
+def _train_cut(cfg):
+    """Phase 11c's depth cut (full width): one pattern period; whisper's
+    encoder to one layer; llama-vision to one self and one cross layer (a
+    cross period of 2)."""
+    from repro_torch.models import transformer as T
+
+    if cfg.family == "vlm":
+        return dataclasses.replace(cfg, n_layers=2, cross_attn_period=2)
+    cut = dataclasses.replace(cfg, n_layers=len(T.plan_pattern(cfg)))
+    if cfg.family == "encdec":
+        cut = dataclasses.replace(cut, n_encoder_layers=1)
+    return cut
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_train_qwen(torch, dev):
+    """qwen2-0.5b through ``launch/train.main`` at full width: run A fault-free
+    (one checkpoint, at the end), run B with checkpoints every 4 steps and a
+    failure at step 6.  Gates: finite losses; A's last two below its first;
+    B one failure, resumed at 4; B's steps 0-5 and, after the restart, 4-7
+    equal to A's bit for bit; A's step 0 within 1 % (loss) and 5 % (grad
+    norm) of the same weights and batch in f32.  Printed: ms a step,
+    tokens/s, peak memory, checkpoint save / restore seconds, the share of
+    the bf16 dense peak that 6·N·D reaches, one warm step's device time by
+    kernel group (``torch.profiler``).  Returns the launch window (the step
+    runs on the torch template: no kernel)."""
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_config, reduced
+    from repro_torch.core.template import default_template
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, adamw_init, cosine_warmup
+    from repro_torch.optim.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    if "--full" not in TRAIN_ARGV:
+        cfg = reduced(cfg)
+    argv = ["--arch", TRAIN_ARCH, *TRAIN_ARGV, "--device", str(dev)]
+    steps = int(argv[argv.index("--steps") + 1])
+    batch = int(argv[argv.index("--batch") + 1])
+    seq = int(argv[argv.index("--seq") + 1])
+    work = Path(tempfile.mkdtemp(prefix="train_phase_", dir=ROOT / "build"))
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t_a = time.perf_counter()
+        stats_a, loss_a = train.main(argv + ["--ckpt-every", str(steps + 1),
+                                             "--ckpt-dir", str(work / "a")])
+        a_s = time.perf_counter() - t_a
+        peak_a = torch.cuda.max_memory_allocated()
+        shutil.rmtree(work / "a")
+        torch.cuda.reset_peak_memory_stats()
+        t_b = time.perf_counter()
+        stats_b, loss_b = train.main(argv + ["--ckpt-every", str(TRAIN_CKPT_EVERY),
+                                             "--fail-at", str(TRAIN_FAIL_AT),
+                                             "--ckpt-dir", str(work / "b")])
+        b_s = time.perf_counter() - t_b
+        peak_b = torch.cuda.max_memory_allocated()
+        launches = dict(_build.launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if any(launches.values()):
+        raise AssertionError(f"train: the torch-template step launched kernels: "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+    if not all(math.isfinite(x) for x in loss_a + loss_b):
+        raise AssertionError(f"train: a loss is not finite: A {loss_a}, B {loss_b}")
+    if not sum(loss_a[-2:]) / 2 < loss_a[0]:
+        raise AssertionError(f"train: the loss did not fall: {loss_a}")
+    if (stats_b["failures"], stats_b["restarts"]) != (1, [TRAIN_CKPT_EVERY]):
+        raise AssertionError(f"train: run B {stats_b}")
+    # B: steps 0..5, the failure at 6, steps 4..7 again from the checkpoint
+    want = loss_a[:TRAIN_FAIL_AT] + loss_a[TRAIN_CKPT_EVERY:]
+    if loss_b != want:
+        raise AssertionError(f"train: run B's losses {loss_b} are not run A's {loss_a} "
+                             f"(B replays steps {TRAIN_CKPT_EVERY}-{steps - 1} after the "
+                             f"restart)")
+
+    # the config's parameter count (N of 6·N·D); the tree holds the padded
+    # attention heads too (eff_heads), as the reference's does
+    n_params = cfg.n_params()
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"train: {TRAIN_ARCH} has {n_params} parameters, want "
+                             f"{TRAIN_PARAMS}")
+    # A's step 0 against the same weights and batch in f32 on the card
+    params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    tree_params = sum(t.numel() for t in tree_leaves(params))
+    accum = int(argv[argv.index("--accum") + 1])
+    opt = AdamW(lr=cosine_warmup(1e-3, 1, steps))
+    pipe = make_pipeline(cfg, SHAPES["train_4k"], seed=SEED, global_batch=batch,
+                         seq_len=seq, device=dev)
+    p32 = _f32_tree(params)
+    step32 = make_train_step(dataclasses.replace(cfg, dtype="float32"),
+                             tpl=default_template("torch"), opt=opt, accum=accum)
+    _, _, m32 = step32(p32, adamw_init(p32), pipe.batch(0))
+    loss32, gnorm32 = float(m32["loss"]), float(m32["grad_norm"])
+    del p32, m32
+    torch.cuda.empty_cache()
+    # where a bf16 step's time goes: one step, warm, under the profiler
+    step16 = make_train_step(cfg, tpl=default_template("torch"), opt=opt, accum=accum)
+    state = [params, adamw_init(params)]
+    del params
+    b0 = pipe.batch(1)
+    state[:2] = step16(*state, b0)[:2]
+    profile = profile_window(torch, lambda: step16(*state, b0), host_ops=True,
+                             groups=TRAIN_PROFILE_GROUPS)
+    del state
+    torch.cuda.empty_cache()
+    vs_f32 = {"loss_f32": loss32, "grad_norm_f32": gnorm32, "loss_bf16": loss_a[0],
+              "grad_norm_bf16": stats_a["grad_norms"][0],
+              "loss_rel_diff": _rel(loss_a[0], loss32),
+              "grad_norm_rel_diff": _rel(stats_a["grad_norms"][0], gnorm32),
+              "tols": [TRAIN_F32_LOSS_TOL, TRAIN_F32_GNORM_TOL]}
+    if (vs_f32["loss_rel_diff"] > TRAIN_F32_LOSS_TOL
+            or vs_f32["grad_norm_rel_diff"] > TRAIN_F32_GNORM_TOL):
+        raise AssertionError(f"train: bf16 step 0 off the f32 step: {vs_f32}")
+    # steady steps: A's after its first (which allocates the optimizer's and
+    # the allocator's first buffers)
+    step_s = sorted(stats_a["step_seconds"][1:])[len(stats_a["step_seconds"][1:]) // 2]
+    tokens = batch * seq
+    emit({"phase": "train", "arch": TRAIN_ARCH, "params": n_params,
+          "params_in_tree_padded_heads": tree_params, "dtype": cfg.dtype,
+          "remat": cfg.remat, "argv": argv, "nvidia_smi": nvidia_smi(),
+          "losses_a": loss_a, "losses_b": loss_b, "grad_norms_a": stats_a["grad_norms"],
+          "b_failures": stats_b["failures"], "b_restarts": stats_b["restarts"],
+          "b_replays_a_bit_for_bit": True, "vs_f32": vs_f32,
+          "step_ms_median": step_s * 1e3, "step_ms_all_a": [x * 1e3 for x in
+                                                             stats_a["step_seconds"]],
+          "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+          "model_flops_per_step_6ND": 6 * n_params * tokens,
+          "bf16_dense_peak_share_6ND": 6 * n_params * tokens / step_s / BF16_PEAK,
+          "peak_mem_bytes_a": peak_a, "peak_mem_bytes_b": peak_b,
+          "ckpt_save_s": stats_a["save_seconds"] + stats_b["save_seconds"],
+          "ckpt_restore_s": stats_b["restore_seconds"],
+          "run_a_s": a_s, "run_b_s": b_s, "profile_one_step": profile,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_train_lenet(torch, dev):
+    """The LeNet QAT example at its own size on the card: 60 float steps and
+    30 QAT steps at batch 32 on the torch template, then the grid deploy
+    and the precision DSE on the q16 template.  Gates: the last QAT loss
+    below the first float loss; the deployed grid logits (and the DSE's
+    mixed plan's) bit-identical to the CPU engine's (the plain versions) on
+    the same quantized weights and images; the LeNet's q16 kernels launched
+    on their routes (conv "cudacore", GEMM "splitk"), no float kernel.
+    Returns the launch window."""
+    from repro_torch.core.template import default_template
+    from repro_torch.examples import train_lenet_q214
+    from repro_torch.kernels import _build
+    from repro_torch.models import cnn
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    res = train_lenet_q214.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    if not res["qat_losses"][-1] < res["float_losses"][0]:
+        raise AssertionError(f"lenet: the QAT loss {res['qat_losses'][-1]} is not below the "
+                             f"first float loss {res['float_losses'][0]}")
+    tcpu = default_template("q16", device="cpu")
+    img = res["images"].cpu()
+    checked = {}
+    for what, policy, logits in (("grid", res["policy"], res["grid_logits"]),
+                                 ("dse", res["mixed"], res["mixed_logits"])):
+        if logits is None:
+            continue
+        qp = cnn.quantize_cnn_params(default_template("q16"), cnn.LENET, res["params"],
+                                     policy)
+        y_cpu = cnn.cnn_forward(tcpu, cnn.LENET, _to(qp, "cpu"), img, policy=policy)
+        if not torch.equal(logits.cpu(), y_cpu):
+            raise AssertionError(f"lenet {what}: the deployed logits differ from the CPU "
+                                 f"engine's (max {float((logits.cpu() - y_cpu).abs().max())})")
+        checked[what] = True
+    want_zero = ("matmul_fp", "conv2d", "flash_attention", "conv2d_q16.tc", "matmul_q16.wgmma",
+                 "matmul_q16.tile")
+    if any(launches[k] for k in want_zero) or not (
+            launches["matmul_q16.splitk"] and launches["conv2d_q16.cudacore"]):
+        raise AssertionError(f"lenet: launches {launches}")
+    emit({"phase": "train_lenet", "float_steps": len(res["float_losses"]),
+          "qat_steps": len(res["qat_losses"]), "float_loss_first": res["float_losses"][0],
+          "float_loss_last": res["float_losses"][-1], "qat_loss_last": res["qat_losses"][-1],
+          "accuracy": res["accuracy"], "deploy_fmt": res["policy"].fmt.name,
+          "argmax_agreement_grid_vs_fake_quant": res["argmax_agreement"],
+          "islands": res["islands"], "bit_identical_to_cpu_engine": checked,
+          "dse_plan": {k: v.name for k, v in res["mixed"].layer_fmts},
+          "launches": {k: v for k, v in launches.items() if v},
+          "matmul_q16_splitk_launches": launches["matmul_q16.splitk"],
+          "conv2d_q16_cudacore_launches": launches["conv2d_q16.cudacore"],
+          "nvidia_smi": nvidia_smi(), "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_train_families(torch, dev):
+    """One ``loss_fn`` forward and backward a family at full width, depth cut
+    (``_train_cut``), bf16, ``init_params`` weights from the seed (a VLM's
+    cross gates at 0.5), no optimizer state, on the torch template; 1 x
+    1024 tokens (whisper 1 x 432 after 1500 frames, llama-vision after 1600
+    image tokens).  Gates: the loss and every grad finite, the loss within
+    1 % and the grad norm within 5 % of the same weights' f32 pass.
+    Printed: ms and peak memory.  Returns the launch window."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.template import default_template
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import draw_context
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.optim.tree import tree_leaves
+
+    tpl = default_template("torch")
+    _build.reset_launches()
+    for name, s, kept in FAMILY_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        full = get_config(name)
+        cfg = _train_cut(full)
+        params = family_params(torch, dev, cfg)
+        batch = {"tokens": synthetic_batch(SEED, 0, 1, s, cfg.vocab, device=dev)}
+        ctx = draw_context(cfg, 1, seed=SEED, device=dev, dtype=params["embed"].dtype)
+        if ctx is not None:
+            batch["ctx"] = ctx
+        loss_and_grads(tpl, cfg, params, batch)  # warm-up: the allocator, the libraries
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        loss, metrics, grads = loss_and_grads(tpl, cfg, params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        leaves = tree_leaves(grads)
+        finite = math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all())
+                                                     for g in leaves)
+        gnorm = float(global_norm(grads))
+        n_params = sum(t.numel() for t in leaves)
+        del grads, leaves
+        p32 = _f32_tree(params)
+        b32 = {k: (v.float() if v.is_floating_point() else v) for k, v in batch.items()}
+        loss32, _, g32 = loss_and_grads(tpl, dataclasses.replace(cfg, dtype="float32"), p32,
+                                        b32)
+        gnorm32 = float(global_norm(g32))
+        del p32, g32, params
+        torch.cuda.empty_cache()
+        row = {"loss": float(loss), "loss_f32": float(loss32), "aux": float(metrics["aux"]),
+               "grad_norm": gnorm, "grad_norm_f32": gnorm32,
+               "loss_rel_diff": _rel(float(loss), float(loss32)),
+               "grad_norm_rel_diff": _rel(gnorm, gnorm32)}
+        if not (finite and row["loss_rel_diff"] <= TRAIN_F32_LOSS_TOL
+                and row["grad_norm_rel_diff"] <= TRAIN_F32_GNORM_TOL):
+            raise AssertionError(f"train {name}: finite {finite}, {row}")
+        emit({"phase": "train_family", "arch": name, "family": cfg.family,
+              "reduced": f"n_layers {full.n_layers} -> {cfg.n_layers} ({kept})",
+              "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+              "tokens": s, "ctx": None if ctx is None else list(ctx.shape),
+              "dtype": cfg.dtype, "remat": cfg.remat, **row,
+              "tols": [TRAIN_F32_LOSS_TOL, TRAIN_F32_GNORM_TOL],
+              "fwd_bwd_ms": ms, "peak_mem_bytes": peak, "nvidia_smi": nvidia_smi(),
+              "seconds": time.perf_counter() - t0})
+    launches = dict(_build.launches)
+    if any(launches.values()):
+        raise AssertionError(f"train families: kernels launched on the torch template: "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def phase_training(torch, dev):
+    """Phase 11: (a) qwen2-0.5b through the training driver, (b) the LeNet QAT
+    example, (c) one training pass a family.  Returns the launch windows."""
+    t0 = time.perf_counter()
+    windows = {"train qwen2": phase_train_qwen(torch, dev)}
+    torch.cuda.empty_cache()
+    windows["train lenet"] = phase_train_lenet(torch, dev)
+    windows["train families"] = phase_train_families(torch, dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "training_done", "seconds": time.perf_counter() - t0})
+    return windows
+
+
 def _build_kernels():
     from repro_torch.kernels import _build
 
@@ -3588,12 +3930,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_windows = phase_families(torch, dev)
     torch.cuda.empty_cache()
+    train_windows = phase_training(torch, dev)
     phase_serve_cli(torch)
     phase_fleet_cli(torch)
     phase_fpga_tables()
 
     windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()},
-               **shard_windows, **family_windows}
+               **shard_windows, **family_windows, **train_windows}
     kernels = []
     for key, (name, gemm_route, source, replaces) in KERNEL_META.items():
         row = book.rows[key]

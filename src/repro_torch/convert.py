@@ -15,7 +15,12 @@ turns its leaves into numpy arrays (``np.asarray``) and hands them over:
   quantized ``(raw, (int_bits, frac_bits, total_bits))`` pairs;
 * :func:`transformer_shard_from_numpy` carries such a tree into the calling
   rank's shard through the port's column-parallel plan
-  (``parallel.sharding.column_parallel_shardings``).
+  (``parallel.sharding.column_parallel_shardings``);
+* :func:`opt_state_from_numpy` takes an AdamW state ``(step, m, v)`` (the
+  reference's ``OptState`` with numpy leaves, or any such triple) and
+  returns the port's :class:`~repro_torch.optim.OptState`;
+  :func:`opt_state_to_numpy` is its inverse, a ``(step, m, v)`` triple of
+  numpy trees.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 from repro_torch.core.quantization import QFormat, QTensor
 
 __all__ = ["cnn_params_from_numpy", "qparams_from_numpy", "transformer_params_from_numpy",
-           "transformer_shard_from_numpy"]
+           "transformer_shard_from_numpy", "opt_state_from_numpy", "opt_state_to_numpy"]
 
 
 def _tree(tree, leaf):
@@ -86,3 +91,32 @@ def transformer_shard_from_numpy(tree, mesh, axes, rules=None, device="cpu"):
     params = transformer_params_from_numpy(tree, device)
     return shard_tree(params, column_parallel_shardings(mesh, rules or DECODE_RULES,
                                                         params, axes))
+
+
+def opt_state_from_numpy(state, device="cpu"):
+    """An AdamW state ``(step, m, v)`` with numpy leaves -> the port's
+    ``OptState`` on ``device``: step a 0-d int32 tensor, m and v f32 trees
+    of the parameters' structure (dicts, the stacked tuples)."""
+    from repro_torch.optim import OptState
+
+    step, m, v = state
+    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                      device=device),
+                    m=transformer_params_from_numpy(m, device),
+                    v=transformer_params_from_numpy(v, device))
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def opt_state_to_numpy(state):
+    """The port's ``OptState`` -> a ``(step, m, v)`` triple of numpy trees
+    (the inverse of :func:`opt_state_from_numpy`)."""
+    return (np.asarray(int(state.step), dtype=np.int32), _to_numpy(state.m),
+            _to_numpy(state.v))

@@ -1,4 +1,4 @@
-"""Synthetic data (the token stream the serving driver prompts with)."""
-from .pipeline import synthetic_batch
+"""Synthetic data: token batches, CNN images, and the training pipeline."""
+from .pipeline import DataPipeline, make_pipeline, synthetic_batch, synthetic_images
 
-__all__ = ["synthetic_batch"]
+__all__ = ["DataPipeline", "make_pipeline", "synthetic_batch", "synthetic_images"]

@@ -474,11 +474,16 @@ _SHARDED_ACTIVATIONS = ("act_heads", "kv_heads", "heads", "seq_kv", "seq_act",
 
 def _check_rules(mesh, rules) -> None:
     """The port's meshed steps run column-parallel rules: every activation
-    but the batch whole (``DECODE_RULES`` and its data-axis variants)."""
+    but the batch whole (``DECODE_RULES`` and its data-axis variants).  The
+    training rules (``TRAIN_RULES``, "embed" over "data") shard activations
+    and contractions: they wait for data-parallel / FSDP training, ROADMAP
+    queue 1 item 7b."""
     bad = [n for n in _SHARDED_ACTIVATIONS if sh.axis_size(mesh, rules.get(n)) > 1]
     if bad:
         raise ValueError(f"the port's meshed decode runs column-parallel rules "
-                         f"(DECODE_RULES): these rules shard {bad}")
+                         f"(DECODE_RULES): these rules shard {bad} (rules that shard "
+                         f"activations, as TRAIN_RULES do, wait for data-parallel / FSDP "
+                         f"training: ROADMAP queue 1 item 7b)")
 
 
 class _MeshedSteps:

@@ -114,13 +114,19 @@ def _maxpool(x, w: int):
     Crops to whole windows, then reshapes and takes ``amax``: exact for every
     dtype, the int16 and int8 raws of a QTensor included (dequantization is
     monotone, so max-of-raw == raw-of-max and pooling stays on the grid).
-    ``F.max_pool2d`` is not relied on for integer tensors on CUDA.
+    ``F.max_pool2d`` is not relied on for integer tensors on CUDA.  Under
+    autograd the window's gradient goes to its first maximum in row-major
+    order, as the reference's ``reduce_window`` routes it (``amax`` would
+    share it among ties, which fake-quantized activations often are).
     """
     if isinstance(x, QTensor):
         return QTensor(_maxpool(x.raw, w), x.fmt)
     n, h, wd, c = x.shape
     ho, wo = h // w, wd // w
     v = x[:, :ho * w, :wo * w, :].reshape(n, ho, w, wo, w, c)
+    if x.requires_grad and torch.is_grad_enabled():
+        flat = v.permute(0, 1, 3, 2, 4, 5).reshape(n, ho, wo, w * w, c)
+        return flat.max(dim=3).values
     return v.amax(dim=(2, 4))
 
 

@@ -39,6 +39,7 @@ __all__ = [
     "sinusoidal_positions",
     "causal_conv",
     "gelu",
+    "cross_entropy_loss",
 ]
 
 
@@ -175,6 +176,20 @@ def sinusoidal_positions(n: int, d: int, dtype=torch.float32, device="cpu") -> t
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / (10000.0 ** (2 * dim / d))
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits: (..., V), upcast to f32 before the logsumexp; labels: (...)
+    int.  The mean negative log-likelihood, over ``mask`` (f32, 1 = counted)
+    when given: sum(nll * mask) / max(sum(mask), 1)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 def causal_conv(x, w, b, state=None):

@@ -63,7 +63,11 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
 def _route(cfg, router_w, xt):
     """Top-k routing for flat token groups.  xt: (G, S, d).  Returns (gates
     (G,S,k) normalized, idx (G,S,k), probs (G,S,E))."""
-    logits = torch.einsum("gsd,de->gse", xt.to(torch.float32), router_w.to(torch.float32))
+    # the logits accumulate in f64 and round once to f32: an f32 sum's order
+    # (the CPU BLAS's or cuBLAS's, against XLA's) moves logits of magnitude
+    # ~20 by several ulps, and the top-k gates with them
+    logits = torch.einsum("gsd,de->gse", xt.to(torch.float64),
+                          router_w.to(torch.float64)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)

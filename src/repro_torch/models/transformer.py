@@ -35,7 +35,17 @@ embeddings at each forward / prefill; the cross-attention layers attend to
 its output (or to the VLM's image embeddings), and their decode caches
 hold the context's keys and values, static across decode steps.  Grid-
 resident fixed point runs the dense full-attention stack only (the
-reference's rule); training is not ported (ROADMAP queue 1 item 7).
+reference's rule).
+
+Training: :func:`loss_fn` runs :func:`forward` in ``mode="train"``, the
+same stack as ``"fwd"`` with, when ``cfg.remat`` is set, each stacked layer
+group (and each encoder layer) recomputed in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps each
+scanned group in ``jax.checkpoint``.  Under ``remat_policy="attn_out"``
+each attention sub-layer and the rest of its layer are two regions, so
+the backward keeps the residual stream with each attention output added in
+and recomputes everything else.  Recomputation changes no number: the
+backward graph is the same, only its saved tensors are made again.
 
 Sharding: :func:`param_axes` and :func:`cache_axes` name each leaf's logical
 axes, and the layers pass the reference's ``constrain`` seams
@@ -53,6 +63,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import dse
 from repro_torch.core.engine import validate_policy
@@ -74,6 +85,7 @@ from .attention import (
     init_layer_cache,
 )
 from .layers import (
+    cross_entropy_loss,
     init_mlp,
     init_norm,
     mlp,
@@ -95,6 +107,7 @@ __all__ = [
     "calibrate_precision",
     "q16_island_counts",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "prefill_chunk_step",
@@ -417,15 +430,20 @@ def _group_policy(policy, name: str):
 
 
 def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, ctx=None,
-               cache_len: int = 0, t=None, policy=None, n_valid=None, inplace=False):
+               cache_len: int = 0, t=None, policy=None, n_valid=None, inplace=False,
+               part: str = "all"):
     """One layer.  Returns (h, new_cache_or_None, aux): aux is the MoE FFN's
-    load-balancing loss (0 for any other FFN).  ``mode``: "fwd", "prefill"
-    or "decode"; ``inplace`` (decode) writes the layer's new cache entries
-    into the tensors of ``cache``."""
+    load-balancing loss (0 for any other FFN).  ``mode``: "fwd", "train",
+    "prefill" or "decode"; ``inplace`` (decode) writes the layer's new cache
+    entries into the tensors of ``cache``.  ``part`` "mixer" runs only the
+    sequence mixer's sub-layer, "rest" only what follows it (the
+    ``attn_out`` rematerialization's two regions)."""
     newc = {}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
-    if plan.mixer in ("attn", "local", "attn_nc"):
+    if part == "rest":
+        pass
+    elif plan.mixer in ("attn", "local", "attn_nc"):
         window = cfg.window if plan.mixer == "local" else 0
         a_in = norm(cfg, p["norm"], h)
         if mode == "decode":
@@ -461,6 +479,8 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
         if mode != "decode":
             out = constrain(out, "batch", "seq_act", "act_embed")
         h = h + out
+    if part == "mixer":
+        return h, (newc or None), aux
 
     if plan.cross:
         c_in = norm(cfg, p["cross_norm"], h)
@@ -495,17 +515,61 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
     return h, (newc or None), aux
 
 
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _train_groups(tpl, cfg, blocks, h, aux, *, pattern, depth, positions, ctx, policy):
+    """The stacked groups of a ``mode="train"`` forward under ``cfg.remat``:
+    one recomputed region per group (layer j of every pattern position), or
+    under ``remat_policy="attn_out"`` two per layer (the mixer's sub-layer,
+    then the rest).  aux accumulates layer by layer, as the reference's scan
+    carries it."""
+    attn_out = getattr(cfg, "remat_policy", "") == "attn_out"
+
+    def layer(i, j, part):
+        def fn(hh):
+            return _run_layer(tpl, cfg, pattern[i], _at(blocks[i], j), hh,
+                              positions=positions, mode="train", ctx=ctx,
+                              policy=_group_policy(policy, f"g{i}"), part=part)
+        return fn
+
+    for j in range(depth):
+        if attn_out:
+            for i in range(len(pattern)):
+                h = _remat(lambda hh, f=layer(i, j, "mixer"): f(hh)[0], h)
+                h, a = _remat(lambda hh, f=layer(i, j, "rest"): f(hh)[::2], h)
+                aux = aux + a
+        else:
+            def group(hh, acc, j=j):
+                for i in range(len(pattern)):
+                    hh, _, a = layer(i, j, "all")(hh)
+                    acc = acc + a
+                return hh, acc
+
+            h, aux = _remat(group, h, aux)
+    return h, aux
+
+
 def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None, ctx=None,
-               cache_len: int = 0, t=None, policy=None, n_valid=None, inplace=False):
+               cache_len: int = 0, t=None, policy=None, n_valid=None, inplace=False,
+               remat: bool = False):
     """Run the stacked groups layer by layer (layer j of every pattern
     position in turn, as the reference's scan does), then the tail layers.
     Returns (h, cache' or None, aux summed over the layers); with
     ``inplace`` a decode writes into the cache passed in (each layer's
-    entries are views of its stacked leaves) and returns it."""
+    entries are views of its stacked leaves) and returns it.  ``remat``
+    (mode "train") recomputes each group in the backward pass; the tail
+    layers run plainly, as the reference's do."""
     blocks = params["blocks"]
     depth = _depth(blocks[0]) if blocks else 0
     block_caches = [[] for _ in pattern]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if remat:
+        h, aux = _train_groups(tpl, cfg, blocks, h, aux, pattern=pattern, depth=depth,
+                               positions=positions, ctx=ctx, policy=policy)
+        depth = 0
     for j in range(depth):
         for i, plan in enumerate(pattern):
             c = None if cache is None else _at(cache["blocks"][i], j)
@@ -532,17 +596,21 @@ def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None, ctx
                "tail": tuple(tail_caches)}, aux
 
 
-def _encode(tpl, cfg, enc_params, frames):
+def _encode(tpl, cfg, enc_params, frames, *, remat: bool = False):
     """Whisper's encoder over precomputed frame embeddings (the stub
-    frontend): sinusoidal positions, non-causal layers, a final norm."""
+    frontend): sinusoidal positions, non-causal layers, a final norm;
+    ``remat`` recomputes each layer in the backward pass."""
     nf = frames.shape[1]
     h = frames + sinusoidal_positions(nf, cfg.d_model, frames.dtype, frames.device)[None]
     h = constrain(h, "batch", "ctx", "act_embed")
     blocks = enc_params["blocks"][0]
     positions = torch.arange(nf, device=h.device)
     for j in range(_depth(blocks)):
-        h, _, _ = _run_layer(tpl, cfg, _ENC_PLAN, _at(blocks, j), h, positions=positions,
-                             mode="fwd")
+        def body(hh, j=j):
+            return _run_layer(tpl, cfg, _ENC_PLAN, _at(blocks, j), hh,
+                              positions=positions, mode="fwd")[0]
+
+        h = _remat(body, h) if remat else body(h)
     return norm(cfg, enc_params["final_norm"], h)
 
 
@@ -573,12 +641,12 @@ def _head(tpl, cfg, params, h, *, policy=None):
     return sh.replicated(constrain(logits, "batch", "seq_act", "vocab"))
 
 
-def _context(tpl, cfg, params, ctx):
+def _context(tpl, cfg, params, ctx, *, remat: bool = False):
     """The context the cross-attention layers read: whisper's encoder output
     over ``ctx`` (frame embeddings), else ``ctx`` itself (image embeddings,
     or None)."""
     if cfg.family == "encdec":
-        return _encode(tpl, cfg, params["encoder"], ctx)
+        return _encode(tpl, cfg, params["encoder"], ctx, remat=remat)
     return ctx
 
 
@@ -597,21 +665,40 @@ def forward(tpl: Template, cfg, params, tokens, *, ctx=None, mode: str = "fwd",
     MoE).  ``ctx``: whisper's frame embeddings (B, n_frames, d) or the VLM's
     image embeddings (B, n_image_tokens, d).  A quantized ``policy`` runs
     the stack grid-resident on the matching :func:`quantize_params` tree.
-    ``mode`` "fwd"; the reference's "train" (its rematerialized training
-    forward) raises: the port does not train yet (ROADMAP queue 1 item 7)."""
-    if mode != "fwd":
-        raise NotImplementedError(f"forward(mode={mode!r}): training is not ported yet "
-                                  f"(ROADMAP queue 1 item 7); the port runs mode='fwd'")
+    ``mode`` "fwd", or "train": the same numbers, with each layer group
+    recomputed in the backward pass when ``cfg.remat`` is set and autograd
+    records (see the module docstring)."""
+    if mode not in ("fwd", "train"):
+        raise ValueError(f"forward(mode={mode!r}): want 'fwd' or 'train'")
+    remat = mode == "train" and bool(cfg.remat) and torch.is_grad_enabled()
     s = tokens.shape[1]
     h = _embed_tokens(cfg, params, tokens)
     if cfg.abs_pos:
         h = h + sinusoidal_positions(s, cfg.d_model, h.dtype, h.device)[None]
-    ctx = _context(tpl, cfg, params, ctx)
+    ctx = _context(tpl, cfg, params, ctx, remat=remat)
     pattern, _, _ = _split(cfg)
     positions = torch.arange(s, device=h.device)
-    h, _, aux = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="fwd",
-                           positions=positions, ctx=ctx, policy=policy)
+    h, _, aux = _run_stack(tpl, cfg, params, h, pattern=pattern, mode=mode,
+                           positions=positions, ctx=ctx, policy=policy, remat=remat)
     return _head(tpl, cfg, params, h, policy=policy), aux
+
+
+def loss_fn(tpl: Template, cfg, params, batch, aux_weight: float = 0.01):
+    """batch: {"tokens": (B, S) int [, "labels": (B, S), "ctx": (B, T, d)]}.
+
+    Without labels, the next-token targets are the tokens shifted by one
+    (the last position masked); labels < 0 are masked out.  The forward runs
+    in ``mode="train"``.  Returns (scalar loss = ce + aux_weight * aux,
+    {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    logits, aux = forward(tpl, cfg, params, tokens, ctx=batch.get("ctx"), mode="train")
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+    mask = (labels >= 0).to(torch.float32)
+    ce = cross_entropy_loss(logits, torch.clamp(labels, min=0), mask)
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def prefill(tpl: Template, cfg, params, tokens, *, ctx=None,

@@ -313,13 +313,20 @@ def test_serve_main_runs_on_cpu_and_refuses_what_is_not_ported(tmp_path):
 
 
 def test_unported_paths_raise(setup):
-    """What the port still refuses: training (the reference's forward in
-    mode "train"; ROADMAP queue 1 item 7) and the meshed serving of every
-    family but the dense one (compiled_steps and ServeScheduler on a mesh)."""
+    """What the port still refuses: training on a kernel template (autograd
+    cannot differentiate the kernels; ROADMAP queue 1 item 7 trains on the
+    torch template) or over a mesh (data-parallel / FSDP training, item 7b),
+    and the meshed serving of every family but the dense one
+    (compiled_steps and ServeScheduler on a mesh)."""
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+
     _, cfg, _, params, tokens = setup
     tpl = default_template("cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.forward(tpl, cfg, params, _tok(tokens), mode="train")
+    with pytest.raises(ValueError, match="autograd"):
+        make_train_step(cfg, tpl=tpl)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        train.main(["--mesh", "single", "--device", "cpu"])
     mesh = make_test_mesh()
     for name in ("granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-9b",
                  "whisper-medium", "llama-3.2-vision-90b"):
