@@ -202,8 +202,21 @@ non-zero without its result line):
    optimizer state, 1 x 1024 tokens (whisper 1 x 432 after 1500 frames,
    llama-vision after 1600 image tokens).  Gates: the loss and every grad
    finite, the loss within 1 % and the grad norm within 5 % of the same
-   weights' f32 pass.  Printed: ms and peak memory.
+   weights' f32 pass.  Printed: ms and peak memory;
+12. training on ranks ("train_mesh"): (a)'s qwen2-0.5b run at full width
+   through ``launch/train.main --mesh single --ranks 2`` (two gloo ranks
+   of the card, collectives staged through pinned host memory), FSDP for
+   3 steps, data-parallel (``--no-fsdp``) for 1, and FSDP failing at step
+   2 with checkpoints every 2; two runs share the card at a time.  Gates:
+   finite losses, step 0 within 1e-3 (loss) and 1e-2 (grad norm) of
+   11(a)'s step 0, the restarted run equal to the fault-free one bit for
+   bit.  Printed: ms a step, tokens/s, each rank's peak memory, save and
+   restore seconds.
 
+``--train-mesh-nccl`` runs, alone, training over NCCL on four cards (a
+rank each; it fails with fewer): qwen2-0.5b data-parallel and FSDP at 8 x
+4096 tokens against one card's steps, and recurrentgemma-9b at full depth
+under FSDP with each card's peak memory.
 ``--gemm-route-study`` adds the float GEMM's design measurements, off by
 default: route "tile" timed beside fc0 and the tied head, and the
 ``wgmma_threshold`` lines (gate / up's n and k at m from 17 to 256 and at
@@ -3596,7 +3609,8 @@ def phase_train_qwen(torch, dev):
     tokens/s, peak memory, checkpoint save / restore seconds, the share of
     the bf16 dense peak that 6·N·D reaches, one warm step's device time by
     kernel group (``torch.profiler``).  Returns the launch window (the step
-    runs on the torch template: no kernel)."""
+    runs on the torch template: no kernel) and A's step 0 (loss, grad norm),
+    phase 12's single-device reference."""
     import tempfile
 
     from repro_torch.configs import SHAPES, get_config, reduced
@@ -3712,7 +3726,7 @@ def phase_train_qwen(torch, dev):
           "ckpt_restore_s": stats_b["restore_seconds"],
           "run_a_s": a_s, "run_b_s": b_s, "profile_one_step": profile,
           "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, (loss_a[0], stats_a["grad_norms"][0])
 
 
 def phase_train_lenet(torch, dev):
@@ -3843,15 +3857,273 @@ def phase_train_families(torch, dev):
 
 def phase_training(torch, dev):
     """Phase 11: (a) qwen2-0.5b through the training driver, (b) the LeNet QAT
-    example, (c) one training pass a family.  Returns the launch windows."""
+    example, (c) one training pass a family.  Returns the launch windows and
+    (a)'s step 0 (loss, grad norm)."""
     t0 = time.perf_counter()
-    windows = {"train qwen2": phase_train_qwen(torch, dev)}
+    qwen_launches, step0 = phase_train_qwen(torch, dev)
+    windows = {"train qwen2": qwen_launches}
     torch.cuda.empty_cache()
     windows["train lenet"] = phase_train_lenet(torch, dev)
     windows["train families"] = phase_train_families(torch, dev)
     torch.cuda.empty_cache()
     emit({"phase": "training_done", "seconds": time.perf_counter() - t0})
-    return windows
+    return windows, step0
+
+
+# ---------------------------------------------------------------------------
+# phase 12: data-parallel and FSDP training on ranks
+# ---------------------------------------------------------------------------
+
+#: qwen2-0.5b at phase 11a's width and batch (TRAIN_ARGV: 8 x 1024 in 2
+#: microbatches) through ``train.main --mesh single`` on two gloo ranks of
+#: the card, one run after another on the same two rank processes: FSDP and
+#: data-parallel (``--no-fsdp``) with no checkpoint, and FSDP failing at
+#: step 1 with a checkpoint every step
+MESH_RANKS = 2
+MESH_STEPS = {"fsdp": 2, "fsdp_restart": 2, "dp": 1}
+MESH_FAIL_AT = MESH_CKPT_EVERY = 1
+#: step 0 on the ranks against phase 11a's single-device step 0
+MESH_LOSS_TOL, MESH_GNORM_TOL = 1e-3, 1e-2
+
+
+def train_mesh_runs(runs, rank=0, world=1, dev=None):
+    """Phase 12's rank body: ``train.main(argv)`` of each (name, argv) of
+    ``runs`` in turn on this rank; rank 0 returns each run's stats, losses
+    and seconds and removes its checkpoints."""
+    from repro_torch.launch import train
+
+    out = {}
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        stats, losses = train.main(argv)
+        out[name] = {"stats": stats, "losses": list(losses),
+                     "seconds": time.perf_counter() - t0}
+        if rank == 0:
+            shutil.rmtree(argv[argv.index("--ckpt-dir") + 1], ignore_errors=True)
+    return out if rank == 0 else None
+
+
+def phase_train_mesh(torch, dev, step0):
+    """Phase 12: qwen2-0.5b at full width through ``launch/train.main --mesh
+    single --ranks 2`` (two gloo ranks of the card, collectives staged
+    through the host), three runs, one after another on the same two rank
+    processes (``main`` called on each rank trains on them), so each run
+    has the card alone: FSDP (``TRAIN_RULES``) and data-parallel
+    (``--no-fsdp``), both without checkpoints, and FSDP with a failure at
+    step 1 and a checkpoint every step (saved gathered by rank 0, restored
+    onto the ranks' shardings).  Steps and checkpoints are cut to fit the
+    phase's 90 s, never the width.  Gates: every loss finite; step 0's loss
+    within 1e-3 and its grad norm within 1e-2 (relative) of phase 11a's
+    single-device step 0 on the same weights and batch (``step0``); the
+    restarted run's losses and grad norms equal to the fault-free FSDP
+    run's bit for bit.  Printed: ms a step, tokens/s and each rank's peak
+    memory a run, the checkpoint's save and restore seconds, each run's and
+    the phase's seconds.  The ranks run on the torch template: no kernel."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    argv = ["--arch", TRAIN_ARCH, *TRAIN_ARGV, "--device", str(dev), "--mesh", "single",
+            "--ranks", str(MESH_RANKS)]
+    batch = int(argv[argv.index("--batch") + 1])
+    seq = int(argv[argv.index("--seq") + 1])
+    extra = {"fsdp": ["--ckpt-every", "0"],
+             "fsdp_restart": ["--ckpt-every", str(MESH_CKPT_EVERY),
+                              "--fail-at", str(MESH_FAIL_AT)],
+             "dp": ["--no-fsdp", "--ckpt-every", "0"]}
+    work = Path(tempfile.mkdtemp(prefix="train_mesh_phase_", dir=ROOT / "build"))
+    try:
+        runs = spawn_ranks(functools.partial(train_mesh_runs, [
+            (name, argv + extra[name] + ["--steps", str(MESH_STEPS[name]),
+                                         "--ckpt-dir", str(work / name)])
+            for name in extra]), MESH_RANKS, device=str(dev))[0]
+        spawned = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want_loss, want_gnorm = step0
+    rows = {}
+    for name, run in runs.items():
+        stats, losses = run["stats"], run["losses"]
+        if not all(math.isfinite(x) for x in losses + stats["grad_norms"]):
+            raise AssertionError(f"train mesh {name}: a loss is not finite: {losses}")
+        steady = stats["step_seconds"][1:] or stats["step_seconds"]
+        step_s = sorted(steady)[len(steady) // 2]
+        rows[name] = {"losses": losses, "grad_norms": stats["grad_norms"],
+                      "loss_rel_diff_vs_single": _rel(losses[0], want_loss),
+                      "grad_norm_rel_diff_vs_single": _rel(stats["grad_norms"][0],
+                                                           want_gnorm),
+                      "step_ms_median": step_s * 1e3,
+                      "step_ms_all": [x * 1e3 for x in stats["step_seconds"]],
+                      "tokens_per_s": batch * seq / step_s,
+                      "peak_mem_bytes_by_rank": stats.get("peak_mem_bytes_by_rank"),
+                      "ckpt_save_s": stats["save_seconds"],
+                      "ckpt_restore_s": stats["restore_seconds"],
+                      "failures": stats["failures"], "restarts": stats["restarts"],
+                      "run_s": run["seconds"]}
+        if (rows[name]["loss_rel_diff_vs_single"] > MESH_LOSS_TOL
+                or rows[name]["grad_norm_rel_diff_vs_single"] > MESH_GNORM_TOL):
+            raise AssertionError(f"train mesh {name}: step 0 off the single-device step 0 "
+                                 f"({want_loss}, {want_gnorm}): {rows[name]}")
+    free, again = runs["fsdp"], runs["fsdp_restart"]
+    if (again["stats"]["failures"], again["stats"]["restarts"]) != (1, [MESH_CKPT_EVERY]):
+        raise AssertionError(f"train mesh: the restarted run {again['stats']}")
+    if (again["losses"] != free["losses"]
+            or again["stats"]["grad_norms"] != free["stats"]["grad_norms"]):
+        raise AssertionError(f"train mesh: the restarted run's steps {again['losses']} are "
+                             f"not the fault-free run's {free['losses']}")
+    emit({"phase": "train_mesh", "arch": TRAIN_ARCH, "argv": argv, "ranks": MESH_RANKS,
+          "backend": "gloo (both ranks on the card, host-staged)",
+          "mesh": f"('data', 'model') = ({MESH_RANKS}, 1)",
+          "single_device_step0": {"loss": want_loss, "grad_norm": want_gnorm},
+          "tols": [MESH_LOSS_TOL, MESH_GNORM_TOL], "runs": rows,
+          "restart_replays_fault_free_bit_for_bit": True, "tokens_per_step": batch * seq,
+          "ranks_start_and_stop_s": spawned - sum(r["seconds"] for r in runs.values()),
+          "nvidia_smi": nvidia_smi(), "seconds": time.perf_counter() - t0})
+
+
+#: ``--train-mesh-nccl``: four cards over NCCL.  qwen2-0.5b at train_4k's
+#: 4096 tokens (8 rows: 2 a card; one card takes them in 4 microbatches),
+#: data-parallel and FSDP; recurrentgemma-9b at full depth under FSDP on 4 x
+#: 4096 tokens (one row a card)
+NCCL_CARDS = 4
+NCCL_SEQ = 4096
+NCCL_QWEN_BATCH, NCCL_RG_BATCH = 8, 4
+NCCL_STEPS = 3
+NCCL_RG_ARCH = "recurrentgemma-9b"
+
+
+def nccl_train(payload, rank=0, world=1, dev=None):
+    """``payload["steps"]`` training steps of one config on this rank (or,
+    with ``world`` 1 and no mesh, on one card) from ``init_params`` at the
+    seed, batches from the pipeline: losses, grad norms, step seconds and
+    peak memory; an out-of-memory error is raised with the peak and the
+    state's bytes."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.template import default_template
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.mesh import train_mesh
+    from repro_torch.launch.steps import make_train_step, state_shardings
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, adamw_init, cosine_warmup
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.parallel.sharding import TRAIN_RULES
+
+    dev = torch.device(dev or "cuda:0")
+    cuda = dev.type == "cuda"
+    cfg = get_config(payload["arch"])
+    rules = TRAIN_RULES.with_overrides(**dict(cfg.rule_overrides))
+    if payload["kind"] == "dp":
+        rules = rules.with_overrides(embed=None)
+    mesh = train_mesh(world).init_groups() if payload["meshed"] else None
+    p_sh = state_shardings(cfg, mesh, rules)[0] if mesh is not None else None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps = payload["steps"]
+    where = "init"
+    state_bytes = 0
+    try:
+        params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                               shardings=p_sh)
+        opt_state = adamw_init(params)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params) + tree_leaves(opt_state.m)
+                          + tree_leaves(opt_state.v))
+        opt = AdamW(lr=cosine_warmup(1e-3, 1, steps))
+        step = make_train_step(cfg, tpl=default_template("torch", device=dev.type), opt=opt,
+                               accum=payload["accum"], mesh=mesh, rules=rules)
+        pipe = make_pipeline(cfg, SHAPES["train_4k"], seed=SEED, mesh=mesh, rules=rules,
+                             global_batch=payload["batch"], seq_len=NCCL_SEQ, device=dev,
+                             accum=payload["accum"])
+        losses, gnorms, secs = [], [], []
+        for i in range(steps):
+            where = f"step {i}"
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, pipe.batch(i))
+            losses.append(float(m["loss"]))  # reads the step's result back
+            gnorms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t0)
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError("NCCL_STUDY_OOM " + json.dumps({
+            "rank": rank, "where": where, "state_bytes_on_rank": state_bytes,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "reserved_bytes": torch.cuda.memory_reserved(dev), "error": str(e)[:300]}))
+    return {"losses": losses, "grad_norms": gnorms, "step_seconds": secs,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            "state_bytes_on_rank": state_bytes,
+            "card": torch.cuda.get_device_name(dev) if cuda else "cpu"}
+
+
+def phase_train_mesh_nccl(torch):
+    """``--train-mesh-nccl``, run alone: training over NCCL on four cards,
+    a rank each.  (a) qwen2-0.5b at 8 x 4096 tokens: one card (4
+    microbatches of 2 rows), then data-parallel and FSDP ranks (2 rows
+    each); gates: finite losses, step 0's loss within 1e-3 and grad norm
+    within 1e-2 of one card's; printed: every step's loss beside one
+    card's, ms a step, tokens/s, peak memory a card.  (b) recurrentgemma-9b
+    at full depth under FSDP on 4 x 4096 tokens: losses, ms a step, each
+    card's peak memory, or, if it does not fit, each card's peak and the
+    state's bytes where it ran out."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cards = torch.cuda.device_count()
+    if cards < NCCL_CARDS:
+        raise AssertionError(f"--train-mesh-nccl needs {NCCL_CARDS} cards, this machine has "
+                             f"{cards}")
+    t0 = time.perf_counter()
+    qwen = {"arch": TRAIN_ARCH, "batch": NCCL_QWEN_BATCH, "steps": NCCL_STEPS}
+    single = nccl_train({**qwen, "kind": "single", "meshed": False,
+                         "accum": NCCL_QWEN_BATCH // 2})
+    torch.cuda.empty_cache()
+    rows = {"one_card": single}
+    for kind in ("dp", "fsdp"):
+        out = spawn_ranks(functools.partial(nccl_train, {**qwen, "kind": kind, "meshed": True,
+                                                         "accum": 1}), NCCL_CARDS,
+                          device="cuda")
+        rows[kind] = {**out[0], "peak_mem_bytes_by_card": [o["peak_mem_bytes"] for o in out]}
+        got, want = rows[kind], single
+        rows[kind]["loss_rel_diff_vs_one_card"] = [
+            _rel(a, b) for a, b in zip(got["losses"], want["losses"])]
+        rows[kind]["grad_norm_rel_diff_vs_one_card"] = [
+            _rel(a, b) for a, b in zip(got["grad_norms"], want["grad_norms"])]
+        if not (all(math.isfinite(x) for x in got["losses"])
+                and rows[kind]["loss_rel_diff_vs_one_card"][0] <= MESH_LOSS_TOL
+                and rows[kind]["grad_norm_rel_diff_vs_one_card"][0] <= MESH_GNORM_TOL):
+            raise AssertionError(f"nccl {kind}: {rows[kind]} against one card's {single}")
+    tokens = NCCL_QWEN_BATCH * NCCL_SEQ
+    for row in rows.values():
+        steady = row["step_seconds"][1:]
+        row["step_ms_median"] = sorted(steady)[len(steady) // 2] * 1e3
+        row["tokens_per_s"] = tokens / (row["step_ms_median"] / 1e3)
+    emit({"phase": "train_mesh_nccl", "arch": TRAIN_ARCH, "cards": NCCL_CARDS,
+          "backend": "nccl", "tokens_per_step": tokens, "seq": NCCL_SEQ, "runs": rows,
+          "tols_step0": [MESH_LOSS_TOL, MESH_GNORM_TOL], "nvidia_smi": nvidia_smi(),
+          "seconds": time.perf_counter() - t0})
+    t1 = time.perf_counter()
+    try:
+        out = spawn_ranks(functools.partial(nccl_train, {
+            "arch": NCCL_RG_ARCH, "batch": NCCL_RG_BATCH, "steps": NCCL_STEPS,
+            "kind": "fsdp", "meshed": True, "accum": 1}), NCCL_CARDS, device="cuda")
+        rg = {"fits": True, **out[0],
+              "peak_mem_bytes_by_card": [o["peak_mem_bytes"] for o in out]}
+        if not all(math.isfinite(x) for x in rg["losses"]):
+            raise AssertionError(f"nccl {NCCL_RG_ARCH}: a loss is not finite: {rg}")
+        rg["step_ms_median"] = sorted(rg["step_seconds"][1:])[
+            len(rg["step_seconds"][1:]) // 2] * 1e3
+    except RuntimeError as e:
+        if "NCCL_STUDY_OOM {" not in str(e):
+            raise
+        text = str(e)
+        rg = {"fits": False, "oom": [json.loads(line.split("NCCL_STUDY_OOM ", 1)[1])
+                                     for line in text.splitlines()
+                                     if "NCCL_STUDY_OOM {" in line]}
+    from repro_torch.configs import get_config
+
+    emit({"phase": "train_mesh_nccl_recurrentgemma", "arch": NCCL_RG_ARCH,
+          "params": get_config(NCCL_RG_ARCH).n_params(), "cards": NCCL_CARDS,
+          "tokens_per_step": NCCL_RG_BATCH * NCCL_SEQ, **rg, "nvidia_smi": nvidia_smi(),
+          "seconds": time.perf_counter() - t1})
 
 
 def _build_kernels():
@@ -3875,6 +4147,10 @@ def main() -> int:
     ap.add_argument("--float-fleet-study", action="store_true",
                     help="also run phase 7b's replica kill in float and report whether "
                          "the ledger diverged, and at what top-2 margin (not gated)")
+    ap.add_argument("--train-mesh-nccl", action="store_true",
+                    help="run only the study of training over NCCL on four cards (a "
+                         "rank each): qwen2-0.5b data-parallel and FSDP at 8 x 4096 "
+                         "tokens against one card, recurrentgemma-9b under FSDP")
     args = ap.parse_args()
     ROUTE_STUDY, CONV_ROUTE_STUDY = args.gemm_route_study, args.conv_route_study
     FLASH_PV_STUDY, FLOAT_FLEET_STUDY = args.flash_pv_study, args.float_fleet_study
@@ -3895,6 +4171,14 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_card(torch, dev)
+    if args.train_mesh_nccl:
+        phase_train_mesh_nccl(torch)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        print(nvidia_smi(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     book = KernelBook()
     phase_kernels(torch, dev, book)
     phase_kernels_serving(torch, dev, book)
@@ -3930,7 +4214,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_windows = phase_families(torch, dev)
     torch.cuda.empty_cache()
-    train_windows = phase_training(torch, dev)
+    train_windows, step0 = phase_training(torch, dev)
+    torch.cuda.empty_cache()
+    phase_train_mesh(torch, dev, step0)
     phase_serve_cli(torch)
     phase_fleet_cli(torch)
     phase_fpga_tables()

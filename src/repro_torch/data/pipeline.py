@@ -17,6 +17,13 @@ The draws come from a ``torch.Generator`` seeded by (seed, step), not the
 reference's threefry numbers, so tests that compare the two packages feed
 the reference's batches in.  Batches are made on the host and moved to
 ``device`` (the card by default in the pipeline, as in the drivers).
+
+With a mesh (a rank of a data-parallel / FSDP run) every rank draws the
+whole global batch from (seed, step) and keeps its rows of it, over the
+rules' "batch" axes (``sharding.microbatch_rows``: with ``accum``
+microbatches, its rows of each in turn), the context's rows too: the data
+does not depend on the mesh, so a run restarts on another mesh with the
+same batches.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.parallel import sharding as sh
 
 __all__ = ["DataPipeline", "make_pipeline", "synthetic_batch", "synthetic_images"]
 
@@ -75,20 +84,33 @@ class DataPipeline:
     ctx_len: int = 0  # encdec / vlm context stub length (0 = none)
     d_model: int = 0
     device: str = "cuda"
+    mesh: Optional[object] = None
+    rules: Optional[sh.ShardingRules] = None
+    accum: int = 1
+
+    def rows(self) -> Optional[list]:
+        """This rank's rows of the global batch (None: every row)."""
+        if self.mesh is None or self.rules is None:
+            return None
+        return sh.microbatch_rows(self.global_batch, self.accum, self.mesh,
+                                  self.rules.get("batch"))
 
     def batch(self, step: int) -> dict:
-        out = {"tokens": synthetic_batch(self.seed, step, self.global_batch, self.seq_len,
-                                         self.vocab, device=self.device)}
+        rows = self.rows()
+        keep = (lambda t: t) if rows is None else (lambda t: t[rows])
+        out = {"tokens": keep(synthetic_batch(self.seed, step, self.global_batch,
+                                              self.seq_len, self.vocab)).to(self.device)}
         if self.ctx_len:
             gen = _gen(self.seed ^ 0x5EED, step)
             ctx = torch.randn((self.global_batch, self.ctx_len, self.d_model),
                               generator=gen) * 0.1
-            out["ctx"] = ctx.to(self.device)
+            out["ctx"] = keep(ctx).to(self.device)
         return out
 
 
-def make_pipeline(cfg, shape, *, seed: int = 0, global_batch: Optional[int] = None,
-                  seq_len: Optional[int] = None, device="cuda") -> DataPipeline:
+def make_pipeline(cfg, shape, *, seed: int = 0, mesh=None, rules=None,
+                  global_batch: Optional[int] = None, seq_len: Optional[int] = None,
+                  device="cuda", accum: int = 1) -> DataPipeline:
     ctx_len = 0
     if cfg.family == "encdec":
         ctx_len = cfg.n_frames
@@ -102,4 +124,7 @@ def make_pipeline(cfg, shape, *, seed: int = 0, global_batch: Optional[int] = No
         ctx_len=ctx_len,
         d_model=cfg.d_model,
         device=str(device),
+        mesh=mesh,
+        rules=rules if mesh is not None else None,
+        accum=accum,
     )

@@ -35,6 +35,7 @@ __all__ = [
     "Mesh",
     "make_production_mesh",
     "make_test_mesh",
+    "train_mesh",
     "mesh_name",
     "mesh_chips",
     "gemm_partition",
@@ -122,6 +123,27 @@ def make_test_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 2, 2) if multi_pod else (2, 2)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return Mesh(shape, axes)
+
+
+def train_mesh(ranks: int, multi_pod: bool = False, *, model: int = 1) -> Mesh:
+    """The training mesh the port maps the reference's production meshes
+    onto: ("data", "model") = (ranks, 1), or with ``multi_pod`` ("pod",
+    "data", "model") = (2, ranks / 2, 1): the data axes of ``TRAIN_RULES``
+    (batch, FSDP over "data", pod x data), as a layout; each rank calls
+    :meth:`Mesh.init_groups` on it.  A "model" axis above 1 (tensor
+    parallelism with sequence-parallel activations) is not ported: ROADMAP
+    queue 1 item 7c."""
+    if model != 1:
+        raise ValueError(f"a training mesh with a 'model' axis of {model}: tensor-parallel "
+                         f"training (sequence-parallel activations, reduce-scatter seams) "
+                         f"is not ported (ROADMAP queue 1 item 7c); the port trains on "
+                         f"the data axes with 'model' = 1")
+    if ranks < 1 or (multi_pod and ranks % 2):
+        raise ValueError(f"a training mesh of {ranks} ranks"
+                         + (" (multi-pod needs an even count)" if multi_pod else ""))
+    if multi_pod:
+        return Mesh((2, ranks // 2, 1), ("pod", "data", "model"))
+    return Mesh((ranks, 1), ("data", "model"))
 
 
 def mesh_name(mesh) -> str:

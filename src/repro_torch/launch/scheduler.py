@@ -473,17 +473,20 @@ _SHARDED_ACTIVATIONS = ("act_heads", "kv_heads", "heads", "seq_kv", "seq_act",
 
 
 def _check_rules(mesh, rules) -> None:
-    """The port's meshed steps run column-parallel rules: every activation
-    but the batch whole (``DECODE_RULES`` and its data-axis variants).  The
-    training rules (``TRAIN_RULES``, "embed" over "data") shard activations
-    and contractions: they wait for data-parallel / FSDP training, ROADMAP
-    queue 1 item 7b."""
+    """The port's meshed decode steps run column-parallel rules: every
+    activation but the batch whole (``DECODE_RULES`` and its data-axis
+    variants).  Rules that shard activations over a "model" axis above 1
+    (``TRAIN_RULES``' sequence-parallel ``seq_act`` and its head axes) are
+    refused here: decode keeps its own rules, and training runs
+    ``TRAIN_RULES`` on its data axes only (``launch.steps.make_train_step``;
+    its "model" axis is ROADMAP queue 1 item 7c)."""
     bad = [n for n in _SHARDED_ACTIVATIONS if sh.axis_size(mesh, rules.get(n)) > 1]
     if bad:
         raise ValueError(f"the port's meshed decode runs column-parallel rules "
-                         f"(DECODE_RULES): these rules shard {bad} (rules that shard "
-                         f"activations, as TRAIN_RULES do, wait for data-parallel / FSDP "
-                         f"training: ROADMAP queue 1 item 7b)")
+                         f"(DECODE_RULES): these rules shard {bad}; decode does not "
+                         f"shard activations (TRAIN_RULES' 'model' axis, sequence-parallel "
+                         f"activations, is ROADMAP queue 1 item 7c; training on the data "
+                         f"axes runs through launch.steps.make_train_step(mesh=))")
 
 
 class _MeshedSteps:

@@ -179,16 +179,19 @@ def sinusoidal_positions(n: int, d: int, dtype=torch.float32, device="cpu") -> t
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits: (..., V), upcast to f32 before the logsumexp; labels: (...)
     int.  The mean negative log-likelihood, over ``mask`` (f32, 1 = counted)
-    when given: sum(nll * mask) / max(sum(mask), 1)."""
+    when given: sum(nll * mask) / max(sum(mask), 1).  ``count`` replaces
+    sum(mask) in the denominator (a data-parallel rank's share of a global
+    mean: the whole batch's count)."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
     nll = logz - gold
     if mask is not None:
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+        return (nll * mask).sum() / torch.clamp(mask.sum() if count is None else count, min=1)
     return nll.mean()
 
 

@@ -18,6 +18,12 @@ reference's ``vmap`` of ``tpl.matmul`` over (group, expert) issues them; on
 branch.  The per-(group, expert) loop costs G·E·3 launches a layer (a
 grouped launch over (group, expert) is a later lever).  Routing, dispatch
 and combine are plain tensor ops (the "PS plane").
+
+On a rank whose rows are a part of the logical batch (``sharding.batch_split``
+above 1: a data-parallel training step) the groups are the logical batch's:
+the group size reads the batch's token count, a rank must hold whole
+groups (else a ValueError: a group would span two ranks), and the aux loss
+is this rank's sum over its groups over the batch's group count.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.template import Template
+from repro_torch.parallel import sharding as sh
 
 from .layers import init_dense
 
@@ -74,13 +81,25 @@ def _route(cfg, router_w, xt):
     return gates, idx, probs
 
 
+def _split() -> int:
+    """How many ranks' rows make up the logical batch (1 off a mesh)."""
+    return sh.active_batch_split() if sh.active_mesh() is not None else 1
+
+
 def _groups(cfg, x):
     """(B, S, d) -> the padded token groups (G, S_g, d), the token count and
-    the capacity a group gives each expert."""
+    the capacity a group gives each expert.  The group size reads the
+    logical batch's token count (this rank's times :func:`_split`)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    sg = min(getattr(cfg, "moe_group", 512) or 512, t)
+    split = _split()
+    sg = min(getattr(cfg, "moe_group", 512) or 512, t * split)
+    if split > 1 and t % sg:
+        raise ValueError(
+            f"MoE groups of {sg} tokens: this rank holds {t} of the batch's {t * split} "
+            f"tokens ({split} ranks), so a group would span two ranks; give each rank "
+            f"a multiple of {sg} tokens")
     xt = x.reshape(t, d)
     pad = (-t) % sg
     if pad:
@@ -139,10 +158,12 @@ def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
     out = torch.einsum("gsec,gecd->gsd", combine, ex_out).reshape(g * sg, d)[:t]
     out = out.reshape(b, s, d)
 
-    # Switch-style load-balancing aux loss (mean over groups)
+    # Switch-style load-balancing aux loss (mean over the batch's groups)
     density = onehot.to(torch.float32).sum(2).mean(1)  # (G, E) routed fraction
     router_prob = probs.mean(1)  # (G, E)
-    aux = e * torch.mean(torch.sum(density * router_prob, dim=-1))
+    per_group = torch.sum(density * router_prob, dim=-1)
+    split = _split()
+    aux = e * (torch.mean(per_group) if split == 1 else per_group.sum() / (g * split))
     return out.to(x.dtype), aux
 
 

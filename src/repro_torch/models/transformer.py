@@ -158,50 +158,76 @@ def _dtype(name) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(gen, cfg, plan: LayerPlan, dtype, lead: tuple = ()):
+def _keeper(shardings):
+    """``keep(name, subtree)``: the subtree cut to this rank's shard by
+    ``shardings[name]`` (identity without shardings)."""
+    if shardings is None:
+        return lambda name, sub: sub
+    return lambda name, sub: sh.shard_tree(sub, shardings[name])
+
+
+def _init_layer(gen, cfg, plan: LayerPlan, dtype, lead: tuple = (), shardings=None):
     dev = gen.device
-    p = {"norm": init_norm(cfg, dtype, device=dev, lead=lead)}
+    keep = _keeper(shardings)
+    p = {"norm": keep("norm", init_norm(cfg, dtype, device=dev, lead=lead))}
     if plan.mixer in ("attn", "local", "attn_nc"):
-        p["attn"] = init_attention(gen, cfg, dtype=dtype, lead=lead)
+        p["attn"] = keep("attn", init_attention(gen, cfg, dtype=dtype, lead=lead))
     elif plan.mixer == "rec":
-        p["rec"] = rec_mod.init_rglru(gen, cfg, dtype=dtype, lead=lead)
+        p["rec"] = keep("rec", rec_mod.init_rglru(gen, cfg, dtype=dtype, lead=lead))
     elif plan.mixer == "ssm":
-        p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype=dtype, lead=lead)
+        p["ssm"] = keep("ssm", ssm_mod.init_ssm(gen, cfg, dtype=dtype, lead=lead))
     else:  # pragma: no cover
         raise ValueError(plan.mixer)
     if plan.cross:
-        p["cross_norm"] = init_norm(cfg, dtype, device=dev, lead=lead)
-        p["cross"] = init_attention(gen, cfg, bias=False, dtype=dtype, lead=lead)
+        p["cross_norm"] = keep("cross_norm", init_norm(cfg, dtype, device=dev, lead=lead))
+        p["cross"] = keep("cross", init_attention(gen, cfg, bias=False, dtype=dtype,
+                                                  lead=lead))
         if cfg.family == "vlm":
-            p["cross_gate"] = torch.zeros(lead, dtype=dtype, device=dev)
+            p["cross_gate"] = keep("cross_gate", torch.zeros(lead, dtype=dtype, device=dev))
     if plan.mixer != "ssm":  # a mamba2 block has no FFN of its own
-        p["ffn_norm"] = init_norm(cfg, dtype, device=dev, lead=lead)
-        p["ffn"] = (moe_mod.init_moe(gen, cfg, dtype=dtype, lead=lead) if plan.moe
-                    else init_mlp(gen, cfg, dtype=dtype, lead=lead))
+        p["ffn_norm"] = keep("ffn_norm", init_norm(cfg, dtype, device=dev, lead=lead))
+        p["ffn"] = keep("ffn", moe_mod.init_moe(gen, cfg, dtype=dtype, lead=lead) if plan.moe
+                        else init_mlp(gen, cfg, dtype=dtype, lead=lead))
     return p
 
 
-def init_params(gen: torch.Generator, cfg, dtype=None):
+def init_params(gen: torch.Generator, cfg, dtype=None, *, shardings=None):
     """Random parameters in the config's dtype, drawn from ``gen`` on its own
     device; the reference's initializers and scales, not its numbers (a
-    VLM's ``cross_gate`` starts at 0, as there)."""
+    VLM's ``cross_gate`` starts at 0, as there).
+
+    ``shardings`` (the params' :class:`~repro_torch.parallel.sharding.NamedSharding`
+    tree on a mesh with ranks, ``launch.steps.state_shardings``): each
+    sub-module (an attention block, an FFN, the embedding table) is cut to
+    this rank's shard as soon as it is drawn, so the whole tree never
+    exists on the rank; the draws are the same as without it."""
     dtype = _dtype(dtype or cfg.dtype)
     pattern, g, r = _split(cfg)
     d, v = cfg.d_model, cfg.vocab
     dev = gen.device
+    shs = shardings or {}
+    keep = _keeper(shardings)
 
     def table(shape):
         return (torch.randn(shape, generator=gen, device=dev) * d ** -0.5).to(dtype)
 
-    params = {"embed": table((v, d)), "final_norm": init_norm(cfg, dtype, device=dev)}
+    params = {"embed": keep("embed", table((v, d))),
+              "final_norm": keep("final_norm", init_norm(cfg, dtype, device=dev))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": table((d, v))}
-    params["blocks"] = tuple(_init_layer(gen, cfg, p, dtype, lead=(g,)) for p in pattern)
-    params["tail"] = tuple(_init_layer(gen, cfg, pattern[j], dtype) for j in range(r))
+        params["lm_head"] = keep("lm_head", {"w": table((d, v))})
+    params["blocks"] = tuple(
+        _init_layer(gen, cfg, p, dtype, lead=(g,),
+                    shardings=shs["blocks"][i] if shardings else None)
+        for i, p in enumerate(pattern))
+    params["tail"] = tuple(
+        _init_layer(gen, cfg, pattern[j], dtype,
+                    shardings=shs["tail"][j] if shardings else None) for j in range(r))
     if cfg.family == "encdec":
+        enc = shs.get("encoder") if shardings else None
         params["encoder"] = {
-            "blocks": (_init_layer(gen, cfg, _ENC_PLAN, dtype, lead=(cfg.n_encoder_layers,)),),
-            "final_norm": init_norm(cfg, dtype, device=dev),
+            "blocks": (_init_layer(gen, cfg, _ENC_PLAN, dtype, lead=(cfg.n_encoder_layers,),
+                                   shardings=enc["blocks"][0] if enc else None),),
+            "final_norm": _keeper(enc)("final_norm", init_norm(cfg, dtype, device=dev)),
         }
     return params
 
@@ -516,8 +542,17 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
 
 
 def _remat(fn, *args):
-    """``fn(*args)``, its activations recomputed in the backward pass."""
-    return checkpoint(fn, *args, use_reentrant=False)
+    """``fn(*args)``, its activations recomputed in the backward pass, under
+    the mesh state of the forward (a CUDA backward recomputes on the
+    autograd engine's thread, where the FSDP gathers and the MoE groups
+    would otherwise find no mesh)."""
+    state = sh.mesh_state()
+
+    def region(*a):
+        with sh.use_mesh_state(state):
+            return fn(*a)
+
+    return checkpoint(region, *args, use_reentrant=False)
 
 
 def _train_groups(tpl, cfg, blocks, h, aux, *, pattern, depth, positions, ctx, policy):
@@ -530,7 +565,9 @@ def _train_groups(tpl, cfg, blocks, h, aux, *, pattern, depth, positions, ctx, p
 
     def layer(i, j, part):
         def fn(hh):
-            return _run_layer(tpl, cfg, pattern[i], _at(blocks[i], j), hh,
+            # FSDP shards are gathered here, inside the recomputed region:
+            # the whole weights live only while the region runs
+            return _run_layer(tpl, cfg, pattern[i], sh.gather_fsdp(_at(blocks[i], j)), hh,
                               positions=positions, mode="train", ctx=ctx,
                               policy=_group_policy(policy, f"g{i}"), part=part)
         return fn
@@ -573,7 +610,8 @@ def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None, ctx
     for j in range(depth):
         for i, plan in enumerate(pattern):
             c = None if cache is None else _at(cache["blocks"][i], j)
-            h, c, a = _run_layer(tpl, cfg, plan, _at(blocks[i], j), h, positions=positions,
+            h, c, a = _run_layer(tpl, cfg, plan, sh.gather_fsdp(_at(blocks[i], j)), h,
+                                 positions=positions,
                                  mode=mode, cache=c, ctx=ctx, cache_len=cache_len, t=t,
                                  policy=_group_policy(policy, f"g{i}"), n_valid=n_valid,
                                  inplace=inplace)
@@ -582,7 +620,8 @@ def _run_stack(tpl, cfg, params, h, *, pattern, mode, positions, cache=None, ctx
     tail_caches = []
     for j, lp in enumerate(params["tail"]):
         c = None if cache is None else cache["tail"][j]
-        h, c, a = _run_layer(tpl, cfg, pattern[j], lp, h, positions=positions, mode=mode,
+        h, c, a = _run_layer(tpl, cfg, pattern[j], sh.gather_fsdp(lp), h,
+                             positions=positions, mode=mode,
                              cache=c, ctx=ctx, cache_len=cache_len, t=t,
                              policy=_group_policy(policy, f"tail{j}"), n_valid=n_valid,
                              inplace=inplace)
@@ -607,7 +646,7 @@ def _encode(tpl, cfg, enc_params, frames, *, remat: bool = False):
     positions = torch.arange(nf, device=h.device)
     for j in range(_depth(blocks)):
         def body(hh, j=j):
-            return _run_layer(tpl, cfg, _ENC_PLAN, _at(blocks, j), hh,
+            return _run_layer(tpl, cfg, _ENC_PLAN, sh.gather_fsdp(_at(blocks, j)), hh,
                               positions=positions, mode="fwd")[0]
 
         h = _remat(body, h) if remat else body(h)
@@ -620,7 +659,7 @@ def _encode(tpl, cfg, enc_params, frames, *, remat: bool = False):
 
 
 def _embed_tokens(cfg, params, tokens):
-    return constrain(params["embed"][tokens], "batch", "seq_act", "act_embed")
+    return constrain(sh.gather_fsdp(params["embed"])[tokens], "batch", "seq_act", "act_embed")
 
 
 def _head(tpl, cfg, params, h, *, policy=None):
@@ -634,11 +673,13 @@ def _head(tpl, cfg, params, h, *, policy=None):
     else:
         # the tied head multiplies by embed's transposed view: the float GEMM
         # kernel reads it in place
-        w = params["embed"].T if cfg.tie_embeddings else head
+        w = sh.gather_fsdp(params["embed"]).T if cfg.tie_embeddings else sh.gather_fsdp(head)
         logits = tpl.matmul(h, w)
     # a vocab-sharded head's logits stay sharded at the seam; the entry
-    # points gather them whole before they are read
-    return sh.replicated(constrain(logits, "batch", "seq_act", "vocab"))
+    # points gather them whole before they are read.  Only the vocab dim:
+    # a rank's batch rows stay its own (gathered, every rank would take the
+    # loss over every row)
+    return sh.replicated(constrain(logits, "batch", "seq_act", "vocab"), dims=(-1,))
 
 
 def _context(tpl, cfg, params, ctx, *, remat: bool = False):
@@ -671,6 +712,8 @@ def forward(tpl: Template, cfg, params, tokens, *, ctx=None, mode: str = "fwd",
     if mode not in ("fwd", "train"):
         raise ValueError(f"forward(mode={mode!r}): want 'fwd' or 'train'")
     remat = mode == "train" and bool(cfg.remat) and torch.is_grad_enabled()
+    if mode == "train":  # an FSDP embedding gathered once for its lookup and a tied head
+        params = {**params, "embed": sh.gather_fsdp(params["embed"])}
     s = tokens.shape[1]
     h = _embed_tokens(cfg, params, tokens)
     if cfg.abs_pos:
@@ -689,14 +732,23 @@ def loss_fn(tpl: Template, cfg, params, batch, aux_weight: float = 0.01):
     Without labels, the next-token targets are the tokens shifted by one
     (the last position masked); labels < 0 are masked out.  The forward runs
     in ``mode="train"``.  Returns (scalar loss = ce + aux_weight * aux,
-    {"ce", "aux"})."""
+    {"ce", "aux"}).
+
+    On a rank whose rows are a part of the logical batch (a training step
+    under ``sharding.batch_split``) ce is this rank's ``sum(nll * mask)``
+    over the mask count of the whole batch (summed over the batch axes, no
+    gradient), and aux the MoE layers' sum over this rank's groups over the
+    batch's group count: summed over the ranks, the loss and its gradients
+    are the single-device ones."""
     tokens = batch["tokens"]
     logits, aux = forward(tpl, cfg, params, tokens, ctx=batch.get("ctx"), mode="train")
     labels = batch.get("labels")
     if labels is None:
         labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
     mask = (labels >= 0).to(torch.float32)
-    ce = cross_entropy_loss(logits, torch.clamp(labels, min=0), mask)
+    axes = sh.split_batch_axes()
+    count = sh.psum(mask.sum(), axes) if axes else None
+    ce = cross_entropy_loss(logits, torch.clamp(labels, min=0), mask, count=count)
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 

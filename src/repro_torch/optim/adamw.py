@@ -10,6 +10,12 @@ scales every gradient by ``min(1, clip / max(gnorm, 1e-9))`` cast to the
 gradient's dtype.  The update runs under ``torch.no_grad()`` and returns
 new tensors (the caller drops the old ones, as the reference's donated
 buffers are dropped).
+
+On a mesh (a data-parallel / FSDP training step under ``use_mesh``) every
+leaf is this rank's shard: the moments and the new parameters carry the
+parameters' shard marks, and :func:`global_norm` sums each leaf's squares
+over the axes it is sharded on, so the clip scale and the update act on
+shards unchanged.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from repro_torch.parallel import sharding as sh
 
 from .tree import tree_flatten, tree_leaves, tree_leaves_like, tree_map, tree_unflatten
 
@@ -48,15 +56,35 @@ class AdamW:
 def adamw_init(params) -> OptState:
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda p: sh.carry_marks(p, torch.zeros(p.shape, dtype=torch.float32,
+                                                    device=p.device))
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The f32 L2 norm over every leaf.  Under an active mesh a leaf with
+    shard marks adds its local squares summed over the axes it is sharded
+    on (one sum a distinct set of axes); a replicated leaf is counted once,
+    as it is."""
+    leaves = tree_leaves(tree)
+    mesh = sh.active_mesh()
     total = 0.0
-    for g in tree_leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    if mesh is None or not any(sh.shard_marks(g) for g in leaves):
+        for g in leaves:
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    sharded = {}
+    for g in leaves:
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        axes = tuple(a for _, ax, _ in sh.shard_marks(g)
+                     for a in ((ax,) if isinstance(ax, str) else ax))
+        if axes:
+            sharded[axes] = sharded.get(axes, 0.0) + sq
+        else:
+            total = total + sq
+    for axes, sq in sharded.items():
+        total = total + sh.psum(sq, axes, mesh)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -85,7 +113,8 @@ def adamw_update(opt: AdamW, grads, state: OptState, params):
         delta = mhat / (torch.sqrt(vhat) + opt.eps)
         if opt.weight_decay and p.ndim >= 2:  # decay matrices only
             delta = delta + opt.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), m_new, v_new
+        new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        return tuple(sh.carry_marks(p, t) for t in (new, m_new, v_new))
 
     flat_p, treedef = tree_flatten(params)
     flat = zip(flat_p, *(tree_leaves_like(params, t) for t in (grads, state.m, state.v)))

@@ -10,8 +10,9 @@ scales, then a ``SUM`` all-reduce of the int8 raws requantized against the
 shared scale, carried as int32 partial sums.  Under ``gloo`` a CUDA tensor
 is staged through the host, as the port's other collectives are.
 
-A library: the training driver does not call it (data-parallel training is
-ROADMAP queue 1 item 7b).
+A library: the training driver does not call it (its data-parallel
+reduction is ``parallel.sharding.grad_all_reduce``, in f32; the reference's
+driver has no compression flag either).
 """
 from __future__ import annotations
 

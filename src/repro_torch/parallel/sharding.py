@@ -19,6 +19,14 @@ that holds its own shard, and the collectives are explicit.
   others, and is a no-op without a mesh.  The engine gathers a marked
   contraction dim before a GEMM whose weight holds that dim whole, so every
   contraction stays shard-local (column-parallel decode, ``DECODE_RULES``).
+* **Training seams** (data-parallel, FSDP and pod x data training under
+  ``TRAIN_RULES``, whose "model" axis is 1).  :func:`gather_fsdp` gathers a
+  layer's FSDP shards (dims that shard over a batch axis) at the point of
+  use through :func:`fsdp_gather`, an autograd function whose backward is
+  the reduce-scatter (a sum) over the same axes; :func:`grad_all_reduce`
+  sums the grads of the leaves a batch axis replicates; :func:`psum` sums a
+  value that carries no gradient (a mask count, a metric).  Reductions run
+  in f32.
 * **Spatial seams.** :func:`halo_exchange` and :func:`mask_slab_rows` take
   the slab-major layout ``(S, N, lx, W, C)``.  With ``axis=None`` they run
   the reference's slab-major simulation on one device (``torch.roll`` and
@@ -51,6 +59,8 @@ __all__ = [
     "column_parallel_shardings",
     "is_axes_leaf",
     "use_mesh",
+    "mesh_state",
+    "use_mesh_state",
     "active_mesh",
     "active_rules",
     "axis_size",
@@ -74,6 +84,13 @@ __all__ = [
     "carry_marks",
     "replicated",
     "gather",
+    "fsdp_gather",
+    "gather_fsdp",
+    "grad_all_reduce",
+    "psum",
+    "batch_axes",
+    "split_batch_axes",
+    "microbatch_rows",
     "axis_coord",
     "local_rows",
     "batch_split",
@@ -244,6 +261,25 @@ def use_mesh(mesh, rules: ShardingRules):
         yield
     finally:
         _CTX.mesh, _CTX.rules = prev
+
+
+def mesh_state() -> tuple:
+    """The active (mesh, rules, batch split) of this thread, for
+    :func:`use_mesh_state` to enter elsewhere: the autograd engine runs a
+    CUDA backward, and the regions it recomputes, on a thread of its own,
+    where :func:`use_mesh`'s thread-local state is not set."""
+    return _CTX.mesh, _CTX.rules, _CTX.batch_split
+
+
+@contextlib.contextmanager
+def use_mesh_state(state: tuple):
+    """Enter a :func:`mesh_state` (restoring this thread's on exit)."""
+    prev = mesh_state()
+    _CTX.mesh, _CTX.rules, _CTX.batch_split = state
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules, _CTX.batch_split = prev
 
 
 def active_mesh():
@@ -627,8 +663,13 @@ def _map_axes(fn, axes_tree, tree):
     if isinstance(axes_tree, dict):
         return {k: _map_axes(fn, axes_tree[k], tree[k]) for k in axes_tree}
     if isinstance(axes_tree, (tuple, list)):
-        return type(axes_tree)(_map_axes(fn, a, t) for a, t in zip(axes_tree, tree))
+        return _seq(axes_tree, [_map_axes(fn, a, t) for a, t in zip(axes_tree, tree)])
     raise TypeError(f"bad axes tree node {axes_tree!r}")
+
+
+def _seq(like, items: list):
+    """``items`` as a sequence of ``like``'s type (a NamedTuple by position)."""
+    return type(like)(*items) if hasattr(like, "_fields") else type(like)(items)
 
 
 def tree_shardings(mesh, rules: ShardingRules, shapes_tree, axes_tree):
@@ -756,8 +797,26 @@ def shard_tree(tree, shardings):
     if isinstance(shardings, dict):
         return {k: shard_tree(tree[k], shardings[k]) for k in shardings}
     if isinstance(shardings, (tuple, list)):
-        return type(shardings)(shard_tree(t, s) for t, s in zip(tree, shardings))
+        return _seq(shardings, [shard_tree(t, s) for t, s in zip(tree, shardings)])
     raise TypeError(f"bad shardings node {shardings!r}")
+
+
+def unshard_leaf(leaf, sharding: NamedSharding, root: bool = False):
+    """``leaf``, one rank's shard cut by ``sharding``, gathered to its
+    logical shape over the axes the sharding names (unmarked; every rank
+    calls it, in one order: it is a collective per sharded dim).
+    ``root``: gathered onto rank 0 only (a checkpoint's writer), None on
+    the other ranks."""
+    mesh = sharding.mesh
+    t = _raw(leaf)
+    for d, axes in enumerate(tuple(sharding.spec)):
+        for a in reversed(_axes_tuple(mesh, axes)):  # innermost axis first
+            if t is None:
+                return None  # this rank's part is on its way to rank 0
+            t = _gather_many([t], [d], a, mesh, root=root)[0]
+    if t is None or t is _raw(leaf):
+        return None if t is None else leaf
+    return type(leaf)(t, leaf.fmt) if hasattr(leaf, "fmt") else t
 
 
 def _host_staged(mesh) -> bool:
@@ -766,19 +825,48 @@ def _host_staged(mesh) -> bool:
 
 def _gather_one(t: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
     """All-gather ``t`` along ``dim`` over one mesh axis, in coordinate order."""
+    return _gather_many([t], [dim], axis, mesh)[0]
+
+
+def _buffer(shape, dtype, device, mesh) -> torch.Tensor:
+    """An empty buffer for a collective: on ``device``, or in pinned host
+    memory where gloo stages a CUDA tensor (the copies to and from it then
+    run at the link's rate; the caching host allocator keeps it)."""
+    if _host_staged(mesh) and torch.device(device).type == "cuda":
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _gather_many(ts: Sequence[torch.Tensor], dims: Sequence[int], axis: str,
+                 mesh, root: bool = False) -> list:
+    """All-gather each tensor of ``ts`` along its dim of ``dims`` over one
+    mesh axis, in coordinate order, as one collective: every rank's shards
+    travel as one buffer of bytes (any dtypes).  ``root``: gather onto the
+    axis's coordinate 0 only; the other ranks get Nones."""
     group = mesh.groups.get(axis)
     if group is None:  # a size-1 axis
-        return t
+        return list(ts)
     n = mesh.shape[axis]
-    moved = t.movedim(dim, 0).contiguous()
-    dev = moved.device
-    src = moved.cpu() if _host_staged(mesh) and dev.type == "cuda" else moved
-    flat = src.reshape(-1).view(torch.uint8)
-    bufs = [torch.empty_like(flat) for _ in range(n)]
-    dist.all_gather(bufs, flat, group=group)
-    parts = [b.view(src.dtype).reshape(src.shape) for b in bufs]
-    out = torch.cat(parts, dim=0).to(dev)
-    return out.movedim(0, dim).contiguous()  # the kernels read dense operands
+    moved = [t.movedim(d, 0).contiguous() for t, d in zip(ts, dims)]
+    dev = moved[0].device
+    flat = torch.cat([m.reshape(-1).view(torch.uint8) for m in moved])
+    src = _staged(flat, mesh)
+    if root and mesh.coords[axis] != 0:
+        dist.gather(src, None, dst=mesh.members[axis][0], group=group)
+        return [None] * len(moved)
+    whole = _buffer((n, flat.numel()), torch.uint8, dev, mesh)
+    if root:
+        dist.gather(src, list(whole.unbind(0)), dst=mesh.members[axis][0], group=group)
+    else:
+        dist.all_gather(list(whole.unbind(0)), src, group=group)
+    whole = whole.to(dev)
+    out, off = [], 0
+    for m, d in zip(moved, dims):
+        nb = m.numel() * m.element_size()
+        piece = whole[:, off:off + nb].contiguous().view(m.dtype)
+        out.append(piece.reshape(n * m.shape[0], *m.shape[1:]).movedim(0, d).contiguous())
+        off += nb
+    return out  # the kernels read dense operands
 
 
 def gather(x, dim: int, axes: MeshAxes, mesh=None):
@@ -822,10 +910,12 @@ def constrain(x, *logical: Optional[str]):
     return x
 
 
-def replicated(x):
-    """``x`` with every marked dim gathered (the whole logical tensor)."""
+def replicated(x, dims: Optional[Sequence[int]] = None):
+    """``x`` with every marked dim gathered (the whole logical tensor), or
+    only the marked dims among ``dims`` (counted from the end)."""
     for d, axes, _ in shard_marks(x):
-        x = gather(x, d, axes)
+        if dims is None or d in dims:
+            x = gather(x, d, axes)
     return x
 
 
@@ -864,3 +954,258 @@ def _exchange_rows(v: torch.Tensor, hs: SpatialHalo, mesh, s: int) -> tuple:
         below = send_recv(v[:, :, :hs.dn], s - 1 if s > 0 else None,
                           s + 1 if s < last else None, hs.dn)
     return above, below
+
+
+# ---------------------------------------------------------------------------
+# training seams: data-parallel, FSDP and pod x data (HSDP) training
+# ---------------------------------------------------------------------------
+
+
+def _axes_tuple(mesh, axes: MeshAxes) -> tuple:
+    """``axes`` as a tuple of the mesh's axes that it names and whose size
+    exceeds 1 (the axes a collective over ``axes`` has to cross)."""
+    axes = _present_axes(mesh, axes)
+    if axes is None:
+        return ()
+    return tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                 if mesh.shape[a] > 1)
+
+
+def batch_axes(mesh=None, rules: Optional[ShardingRules] = None) -> tuple:
+    """The mesh axes, of size above 1, that the rules' "batch" shards over
+    (the active mesh and rules by default; () without them)."""
+    mesh = mesh or _CTX.mesh
+    rules = rules or _CTX.rules
+    if mesh is None or rules is None:
+        return ()
+    return _axes_tuple(mesh, rules.get("batch"))
+
+
+def split_batch_axes() -> tuple:
+    """The active batch axes when this rank's rows are a part of the logical
+    batch (a :func:`batch_split` above 1), else (): where a global mean
+    needs its count summed across ranks."""
+    if _CTX.mesh is None or _CTX.batch_split <= 1:
+        return ()
+    return batch_axes()
+
+
+def microbatch_rows(n: int, accum: int, mesh, axes: MeshAxes) -> list:
+    """The rows of an ``n``-row batch that this rank holds when the batch
+    runs as ``accum`` microbatches (its rows split in order) and each
+    microbatch shards over ``axes``: this rank's rows of microbatch 0, then
+    of microbatch 1, and so on.  Split in order again, a rank's rows give it
+    its part of each of the logical microbatches.  Raises when a
+    microbatch does not split evenly over the shards (training would count
+    a replicated row once on every rank)."""
+    shards = axis_size(mesh, axes)
+    if n % accum or (n // accum) % shards:
+        raise ValueError(f"a batch of {n} rows in {accum} microbatches does not split "
+                         f"over the {shards} shards of {axes!r}: want rows a multiple of "
+                         f"{accum * shards}")
+    mb = n // accum
+    lo, hi = local_rows(mb, mesh, axes) if shards > 1 else (0, mb)
+    return [i * mb + r for i in range(accum) for r in range(lo, hi)]
+
+
+def _staged(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` where the mesh's backend takes it: a pinned host copy under
+    gloo."""
+    if not (_host_staged(mesh) and t.device.type == "cuda"):
+        return t
+    buf = _buffer(t.shape, t.dtype, t.device, mesh)
+    buf.copy_(t)
+    return buf
+
+
+def _all_reduce_f32(t: torch.Tensor, axes: tuple, mesh) -> torch.Tensor:
+    """The sum of ``t`` over ``axes`` (one all-reduce an axis), in f32, on
+    ``t``'s device."""
+    if not axes:
+        return t.to(torch.float32)
+    buf = _staged(t.to(torch.float32), mesh).contiguous()
+    if buf is t:
+        buf = buf.clone()
+    for a in axes:
+        dist.all_reduce(buf, group=mesh.groups[a])
+    return buf.to(t.device)
+
+
+#: the reduce-scatter collective (gloo and NCCL): ``reduce_scatter_single``
+#: where torch has it (2.13, which deprecates the older name), else
+#: ``reduce_scatter_tensor`` (2.11)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def _reduce_scatter_many(gs: Sequence[torch.Tensor], dims: Sequence[int], axis: str,
+                         mesh) -> list:
+    """Sum each tensor of ``gs`` (f32) over one mesh axis and keep this
+    rank's slice of its dim of ``dims`` (coordinate order, the inverse of
+    :func:`_gather_many`), as one collective: rank r's input row holds the
+    r-th slice of every tensor."""
+    group = mesh.groups.get(axis)
+    if group is None:
+        return list(gs)
+    n = mesh.shape[axis]
+    moved = [g.movedim(d, 0) for g, d in zip(gs, dims)]
+    for m in moved:
+        if m.shape[0] % n:
+            raise ValueError(f"reduce-scatter of {m.shape[0]} rows over {n} shards")
+    parts = [m.reshape(n, -1) for m in moved]
+    src = _staged(torch.cat(parts, dim=1).reshape(-1), mesh)
+    dev = gs[0].device
+    out = _buffer((src.numel() // n,), src.dtype, dev, mesh)
+    _reduce_scatter(out, src, group=group)
+    out = out.to(dev)
+    pieces = out.split([p.shape[1] for p in parts])
+    return [piece.view(m.shape[0] // n, *m.shape[1:]).movedim(0, d).contiguous()
+            for piece, m, d in zip(pieces, moved, dims)]
+
+
+class _FsdpGather(torch.autograd.Function):
+    """All-gather shards over mesh axes (innermost first), one collective an
+    axis for all of them; the backward sums each whole tensor's gradient
+    over the same axes in f32 and keeps this rank's shard of it (outermost
+    first), in the shard's dtype."""
+
+    @staticmethod
+    def forward(ctx, dims: tuple, axes: tuple, mesh, *shards):
+        ctx.dims, ctx.axes, ctx.mesh = dims, axes, mesh
+        ts = list(shards)
+        for a in reversed(axes):
+            ts = _gather_many(ts, dims, a, mesh)
+        return tuple(ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gs = [g.to(torch.float32) for g in grads]
+        for a in ctx.axes:
+            gs = _reduce_scatter_many(gs, ctx.dims, a, ctx.mesh)
+        return (None, None, None, *(g.to(w.dtype) for g, w in zip(gs, grads)))
+
+
+def _fsdp_gather_many(shards: list, dims: list, axes: MeshAxes, mesh) -> list:
+    """:func:`fsdp_gather` of several shards over the same ``axes``, one
+    collective an axis each way; each result keeps its shard's other
+    marks."""
+    live = _axes_tuple(mesh, axes)
+    dims = [d % t.ndim for t, d in zip(shards, dims)]
+    marks = [tuple(mk for mk in shard_marks(t) if mk[0] % t.ndim != d)
+             for t, d in zip(shards, dims)]
+    if not live:
+        return list(shards)
+    out = _FsdpGather.apply(tuple(dims), live, mesh, *shards)
+    return [mark_shard(t, m) for t, m in zip(out, marks)]
+
+
+def fsdp_gather(shard: torch.Tensor, dim: int, axes: MeshAxes, mesh=None) -> torch.Tensor:
+    """The whole tensor of ``shard`` along ``dim`` over ``axes``, as an
+    autograd seam: its backward reduce-scatters (sums) the gradient back to
+    this rank's shard.  The result keeps ``shard``'s other marks."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        raise ValueError("fsdp_gather: no active mesh (run the step under use_mesh)")
+    return _fsdp_gather_many([shard], [dim], axes, mesh)[0]
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return _seq(tree, [_map_leaves(fn, v) for v in tree])
+    return None if tree is None else fn(tree)
+
+
+def gather_fsdp(tree):
+    """``tree`` (a layer's parameters, or one of them) with every dim whose
+    shard marks name a batch axis of the active rules gathered through
+    :func:`fsdp_gather`: the FSDP shards (``TRAIN_RULES``' "embed" over
+    "data"), the leaves of one set of axes in one collective.  Called where
+    the parameters are used, inside a recomputed region, so a gathered
+    weight lives only there.  Dims sharded over other axes (the
+    column-parallel decode's) stay as they are; no-op without a mesh."""
+    data = set(batch_axes())
+    if not data:
+        return tree
+    leaves = []
+    _map_leaves(leaves.append, tree)
+
+    def fsdp_dim(x):
+        return next(((d, axes) for d, axes, _ in shard_marks(x)
+                     if data & set((axes,) if isinstance(axes, str) else axes)), None)
+
+    while True:  # a leaf with two FSDP dims goes round twice
+        todo = {}
+        for i, x in enumerate(leaves):
+            found = fsdp_dim(x)
+            if found is not None:
+                todo.setdefault(found[1], []).append((i, found[0]))
+        if not todo:
+            break
+        for axes, items in todo.items():
+            got = _fsdp_gather_many([leaves[i] for i, _ in items], [d for _, d in items],
+                                    axes, _CTX.mesh)
+            for (i, _), t in zip(items, got):
+                leaves[i] = t
+    it = iter(leaves)
+    return _map_leaves(lambda _: next(it), tree)
+
+
+def _mark_axes(x) -> tuple:
+    """The mesh axes ``x``'s shard marks name, in mark order."""
+    out = []
+    for _, axes, _ in shard_marks(x):
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            if a not in out:
+                out.append(a)
+    return tuple(out)
+
+
+#: f32 bytes a bucket of :func:`grad_all_reduce` holds (one collective each)
+_BUCKET_BYTES = 1 << 28
+
+
+def grad_all_reduce(tree, axes: MeshAxes, mesh=None):
+    """A gradient tree with each leaf summed, in f32, over the axes of
+    ``axes`` (the batch axes) that its shard marks do not name: the leaves
+    those axes replicate (every leaf under data parallelism; the norms, the
+    biases and the "pod" axis under FSDP).  A leaf's FSDP dims were summed
+    already, by :func:`fsdp_gather`'s backward.  Leaves go in buckets of
+    like axes, one collective each; each comes back in its dtype, marks
+    kept."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return tree
+    want = _axes_tuple(mesh, axes)
+    if not want:
+        return tree
+    leaves = []
+    _map_leaves(leaves.append, tree)
+    plan = {}
+    for i, g in enumerate(leaves):
+        red = tuple(a for a in want if a not in _mark_axes(g))
+        if red:
+            plan.setdefault(red, []).append(i)
+    out = list(leaves)
+    for red, idx in plan.items():
+        bucket, size = [], 0
+        for n, i in enumerate(idx):
+            bucket.append(i)
+            size += 4 * leaves[i].numel()
+            if size >= _BUCKET_BYTES or n == len(idx) - 1:
+                flat = torch.cat([leaves[j].reshape(-1).to(torch.float32) for j in bucket])
+                flat = _all_reduce_f32(flat, red, mesh)
+                for j, part in zip(bucket, flat.split([leaves[j].numel() for j in bucket])):
+                    g = leaves[j]
+                    out[j] = carry_marks(g, part.view(g.shape).to(g.dtype))
+                bucket, size = [], 0
+    it = iter(out)
+    return _map_leaves(lambda _: next(it), tree)
+
+
+def psum(t: torch.Tensor, axes: MeshAxes, mesh=None) -> torch.Tensor:
+    """The sum of ``t`` over ``axes``, in f32, with no gradient: a count or
+    a metric that every rank then holds whole."""
+    mesh = mesh or _CTX.mesh
+    live = () if mesh is None else _axes_tuple(mesh, axes)
+    return _all_reduce_f32(t.detach(), live, mesh)

@@ -86,6 +86,22 @@ def test_driver_prints_the_reference_lines(tmp_path, capsys):
     assert "[train] plan registry: " in out
 
 
+def test_ckpt_every_zero_saves_nothing(tmp_path):
+    """``--ckpt-every 0``: no checkpoint is written or read, and the losses
+    are the checkpointed run's; a failure then restarts from step 0."""
+    argv = ["--steps", "3", "--batch", "2", "--seq", "16", "--log-every", "100",
+            "--device", "cpu"]
+    saved, want = train.main(argv + ["--ckpt-every", "1", "--ckpt-dir", str(tmp_path / "a")])
+    assert len(saved["save_seconds"]) == 3
+    stats, got = train.main(argv + ["--ckpt-every", "0", "--ckpt-dir", str(tmp_path / "b")])
+    assert got == want and stats["save_seconds"] == [] and stats["restore_seconds"] == []
+    assert not (tmp_path / "b").exists()
+    # the checkpoints of another run in the directory are not resumed from
+    stats, again = train.main(argv + ["--ckpt-every", "0", "--ckpt-dir", str(tmp_path / "a"),
+                                      "--fail-at", "2"])
+    assert stats["restarts"] == [0] and again == want[:2] + want
+
+
 @pytest.mark.parametrize("arch", ["whisper-medium", "granite-moe-3b-a800m",
                                   "mamba2-1.3b"])
 def test_driver_trains_the_families(tmp_path, arch):
@@ -96,8 +112,16 @@ def test_driver_trains_the_families(tmp_path, arch):
 
 
 def test_driver_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="7b"):
-        train.main(["--mesh", "single", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    """The meshes the driver refuses before any rank starts: a multi-pod
+    mesh of an odd rank count, and (through ``train_mesh``, which every rank
+    calls) a "model" axis above 1, tensor-parallel training (ROADMAP 7c)."""
+    from repro_torch.launch.mesh import train_mesh
+
+    with pytest.raises(ValueError, match="even"):
+        train.main(["--mesh", "multi", "--ranks", "3", "--ckpt-dir", str(tmp_path),
+                    "--device", "cpu"])
+    with pytest.raises(ValueError, match="7c"):
+        train_mesh(4, model=2)
 
 
 def test_lenet_float_steps_follow_the_reference():
