@@ -205,18 +205,30 @@ non-zero without its result line):
    weights' f32 pass.  Printed: ms and peak memory;
 12. training on ranks ("train_mesh"): (a)'s qwen2-0.5b run at full width
    through ``launch/train.main --mesh single --ranks 2`` (two gloo ranks
-   of the card, collectives staged through pinned host memory), FSDP for
-   3 steps, data-parallel (``--no-fsdp``) for 1, and FSDP failing at step
-   2 with checkpoints every 2; two runs share the card at a time.  Gates:
-   finite losses, step 0 within 1e-3 (loss) and 1e-2 (grad norm) of
-   11(a)'s step 0, the restarted run equal to the fault-free one bit for
-   bit.  Printed: ms a step, tokens/s, each rank's peak memory, save and
-   restore seconds.
+   of the card, collectives staged through pinned host memory), one run
+   after another on the same two rank processes: FSDP for 2 steps,
+   FSDP failing at step 1 with a checkpoint every step, data-parallel
+   (``--no-fsdp``) for 1, and tensor-parallel (``--model 2``: "model" = 2,
+   sequence-parallel activations) for 2.  Gates: finite losses, step 0
+   within 1e-3 (loss) and 1e-2 (grad norm) of 11(a)'s step 0, the
+   restarted run equal to the fault-free one bit for bit.  Printed: ms a
+   step, tokens/s, each rank's peak memory, save and restore seconds, and
+   each run's collectives a step by kind and mesh axis.
 
 ``--train-mesh-nccl`` runs, alone, training over NCCL on four cards (a
-rank each; it fails with fewer): qwen2-0.5b data-parallel and FSDP at 8 x
-4096 tokens against one card's steps, and recurrentgemma-9b at full depth
-under FSDP with each card's peak memory.
+rank each; it fails with fewer): qwen2-0.5b data-parallel, FSDP and
+tensor-parallel on (2, 2) and (1, 4) ("data", "model") at 8 x 4096 tokens
+against one card's steps, and recurrentgemma-9b at full depth under FSDP
+with each card's peak memory.
+``--parent-ab DIR`` runs, alone, phase 11(a)'s single-device run (4
+steps), phase 9's tensor-parallel scheduler runs (float and grid, no plan
+store) and phase 12's FSDP run from the
+checkout at DIR (an earlier commit's tree, unpacked with ``git archive``)
+and from this one, each run in a process of its own on two gloo ranks of
+the card, in the order DIR, this, this, DIR; it prints each run's decode
+ms a step, FSDP ms a step and seconds, and whether the runs' streams and
+losses agree (the kernels' sources must be the same in both trees: DIR
+reuses this checkout's build).
 ``--gemm-route-study`` adds the float GEMM's design measurements, off by
 default: route "tile" timed beside fc0 and the tied head, and the
 ``wgmma_threshold`` lines (gate / up's n and k at m from 17 to 256 and at
@@ -3871,16 +3883,17 @@ def phase_training(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: data-parallel and FSDP training on ranks
+# phase 12: data-parallel, FSDP and tensor-parallel training on ranks
 # ---------------------------------------------------------------------------
 
 #: qwen2-0.5b at phase 11a's width and batch (TRAIN_ARGV: 8 x 1024 in 2
 #: microbatches) through ``train.main --mesh single`` on two gloo ranks of
 #: the card, one run after another on the same two rank processes: FSDP and
-#: data-parallel (``--no-fsdp``) with no checkpoint, and FSDP failing at
-#: step 1 with a checkpoint every step
+#: data-parallel (``--no-fsdp``) with no checkpoint, FSDP failing at step 1
+#: with a checkpoint every step, and tensor-parallel ("model" = 2) with no
+#: checkpoint
 MESH_RANKS = 2
-MESH_STEPS = {"fsdp": 2, "fsdp_restart": 2, "dp": 1}
+MESH_STEPS = {"fsdp": 2, "fsdp_restart": 2, "dp": 1, "tp": 2}
 MESH_FAIL_AT = MESH_CKPT_EVERY = 1
 #: step 0 on the ranks against phase 11a's single-device step 0
 MESH_LOSS_TOL, MESH_GNORM_TOL = 1e-3, 1e-2
@@ -3888,16 +3901,20 @@ MESH_LOSS_TOL, MESH_GNORM_TOL = 1e-3, 1e-2
 
 def train_mesh_runs(runs, rank=0, world=1, dev=None):
     """Phase 12's rank body: ``train.main(argv)`` of each (name, argv) of
-    ``runs`` in turn on this rank; rank 0 returns each run's stats, losses
-    and seconds and removes its checkpoints."""
+    ``runs`` in turn on this rank; rank 0 returns each run's stats, losses,
+    seconds and the seams' collectives (``sharding.SEAM_COUNTS``, counted
+    from 0 just before the run) and removes its checkpoints."""
     from repro_torch.launch import train
+    from repro_torch.parallel import sharding
 
     out = {}
     for name, argv in runs:
         t0 = time.perf_counter()
+        sharding.SEAM_COUNTS.clear()
         stats, losses = train.main(argv)
         out[name] = {"stats": stats, "losses": list(losses),
-                     "seconds": time.perf_counter() - t0}
+                     "seconds": time.perf_counter() - t0,
+                     "seams": [[*k, n] for k, n in sorted(sharding.SEAM_COUNTS.items())]}
         if rank == 0:
             shutil.rmtree(argv[argv.index("--ckpt-dir") + 1], ignore_errors=True)
     return out if rank == 0 else None
@@ -3906,19 +3923,22 @@ def train_mesh_runs(runs, rank=0, world=1, dev=None):
 def phase_train_mesh(torch, dev, step0):
     """Phase 12: qwen2-0.5b at full width through ``launch/train.main --mesh
     single --ranks 2`` (two gloo ranks of the card, collectives staged
-    through the host), three runs, one after another on the same two rank
+    through the host), four runs, one after another on the same two rank
     processes (``main`` called on each rank trains on them), so each run
     has the card alone: FSDP (``TRAIN_RULES``) and data-parallel
-    (``--no-fsdp``), both without checkpoints, and FSDP with a failure at
-    step 1 and a checkpoint every step (saved gathered by rank 0, restored
-    onto the ranks' shardings).  Steps and checkpoints are cut to fit the
-    phase's 90 s, never the width.  Gates: every loss finite; step 0's loss
-    within 1e-3 and its grad norm within 1e-2 (relative) of phase 11a's
-    single-device step 0 on the same weights and batch (``step0``); the
-    restarted run's losses and grad norms equal to the fault-free FSDP
-    run's bit for bit.  Printed: ms a step, tokens/s and each rank's peak
-    memory a run, the checkpoint's save and restore seconds, each run's and
-    the phase's seconds.  The ranks run on the torch template: no kernel."""
+    (``--no-fsdp``), both without checkpoints, FSDP with a failure at step
+    1 and a checkpoint every step (saved gathered by rank 0, restored onto
+    the ranks' shardings), and tensor-parallel (``--model 2``: "model" = 2,
+    heads / qkv / mlp / vocab and the residual stream's sequence over it)
+    without checkpoints.  Steps and checkpoints are cut, never the width.
+    Gates: every loss finite; step 0's loss within 1e-3 and its grad norm
+    within 1e-2 (relative) of phase 11a's single-device step 0 on the same
+    weights and batch (``step0``); the restarted run's losses and grad
+    norms equal to the fault-free FSDP run's bit for bit.  Printed: ms a
+    step, tokens/s and each rank's peak memory a run, the checkpoint's save
+    and restore seconds, each run's collectives a step by kind and mesh
+    axis, each run's and the phase's seconds.  The ranks run on the torch
+    template: no kernel."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn_ranks
@@ -3931,7 +3951,8 @@ def phase_train_mesh(torch, dev, step0):
     extra = {"fsdp": ["--ckpt-every", "0"],
              "fsdp_restart": ["--ckpt-every", str(MESH_CKPT_EVERY),
                               "--fail-at", str(MESH_FAIL_AT)],
-             "dp": ["--no-fsdp", "--ckpt-every", "0"]}
+             "dp": ["--no-fsdp", "--ckpt-every", "0"],
+             "tp": ["--model", "2", "--ckpt-every", "0"]}
     work = Path(tempfile.mkdtemp(prefix="train_mesh_phase_", dir=ROOT / "build"))
     try:
         runs = spawn_ranks(functools.partial(train_mesh_runs, [
@@ -3941,6 +3962,8 @@ def phase_train_mesh(torch, dev, step0):
         spawned = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    from repro_torch.parallel.sharding import collective_counts
+
     want_loss, want_gnorm = step0
     rows = {}
     for name, run in runs.items():
@@ -3961,6 +3984,13 @@ def phase_train_mesh(torch, dev, step0):
                       "ckpt_restore_s": stats["restore_seconds"],
                       "failures": stats["failures"], "restarts": stats["restarts"],
                       "run_s": run["seconds"]}
+        if name != "fsdp_restart":  # a run of whole steps only: its collectives a step
+            seams = {tuple(k[:3]): k[3] for k in run["seams"]}
+            rows[name]["collectives_per_step"] = {
+                kind: {axis: n / len(losses) for axis, n in by_axis.items()}
+                for kind, by_axis in collective_counts(seams).items()}
+            rows[name]["seams_per_step"] = {"/".join(k): n / len(losses)
+                                            for k, n in seams.items()}
         if (rows[name]["loss_rel_diff_vs_single"] > MESH_LOSS_TOL
                 or rows[name]["grad_norm_rel_diff_vs_single"] > MESH_GNORM_TOL):
             raise AssertionError(f"train mesh {name}: step 0 off the single-device step 0 "
@@ -3974,7 +4004,8 @@ def phase_train_mesh(torch, dev, step0):
                              f"not the fault-free run's {free['losses']}")
     emit({"phase": "train_mesh", "arch": TRAIN_ARCH, "argv": argv, "ranks": MESH_RANKS,
           "backend": "gloo (both ranks on the card, host-staged)",
-          "mesh": f"('data', 'model') = ({MESH_RANKS}, 1)",
+          "mesh": {name: "('data', 'model') = " + ("(1, 2)" if name == "tp" else
+                                                   f"({MESH_RANKS}, 1)") for name in runs},
           "single_device_step0": {"loss": want_loss, "grad_norm": want_gnorm},
           "tols": [MESH_LOSS_TOL, MESH_GNORM_TOL], "runs": rows,
           "restart_replays_fault_free_bit_for_bit": True, "tokens_per_step": batch * seq,
@@ -3984,8 +4015,9 @@ def phase_train_mesh(torch, dev, step0):
 
 #: ``--train-mesh-nccl``: four cards over NCCL.  qwen2-0.5b at train_4k's
 #: 4096 tokens (8 rows: 2 a card; one card takes them in 4 microbatches),
-#: data-parallel and FSDP; recurrentgemma-9b at full depth under FSDP on 4 x
-#: 4096 tokens (one row a card)
+#: data-parallel, FSDP, and tensor-parallel on (2, 2) and (1, 4) ("data",
+#: "model"); recurrentgemma-9b at full depth under FSDP on 4 x 4096 tokens
+#: (one row a card)
 NCCL_CARDS = 4
 NCCL_SEQ = 4096
 NCCL_QWEN_BATCH, NCCL_RG_BATCH = 8, 4
@@ -4016,7 +4048,8 @@ def nccl_train(payload, rank=0, world=1, dev=None):
     rules = TRAIN_RULES.with_overrides(**dict(cfg.rule_overrides))
     if payload["kind"] == "dp":
         rules = rules.with_overrides(embed=None)
-    mesh = train_mesh(world).init_groups() if payload["meshed"] else None
+    model = payload.get("model", 1)
+    mesh = train_mesh(world, model=model).init_groups() if payload["meshed"] else None
     p_sh = state_shardings(cfg, mesh, rules)[0] if mesh is not None else None
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4059,9 +4092,11 @@ def phase_train_mesh_nccl(torch):
     """``--train-mesh-nccl``, run alone: training over NCCL on four cards,
     a rank each.  (a) qwen2-0.5b at 8 x 4096 tokens: one card (4
     microbatches of 2 rows), then data-parallel and FSDP ranks (2 rows
-    each); gates: finite losses, step 0's loss within 1e-3 and grad norm
-    within 1e-2 of one card's; printed: every step's loss beside one
-    card's, ms a step, tokens/s, peak memory a card.  (b) recurrentgemma-9b
+    each), and tensor-parallel on (2, 2) (4 rows a data rank, the sequence
+    over "model") and (1, 4) (every row, the sequence over four ranks);
+    gates: finite losses, step 0's loss within 1e-3 and grad norm within
+    1e-2 of one card's; printed: every step's loss beside one card's, ms a
+    step, tokens/s, peak memory a card.  (b) recurrentgemma-9b
     at full depth under FSDP on 4 x 4096 tokens: losses, ms a step, each
     card's peak memory, or, if it does not fit, each card's peak and the
     state's bytes where it ran out."""
@@ -4077,10 +4112,10 @@ def phase_train_mesh_nccl(torch):
                          "accum": NCCL_QWEN_BATCH // 2})
     torch.cuda.empty_cache()
     rows = {"one_card": single}
-    for kind in ("dp", "fsdp"):
+    for kind, model in (("dp", 1), ("fsdp", 1), ("tp_2x2", 2), ("tp_1x4", 4)):
         out = spawn_ranks(functools.partial(nccl_train, {**qwen, "kind": kind, "meshed": True,
-                                                         "accum": 1}), NCCL_CARDS,
-                          device="cuda")
+                                                         "accum": 1, "model": model}),
+                          NCCL_CARDS, device="cuda")
         rows[kind] = {**out[0], "peak_mem_bytes_by_card": [o["peak_mem_bytes"] for o in out]}
         got, want = rows[kind], single
         rows[kind]["loss_rel_diff_vs_one_card"] = [
@@ -4126,6 +4161,142 @@ def phase_train_mesh_nccl(torch):
           "seconds": time.perf_counter() - t1})
 
 
+#: ``--parent-ab``: the trees' order, each run in a process of its own, and
+#: the steps of its single-device run
+AB_ORDER = ("parent", "this", "this", "parent")
+AB_ONE_DEVICE_STEPS = 4
+
+
+def ab_rank(payload, rank, world, dev):
+    """One of an A/B run's two ranks on the card: phase 9's tensor-parallel
+    scheduler runs (float, then grid, no plan store), then phase 12's FSDP
+    run (``train.main`` on ``payload["argv"]``); rank 0 returns each
+    part's times."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
+
+    out = {}
+    cfg = get_config(QWEN_ARCH)
+    params = qwen_params(torch, dev, cfg)
+    tp = Mesh((1, world), ("data", "model")).init_groups()
+    for numerics, pol in (("float", None), ("grid", payload["grid_policy"])):
+        t0 = time.perf_counter()
+        rec = shards_serve(torch, cfg, params, pol, tp, None)
+        out[numerics] = {"decode_ms": rec["decode_ms"], "streams": rec["streams"],
+                         "meshed_eager_steps": rec["meshed_eager_steps"],
+                         "seconds": time.perf_counter() - t0}
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats, losses = train.main(payload["argv"])
+    out["fsdp"] = {"step_ms": [x * 1e3 for x in stats["step_seconds"]],
+                   "losses": list(losses), "grad_norms": list(stats["grad_norms"]),
+                   "peak_mem_bytes_by_rank": stats.get("peak_mem_bytes_by_rank"),
+                   "seconds": time.perf_counter() - t0}
+    return out if rank == 0 else None
+
+
+def phase_ab_run(torch, dev, src: str):
+    """One run of ``--parent-ab`` on the port at ``src`` (this process's
+    ``repro_torch``): phase 11a's single-device run for
+    :data:`AB_ONE_DEVICE_STEPS` steps, the grid policy calibrated as phase
+    5 does, then :func:`ab_rank` on two ranks; prints one ``ab_run``
+    line."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.template import default_template
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)  # the allocator's stats need a context (phase 1 makes one)
+    work = Path(tempfile.mkdtemp(prefix="ab_run_", dir=ROOT / "build"))
+    try:
+        stats, losses = train.main(["--arch", TRAIN_ARCH, *TRAIN_ARGV, "--device", str(dev),
+                                    "--steps", str(AB_ONE_DEVICE_STEPS), "--ckpt-every", "0",
+                                    "--ckpt-dir", str(work / "one")])
+        one = {"step_ms": [x * 1e3 for x in stats["step_seconds"]], "losses": list(losses),
+               "seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+        cfg = get_config(QWEN_ARCH)
+        params = qwen_params(torch, dev, cfg)
+        cal = synthetic_batch(SEED + 1, 7, 2, QWEN_PROMPT_LEN, cfg.vocab, device=dev)
+        policy = T.calibrate_policy(default_template("q16"), cfg, params, cal)
+        del params, cal
+        torch.cuda.empty_cache()
+        argv = ["--arch", TRAIN_ARCH, *TRAIN_ARGV, "--device", str(dev), "--mesh", "single",
+                "--ranks", str(MESH_RANKS), "--ckpt-every", "0",
+                "--steps", str(MESH_STEPS["fsdp"]), "--ckpt-dir", str(work / "fsdp")]
+        t1 = time.perf_counter()
+        out = spawn_ranks(functools.partial(ab_rank, {"grid_policy": policy, "argv": argv}),
+                          MESH_RANKS, device=str(dev))[0]
+        ranks_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "ab_run", "src": src, "one_device": one, **out, "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t0})
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_parent_ab(torch, parent: Path):
+    """``--parent-ab``: :func:`phase_ab_run` on ``parent``'s port and on
+    this one's, each in a subprocess, in :data:`AB_ORDER`; prints each
+    run's decode ms a step (median over the trace), FSDP ms a step, the
+    seconds of each part, and whether every run's streams and FSDP losses
+    equal the first run's."""
+    from repro_torch.kernels import _build
+
+    if not (parent / "src" / "repro_torch").is_dir():
+        raise RuntimeError(f"--parent-ab: no src/repro_torch under {parent}")
+    lib_dir = parent / "build" / _build.BUILD_DIR.name
+    lib_dir.mkdir(parents=True, exist_ok=True)
+    for lib in _build.BUILD_DIR.glob("lib*.so"):
+        shutil.copy2(lib, lib_dir / lib.name)  # same sources, same digest: no rebuild
+    t0 = time.perf_counter()
+    runs = []
+    for which in AB_ORDER:
+        src = (parent if which == "parent" else ROOT) / "src"
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--ab-run",
+                               str(src)], capture_output=True, text=True, timeout=900)
+        line = next((ln for ln in reversed(proc.stdout.splitlines())
+                     if ln.startswith('{"phase": "ab_run"')), None)
+        if proc.returncode != 0 or line is None:
+            raise RuntimeError(f"--parent-ab: the {which} run failed (rc {proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        rec = json.loads(line)
+        losses = rec["fsdp"]["losses"]
+        if not all(math.isfinite(x) for x in losses + rec["fsdp"]["grad_norms"]):
+            raise AssertionError(f"--parent-ab: the {which} run's FSDP losses {losses}")
+        runs.append({"tree": which, **rec})
+    first = runs[0]
+    rows = [{"tree": r["tree"],
+             **{f"{n}_decode_ms_median": _median(r[n]["decode_ms"]) for n in ("float", "grid")},
+             **{f"{n}_decode_steps": len(r[n]["decode_ms"]) for n in ("float", "grid")},
+             **{f"{n}_s": r[n]["seconds"] for n in ("float", "grid", "fsdp")},
+             "one_device_step_ms": r["one_device"]["step_ms"],
+             "one_device_s": r["one_device"]["seconds"],
+             "fsdp_step_ms": r["fsdp"]["step_ms"],
+             "fsdp_peak_mem_bytes_by_rank": r["fsdp"]["peak_mem_bytes_by_rank"],
+             "run_s": r["seconds"], "ranks_s": r["ranks_s"],
+             "streams_equal_first": all(r[n]["streams"] == first[n]["streams"]
+                                        for n in ("float", "grid")),
+             "fsdp_equal_first": (r["fsdp"]["losses"] == first["fsdp"]["losses"]
+                                  and r["fsdp"]["grad_norms"] == first["fsdp"]["grad_norms"]),
+             "one_device_equal_first": r["one_device"]["losses"] == first["one_device"]["losses"]}
+            for r in runs]
+    emit({"phase": "parent_ab", "parent": str(parent), "order": list(AB_ORDER), "runs": rows,
+          "fsdp_losses": first["fsdp"]["losses"], "nvidia_smi": nvidia_smi(),
+          "seconds": time.perf_counter() - t0})
+
+
 def _build_kernels():
     from repro_torch.kernels import _build
 
@@ -4151,6 +4322,11 @@ def main() -> int:
                     help="run only the study of training over NCCL on four cards (a "
                          "rank each): qwen2-0.5b data-parallel and FSDP at 8 x 4096 "
                          "tokens against one card, recurrentgemma-9b under FSDP")
+    ap.add_argument("--parent-ab", metavar="DIR",
+                    help="run only the A/B of phase 11a's single-device step, phase 9's "
+                         "tensor-parallel decode and phase 12's FSDP run: the checkout "
+                         "at DIR against this one, in the order DIR, this, this, DIR")
+    ap.add_argument("--ab-run", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     ROUTE_STUDY, CONV_ROUTE_STUDY = args.gemm_route_study, args.conv_route_study
     FLASH_PV_STUDY, FLOAT_FLEET_STUDY = args.flash_pv_study, args.float_fleet_study
@@ -4158,7 +4334,7 @@ def main() -> int:
         print("chip_smoke.py: no src/repro_torch beside this script; run it from the "
               "root of a checkout", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, args.ab_run or str(ROOT / "src"))
     import torch
 
     if not torch.cuda.is_available():
@@ -4170,9 +4346,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    if args.ab_run:
+        phase_ab_run(torch, dev, args.ab_run)
+        return 0
     phase_card(torch, dev)
-    if args.train_mesh_nccl:
-        phase_train_mesh_nccl(torch)
+    if args.train_mesh_nccl or args.parent_ab:
+        if args.train_mesh_nccl:
+            phase_train_mesh_nccl(torch)
+        else:
+            phase_parent_ab(torch, Path(args.parent_ab).resolve())
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
         print(nvidia_smi(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

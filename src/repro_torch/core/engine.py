@@ -40,8 +40,13 @@ The port's copy of ``repro.core.engine``:
   GEMM on a column shard of its weight (a shard-marked ``w``) plans its
   local shape with the logical shape's k order, so a float result is the
   unsharded one bit for bit, and its output carries the shard mark; a
-  shard-marked contraction dim of ``x`` is gathered first.  A local float
-  plan is keyed by its logical shape as well (the store's ``"logical"``).
+  shard-marked contraction dim of ``x`` is gathered first.  Under
+  tensor-parallel training a row dim of ``x`` that shards over the axis of
+  ``w``'s columns (a sequence shard) is gathered first, and a GEMM on a
+  row-parallel weight (its contraction dim shard-marked) cuts a whole
+  ``x`` to match and leaves a partial-sum mark on its output (the bias
+  added on coordinate 0 only).  A local float plan is keyed by its
+  logical shape as well (the store's ``"logical"``).
 """
 from __future__ import annotations
 
@@ -874,6 +879,11 @@ def validate_policy(config, policy: Optional[NumericsPolicy]) -> NumericsPolicy:
     return policy
 
 
+def _names(axes) -> tuple:
+    """A mark's mesh axes as a tuple of names."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
 class Engine:
     """Executes GEMM / conv plans for one template configuration.
 
@@ -1154,19 +1164,41 @@ class Engine:
             )
         return bias.raw, bias_shift
 
-    # -- shards: the column-parallel GEMM -------------------------------------
+    # -- shards: column- and row-parallel GEMMs -------------------------------
 
     @staticmethod
     def _shard_operands(x, w) -> tuple:
-        """Returns (x, w's column mark or None).  A contraction stays whole:
-        an ``x`` whose K dim holds a shard (the product of an elementwise
-        op on column-parallel outputs) is gathered when ``w`` holds K whole."""
-        xk = [mk for mk in sh.shard_marks(x) if mk[0] == -1]
-        wk = [mk for mk in sh.shard_marks(w) if mk[0] == -2]
-        if xk and not wk:
-            x = sh.gather(x, -1, xk[0][1])
+        """Returns (x, the output's shard marks, its partial-sum axes).  A row dim of ``x`` that shards over the
+        axis ``w``'s columns shard over (a sequence shard before a
+        column-parallel weight) is gathered first.  A contraction dim that
+        ``x`` holds a shard of is gathered when ``w`` holds it whole (the
+        column-parallel decode); a whole one is cut to ``w``'s shard (a
+        row-parallel weight); sharded on both, the output is a partial sum
+        over those axes.  The output keeps ``x``'s row marks and takes
+        ``w``'s column mark."""
+        nd = x.ndim
         wn = [mk for mk in sh.shard_marks(w) if mk[0] == -1]
-        return x, (wn[0] if wn else None)
+        wk = [mk for mk in sh.shard_marks(w) if mk[0] == -2]
+        if wn:
+            cols = set(_names(wn[0][1]))
+            for d, axes, _ in sh.shard_marks(x):
+                if d % nd != nd - 1 and cols & set(_names(axes)):
+                    x = sh.gather(x, d, axes)
+        xk = [mk for mk in sh.shard_marks(x) if mk[0] % nd == nd - 1]
+        partial = ()
+        if xk and not (wk and wk[0][1] == xk[0][1]):
+            x = sh.gather(x, -1, xk[0][1])
+        if wk and isinstance(x, QTensor):
+            raise ValueError(f"grid-resident GEMM on a row-parallel weight (its contraction "
+                             f"sharded over {wk[0][1]!r}): the fixed-point path runs "
+                             f"column-parallel shards only")
+        if wk:
+            if not xk or xk[0][1] != wk[0][1]:
+                x = sh.take_shard(x, -1, wk[0][1])
+            partial = _names(wk[0][1])
+        rows = tuple((d % nd - nd, a, n) for d, a, n in sh.shard_marks(x)
+                     if d % nd != nd - 1)
+        return x, rows + tuple(wn), partial
 
     @staticmethod
     def _logical_gemm(m: int, n: int, k: int, wn) -> tuple:
@@ -1188,7 +1220,8 @@ class Engine:
 
         x = self._quant_operand(x)
         w = self._quant_operand(w)
-        x, wn = self._shard_operands(x, w)
+        x, marks, _ = self._shard_operands(x, w)
+        wn = next((mk for mk in marks if mk[0] == -1), None)
         out_fmt = out_fmt or x.fmt
         lead = x.shape[:-1]
         k = x.shape[-1]
@@ -1207,7 +1240,6 @@ class Engine:
             shift=acc_frac - out_fmt.frac_bits, bias_shift=bias_shift,
             wide=wide, block=block,
         )
-        marks = () if wn is None else (wn,)
         if wide:
             self.counters["dequantize_calls"] += 1
             # int32 -> f32 rounds to nearest even and 2^-f is exact: the
@@ -1272,13 +1304,21 @@ class Engine:
         if x.ndim == 1:
             return self.matmul(x[None, :], w, bias=bias, relu=relu, qout=qout,
                                plan=plan)[0]
-        x, wn = self._shard_operands(x, w)
+        x, marks, partial = self._shard_operands(x, w)
+        wn = next((mk for mk in marks if mk[0] == -1), None)
+        backend = self.config.backend
+        if partial and backend != "torch":
+            raise ValueError(f"row-parallel GEMM (its contraction sharded over {partial}) on "
+                             f"the {backend!r} template: the kernel templates run "
+                             f"column-parallel shards only")
+        if partial and bias is not None and any(sh.axis_coord(sh.active_mesh(), a)
+                                                for a in partial):
+            bias = None  # a partial sum takes the bias once, on coordinate 0
         lead = x.shape[:-1]
         k = x.shape[-1]
         n = w.shape[-1]
         x2 = x.reshape(-1, k)
         m = x2.shape[0]
-        backend = self.config.backend
         if backend == "torch":
             out = torch.matmul(x2, w.to(x.dtype))
             out = self._torch_epilogue(out, bias, relu, qout, x.dtype)
@@ -1311,7 +1351,8 @@ class Engine:
             out = dequantize(qres, fmt, dtype=x.dtype)
         else:  # pragma: no cover - config validation
             raise ValueError(f"unknown backend {backend!r}")
-        return sh.mark_shard(out.reshape(*lead, n), () if wn is None else (wn,))
+        out = sh.mark_shard(out.reshape(*lead, n), marks)
+        return sh.mark_partial(out, partial)
 
     def linear(self, x, w, b=None, *, relu: bool = False,
                qout: Optional[QFormat] = None, wide: bool = False,

@@ -18,12 +18,14 @@ reference's threefry numbers, so tests that compare the two packages feed
 the reference's batches in.  Batches are made on the host and moved to
 ``device`` (the card by default in the pipeline, as in the drivers).
 
-With a mesh (a rank of a data-parallel / FSDP run) every rank draws the
-whole global batch from (seed, step) and keeps its rows of it, over the
-rules' "batch" axes (``sharding.microbatch_rows``: with ``accum``
-microbatches, its rows of each in turn), the context's rows too: the data
-does not depend on the mesh, so a run restarts on another mesh with the
-same batches.
+With a mesh (a rank of a data-parallel / FSDP / tensor-parallel run)
+every rank draws the whole global batch from (seed, step) and keeps its
+rows of it, over the rules' "batch" axes (``sharding.microbatch_rows``:
+with ``accum`` microbatches, its rows of each in turn), the context's rows
+too; ranks that share a data coordinate (a "model" line) keep the same
+rows, whole sequences, which the model cuts to their sequence shards.  The
+data does not depend on the mesh, so a run restarts on another mesh with
+the same batches.
 """
 from __future__ import annotations
 

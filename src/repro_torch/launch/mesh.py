@@ -127,23 +127,20 @@ def make_test_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def train_mesh(ranks: int, multi_pod: bool = False, *, model: int = 1) -> Mesh:
     """The training mesh the port maps the reference's production meshes
-    onto: ("data", "model") = (ranks, 1), or with ``multi_pod`` ("pod",
-    "data", "model") = (2, ranks / 2, 1): the data axes of ``TRAIN_RULES``
-    (batch, FSDP over "data", pod x data), as a layout; each rank calls
-    :meth:`Mesh.init_groups` on it.  A "model" axis above 1 (tensor
-    parallelism with sequence-parallel activations) is not ported: ROADMAP
-    queue 1 item 7c."""
-    if model != 1:
-        raise ValueError(f"a training mesh with a 'model' axis of {model}: tensor-parallel "
-                         f"training (sequence-parallel activations, reduce-scatter seams) "
-                         f"is not ported (ROADMAP queue 1 item 7c); the port trains on "
-                         f"the data axes with 'model' = 1")
-    if ranks < 1 or (multi_pod and ranks % 2):
-        raise ValueError(f"a training mesh of {ranks} ranks"
-                         + (" (multi-pod needs an even count)" if multi_pod else ""))
+    onto, as a layout (each rank calls :meth:`Mesh.init_groups` on it):
+    ("data", "model") = (ranks / model, model), or with ``multi_pod``
+    ("pod", "data", "model") = (2, ranks / (2 · model), model).  The data
+    axes carry ``TRAIN_RULES``' batch and FSDP (pod x data is hybrid), the
+    "model" axis its tensor parallelism with sequence-parallel
+    activations.  Raises when the counts do not divide."""
+    if ranks < 1 or model < 1 or ranks % model or (multi_pod and (ranks // model) % 2):
+        raise ValueError(f"a training mesh of {ranks} ranks with a 'model' axis of {model}: "
+                         f"want ranks a multiple of model"
+                         + (", and an even count of data ranks (multi-pod)" if multi_pod
+                            else ""))
     if multi_pod:
-        return Mesh((2, ranks // 2, 1), ("pod", "data", "model"))
-    return Mesh((ranks, 1), ("data", "model"))
+        return Mesh((2, ranks // (2 * model), model), ("pod", "data", "model"))
+    return Mesh((ranks // model, model), ("data", "model"))
 
 
 def mesh_name(mesh) -> str:

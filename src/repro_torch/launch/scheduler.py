@@ -477,16 +477,14 @@ def _check_rules(mesh, rules) -> None:
     activation but the batch whole (``DECODE_RULES`` and its data-axis
     variants).  Rules that shard activations over a "model" axis above 1
     (``TRAIN_RULES``' sequence-parallel ``seq_act`` and its head axes) are
-    refused here: decode keeps its own rules, and training runs
-    ``TRAIN_RULES`` on its data axes only (``launch.steps.make_train_step``;
-    its "model" axis is ROADMAP queue 1 item 7c)."""
+    refused here: decode keeps its own rules; training runs ``TRAIN_RULES``
+    on every axis through ``launch.steps.make_train_step(mesh=)``."""
     bad = [n for n in _SHARDED_ACTIVATIONS if sh.axis_size(mesh, rules.get(n)) > 1]
     if bad:
         raise ValueError(f"the port's meshed decode runs column-parallel rules "
                          f"(DECODE_RULES): these rules shard {bad}; decode does not "
-                         f"shard activations (TRAIN_RULES' 'model' axis, sequence-parallel "
-                         f"activations, is ROADMAP queue 1 item 7c; training on the data "
-                         f"axes runs through launch.steps.make_train_step(mesh=))")
+                         f"shard activations (TRAIN_RULES' sequence-parallel activations "
+                         f"are for training: launch.steps.make_train_step(mesh=))")
 
 
 class _MeshedSteps:

@@ -14,15 +14,19 @@ A ``cuda`` or ``q16`` template is refused: on the card every
 kernel-computed leaf would silently get no gradient, while on the CPU (the
 kernels' plain versions) it would seem to train.
 
-With ``mesh=`` the step is one rank's part of a data-parallel / FSDP step
-under ``TRAIN_RULES`` (batch over ("pod", "data"), "embed" over "data"):
-the params and the optimizer state are this rank's shards
-(:func:`state_shardings`), the batch its rows (``DataPipeline`` with the
-same mesh, rules and ``accum``).  FSDP shards are gathered where the model
-uses them and their grads come back reduce-scattered through the gather's
-backward; the leaves a batch axis replicates get ``grad_all_reduce``.  The
-reference's "model" axis (tensor parallelism with sequence-parallel
-activations) is refused: ROADMAP queue 1 item 7c.
+With ``mesh=`` the step is one rank's part of the step under
+``TRAIN_RULES`` (batch over ("pod", "data"), "embed" over "data", the
+heads, qkv, mlp, vocab, experts, ssm_inner and rec dims and the residual
+stream's sequence over "model"): the params and the optimizer state are
+this rank's shards (:func:`state_shardings`), the batch its rows
+(``DataPipeline`` with the same mesh, rules and ``accum``; ranks that
+share a data coordinate hold the same rows).  FSDP shards are gathered
+where the model uses them and their grads come back reduce-scattered
+through the gather's backward; over "model" the layers' seams gather the
+sequence for the column-parallel projections and reduce-scatter the
+row-parallel outputs, each with its adjoint in the backward.  A rank's
+loss is its part over the batch axes and the sequence's; the leaves those
+axes replicate get ``grad_all_reduce``.
 """
 from __future__ import annotations
 
@@ -100,32 +104,32 @@ def batch_shardings(cfg, shape, mesh, rules: sh.ShardingRules) -> dict:
 
 
 def check_train_mesh(mesh, rules: sh.ShardingRules) -> None:
-    """Raise unless ``mesh`` has ranks and every axis of it but the rules'
-    batch axes has size 1: the port trains on the data axes only."""
+    """Raise unless ``mesh`` has ranks and every axis of it of size above 1
+    is one the rules train over: a batch axis, or the axis the rules shard
+    the sequence over ("model", tensor parallelism with sequence-parallel
+    activations)."""
     if not mesh.has_groups:
         raise ValueError(f"a meshed train step runs on ranks (spawn_ranks); {mesh} is a "
                          f"layout only")
-    data = sh.batch_axes(mesh, rules)
-    wide = [a for a in mesh.axis_names if a not in data and mesh.shape[a] > 1]
+    known = set(sh.loss_axes(mesh, rules))
+    wide = [a for a in mesh.axis_names if a not in known and mesh.shape[a] > 1]
     if wide:
         raise ValueError(
-            f"training on {mesh} under these rules shards over {wide}: the port trains "
-            f"on the data axes (batch, FSDP and pod x data); a 'model' axis above 1 is "
-            f"tensor parallelism with sequence-parallel activations, not ported "
-            f"(ROADMAP queue 1 item 7c)")
+            f"training on {mesh} under these rules shards over {wide}, which the rules "
+            f"use neither for the batch nor for the sequence (seq_act)")
 
 
 @contextlib.contextmanager
 def _on_mesh(mesh, rules):
-    """Yields the batch axes: under ``use_mesh`` and ``batch_split`` over
-    them when ``mesh`` is given, else () with nothing entered."""
+    """Yields the loss's axes (``sharding.loss_axes``: the batch axes, then
+    the sequence's): under ``use_mesh`` and ``batch_split`` over the batch
+    axes when ``mesh`` is given, else () with nothing entered."""
     if mesh is None:
         yield ()
         return
     with sh.use_mesh(mesh, rules):
-        axes = sh.batch_axes()
-        with sh.batch_split(sh.axis_size(mesh, axes)):
-            yield axes
+        with sh.batch_split(sh.axis_size(mesh, sh.batch_axes())):
+            yield sh.loss_axes()
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +153,8 @@ def _loss_and_grads(tpl, cfg, params, batch):
 
 def _reduce(axes, loss, metrics, grads):
     """The global loss, metrics and grads from this rank's parts: the grads
-    of the leaves a batch axis replicates all-reduced, the scalars summed."""
+    of the leaves an axis of the loss replicates all-reduced, the scalars
+    summed."""
     if not axes:
         return loss, metrics, grads
     grads = sh.grad_all_reduce(grads, axes)

@@ -6,6 +6,8 @@
         --fail-at 9 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --mesh single \\
         --ranks 4 --steps 6 --batch 8 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --mesh single \\
+        --ranks 4 --model 2 --steps 6 --batch 8 --seq 64
 
 The port's copy of ``repro.launch.train``: the same flags and printed
 lines, plus ``--device`` (default ``cuda``; ``cpu`` runs on the host).  The
@@ -24,12 +26,14 @@ cosine warm-up schedule.  Features:
 rank on the one card or on the host; or, when :func:`main` is called on
 every rank of a process group that is already up, on those ranks, as the
 reference's ``main`` runs on every host of a job) under ``TRAIN_RULES`` with the
-config's rule overrides, on the data axes of the reference's production
-meshes: ``single`` maps its (16, 16) ("data", "model") mesh onto (N, 1),
-``multi`` its (2, 16, 16) ("pod", "data", "model") onto (2, N / 2, 1).
-Batch over the data axes, FSDP over "data" (pod x data is hybrid-sharded:
-each pod holds a whole copy); the "model" axis stays 1 (tensor-parallel
-training is ROADMAP queue 1 item 7c).  Each rank builds its state shard by
+config's rule overrides, on the reference's production meshes mapped onto
+the ranks: ``single`` maps its (16, 16) ("data", "model") mesh onto (N / M,
+M), ``multi`` its (2, 16, 16) ("pod", "data", "model") onto (2, N / 2M, M),
+M being ``--model`` (default 1).  Batch over the data axes, FSDP over
+"data" (pod x data is hybrid-sharded: each pod holds a whole copy), tensor
+parallelism with sequence-parallel activations over "model" (heads, qkv,
+mlp, vocab, experts, ssm_inner and rec; the residual stream's sequence).
+Each rank builds its state shard by
 shard, keeps its rows of every batch, saves checkpoints gathered to their
 logical shapes (rank 0 writes) and restores onto its shardings, so a run
 resumes on another mesh or on one device.  Only rank 0 prints.
@@ -79,15 +83,18 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--mesh", choices=["none", "single", "multi"], default="none",
-                    help="train on --ranks processes over the data axes of the "
-                         "reference's production meshes: 'single' maps its (16, 16) "
-                         "(data, model) mesh onto (N, 1), 'multi' its (2, 16, 16) "
-                         "(pod, data, model) onto (2, N/2, 1); TRAIN_RULES' batch and "
-                         "FSDP axes, the 'model' axis 1 (tensor-parallel training is "
-                         "ROADMAP 7c)")
+                    help="train on --ranks processes on the reference's production "
+                         "meshes: 'single' maps its (16, 16) (data, model) mesh onto "
+                         "(N/M, M), 'multi' its (2, 16, 16) (pod, data, model) onto "
+                         "(2, N/2M, M), M = --model; TRAIN_RULES' batch and FSDP over "
+                         "the data axes, tensor parallelism over 'model'")
     ap.add_argument("--ranks", type=int, default=None,
                     help="ranks of a --mesh run (default: one per visible card, or 2 "
                          "with --device cpu)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks of a --mesh run's 'model' axis, the size the production "
+                         "mesh's 16-wide 'model' axis maps onto (tensor parallelism with "
+                         "sequence-parallel activations); --ranks must be a multiple")
     ap.add_argument("--no-fsdp", dest="fsdp", action="store_false",
                     help="on a --mesh, replicate the parameters over the data axes "
                          "(TRAIN_RULES with 'embed' None): plain data parallelism")
@@ -117,7 +124,7 @@ def main(argv=None):
     if ranks is None:
         ranks = (dist.get_world_size() if joined else torch.cuda.device_count()
                  if torch.device(args.device).type == "cuda" else 2)
-    train_mesh(ranks, args.mesh == "multi")  # refuses a bad count before any rank starts
+    train_mesh(ranks, args.mesh == "multi", model=args.model)  # a bad count: before any rank
     if joined:  # called on every rank of a running group: train on its ranks
         if dist.get_world_size() != ranks:
             raise ValueError(f"--ranks {ranks} on a process group of "
@@ -128,7 +135,7 @@ def main(argv=None):
 
 def _train_rank(args, rank: int, world: int, device):
     """One rank of a ``--mesh`` run (``spawn_ranks``' ``fn``)."""
-    mesh = train_mesh(world, args.mesh == "multi").init_groups()
+    mesh = train_mesh(world, args.mesh == "multi", model=args.model).init_groups()
     return _train(args, mesh=mesh, device=device)
 
 

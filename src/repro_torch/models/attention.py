@@ -32,12 +32,19 @@ sliding-window layer's ring holds ``min(window, cache_len)`` slots;
 cross-attention reads a static cache of the context's keys and values,
 filled once by the prefill.
 
-Sharding seams (``parallel.sharding.constrain``): each projection's output
-passes a seam before it is split into heads.  Under a mesh, a column shard
-of wq / wk / wv (``qkv`` over "model") yields a column shard of q / k / v,
-which the seam gathers where the rules replicate the heads
-(``DECODE_RULES``), so attention and the cache see whole heads; without a
-mesh every seam is a no-op.
+Sharding seams (``parallel.sharding``): each projection's output passes a
+seam as it is split into heads.  Under a mesh, a column shard of wq / wk /
+wv (``qkv`` over "model") yields a column shard of q / k / v.  Where the
+rules replicate the heads (``DECODE_RULES``) the seam gathers it, so
+attention and the cache see whole heads.  Where they shard the heads
+(``TRAIN_RULES``) a rank keeps its whole heads, and attends over the whole
+sequence (a sequence-parallel input is gathered once, before the
+projections); kv heads the drop rule keeps whole (fewer kv heads than
+ranks, so a column shard would hold half a head) are gathered whole, and
+each rank pairs its q heads with the kv heads their GQA groups read.  The
+output projection is then row-parallel: its output is a partial sum that
+the caller's seam reduce-scatters onto the sequence.  Without a mesh every
+seam is a no-op.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import torch
 from repro_torch.core.quantization import NumericsPolicy, QTensor
 from repro_torch.core.template import Template
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import constrain
 
 from .layers import apply_rope, dense, init_dense
@@ -121,6 +129,25 @@ def init_layer_cache(batch: int, n_kv: int, cache_len: int, head_dim: int, dtype
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, s, _ = x.shape
     return x.reshape(b, s, n, -1)
+
+
+def _pair_kv(q, k, v, n_heads: int):
+    """k / v for this rank's q heads: where q holds a shard of the heads
+    (marked) and k / v hold every kv head (the drop rule kept them whole),
+    the kv heads that this rank's GQA groups read (q head i reads kv head
+    i // (H / Hkv)); otherwise k / v as they are."""
+    qh = [mk for mk in sh.shard_marks(q) if mk[0] == -2]
+    if not qh or any(mk[0] == -2 for mk in sh.shard_marks(k)):
+        return k, v
+    hl, hkv = q.shape[2], k.shape[2]
+    g = n_heads // hkv
+    first = sh.axis_coord(sh.active_mesh(), qh[0][1]) * hl
+    lo, hi = first // g, (first + hl - 1) // g + 1
+    per = hl // (hi - lo) if hl % (hi - lo) == 0 else 0
+    if not per or any((first + j) // g - lo != j // per for j in range(hl)):
+        raise ValueError(f"q heads {first}..{first + hl - 1} of a rank do not pair with "
+                         f"kv heads {lo}..{hi - 1} as whole GQA groups of {g}")
+    return k[:, :, lo:hi], v[:, :, lo:hi]
 
 
 # ---------------------------------------------------------------------------
@@ -203,9 +230,7 @@ def _sdpa_chunked(tpl: Template, q, k, v, *, causal: bool, window: int,
     cols 0..T-1.  The flash-attention kernel where :func:`_flash_route`
     says so, else the plain online softmax; both in f32, returning q's
     dtype."""
-    q = constrain(q, "batch", None, "act_heads", None)
-    k = constrain(k, "batch", None, "kv_heads", None)
-    v = constrain(v, "batch", None, "kv_heads", None)
+    q = constrain(q, "batch", None, "act_heads", None)  # k / v passed theirs in attention
     qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
     t = k.shape[1]
     if _flash_route(tpl, window, q.shape[-1]):
@@ -259,6 +284,11 @@ def attention(
     q16 = policy is not None and policy.quantized and isinstance(p["wq"]["w"], QTensor)
     eng = tpl.engine
 
+    # the whole sequence (and context) on every rank: a sequence-parallel
+    # input is gathered once, for the three projections
+    x = constrain(x, "batch", "seq", "act_embed")
+    if kv_source is not None:
+        kv_source = constrain(kv_source, "batch", "ctx", "act_embed")
     if q16:
         xin = eng.quant(x, policy.fmt)
         src_in = xin if kv_source is None else eng.quant(kv_source, policy.fmt)
@@ -268,22 +298,23 @@ def attention(
         k = _split_heads(eng.dequant(kq), kvh)
         v = _split_heads(eng.dequant(vq), kvh)
     else:
-        q = _split_heads(_proj(tpl, p["wq"], x, "act_heads"), h)
+        q = sh.split_last(dense(tpl, p["wq"], x), h, "batch", None, "act_heads", None)
         src = x if kv_source is None else kv_source
-        k = _split_heads(_proj(tpl, p["wk"], src, "kv_heads"), kvh)
-        v = _split_heads(_proj(tpl, p["wv"], src, "kv_heads"), kvh)
+        k = sh.split_last(dense(tpl, p["wk"], src), kvh, "batch", None, "kv_heads", None)
+        v = sh.split_last(dense(tpl, p["wv"], src), kvh, "batch", None, "kv_heads", None)
     if rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
+        q = sh.carry_marks(q, apply_rope(q, positions, cfg.rope_theta))
     q = constrain(q, "batch", None, "act_heads", None)
     if rope and kv_source is None:
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = sh.carry_marks(k, apply_rope(k, positions, cfg.rope_theta))
     k = constrain(k, "batch", None, "kv_heads", None)
     v = constrain(v, "batch", None, "kv_heads", None)
+    ka, va = _pair_kv(q, k, v, h)
 
     sq, st = q.shape[1], k.shape[1]
     is_causal = causal and kv_source is None
     if st >= CHUNKED_THRESHOLD:
-        out = _sdpa_chunked(tpl, q, k, v, causal=is_causal, window=window, q_offset=0)
+        out = _sdpa_chunked(tpl, q, ka, va, causal=is_causal, window=window, q_offset=0)
     else:
         mask = None
         if is_causal:
@@ -293,10 +324,10 @@ def attention(
             if window:
                 m &= (rows - cols) < window
             mask = m[None, None].expand(x.shape[0], 1, sq, st)
-        out = _sdpa_dense(q, k, v, mask)
+        out = _sdpa_dense(q, ka, va, mask)
 
-    out = constrain(out, "batch", None, "act_heads", None)
-    out = out.reshape(x.shape[0], x.shape[1], h * hd)
+    out = constrain(sh.carry_marks(q, out), "batch", None, "act_heads", None)
+    out = sh.merge_last(out)
     if q16:
         out = eng.dequant(dense(tpl, p["wo"], eng.quant(out, policy.fmt)))
     else:

@@ -10,8 +10,12 @@ CUDA generator builds a full-width model on the card directly.
 The MLP's hidden activation passes the reference's sharding seam
 (``constrain(h, "batch", None, "mlp")``): on a rank holding column shards
 of gate / up it is a column shard itself (its shard mark carried through
-the elementwise product), which the down projection's GEMM gathers, since
-its weight holds the contraction whole.
+the elementwise product).  Under column-parallel decode the down
+projection's GEMM gathers it, since its weight holds the contraction
+whole; under tensor-parallel training (``TRAIN_RULES``) the down weight is
+row-parallel, so the GEMM's output is a partial sum that the caller's seam
+reduce-scatters onto the sequence.  A sequence-parallel input is gathered
+whole once, before gate / up.
 """
 from __future__ import annotations
 
@@ -78,9 +82,11 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def norm(cfg, p, x):
+    """The config's norm over the last dim; a row shard stays marked (a
+    sequence-parallel residual stream normalizes in place)."""
     if cfg.norm == "layernorm":
-        return layer_norm(x, p["scale"], p["bias"])
-    return rms_norm(x, p["scale"])
+        return carry_marks(x, layer_norm(x, p["scale"], p["bias"]))
+    return carry_marks(x, rms_norm(x, p["scale"]))
 
 
 def init_norm(cfg, dtype=torch.float32, *, device="cpu", lead: tuple = ()):
@@ -143,6 +149,9 @@ def mlp(tpl: Template, cfg, p, x, policy: Optional[NumericsPolicy] = None):
     gate / up, and only the nonlinearity (silu / gelu, a float island)
     crosses back to float; the down projection consumes the requantized
     activation directly."""
+    # the whole sequence for the column-parallel gate / up (one all-gather
+    # of a sequence-parallel input, shared by both)
+    x = constrain(x, "batch", "seq", "act_embed")
     if policy is not None and policy.quantized and isinstance(p["up"]["w"], QTensor):
         eng = tpl.engine
         xq = eng.quant(x, policy.fmt)

@@ -24,6 +24,15 @@ above 1: a data-parallel training step) the groups are the logical batch's:
 the group size reads the batch's token count, a rank must hold whole
 groups (else a ValueError: a group would span two ranks), and the aux loss
 is this rank's sum over its groups over the batch's group count.
+
+Under tensor-parallel training (``TRAIN_RULES`` with "model" above 1) a
+sequence-parallel input is gathered whole first and the routing runs
+replicated over "model" (the aux loss a rank returns is its share, the
+whole over the axis size).  The rules then cut the expert work: experts
+over "model" (phi3.5-moe: expert parallelism, each rank its experts) or,
+by granite-moe's ``rule_overrides``, ``expert_cap`` over "model" (each rank
+its capacity slots of every expert); the combine over a rank's share is a
+partial sum, which the caller's seam reduce-scatters onto the sequence.
 """
 from __future__ import annotations
 
@@ -124,9 +133,15 @@ def _queue_positions(cfg, idx):
 
 def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
     """x: (B, S, d) -> ((B, S, d), the Switch-style load-balancing aux loss)."""
+    # the router and the groups read the logical tokens: a sequence shard is
+    # gathered whole, and the routing runs replicated over its axes
+    replicas = sh.axis_size(sh.active_mesh(), sh.seq_parallel_axes()) \
+        if sh.active_mesh() is not None else 1
+    x = sh.constrain(x, "batch", "seq", "act_embed")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xt, t, cap = _groups(cfg, x)
+    xt = sh.constrain(xt, "batch", None, "act_embed")
     g, sg = xt.shape[0], xt.shape[1]
     gates, idx, probs = _route(cfg, p["router"]["w"], xt)
     pos, onehot = _queue_positions(cfg, idx)
@@ -142,7 +157,12 @@ def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
         w = (gates[:, :, j] * keep[:, :, j]).to(dt)  # (G,S)
         combine = combine + w[..., None, None] * oe[..., None] * oc[:, :, None, :]
     dispatch = (combine > 0).to(dt)
-    ex_in = torch.einsum("gsec,gsd->gecd", dispatch, xt)  # (G, E, C, d)
+    # expert inputs (G, E, C, d), cut by the rules to this rank's work: its
+    # experts (experts over "model", phi3.5) or its capacity slots of every
+    # expert (expert_cap over "model", granite)
+    ex_in = torch.einsum("gsec,gsd->gecd", dispatch, xt)
+    ex_in = sh.constrain(ex_in, "batch", "experts", "expert_cap", None)
+    combine = sh.constrain(combine, "batch", None, "experts", "expert_cap")
 
     if tpl.config.backend == "torch":
         def bmm(a, w):
@@ -152,11 +172,14 @@ def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
             return torch.stack([torch.stack([tpl.matmul(a[gi, ei], w[ei])
                                              for ei in range(e)])
                                 for gi in range(g)])
-    h = F.silu(bmm(ex_in, p["gate"])) * bmm(ex_in, p["up"])
+    h = sh.carry_marks(ex_in, F.silu(bmm(ex_in, p["gate"])) * bmm(ex_in, p["up"]))
+    h = sh.constrain(h, "batch", "experts", "expert_cap", "expert_mlp")
     ex_out = bmm(h, p["down"])
 
+    # the combine contracts the experts and their slots: over a rank's
+    # share of them the output is a partial sum over their axes
     out = torch.einsum("gsec,gecd->gsd", combine, ex_out).reshape(g * sg, d)[:t]
-    out = out.reshape(b, s, d)
+    out = sh.mark_partial(out.reshape(b, s, d), sh.mark_axes(ex_in))
 
     # Switch-style load-balancing aux loss (mean over the batch's groups)
     density = onehot.to(torch.float32).sum(2).mean(1)  # (G, E) routed fraction
@@ -164,7 +187,7 @@ def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
     per_group = torch.sum(density * router_prob, dim=-1)
     split = _split()
     aux = e * (torch.mean(per_group) if split == 1 else per_group.sum() / (g * split))
-    return out.to(x.dtype), aux
+    return sh.carry_marks(out, out.to(x.dtype)), aux / replicas
 
 
 def moe_ffn_dense_ref(cfg, p, x: torch.Tensor):

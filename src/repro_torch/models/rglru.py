@@ -14,6 +14,13 @@ steps at S = 4096, where a per-token loop would be 4096 launches a layer on
 the card), :func:`rglru_decode_step` the O(1) update, which with
 ``inplace`` writes the new state and conv history into the cache tensors it
 was given, so a captured decode step advances them on every replay.
+
+Under tensor-parallel training (``TRAIN_RULES``: "rec" over "model") a
+rank holds its columns of the recurrent width: ``in_x`` / ``in_y`` are
+column-parallel (on the whole sequence, gathered once), the conv, ``lam``
+and the scan run on its channels, the gate matrices ("rec_in", "rec") read
+their input gathered whole over the channels, and ``out`` is row-parallel:
+its partial sum is reduce-scattered onto the sequence by the caller's seam.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.template import Template
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import constrain
 
 from .layers import causal_conv, dense, gelu, init_dense
 
@@ -75,9 +84,12 @@ def rglru_axes(cfg) -> dict:
 
 def _gates(tpl, p, x):
     """r_t, i_t and the log-decay log_a at each position.  x: (B,S,dr).  The
-    gate matmuls are GEMMs on the template's compute unit."""
-    r = torch.sigmoid(dense(tpl, p["gate_a"], x))
-    i = torch.sigmoid(dense(tpl, p["gate_x"], x))
+    gate matmuls are GEMMs on the template's compute unit; their weights
+    are ("rec_in", "rec"), so a channel shard of x is gathered whole once,
+    for both."""
+    xw = constrain(x, "batch", None, "rec_in")
+    r = torch.sigmoid(dense(tpl, p["gate_a"], xw))
+    i = torch.sigmoid(dense(tpl, p["gate_x"], xw))
     log_lam = F.logsigmoid(p["lam"].to(torch.float32))  # log a_base < 0
     log_a = _C * log_lam[None, None, :] * r.to(torch.float32)  # (B,S,dr) <= 0
     return r, i, log_a
@@ -133,14 +145,17 @@ def _normalized_input(log_a, i, x):
 def rglru_block(tpl: Template, cfg, p, u, *, init_cache: Optional[dict] = None,
                 return_cache: bool = False):
     """The whole recurrent block (forward / prefill).  u: (B,S,d_model)."""
+    u = constrain(u, "batch", "seq", "act_embed")  # the scan reads every position
     x = dense(tpl, p["in_x"], u)
-    y = gelu(dense(tpl, p["in_y"], u))
+    y = dense(tpl, p["in_y"], u)
+    y = sh.carry_marks(y, gelu(y))
     conv_state = None if init_cache is None else init_cache["conv"]
-    x, new_conv = causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
+    xc, new_conv = causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
+    x = constrain(sh.carry_marks(x, xc), "batch", None, "rec")
     _, i, log_a = _gates(tpl, p, x)
     init_h = None if init_cache is None else init_cache["h"]
     h = _lru_scan(log_a, _normalized_input(log_a, i, x), init_h).to(x.dtype)
-    o = dense(tpl, p["out"], h * y)
+    o = dense(tpl, p["out"], sh.carry_marks(y, h * y))
     if return_cache:
         return o, {"h": h[:, -1].to(torch.float32), "conv": new_conv}
     return o

@@ -16,6 +16,16 @@ GEMM-shaped and runs as plain tensor ops in f32 (the "PS plane"):
 
 Layouts (B batch, S seq, H ssm heads, P head dim, G B/C groups, N state):
 x (B,S,H,P), B / C (B,S,G,N), dt (B,S,H).
+
+Under tensor-parallel training (``TRAIN_RULES``: "ssm_inner" over "model")
+``in_proj`` is column-parallel and ``out_proj`` row-parallel.  The in
+projection's output concatenates [z | x | B | C | dt] along the one
+sharded axis, so a column shard cuts across those boundaries: the block
+gathers it whole (and the sequence, which the scan reads end to end), runs
+the conv, the scan and the gated RMSNorm (which normalizes over the whole
+``d_inner``) replicated on the whole row with ``conv_w`` / ``conv_b`` /
+``norm_scale`` gathered, and its row-parallel ``out_proj`` leaves the
+partial sum the caller's seam reduce-scatters onto the sequence.
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.template import Template
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import constrain
 
 from .layers import causal_conv, dense, init_dense, rms_norm
 
@@ -172,7 +184,10 @@ def init_ssm_cache(cfg, batch: int, dtype, device="cpu") -> dict:
 def ssm_block(tpl: Template, cfg, p, u, *, init_cache: Optional[dict] = None,
               return_cache: bool = False):
     """The whole Mamba2 block (forward / prefill).  u: (B,S,d_model)."""
-    z, xbc, dt = _split_in_proj(cfg, dense(tpl, p["in_proj"], u))
+    u = constrain(u, "batch", "seq", "act_embed")  # the scan reads every position
+    zxbcdt = constrain(dense(tpl, p["in_proj"], u), "batch", None, None)  # the whole row
+    z, xbc, dt = _split_in_proj(cfg, zxbcdt)
+    p = {**p, **sh.gather_params({k: p[k] for k in ("conv_w", "conv_b", "norm_scale")})}
     conv_state = None if init_cache is None else init_cache["conv"]
     xbc, new_conv = causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     x, Bm, Cm = _split_xbc(cfg, F.silu(xbc))

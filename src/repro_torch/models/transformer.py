@@ -49,10 +49,16 @@ backward graph is the same, only its saved tensors are made again.
 
 Sharding: :func:`param_axes` and :func:`cache_axes` name each leaf's logical
 axes, and the layers pass the reference's ``constrain`` seams
-(``parallel.sharding``); the meshed steps run the dense family only.  On a
-rank of a column-parallel mesh
+(``parallel.sharding``).  On a rank of a column-parallel mesh
 (``DECODE_RULES``) the entry points return whole logits: a vocab-sharded
-head's output is gathered before it is read.
+head's output is gathered before it is read.  Under tensor-parallel
+training (``TRAIN_RULES`` with "model" above 1) the residual stream holds
+this rank's shard of the sequence: the embedding's masked lookup of its
+vocab range is reduce-scattered onto it, each sub-layer gathers the
+sequence whole for its column-parallel projections and reduce-scatters its
+row-parallel output back, absolute positions are added at the shard's
+global offsets, and the head gathers the vocab so the logits stay
+sequence-sharded.
 :func:`calibrate_precision` is the drift-aware precision DSE over the
 precision groups (:func:`precision_group_names`): a group on the int8 rung
 gets int8 weights and an int8 KV cache.
@@ -466,6 +472,8 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
     ``attn_out`` rematerialization's two regions)."""
     newc = {}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if mode != "decode":  # the residual stream on its shard (whisper's encoder enters whole)
+        h = constrain(h, "batch", "seq_act", "act_embed")
 
     if part == "rest":
         pass
@@ -488,7 +496,7 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
             if mode == "prefill":
                 newc["attn"] = c
             out = constrain(out, "batch", "seq_act", "act_embed")
-        h = h + out
+        h = _add(h, out)
     else:  # the recurrent mixers: RG-LRU ("rec") and Mamba2 SSD ("ssm")
         mod, block, step = ((rec_mod, rec_mod.rglru_block, rec_mod.rglru_decode_step)
                             if plan.mixer == "rec" else
@@ -504,7 +512,7 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
             out = block(tpl, cfg, p[plan.mixer], a_in)
         if mode != "decode":
             out = constrain(out, "batch", "seq_act", "act_embed")
-        h = h + out
+        h = _add(h, out)
     if part == "mixer":
         return h, (newc or None), aux
 
@@ -521,10 +529,10 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
             if mode == "prefill":
                 newc["cross"] = c
         if "cross_gate" in p:
-            out = torch.tanh(p["cross_gate"]).to(out.dtype) * out
+            out = sh.carry_marks(out, torch.tanh(p["cross_gate"]).to(out.dtype) * out)
         if mode != "decode":
             out = constrain(out, "batch", "seq_act", "act_embed")
-        h = h + out
+        h = _add(h, out)
 
     if plan.mixer != "ssm":
         f_in = norm(cfg, p["ffn_norm"], h)
@@ -536,9 +544,14 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
             out = mlp(tpl, cfg, p["ffn"], f_in, policy=policy)
         if mode != "decode":
             out = constrain(out, "batch", "seq_act", "act_embed")
-        h = h + out
+        h = _add(h, out)
     h = constrain(h, "batch", "seq_act", "act_embed")
     return h, (newc or None), aux
+
+
+def _add(h, out):
+    """The residual add; a sequence shard stays marked."""
+    return sh.carry_marks(h, h + out)
 
 
 def _remat(fn, *args):
@@ -659,7 +672,17 @@ def _encode(tpl, cfg, enc_params, frames, *, remat: bool = False):
 
 
 def _embed_tokens(cfg, params, tokens):
-    return constrain(sh.gather_fsdp(params["embed"])[tokens], "batch", "seq_act", "act_embed")
+    """The token rows of the table; a vocab-sharded table's lookup is a
+    partial sum, reduce-scattered onto the sequence by the seam."""
+    rows = sh.embedding_lookup(sh.gather_fsdp(params["embed"]), tokens)
+    return constrain(rows, "batch", "seq_act", "act_embed")
+
+
+def _abs_pos(cfg, h, s: int):
+    """``h`` plus the sinusoidal positions 0..s-1, cut to ``h``'s rows of the
+    sequence by the seam (a sequence shard adds its global positions)."""
+    pe = sinusoidal_positions(s, cfg.d_model, h.dtype, h.device)[None]
+    return _add(h, constrain(pe, "batch", "seq_act", "act_embed"))
 
 
 def _head(tpl, cfg, params, h, *, policy=None):
@@ -672,9 +695,12 @@ def _head(tpl, cfg, params, h, *, policy=None):
         logits = tpl.matmul(hq, head, wide=True)
     else:
         # the tied head multiplies by embed's transposed view: the float GEMM
-        # kernel reads it in place
-        w = sh.gather_fsdp(params["embed"]).T if cfg.tie_embeddings else sh.gather_fsdp(head)
-        logits = tpl.matmul(h, w)
+        # kernel reads it in place.  Under sequence-parallel rules the
+        # logits keep the sequence's shard, so the vocab's shard over the
+        # same axis is gathered (a weight gather: backward reduce-scatter)
+        w = sh.gather_fsdp(params["embed"] if cfg.tie_embeddings else head)
+        w = sh.gather_params(w, sh.mark_axes(h))
+        logits = tpl.matmul(h, w.T if cfg.tie_embeddings else w)
     # a vocab-sharded head's logits stay sharded at the seam; the entry
     # points gather them whole before they are read.  Only the vocab dim:
     # a rank's batch rows stay its own (gathered, every rank would take the
@@ -717,7 +743,7 @@ def forward(tpl: Template, cfg, params, tokens, *, ctx=None, mode: str = "fwd",
     s = tokens.shape[1]
     h = _embed_tokens(cfg, params, tokens)
     if cfg.abs_pos:
-        h = h + sinusoidal_positions(s, cfg.d_model, h.dtype, h.device)[None]
+        h = _abs_pos(cfg, h, s)
     ctx = _context(tpl, cfg, params, ctx, remat=remat)
     pattern, _, _ = _split(cfg)
     positions = torch.arange(s, device=h.device)
@@ -739,14 +765,23 @@ def loss_fn(tpl: Template, cfg, params, batch, aux_weight: float = 0.01):
     over the mask count of the whole batch (summed over the batch axes, no
     gradient), and aux the MoE layers' sum over this rank's groups over the
     batch's group count: summed over the ranks, the loss and its gradients
-    are the single-device ones."""
+    are the single-device ones.  Under sequence-parallel rules the logits
+    are this rank's shard of the sequence: the labels are shifted on the
+    whole token row, then cut to the same positions (a shard's last target
+    is the next shard's first token), and the count is summed over the
+    sequence's axes too (logits the drop rule kept whole count once a
+    rank, each its share)."""
     tokens = batch["tokens"]
     logits, aux = forward(tpl, cfg, params, tokens, ctx=batch.get("ctx"), mode="train")
     labels = batch.get("labels")
     if labels is None:
         labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+    for d, axes, n in sh.shard_marks(logits):
+        if d % logits.ndim == logits.ndim - 2:  # the sequence
+            lo, hi = sh.local_rows(n, sh.active_mesh(), axes)
+            labels = labels[:, lo:hi]
     mask = (labels >= 0).to(torch.float32)
-    axes = sh.split_batch_axes()
+    axes = sh.split_batch_axes() + sh.seq_parallel_axes()
     count = sh.psum(mask.sum(), axes) if axes else None
     ce = cross_entropy_loss(logits, torch.clamp(labels, min=0), mask, count=count)
     loss = ce + aux_weight * aux
@@ -763,7 +798,7 @@ def prefill(tpl: Template, cfg, params, tokens, *, ctx=None,
     cache_len = cache_len or s
     h = _embed_tokens(cfg, params, tokens)
     if cfg.abs_pos:
-        h = h + sinusoidal_positions(s, cfg.d_model, h.dtype, h.device)[None]
+        h = _abs_pos(cfg, h, s)
     ctx = _context(tpl, cfg, params, ctx)
     pattern, _, _ = _split(cfg)
     h, cache, _ = _run_stack(tpl, cfg, params, h, pattern=pattern, mode="prefill",

@@ -14,19 +14,37 @@ that holds its own shard, and the collectives are explicit.
   calling rank's shard.
 * **Shard marks.** A sliced leaf, and every GEMM output computed from a
   column shard, carries a mark on the tensor object: which dims are shards,
-  over which axis, and their logical size.  :func:`constrain` reads it: it
-  all-gathers the marked dims that the active rules replicate and keeps the
-  others, and is a no-op without a mesh.  The engine gathers a marked
-  contraction dim before a GEMM whose weight holds that dim whole, so every
-  contraction stays shard-local (column-parallel decode, ``DECODE_RULES``).
-* **Training seams** (data-parallel, FSDP and pod x data training under
-  ``TRAIN_RULES``, whose "model" axis is 1).  :func:`gather_fsdp` gathers a
-  layer's FSDP shards (dims that shard over a batch axis) at the point of
-  use through :func:`fsdp_gather`, an autograd function whose backward is
-  the reduce-scatter (a sum) over the same axes; :func:`grad_all_reduce`
-  sums the grads of the leaves a batch axis replicates; :func:`psum` sums a
-  value that carries no gradient (a mask count, a metric).  Reductions run
-  in f32.
+  over which axis, and their logical size.  A GEMM whose contraction dim
+  is a shard on both operands (a row-parallel weight) leaves a partial-sum
+  mark instead: the output is this rank's term of a sum over those axes.
+  :func:`constrain` resolves the marks a tensor carries against the spec
+  the active rules give it: a partial sum is reduce-scattered onto the dim
+  the rules shard over its axis (all-reduced where none does), a marked dim
+  the rules keep whole is all-gathered, and, under sequence-parallel rules
+  (``TRAIN_RULES``' ``seq_act`` over a "model" axis above 1), a whole dim
+  the rules shard is cut to this rank's shard.  Without a mesh it is a
+  no-op.  The engine gathers a marked contraction dim before a GEMM whose
+  weight holds that dim whole (column-parallel decode, ``DECODE_RULES``),
+  gathers a row dim that shards over the axis the weight's columns shard
+  over, and cuts a whole contraction dim to a row-parallel weight's shard.
+  :func:`split_last` / :func:`merge_last` carry a column mark into heads
+  and back, gathering half a head whole.
+* **Training seams** (``TRAIN_RULES``: data-parallel, FSDP, pod x data and
+  tensor parallelism with sequence-parallel activations).  Every seam is
+  an autograd function whose backward is its forward's adjoint under the
+  port's convention: a rank's loss is its part of the global loss, and the
+  gradient a rank holds for a replicated value is its part of the sum.
+  An all-gather's backward is the reduce-scatter (a sum), a
+  reduce-scatter's the all-gather, an all-reduce's the all-reduce, a cut's
+  the zero-padded gradient.  :func:`gather_fsdp` gathers a layer's FSDP
+  shards (dims that shard over a batch axis) at the point of use through
+  :func:`fsdp_gather`; :func:`gather_params` does so over other axes (a
+  head whose vocab the sequence's axis must leave whole, an SSD block's
+  per-channel leaves); :func:`grad_all_reduce` sums the grads of the leaves
+  an axis of the loss replicates (every leaf "model" replicates too: its
+  inputs were the rank's part); :func:`psum` sums a value that carries no
+  gradient (a mask count, a metric).  Reductions run in f32.
+  :data:`SEAM_COUNTS` counts every seam's collectives by (seam, pass, axis).
 * **Spatial seams.** :func:`halo_exchange` and :func:`mask_slab_rows` take
   the slab-major layout ``(S, N, lx, W, C)``.  With ``axis=None`` they run
   the reference's slab-major simulation on one device (``torch.roll`` and
@@ -40,6 +58,7 @@ int16 raws and bf16 go through unchanged.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
@@ -88,6 +107,18 @@ __all__ = [
     "gather_fsdp",
     "grad_all_reduce",
     "psum",
+    "SEAM_COUNTS",
+    "collective_counts",
+    "partial_axes",
+    "mark_partial",
+    "mark_axes",
+    "take_shard",
+    "split_last",
+    "merge_last",
+    "embedding_lookup",
+    "gather_params",
+    "seq_parallel_axes",
+    "loss_axes",
     "batch_axes",
     "split_batch_axes",
     "microbatch_rows",
@@ -708,6 +739,7 @@ def column_parallel_shardings(mesh, rules: ShardingRules, params_tree, axes_tree
 # ---------------------------------------------------------------------------
 
 _MARK = "_repro_shard"
+_PARTIAL = "_repro_partial"
 
 
 def _raw(x):
@@ -731,13 +763,44 @@ def mark_shard(x, marks: tuple):
     return x
 
 
+def partial_axes(x) -> tuple:
+    """The mesh axes over which ``x`` is this rank's term of a sum (the
+    output of a GEMM that contracted a shard on both operands), or ()."""
+    return getattr(_raw(x), _PARTIAL, ())
+
+
+def mark_partial(x, axes: tuple):
+    """Record that ``x`` is a partial sum over ``axes``; returns ``x``."""
+    t = _raw(x)
+    if axes:
+        setattr(t, _PARTIAL, tuple(axes))
+    elif hasattr(t, _PARTIAL):
+        delattr(t, _PARTIAL)
+    return x
+
+
 def carry_marks(src, dst):
-    """``dst`` marked as ``src`` is (an elementwise result, a view that
-    keeps the trailing dims); returns ``dst``."""
-    marks = shard_marks(src)
-    if marks and _raw(dst) is not _raw(src):
+    """``dst`` marked as ``src`` is, shards and partial sum (an elementwise
+    result, a linear map of a partial sum, a view that keeps the trailing
+    dims); returns ``dst``."""
+    if _raw(dst) is _raw(src):
+        return dst
+    marks, part = shard_marks(src), partial_axes(src)
+    if marks:
         mark_shard(dst, marks)
+    if part:
+        mark_partial(dst, part)
     return dst
+
+
+def mark_axes(x) -> tuple:
+    """The mesh axes ``x``'s shard marks name, in mark order."""
+    out = []
+    for _, axes, _ in shard_marks(x):
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            if a not in out:
+                out.append(a)
+    return tuple(out)
 
 
 def axis_coord(mesh, axes: MeshAxes) -> int:
@@ -823,11 +886,6 @@ def _host_staged(mesh) -> bool:
     return mesh.backend == "gloo"
 
 
-def _gather_one(t: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
-    """All-gather ``t`` along ``dim`` over one mesh axis, in coordinate order."""
-    return _gather_many([t], [dim], axis, mesh)[0]
-
-
 def _buffer(shape, dtype, device, mesh) -> torch.Tensor:
     """An empty buffer for a collective: on ``device``, or in pinned host
     memory where gloo stages a CUDA tensor (the copies to and from it then
@@ -872,7 +930,9 @@ def _gather_many(ts: Sequence[torch.Tensor], dims: Sequence[int], axis: str,
 def gather(x, dim: int, axes: MeshAxes, mesh=None):
     """All-gather a tensor or QTensor along ``dim`` over ``axes`` (a tuple
     is gathered innermost axis first, the inverse of :func:`local_rows`);
-    the result carries ``x``'s other marks."""
+    the result carries ``x``'s other marks.  Both go through the
+    activation seam (autograd: the backward reduce-scatters the gradient;
+    a QTensor's raws carry none)."""
     mesh = mesh or _CTX.mesh
     if mesh is None:
         raise ValueError("gather: no active mesh (run the step under use_mesh)")
@@ -882,31 +942,89 @@ def gather(x, dim: int, axes: MeshAxes, mesh=None):
     t = _raw(x)
     d = dim % t.ndim
     marks = tuple(mk for mk in shard_marks(x) if mk[0] % t.ndim != d)
-    for a in reversed((axes,) if isinstance(axes, str) else axes):
-        t = _gather_one(t, d, a, mesh)
-    out = type(x)(t, x.fmt) if hasattr(x, "fmt") else t
+    live = _axes_tuple(mesh, axes)
+    if live:
+        t = _AllGather.apply("act_gather", (d,), live, mesh, t)[0]
+    out = type(x)(t, x.fmt) if hasattr(x, "fmt") and t is not _raw(x) else (
+        x if t is _raw(x) else t)
     return mark_shard(out, marks)
 
 
-def constrain(x, *logical: Optional[str]):
-    """The seam between GEMMs: all-gather the dims of ``x`` that hold a
-    shard (its marks) where the active rules replicate them; dims the rules
-    shard over the same axes stay as they are.  No-op without a mesh."""
-    if _CTX.mesh is None or _CTX.rules is None:
+def take_shard(x, dim: int, axes: MeshAxes, mesh=None):
+    """A whole tensor cut to this rank's shard of ``dim`` over ``axes`` (the
+    drop rule: a dim that does not divide stays whole) and marked: the seam
+    that puts a whole activation onto the rules' shard.  Autograd's
+    backward of the cut is the zero-padded gradient (the rank's part)."""
+    mesh = mesh or _CTX.mesh
+    nd = x.ndim
+    d = dim % nd
+    n = x.shape[d]
+    lo, hi = local_rows(n, mesh, axes)
+    if (lo, hi) == (0, n):
         return x
-    marks = shard_marks(x)
-    if not marks:
+    _count("act_slice", "fwd", _axes_tuple(mesh, axes))
+    out = x.narrow(d, lo, hi - lo)
+    marks = tuple(mk for mk in shard_marks(x) if mk[0] % nd != d) + ((d - nd, axes, n),)
+    return mark_shard(out, marks)
+
+
+def seq_parallel_axes(mesh=None, rules: Optional[ShardingRules] = None) -> tuple:
+    """The mesh axes, of size above 1 and not a batch axis, over which the
+    rules shard the residual stream's sequence (``seq_act``): the axes on
+    which :func:`constrain` cuts a whole activation onto its shard.  () under
+    column-parallel decode rules and on a training mesh whose "model" is 1."""
+    mesh = mesh or _CTX.mesh
+    rules = rules or _CTX.rules
+    if mesh is None or rules is None:
+        return ()
+    batch = set(batch_axes(mesh, rules))
+    return tuple(a for a in _axes_tuple(mesh, rules.get("seq_act")) if a not in batch)
+
+
+def loss_axes(mesh=None, rules: Optional[ShardingRules] = None) -> tuple:
+    """The mesh axes a rank's loss is a part over: the batch axes, then the
+    sequence-parallel ones (:func:`seq_parallel_axes`)."""
+    return batch_axes(mesh, rules) + seq_parallel_axes(mesh, rules)
+
+
+def constrain(x, *logical: Optional[str]):
+    """The seam between GEMMs: resolve the marks of ``x`` against the spec
+    the active rules give ``logical`` (the drop rule at the logical sizes,
+    each mesh axis used once, leftmost first).  In order: a partial sum is
+    reduce-scattered onto the dim the rules shard over its axis, or
+    all-reduced where no dim takes it; a marked dim the rules do not shard
+    so is all-gathered; under sequence-parallel rules a whole dim the rules
+    shard over a sequence-parallel axis is cut to this rank's shard.  The
+    batch axes are the data pipeline's: a rank's rows stay its own.  No-op
+    without a mesh."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None or rules is None:
+        return x
+    cut = seq_parallel_axes()
+    if not (shard_marks(x) or partial_axes(x) or cut):
         return x
     nd = _raw(x).ndim
     if len(logical) != nd:
         raise ValueError(f"constrain: {len(logical)} logical names for a {nd}-d tensor")
     sizes = list(_raw(x).shape)
-    for d, _, full in marks:
+    for d, _, full in shard_marks(x):
         sizes[d] = full
     spec = tuple(logical_to_spec(logical, dim_sizes=sizes)) + (None,) * nd
-    for d, axes, _ in marks:
-        if _present_axes(_CTX.mesh, spec[d % nd]) != _present_axes(_CTX.mesh, axes):
+    batch = set(batch_axes())
+    want = [tuple(a for a in _axes_tuple(mesh, spec[d]) if a not in batch)
+            for d in range(nd)]
+    for a in partial_axes(x):
+        marked = {d % nd for d, _, _ in shard_marks(x)}
+        onto = [d for d in range(nd) if want[d] == (a,) and d not in marked]
+        x = _scatter_partial(x, onto[0], a) if onto else _reduce_partial(x, (a,))
+    for d, axes, _ in shard_marks(x):
+        if _present_axes(mesh, spec[d % nd]) != _present_axes(mesh, axes):
             x = gather(x, d, axes)
+    if cut:
+        marked = {d % nd for d, _, _ in shard_marks(x)}
+        for d in range(nd):
+            if want[d] and d not in marked and set(want[d]) <= set(cut):
+                x = take_shard(x, d, want[d][0] if len(want[d]) == 1 else want[d])
     return x
 
 
@@ -917,6 +1035,62 @@ def replicated(x, dims: Optional[Sequence[int]] = None):
         if dims is None or d in dims:
             x = gather(x, d, axes)
     return x
+
+
+def split_last(x, n: int, *logical: Optional[str]):
+    """``x`` (..., n·k) split into (..., n, k) groups (heads) through the seam
+    ``logical`` names for the split view: a column shard of whole groups
+    stays this rank's groups when the rules shard the group dim over its
+    axis at the group count ``n`` (the drop rule sees ``n``, not n·k);
+    otherwise (half a group a rank, or groups the rules keep whole) the
+    columns are gathered first."""
+    nd = x.ndim
+    last = [mk for mk in shard_marks(x) if mk[0] % nd == nd - 1]
+    if last and _CTX.mesh is not None:
+        _, axes, full = last[0]
+        k = full // n
+        sizes = list(x.shape[:-1]) + [n, k]
+        for d, _, size in shard_marks(x):
+            if d % nd != nd - 1:
+                sizes[d % nd] = size
+        spec = tuple(logical_to_spec(logical, dim_sizes=sizes)) + (None,) * (nd + 1)
+        if _present_axes(_CTX.mesh, spec[nd - 1]) == _present_axes(_CTX.mesh, axes) \
+                and x.shape[-1] % k == 0:
+            y = x.reshape(*x.shape[:-1], x.shape[-1] // k, k)
+            marks = tuple((-2, a, n) if d % nd == nd - 1 else (d - 1, a, size)
+                          for d, a, size in shard_marks(x))
+            return mark_shard(y, marks)
+        x = gather(x, -1, axes)
+    y = x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+    marks = tuple((d - 1, a, size) for d, a, size in shard_marks(x))
+    return constrain(mark_shard(y, marks), *logical)
+
+
+def merge_last(x):
+    """The inverse of :func:`split_last`: (..., n, k) -> (..., n·k), a group
+    dim's mark carried onto the merged columns."""
+    y = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    k = x.shape[-1]
+    marks = tuple((-1, a, size * k) if d % x.ndim == x.ndim - 2 else (d + 1, a, size)
+                  for d, a, size in shard_marks(x) if d % x.ndim != x.ndim - 1)
+    return mark_shard(y, marks)
+
+
+def embedding_lookup(table, ids):
+    """``table[ids]``; on a rank that holds a vocab shard of the table (its
+    dim 0 marked), the masked lookup of this rank's vocab range, marked a
+    partial sum over the vocab's axes: each position has exactly one
+    non-zero term, so the summed lookup equals the whole table's."""
+    vocab = [mk for mk in shard_marks(table) if mk[0] % table.ndim == 0]
+    if not vocab or _CTX.mesh is None:
+        return table[ids]
+    _, axes, full = vocab[0]
+    lo, hi = local_rows(full, _CTX.mesh, axes)
+    local = ids - lo
+    inside = (local >= 0) & (local < hi - lo)
+    rows = table[torch.where(inside, local, torch.zeros_like(local))]
+    out = rows * inside[..., None].to(rows.dtype)
+    return mark_partial(out, _axes_tuple(_CTX.mesh, axes))
 
 
 def _exchange_rows(v: torch.Tensor, hs: SpatialHalo, mesh, s: int) -> tuple:
@@ -957,7 +1131,8 @@ def _exchange_rows(v: torch.Tensor, hs: SpatialHalo, mesh, s: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# training seams: data-parallel, FSDP and pod x data (HSDP) training
+# training seams: data-parallel, FSDP, pod x data (HSDP) and tensor-parallel
+# training with sequence-parallel activations
 # ---------------------------------------------------------------------------
 
 
@@ -1062,15 +1237,52 @@ def _reduce_scatter_many(gs: Sequence[torch.Tensor], dims: Sequence[int], axis: 
             for piece, m, d in zip(pieces, moved, dims)]
 
 
-class _FsdpGather(torch.autograd.Function):
+#: the collectives the seams ran, by (seam, pass, mesh axis): seams
+#: "act_gather" (an activation all-gathered), "act_scatter" (a partial sum
+#: reduce-scattered onto a shard), "act_all_reduce", "act_slice" (a whole
+#: activation cut to its shard: no collective), "param_gather" (a weight's
+#: shards gathered at the point of use), "grad_all_reduce", "psum"; pass
+#: "fwd" or "bwd" (an all-gather's backward is a reduce-scatter, and so on)
+SEAM_COUNTS: collections.Counter = collections.Counter()
+
+#: the collective each (seam, pass) runs (act_slice runs none)
+_COLLECTIVE = {("act_gather", "fwd"): "all_gather", ("act_gather", "bwd"): "reduce_scatter",
+               ("param_gather", "fwd"): "all_gather",
+               ("param_gather", "bwd"): "reduce_scatter",
+               ("act_scatter", "fwd"): "reduce_scatter", ("act_scatter", "bwd"): "all_gather",
+               ("act_all_reduce", "fwd"): "all_reduce", ("act_all_reduce", "bwd"): "all_reduce",
+               ("grad_all_reduce", "fwd"): "all_reduce", ("psum", "fwd"): "all_reduce"}
+
+
+def _count(seam: str, phase: str, axes: tuple) -> None:
+    for a in axes:
+        SEAM_COUNTS[(seam, phase, a)] += 1
+
+
+def collective_counts(counts=None) -> dict:
+    """{collective kind: {mesh axis: count}} of :data:`SEAM_COUNTS` (or of
+    ``counts``): all-gathers, reduce-scatters and all-reduces, forward and
+    backward together."""
+    out: dict = {}
+    for (seam, phase, axis), n in (counts or SEAM_COUNTS).items():
+        kind = _COLLECTIVE.get((seam, phase))
+        if kind is not None and n:
+            out.setdefault(kind, {})
+            out[kind][axis] = out[kind].get(axis, 0) + n
+    return out
+
+
+class _AllGather(torch.autograd.Function):
     """All-gather shards over mesh axes (innermost first), one collective an
     axis for all of them; the backward sums each whole tensor's gradient
     over the same axes in f32 and keeps this rank's shard of it (outermost
-    first), in the shard's dtype."""
+    first), in the shard's dtype.  ``seam`` names it in
+    :data:`SEAM_COUNTS`."""
 
     @staticmethod
-    def forward(ctx, dims: tuple, axes: tuple, mesh, *shards):
-        ctx.dims, ctx.axes, ctx.mesh = dims, axes, mesh
+    def forward(ctx, seam: str, dims: tuple, axes: tuple, mesh, *shards):
+        ctx.seam, ctx.dims, ctx.axes, ctx.mesh = seam, dims, axes, mesh
+        _count(seam, "fwd", axes)
         ts = list(shards)
         for a in reversed(axes):
             ts = _gather_many(ts, dims, a, mesh)
@@ -1078,10 +1290,70 @@ class _FsdpGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        _count(ctx.seam, "bwd", ctx.axes)
         gs = [g.to(torch.float32) for g in grads]
         for a in ctx.axes:
             gs = _reduce_scatter_many(gs, ctx.dims, a, ctx.mesh)
-        return (None, None, None, *(g.to(w.dtype) for g, w in zip(gs, grads)))
+        return (None, None, None, None, *(g.to(w.dtype) for g, w in zip(gs, grads)))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """A partial sum summed over mesh axes in f32 (outermost first), this
+    rank's slice of ``dim`` kept, in the input's dtype; the backward
+    all-gathers the gradient (innermost first)."""
+
+    @staticmethod
+    def forward(ctx, dim: int, axes: tuple, mesh, x):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        _count("act_scatter", "fwd", axes)
+        g = x.to(torch.float32)
+        for a in axes:
+            g = _reduce_scatter_many([g], [dim], a, mesh)[0]
+        return g.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _count("act_scatter", "bwd", ctx.axes)
+        gs = [grad.contiguous()]
+        for a in reversed(ctx.axes):
+            gs = _gather_many(gs, [ctx.dim], a, ctx.mesh)
+        return None, None, None, gs[0]
+
+
+class _AllReduce(torch.autograd.Function):
+    """A partial sum summed over mesh axes in f32, whole on every rank, in
+    the input's dtype; the backward is the same all-reduce."""
+
+    @staticmethod
+    def forward(ctx, axes: tuple, mesh, x):
+        ctx.axes, ctx.mesh = axes, mesh
+        _count("act_all_reduce", "fwd", axes)
+        return _all_reduce_f32(x, axes, mesh).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _count("act_all_reduce", "bwd", ctx.axes)
+        return None, None, _all_reduce_f32(grad, ctx.axes, ctx.mesh).to(grad.dtype)
+
+
+def _scatter_partial(x, dim: int, axis: str):
+    """The partial sum ``x`` reduce-scattered over ``axis`` onto ``dim`` (a
+    shard mark there; its other partial axes kept)."""
+    mesh = _CTX.mesh
+    nd = x.ndim
+    d = dim % nd
+    n = x.shape[d]
+    out = _ReduceScatter.apply(d, _axes_tuple(mesh, axis), mesh, x)
+    mark_partial(out, tuple(a for a in partial_axes(x) if a != axis))
+    return mark_shard(out, shard_marks(x) + ((d - nd, axis, n),))
+
+
+def _reduce_partial(x, axes: tuple):
+    """The partial sum ``x`` all-reduced over ``axes`` (its marks kept)."""
+    mesh = _CTX.mesh
+    out = _AllReduce.apply(_axes_tuple(mesh, axes), mesh, x)
+    mark_partial(out, tuple(a for a in partial_axes(x) if a not in axes))
+    return mark_shard(out, shard_marks(x))
 
 
 def _fsdp_gather_many(shards: list, dims: list, axes: MeshAxes, mesh) -> list:
@@ -1094,7 +1366,7 @@ def _fsdp_gather_many(shards: list, dims: list, axes: MeshAxes, mesh) -> list:
              for t, d in zip(shards, dims)]
     if not live:
         return list(shards)
-    out = _FsdpGather.apply(tuple(dims), live, mesh, *shards)
+    out = _AllGather.apply("param_gather", tuple(dims), live, mesh, *shards)
     return [mark_shard(t, m) for t, m in zip(out, marks)]
 
 
@@ -1122,43 +1394,43 @@ def gather_fsdp(tree):
     :func:`fsdp_gather`: the FSDP shards (``TRAIN_RULES``' "embed" over
     "data"), the leaves of one set of axes in one collective.  Called where
     the parameters are used, inside a recomputed region, so a gathered
-    weight lives only there.  Dims sharded over other axes (the
-    column-parallel decode's) stay as they are; no-op without a mesh."""
-    data = set(batch_axes())
-    if not data:
+    weight lives only there.  Dims sharded over other axes (the tensor
+    parallelism of "model") stay as they are; no-op without a mesh."""
+    return gather_params(tree, batch_axes())
+
+
+def gather_params(tree, axes: Optional[tuple] = None):
+    """``tree`` with every dim whose shard marks name one of ``axes`` (every
+    marked axis when None) gathered through :func:`fsdp_gather`, the leaves
+    of one set of axes in one collective (backward: the reduce-scatter)."""
+    if _CTX.mesh is None:
+        return tree
+    axes = None if axes is None else set(axes)
+    if axes is not None and not axes:
         return tree
     leaves = []
     _map_leaves(leaves.append, tree)
 
-    def fsdp_dim(x):
-        return next(((d, axes) for d, axes, _ in shard_marks(x)
-                     if data & set((axes,) if isinstance(axes, str) else axes)), None)
+    def dim_to_gather(x):
+        return next(((d, a) for d, a, _ in shard_marks(x)
+                     if axes is None or axes & set((a,) if isinstance(a, str) else a)),
+                    None)
 
-    while True:  # a leaf with two FSDP dims goes round twice
+    while True:  # a leaf with two such dims goes round twice
         todo = {}
         for i, x in enumerate(leaves):
-            found = fsdp_dim(x)
+            found = dim_to_gather(x)
             if found is not None:
                 todo.setdefault(found[1], []).append((i, found[0]))
         if not todo:
             break
-        for axes, items in todo.items():
+        for a, items in todo.items():
             got = _fsdp_gather_many([leaves[i] for i, _ in items], [d for _, d in items],
-                                    axes, _CTX.mesh)
+                                    a, _CTX.mesh)
             for (i, _), t in zip(items, got):
                 leaves[i] = t
     it = iter(leaves)
     return _map_leaves(lambda _: next(it), tree)
-
-
-def _mark_axes(x) -> tuple:
-    """The mesh axes ``x``'s shard marks name, in mark order."""
-    out = []
-    for _, axes, _ in shard_marks(x):
-        for a in ((axes,) if isinstance(axes, str) else axes):
-            if a not in out:
-                out.append(a)
-    return tuple(out)
 
 
 #: f32 bytes a bucket of :func:`grad_all_reduce` holds (one collective each)
@@ -1167,12 +1439,15 @@ _BUCKET_BYTES = 1 << 28
 
 def grad_all_reduce(tree, axes: MeshAxes, mesh=None):
     """A gradient tree with each leaf summed, in f32, over the axes of
-    ``axes`` (the batch axes) that its shard marks do not name: the leaves
-    those axes replicate (every leaf under data parallelism; the norms, the
-    biases and the "pod" axis under FSDP).  A leaf's FSDP dims were summed
-    already, by :func:`fsdp_gather`'s backward.  Leaves go in buckets of
-    like axes, one collective each; each comes back in its dtype, marks
-    kept."""
+    ``axes`` (the loss's axes, :func:`loss_axes`) that its shard marks do
+    not name: the leaves those axes replicate (every leaf under data
+    parallelism; the norms, the biases and the "pod" axis under FSDP; under
+    tensor parallelism every leaf "model" replicates: the norm scales, the
+    router, an SSD's ``A_log`` / ``D`` / ``dt_bias``, each rank's grad a part
+    computed from its shard of the sequence or of the work).  A leaf's
+    gathered dims were summed already, by :func:`fsdp_gather`'s backward.
+    Leaves go in buckets of like axes, one collective an axis each; each
+    comes back in its dtype, marks kept."""
     mesh = mesh or _CTX.mesh
     if mesh is None:
         return tree
@@ -1183,7 +1458,7 @@ def grad_all_reduce(tree, axes: MeshAxes, mesh=None):
     _map_leaves(leaves.append, tree)
     plan = {}
     for i, g in enumerate(leaves):
-        red = tuple(a for a in want if a not in _mark_axes(g))
+        red = tuple(a for a in want if a not in mark_axes(g))
         if red:
             plan.setdefault(red, []).append(i)
     out = list(leaves)
@@ -1194,6 +1469,7 @@ def grad_all_reduce(tree, axes: MeshAxes, mesh=None):
             size += 4 * leaves[i].numel()
             if size >= _BUCKET_BYTES or n == len(idx) - 1:
                 flat = torch.cat([leaves[j].reshape(-1).to(torch.float32) for j in bucket])
+                _count("grad_all_reduce", "fwd", red)
                 flat = _all_reduce_f32(flat, red, mesh)
                 for j, part in zip(bucket, flat.split([leaves[j].numel() for j in bucket])):
                     g = leaves[j]
@@ -1208,4 +1484,5 @@ def psum(t: torch.Tensor, axes: MeshAxes, mesh=None) -> torch.Tensor:
     a metric that every rank then holds whole."""
     mesh = mesh or _CTX.mesh
     live = () if mesh is None else _axes_tuple(mesh, axes)
+    _count("psum", "fwd", live)
     return _all_reduce_f32(t.detach(), live, mesh)

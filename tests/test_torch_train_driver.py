@@ -114,14 +114,19 @@ def test_driver_trains_the_families(tmp_path, arch):
 def test_driver_refuses_a_mesh(tmp_path):
     """The meshes the driver refuses before any rank starts: a multi-pod
     mesh of an odd rank count, and (through ``train_mesh``, which every rank
-    calls) a "model" axis above 1, tensor-parallel training (ROADMAP 7c)."""
+    calls) a "model" axis that does not divide the ranks."""
     from repro_torch.launch.mesh import train_mesh
 
     with pytest.raises(ValueError, match="even"):
         train.main(["--mesh", "multi", "--ranks", "3", "--ckpt-dir", str(tmp_path),
                     "--device", "cpu"])
-    with pytest.raises(ValueError, match="7c"):
-        train_mesh(4, model=2)
+    with pytest.raises(ValueError, match="multiple of model"):
+        train.main(["--mesh", "single", "--ranks", "4", "--model", "3", "--ckpt-dir",
+                    str(tmp_path), "--device", "cpu"])
+    with pytest.raises(ValueError, match="even"):
+        train_mesh(4, True, model=4)
+    assert train_mesh(4, model=2).shape == {"data": 2, "model": 2}
+    assert train_mesh(8, True, model=2).shape == {"pod": 2, "data": 2, "model": 2}
 
 
 def test_lenet_float_steps_follow_the_reference():

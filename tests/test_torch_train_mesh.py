@@ -21,8 +21,9 @@ updated params and moments, gathered, against the reference's
 
 Rank-level checks: the pipeline keeps a rank's rows of each microbatch; the
 training driver's run on a mesh restarts bit for bit; a checkpoint saved on 4 ranks
-restores onto 2 ranks and onto one device with equal logical params; a
-"model" axis above 1 and an MoE group that straddles two ranks are refused.
+restores onto 2 ranks and onto one device with equal logical params; an MoE
+group that straddles two ranks is refused.  (The "model" axis:
+``tests/test_torch_train_tp.py``.)
 All cases of one rank count run in one ``spawn_ranks`` call, while the test
 process computes the reference's steps.
 """
@@ -46,7 +47,6 @@ from repro_torch.checkpoint import manager as M
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import transformer_params_from_numpy
 from repro_torch.core.template import default_template
-from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
@@ -328,14 +328,6 @@ def test_checkpoint_restores_onto_other_meshes(runs):
                                                     "opt": adamw_init(target)})
     one = {"params": one["params"], "opt": one["opt"]._asdict()}
     _equal_trees(jax.tree.map(lambda t: t.numpy(), one), saved)
-
-
-def test_a_model_axis_is_refused(runs):
-    """Tensor-parallel training (a "model" axis above 1) is refused naming
-    ROADMAP 7c: by the train step on a (2, 2) mesh, by ``train_mesh``."""
-    assert "7c" in runs["out4"]["model_axis"]
-    with pytest.raises(ValueError, match="7c"):
-        tmesh.train_mesh(4, model=2)
 
 
 def test_a_straddling_moe_group_raises(runs):

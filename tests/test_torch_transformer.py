@@ -315,8 +315,8 @@ def test_serve_main_runs_on_cpu_and_refuses_what_is_not_ported(tmp_path):
 def test_unported_paths_raise(setup):
     """What the port still refuses: training on a kernel template (autograd
     cannot differentiate the kernels; ROADMAP queue 1 item 7 trains on the
-    torch template) or over a mesh with a "model" axis above 1
-    (tensor-parallel training, item 7c), and the meshed serving of every family but the dense one
+    torch template) or over a mesh whose "model" axis does not divide its
+    ranks, and the meshed serving of every family but the dense one
     (compiled_steps and ServeScheduler on a mesh)."""
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
@@ -325,8 +325,8 @@ def test_unported_paths_raise(setup):
     tpl = default_template("cuda", device="cpu")
     with pytest.raises(ValueError, match="autograd"):
         make_train_step(cfg, tpl=tpl)
-    with pytest.raises(ValueError, match="item 7c"):
-        train.train_mesh(4, False, model=2)
+    with pytest.raises(ValueError, match="multiple of model"):
+        train.train_mesh(6, False, model=4)
     mesh = make_test_mesh()
     for name in ("granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-9b",
                  "whisper-medium", "llama-3.2-vision-90b"):

@@ -8,7 +8,6 @@ is on ``sys.path`` under pytest).
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 
 import torch
@@ -25,9 +24,12 @@ from repro_torch.optim import AdamW, adamw_init, cosine_warmup
 from repro_torch.optim.compress import compressed_grad_reduce, init_error_feedback
 from repro_torch.parallel import sharding as sh
 
-#: the meshes of the meshed training cases: (sizes, axis names)
+#: the meshes of the meshed training cases: (sizes, axis names); those
+#: whose "model" axis is above 1 are the tensor-parallel cases'
 MESHES = {"4x1": ((4, 1), ("data", "model")), "2x2x1": ((2, 2, 1), ("pod", "data", "model")),
-          "2x1": ((2, 1), ("data", "model"))}
+          "2x1": ((2, 1), ("data", "model")), "1x2": ((1, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model")), "2x2": ((2, 2), ("data", "model")),
+          "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 #: the meshed optimizer step's schedule and clip norm (the test's reference
 #: uses the same; the clip is below every case's grad norm, so it acts)
 LR = (1e-3, 3, 30)
@@ -99,8 +101,10 @@ def _meshed_step(case, mesh, kind, accum, lead):
     p_sh, o_sh = steps.state_shardings(cfg, mesh, rules)
     params = sh.shard_tree(transformer_params_from_numpy(case["params"]), p_sh)
     batch = _rows(case, mesh, rules, accum)
+    sh.SEAM_COUNTS.clear()
     loss, metrics, grads = steps.loss_and_grads(tpl, cfg, params, batch, accum=accum,
                                                 mesh=mesh, rules=rules)
+    counts = dict(sh.SEAM_COUNTS)  # the seams' collectives of one loss and grads
     grads = _unshard_tree(grads, p_sh)
     opt = AdamW(lr=cosine_warmup(*LR), clip_norm=CLIP)
     step = steps.make_train_step(cfg, tpl=tpl, opt=opt, accum=accum, mesh=mesh, rules=rules)
@@ -109,7 +113,7 @@ def _meshed_step(case, mesh, kind, accum, lead):
     new = {"params": _unshard_tree(new_params, p_sh), "m": _unshard_tree(new_opt.m, p_sh),
            "v": _unshard_tree(new_opt.v, p_sh)}
     out = {"loss": loss, "metrics": metrics, "grads": grads, "step": m, "new": new,
-           "embed_local": tuple(params["embed"].shape)}
+           "embed_local": tuple(params["embed"].shape), "counts": counts}
     if case.get("save_dir"):
         # the state after the step, saved gathered (rank 0 writes) and whole
         state = {"params": new_params, "opt": new_opt}
@@ -118,15 +122,26 @@ def _meshed_step(case, mesh, kind, accum, lead):
     return out if lead else None
 
 
+class _Meshes(dict):
+    """The meshes of :data:`MESHES` by name, each made at its first use (its
+    process groups are a collective: every rank asks in one order)."""
+
+    def __missing__(self, name):
+        self[name] = mesh = Mesh(*MESHES[name]).init_groups()
+        return mesh
+
+
 def train_mesh_case(payload, rank, world, device):
     """The meshed training cases on ``world`` ranks: ``payload["cases"]``
     (arch, mesh, kind "fsdp" / "dp", accum, weights and batch as numpy),
-    then the rank-level checks named in ``payload`` (restart, refusals,
-    pipeline rows).  Rank 0 returns the results."""
+    then the rank-level checks named in ``payload``: pipeline rows, the
+    training driver's run with and without a failure (on a ("data",
+    "model") = (world / model, model) mesh, ``payload["restart"]["model"]``,
+    default 1), refusals, and the restore of a checkpoint onto a
+    (world, 1) FSDP mesh.  Rank 0 returns the results."""
     lead = rank == 0
-    meshes = {name: Mesh(sizes, axes).init_groups()
-              for name, (sizes, axes) in MESHES.items() if math.prod(sizes) == world}
-    out = {"cases": [], "mesh_coords": {k: m.coords for k, m in meshes.items()}}
+    meshes = _Meshes()
+    out = {"cases": []}
     for case in payload["cases"]:
         out["cases"].append(_meshed_step(case, meshes[case["mesh"]], case["kind"],
                                          case["accum"], lead))
@@ -141,22 +156,16 @@ def train_mesh_case(payload, rank, world, device):
         out["pipeline_ok"] = bool(torch.equal(pipe.batch(5)["tokens"], whole[pipe.rows()]))
     if "restart" in payload:
         # the training driver called on every rank (it trains on these
-        # ranks, a (4, 1) mesh), fault-free and with a failure
+        # ranks), fault-free and with a failure
         base = ["--steps", "4", "--batch", "8", "--seq", "32", "--log-every", "100",
-                "--device", "cpu", "--mesh", "single"]
+                "--device", "cpu", "--mesh", "single",
+                "--model", str(payload["restart"].get("model", 1))]
         free = train.main(base + ["--ckpt-dir", payload["restart"]["free"]])
         faulty = train.main(base + ["--ckpt-dir", payload["restart"]["faulty"],
                                     "--ckpt-every", "2", "--fail-at", "3"])
         out["restart"] = {"free": free, "faulty": faulty}
     if "refusals" in payload:
-        cfg = reduced(get_config("qwen2-0.5b"))
         tpl = default_template("torch", device="cpu")
-        wide = Mesh((2, 2), ("data", "model")).init_groups()
-        try:
-            steps.make_train_step(cfg, tpl=tpl, mesh=wide)
-            out["model_axis"] = None
-        except ValueError as e:
-            out["model_axis"] = str(e)
         # an MoE batch whose groups straddle the ranks: 128 tokens a rank,
         # groups of 512
         case = payload["refusals"]
@@ -172,7 +181,7 @@ def train_mesh_case(payload, rank, world, device):
         except ValueError as e:
             out["straddle"] = str(e)
     if "restore" in payload:
-        out["restore"] = _restore(payload["restore"], meshes["2x1"], rank)
+        out["restore"] = _restore(payload["restore"], meshes[f"{world}x1"], rank)
     return out if lead else None
 
 
@@ -196,12 +205,14 @@ def _restore(payload, mesh, rank):
 
 
 def remat_case(payload, rank, world, device):
-    """Reduced qwen2 with ``remat`` on, FSDP over a (world, 1) mesh on
-    ``device``: the meshed ``loss_and_grads`` from ``init_params`` at the
-    seed (each recomputed region gathers its layer again in the backward);
-    rank 0 returns the loss and the logical grads."""
+    """Reduced qwen2 with ``remat`` on, FSDP over a (world / model, model)
+    mesh on ``device`` (``payload["model"]``, default 1): the meshed
+    ``loss_and_grads`` from ``init_params`` at the seed (each recomputed
+    region gathers its layer, and over "model" its sequence, again in the
+    backward); rank 0 returns the loss and the logical grads."""
     cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")), remat=True)
-    mesh = Mesh((world, 1), ("data", "model")).init_groups()
+    model = payload.get("model", 1)
+    mesh = Mesh((world // model, model), ("data", "model")).init_groups()
     rules = _rules(cfg, "fsdp")
     p_sh, _ = steps.state_shardings(cfg, mesh, rules)
     params = T.init_params(torch.Generator(device=device).manual_seed(payload["seed"]), cfg,
