@@ -153,7 +153,22 @@ non-zero without its result line):
    plan-store round trip a warm restart searches nothing and streams the
    same tokens; printed: eager ms a meshed decode step beside the
    single-device replayed step.  (c) ``serve --scheduler --shards 2`` in a
-   subprocess exits 0;
+   subprocess exits 0.  (d) granite-moe-3b-a800m at full width and depth,
+   bf16, through the meshed ``ServeScheduler`` on the same two ranks as a
+   (1, 2) mesh under ``DECODE_RULES`` with expert_mlp over "model" (gate /
+   up column shards, the hidden gathered before down; each rank draws only
+   its shards, ``scheduler.serve_shardings``), 4 slots over (256, 512), 4
+   requests: streams byte-identical to the single-device scheduler on the
+   card, every request complete, every meshed step eager; printed: eager
+   ms a meshed decode step beside the replayed single-device step, the
+   expert GEMMs a step, launches.  (e) mamba2-1.3b, recurrentgemma-9b,
+   whisper-medium and llama-3.2-vision-90b (phase 10's 5 layers; the others
+   at full depth) at full width through ``compiled_steps(mesh=)`` on the
+   same (1, 2) mesh (the SSD and RG-LRU blocks whole on both ranks, their
+   states uncut; MLPs and attention projections column shards), 2 x 256
+   prompt tokens then 8 greedy decode steps: every step's logits and
+   tokens bit for bit the single-device ``compiled_steps``' on the card;
+   printed: eager ms a meshed decode step, launches, each part's seconds;
 10. the other model families ("families"): ``generate`` on the ``cuda``
    backend in bf16, ``init_params`` weights from the seed, 16 greedy
    tokens after each prompt:
@@ -176,7 +191,11 @@ non-zero without its result line):
    prefill tokens/s, decode ms a step eager and replayed, peak memory.
    Then granite through ``ServeScheduler`` (4 slots, ladder (256, 512), 6
    requests of ``synthetic_trace``): replay = eager at the 4-slot shape,
-   every request completes;
+   every request completes.  (b) internlm2-1.8b and mistral-nemo-12b, the
+   dense configs no earlier phase ran, at full width and depth on 2 x 4096
+   tokens under the same gates and launch counts (flash once a layer on
+   "wgmma" at head dim 128; the f32 floor's copy made where it fits, and
+   where the 5 % gate misses), their seconds printed apart;
 11. training ("train"), every step on the ``torch`` template (autograd over
    plain tensor ops, as the reference trains on its ``xla`` backend; no
    hand-written kernel has a backward): (a) qwen2-0.5b at full width and
@@ -220,6 +239,23 @@ rank each; it fails with fewer): qwen2-0.5b data-parallel, FSDP and
 tensor-parallel on (2, 2) and (1, 4) ("data", "model") at 8 x 4096 tokens
 against one card's steps, and recurrentgemma-9b at full depth under FSDP
 with each card's peak memory.
+``--serve-mesh-nccl`` runs, alone, meshed serving over NCCL on four cards
+(a rank each, mesh (1, 4); it fails with fewer): qwen2.5-32b at full width
+and depth through the meshed scheduler against the same scheduler on one
+card (streams byte for byte; 4 slots, ladder (256, 512), 6 requests, which
+one card holds beside its 65.5 GB of weights); phi3.5-moe (scheduler,
+expert_mlp over "model") and llama-3.2-vision-90b (``compiled_steps``,
+embed over "model", 2 x 4096 prompt tokens, 16 steps) at full depth on
+the four cards (every request or step completes, finite logits, each
+card's peak under its memory), and each cut to a depth one card holds
+(8 and 10 layers) on four cards against one, bit for bit.  Printed: each
+card's peak memory, prefill tokens/s, eager meshed decode ms a step,
+collectives a decode step by kind.
+``--family-split-study`` runs, alone, 9(e)'s families on a (2, 1) mesh of
+two gloo ranks (a row a rank: recurrent states, conv histories and cross
+k / v cut by rows, ``scheduler.shard_cache``) against one device, and
+prints each decode step's max |Δlogit| and whether the tokens agree (not
+gated: the plain ops' cuBLAS kernels are chosen by the rank's rows).
 ``--parent-ab DIR`` runs, alone, phase 11(a)'s single-device run (4
 steps), phase 9's tensor-parallel scheduler runs (float and grid, no plan
 store) and phase 12's FSDP run from the
@@ -252,6 +288,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -1292,6 +1329,7 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
                 extra=extra)
             del qc, ke, ve, planes
         del q, k, v, got, want
+    phase_flash_d128(torch, dev, book)
 
     # the tied LM head reads the (vocab, d) table in place (transposed B)
     vocab, dm = 151936, 896
@@ -1459,6 +1497,58 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
             extra={"prep_ms": time_ms(lambda: q16_prep_only(xq, wq))}
             if route == "wgmma" else None)
         del xq, wq, got, again, want
+
+#: flash's route wgmma at head dim 128, at mistral-nemo-12b's prefill in
+#: phase 10(b): 2 x 4096 tokens, 32 query and 8 kv heads, bf16, causal
+FLASH_D128 = ("mistral-nemo-12b prefill", 2, 32, 8, 4096, 128)
+
+
+def phase_flash_d128(torch, dev, book: KernelBook):
+    """Flash's route wgmma at head dim 128 (``FLASH_D128``, the shape phase
+    10(b)'s mistral-nemo prefill gives it) as a row of its own: checked
+    against the plain version and the split-precision emulation, timed
+    beside the plain version and SDPA; bf16 operands take one bf16 product
+    a pair (no lo plane), so the bound counts one."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import dse
+    from repro_torch.core.tiling import H100
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    name, b, hq, hkv, s, d = FLASH_D128
+    dt = torch.bfloat16
+    q = _randn(torch, (b, s, hq, d), dev, 180, 0.5).to(dt).transpose(1, 2)
+    k = _randn(torch, (b, s, hkv, d), dev, 181, 0.5).to(dt).transpose(1, 2)
+    v = _randn(torch, (b, s, hkv, d), dev, 182, 0.5).to(dt).transpose(1, 2)
+    plan = dse.plan_flash(d, q.element_size(), H100)
+    if plan.route != "wgmma":
+        raise AssertionError(f"flash at head dim {d}: route {plan.route}, want wgmma")
+    key = "flash_attention.wgmma.d128"
+    label = f"{name} q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal"
+    got = ops.flash_attention(q, k, v, bq=1024, bk=1024)
+    want = flash_attention_plain(q, k, v, bk=1024)
+    split = ref.attention_split_bf16(q, k, v, bk=plan.bk)
+    torch.cuda.synchronize()
+    book.check(key, label, got, want, exact=False, tol=FA_TOL_BF16)
+    torch.testing.assert_close(got, split, **FA_SPLIT_TOL_BF16,
+                               msg=lambda m: f"flash wgmma {label} vs split: {m}")
+    split_err = float((got.float() - split.float()).abs().max())
+    del got, want, split
+    qc = q.contiguous()
+    ke = k.repeat_interleave(hq // hkv, dim=1).contiguous()
+    ve = v.repeat_interleave(hq // hkv, dim=1).contiguous()
+    book.timing(
+        key, label,
+        kernel_fn=lambda: ops.flash_attention(q, k, v, bq=1024, bk=1024),
+        plain_fn=lambda: flash_attention_plain(q, k, v, bk=1024),
+        library_fn=lambda: F.scaled_dot_product_attention(qc, ke, ve, is_causal=True),
+        library="F.scaled_dot_product_attention (bf16, kv heads expanded, is_causal)",
+        nbytes_=nbytes(q, k, v) + nbytes(q), ops=4 * d * b * hq * causal_pairs(s, s, 0),
+        peak=PEAK_BF16, bound_note="one bf16 product a pair (bf16 operands: no lo plane)",
+        extra={"max_abs_err_vs_split": split_err})
+    del q, k, v, qc, ke, ve
+
 
 #: ``--flash-pv-study``: flash_wgmma.cuh's PV step (a fresh accumulator a kv
 #: tile, added to the rescaled O on the CUDA cores) and the variant it
@@ -2870,6 +2960,11 @@ KERNEL_META = {
     "flash_attention.wgmma": ("flash_attention", "wgmma",
                               "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
                               "src/repro/kernels/flash_attention.py:73"),
+    # the same route at head dim 128 (mistral-nemo's prefill, phase 10(b)),
+    # its launches counted apart ("flash_attention.wgmma.d128")
+    "flash_attention.wgmma.d128": ("flash_attention", "wgmma",
+                                   "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
+                                   "src/repro/kernels/flash_attention.py:73"),
 }
 #: flash attention's two routes, named in its row (route simt serves no
 #: main-path call at the models' head dims and is checked above)
@@ -2895,6 +2990,22 @@ SHARDS_MAX_NEW = 8
 SHARDS_MIN_LEN = 64
 SHARDS_FORWARD_REPS = 3
 SHARDS_DIR = ROOT / "build" / "shards_phase"
+#: (d): granite-moe at full width and depth through the meshed scheduler on
+#: a (1, 2) ("data", "model") mesh, expert_mlp over "model" (gate / up
+#: column shards, the hidden gathered before down), 4 slots over (256, 512)
+MOE_MESH_ARCH = "granite-moe-3b-a800m"
+MOE_MESH_OVERRIDES = (("expert_mlp", "model"),)
+MOE_MESH_REQUESTS = 4
+#: (e): the non-attention families through compiled_steps(mesh=) on the
+#: same (1, 2) mesh (the SSD and RG-LRU blocks whole on both "model" ranks,
+#: their states uncut; the MLPs and attention projections column shards),
+#: full width, (config, depth cut or None): llama-vision at phase 10's 5
+#: layers; ``--family-split-study`` runs them on (2, 1), a row a rank
+FAMILY_MESH_RUNS = (("mamba2-1.3b", None), ("recurrentgemma-9b", None),
+                    ("whisper-medium", None), ("llama-3.2-vision-90b", 5))
+FAMILY_MESH_BATCH = 2
+FAMILY_MESH_PROMPT = 256
+FAMILY_MESH_STEPS = 8
 
 
 def shards_trace(cfg):
@@ -2907,22 +3018,39 @@ def shards_trace(cfg):
                            min_len=SHARDS_MIN_LEN)
 
 
-def _timed_decode(torch, sched) -> list:
-    """Wrap the scheduler's decode step: each call's wall time between two
-    synchronizations of the card, in ms."""
-    inner, times = sched._decode_next, []
+def _counted_decode(torch, sched):
+    """Wrap the scheduler's decode step: each call's ms between two
+    synchronizations of the card and its collectives by kind
+    (``sharding.SEAM_COUNTS``'s delta); the prefill's ms and rows too."""
+    from repro_torch.parallel import sharding as sh
 
-    def timed(*args, **kw):
+    inner, pre = sched._decode_next, sched._prefill
+    rec = {"decode_ms": [], "collectives": [], "prefill_ms": [], "prefill_tokens": 0}
+
+    def decode(*args, **kw):
+        before = collections.Counter(sh.SEAM_COUNTS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = inner(*args, **kw)
         torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
+        rec["decode_ms"].append(1e3 * (time.perf_counter() - t0))
+        delta = collections.Counter(sh.SEAM_COUNTS)
+        delta.subtract(before)
+        rec["collectives"].append(sh.collective_counts(delta))
         return out
 
-    timed.release = inner.release
-    sched._decode_next = timed
-    return times
+    def prefill(params, tokens, ctx, last):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pre(params, tokens, ctx, last)
+        torch.cuda.synchronize()
+        rec["prefill_ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["prefill_tokens"] += int(tokens.numel())
+        return out
+
+    decode.release = inner.release
+    sched._decode_next, sched._prefill = decode, prefill
+    return rec
 
 
 def shards_serve(torch, cfg, params, pol, mesh, store):
@@ -2944,7 +3072,7 @@ def shards_serve(torch, cfg, params, pol, mesh, store):
         misses0 = sched.registry.misses
         sched.warmup()
         warm = sched.registry.misses - misses0
-        times = _timed_decode(torch, sched)
+        times = _counted_decode(torch, sched)["decode_ms"]
         trace = shards_trace(cfg)
         caps0 = sum(CAPTURE_COUNTS.values())
         _build.reset_launches()
@@ -2970,6 +3098,202 @@ def shards_serve(torch, cfg, params, pol, mesh, store):
     cold["store_entries"] = load_plan_store(str(store))
     cold["warm_restart"] = run()
     return cold
+
+
+def family_cfg(name, depth):
+    """``name``'s config, its depth cut to ``depth`` layers (or whole), and
+    the ``reduced`` line that says so."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if depth is None:
+        return cfg, None
+    return dataclasses.replace(cfg, n_layers=depth), f"n_layers {cfg.n_layers} -> {depth}"
+
+
+def moe_mesh_serve(torch, cfg, params, mesh, rules):
+    """Phase 9(d)'s scheduler run (``mesh``: this rank's share): warm-up,
+    then ``MOE_MESH_REQUESTS`` of ``shards_trace``'s shape; the streams,
+    each decode step's ms and the trace's launches."""
+    from repro_torch.core.template import default_template
+    from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import (SchedulerConfig, ServeScheduler, VirtualClock,
+                                              replay_trace, synthetic_trace)
+
+    sched = ServeScheduler(cfg, params, tpl=default_template("cuda"), clock=VirtualClock(),
+                           mesh=mesh, rules=rules,
+                           sched=SchedulerConfig(ladder=SHARDS_LADDER, slots=SHARDS_SLOTS,
+                                                 max_new_limit=SHARDS_MAX_NEW))
+    sched.warmup()
+    times = _counted_decode(torch, sched)["decode_ms"]
+    trace = synthetic_trace(MOE_MESH_REQUESTS, seed=SEED, vocab=cfg.vocab,
+                            ladder=SHARDS_LADDER, max_new=SHARDS_MAX_NEW,
+                            min_len=SHARDS_MIN_LEN)
+    _build.reset_launches()
+    replay_trace(sched, trace, tick=0.0)
+    torch.cuda.synchronize()
+    rec = {"streams": [list(r.generated) for r in trace], "decode_ms": times,
+           "launches": dict(_build.launches),
+           "completed": int(sched.counters["completed"]),
+           "decode_steps": int(sched.counters["decode_steps"]),
+           "meshed_eager_steps": int(sched.counters["meshed_eager_decode_steps"])}
+    sched.release()
+    return rec
+
+
+def family_mesh_steps(torch, cfg, params, tokens, ctx, mesh=None, rules=None,
+                      steps=FAMILY_MESH_STEPS):
+    """``compiled_steps``: the prefill, then ``steps`` greedy decode steps
+    (``mesh``: on this rank's rows of the cache, eager; else replayed
+    graphs); each step's logits (host, f32) and tokens, the prefill's and
+    each decode step's ms, each decode step's collectives by kind, the
+    launches."""
+    from repro_torch.core.template import default_template
+    from repro_torch.kernels import _build
+    from repro_torch.launch.scheduler import compiled_steps, shard_cache
+    from repro_torch.parallel import sharding as sh
+
+    s = tokens.shape[1]
+    fns = compiled_steps(default_template("cuda"), cfg, s + steps, mesh=mesh, rules=rules)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = fns.prefill(params, tokens, ctx, None)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    if mesh is not None:
+        cache = shard_cache(cfg, cache, mesh, rules)
+    tok = torch.argmax(logits, -1)
+    out, toks, ms, coll = [logits.float().cpu()], [tok.cpu()], [], []
+    for i in range(steps):
+        before = collections.Counter(sh.SEAM_COUNTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, logits, cache = fns.decode_next(params, tok[:, None], s + i, cache)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        delta = collections.Counter(sh.SEAM_COUNTS)
+        delta.subtract(before)
+        coll.append(sh.collective_counts(delta))
+        out.append(logits.float().cpu())
+        tok = tok.clone()
+        toks.append(tok.cpu())
+    if mesh is None:
+        fns.decode_next.release(None)
+    return {"logits": torch.stack(out), "tokens": torch.stack(toks, 1), "decode_ms": ms,
+            "prefill_ms": [prefill_ms], "prefill_tokens": int(tokens.numel()),
+            "collectives": coll, "launches": dict(_build.launches)}
+
+
+def family_mesh_inputs(torch, dev, cfg):
+    """Phase 9(e)'s prompts and context, from the seed on the card."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.serve import draw_context
+
+    tokens = synthetic_batch(SEED, 0, FAMILY_MESH_BATCH, FAMILY_MESH_PROMPT, cfg.vocab,
+                             device=dev)
+    from repro_torch.models import transformer as T
+
+    ctx = draw_context(cfg, FAMILY_MESH_BATCH, seed=SEED, device=dev,
+                       dtype=T._dtype(cfg.dtype))
+    return tokens, ctx
+
+
+def shards_rank_families(torch, dev, rank, tp):
+    """Phase 9(d) and (e) on this rank: granite through the meshed
+    scheduler on ``tp`` ((1, 2), expert_mlp over "model"), then each of
+    ``FAMILY_MESH_RUNS`` through ``compiled_steps(mesh=)`` on ``tp``, the
+    weights drawn as this rank's shards (``serve_shardings``)."""
+    from repro_torch.launch.scheduler import serve_shardings
+    from repro_torch.parallel.sharding import DECODE_RULES
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg, _ = family_cfg(MOE_MESH_ARCH, None)
+    rules = DECODE_RULES.with_overrides(**dict(MOE_MESH_OVERRIDES))
+    params = family_params(torch, dev, cfg, shardings=serve_shardings(cfg, tp, rules))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["moe"] = moe_mesh_serve(torch, cfg, params, tp, rules)
+    out["moe"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["moe"]["seconds"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    out["families"] = family_mesh_ranks(torch, dev, tp)
+    return out
+
+
+def family_mesh_ranks(torch, dev, mesh) -> dict:
+    """Each of ``FAMILY_MESH_RUNS`` through ``compiled_steps(mesh=)`` on this
+    rank, the weights drawn as its shards (``serve_shardings``)."""
+    from repro_torch.launch.scheduler import serve_shardings
+    from repro_torch.parallel.sharding import DECODE_RULES
+
+    out = {}
+    for name, depth in FAMILY_MESH_RUNS:
+        t0 = time.perf_counter()
+        cfg, _ = family_cfg(name, depth)
+        params = family_params(torch, dev, cfg,
+                               shardings=serve_shardings(cfg, mesh, DECODE_RULES))
+        tokens, ctx = family_mesh_inputs(torch, dev, cfg)
+        rec = family_mesh_steps(torch, cfg, params, tokens, ctx, mesh, DECODE_RULES)
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_mesh_single(torch, dev) -> dict:
+    """``FAMILY_MESH_RUNS`` through the single-device ``compiled_steps`` on
+    the card: the meshed runs' references."""
+    out = {}
+    for name, depth in FAMILY_MESH_RUNS:
+        t0 = time.perf_counter()
+        cfg, _ = family_cfg(name, depth)
+        params = family_params(torch, dev, cfg)
+        tokens, ctx = family_mesh_inputs(torch, dev, cfg)
+        out[name] = family_mesh_steps(torch, cfg, params, tokens, ctx)
+        out[name]["seconds"] = time.perf_counter() - t0
+        del params, tokens, ctx
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_split_rank(payload, rank, world, dev):
+    """``--family-split-study``'s rank: the families on a (2, 1) mesh."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return family_mesh_ranks(torch, dev, Mesh((world, 1), ("data", "model")).init_groups())
+
+
+def phase_family_split_study(torch, dev):
+    """``--family-split-study``, run alone: phase 9(e)'s families on a (2, 1)
+    mesh of two gloo ranks of the card (a row a rank: the recurrent states,
+    conv histories and cross k / v cut by rows, each decode step on a
+    rank's row) against the single-device ``compiled_steps``; printed, not
+    gated: each step's max |Δlogit| and whether the tokens agree."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    single = family_mesh_single(torch, dev)
+    ranks = spawn_ranks(functools.partial(family_split_rank, {}), SHARDS_S, device="cuda")
+    for name, depth in FAMILY_MESH_RUNS:
+        want = single[name]
+        for r, rec in enumerate(ranks):
+            lg = torch.as_tensor(rec[name]["logits"])
+            diff = (lg - want["logits"]).abs().flatten(1).max(1).values
+            emit({"phase": "family_split_study", "arch": name, "rank": r,
+                  "reduced": family_cfg(name, depth)[1], "mesh": {"data": SHARDS_S, "model": 1},
+                  "batch": FAMILY_MESH_BATCH, "prompt_len": FAMILY_MESH_PROMPT,
+                  "max_abs_logit_diff_by_step": [float(x) for x in diff],
+                  "tokens_equal": bool(torch.equal(torch.as_tensor(rec[name]["tokens"]),
+                                                   want["tokens"])),
+                  "decode_ms_per_step_meshed_eager_gloo": _mean(rec[name]["decode_ms"]),
+                  "nvidia_smi": nvidia_smi()})
+    emit({"phase": "family_split_study_done", "seconds": time.perf_counter() - t0})
 
 
 def shards_rank(payload, rank, world, dev):
@@ -3031,11 +3355,89 @@ def shards_rank(payload, rank, world, dev):
     for numerics, pol in (("float", None), ("grid", payload["grid_policy"])):
         store = Path(payload["store_dir"]) / f"{numerics}-rank{rank}.json"
         out[numerics] = shards_serve(torch, cfg, params, pol, tp, store)
+    del params
+    torch.cuda.empty_cache()
+    out.update(shards_rank_families(torch, dev, rank, tp))
     return out
 
 
 def _mean(xs) -> float:
     return sum(xs) / max(len(xs), 1)
+
+
+def _sum_launches(recs) -> dict:
+    from repro_torch.kernels import _build
+
+    total = dict.fromkeys(_build.launches, 0)
+    for rec in recs:
+        for k, v in rec.items():
+            total[k] += int(v)
+    return total
+
+
+def _phase_9de(torch, single, ranks, ranks_s) -> tuple:
+    """Phase 9(d) and (e)'s gates and lines: every rank's granite streams
+    byte-identical to the single-device scheduler's, every request
+    complete, every meshed decode step eager; every rank's families' logits
+    and tokens bit for bit the single-device ``compiled_steps``'.  Returns
+    the two launch windows (summed over the ranks)."""
+    from repro_torch.configs import get_config
+
+    ref = single["moe"]
+    for r, rec in enumerate(ranks):
+        got = rec["moe"]
+        if got["streams"] != ref["streams"]:
+            bad = [i for i, (a, b) in enumerate(zip(got["streams"], ref["streams"])) if a != b]
+            raise AssertionError(f"9(d) {MOE_MESH_ARCH}: rank {r}'s streams differ from the "
+                                 f"single-device scheduler at requests {bad}")
+        if got["completed"] != MOE_MESH_REQUESTS or \
+                got["meshed_eager_steps"] != got["decode_steps"]:
+            raise AssertionError(f"9(d): rank {r}: {got['completed']} of {MOE_MESH_REQUESTS} "
+                                 f"completed, {got['meshed_eager_steps']} eager of "
+                                 f"{got['decode_steps']} steps")
+    cfg = get_config(MOE_MESH_ARCH)
+    r0 = ranks[0]["moe"]
+    emit({"phase": "shards_moe_decode", "arch": MOE_MESH_ARCH, "reduced": None,
+          "mesh": {"data": 1, "model": SHARDS_S}, "rules": "DECODE_RULES + " + ", ".join(
+              f"{n} -> {a}" for n, a in MOE_MESH_OVERRIDES), "slots": SHARDS_SLOTS,
+          "ladder": SHARDS_LADDER, "requests": MOE_MESH_REQUESTS, "nvidia_smi": nvidia_smi(),
+          "streams_byte_identical": True, "tokens": sum(len(x) for x in ref["streams"]),
+          "decode_ms_per_step_meshed_eager_gloo": _mean(r0["decode_ms"]),
+          "decode_ms_per_step_single_device_replayed": _mean(ref["decode_ms"]),
+          "decode_steps": r0["decode_steps"],
+          "expert_gemms_per_decode_step_a_rank": cfg.n_layers * cfg.n_experts * 3,
+          "launches_rank0": {k: v for k, v in r0["launches"].items() if v},
+          "peak_mem_bytes_rank0": r0["peak_mem_bytes"],
+          "seconds_rank0": r0["seconds"], "seconds_single_device": ref["seconds"]})
+    for name, depth in FAMILY_MESH_RUNS:
+        want = single["families"][name]
+        for r, rec in enumerate(ranks):
+            got = rec["families"][name]
+            lg, tk = torch.as_tensor(got["logits"]), torch.as_tensor(got["tokens"])
+            same = torch.equal(lg, want["logits"]) and torch.equal(tk, want["tokens"])
+            if not same or not bool(torch.isfinite(want["logits"]).all()):
+                raise AssertionError(
+                    f"9(e) {name}: rank {r}'s logits / tokens differ from the single-device "
+                    f"compiled_steps: max |Δlogit| "
+                    f"{float((lg - want['logits']).abs().max())}")
+        r0 = ranks[0]["families"][name]
+        emit({"phase": "shards_families_steps", "arch": name,
+              "reduced": family_cfg(name, depth)[1], "mesh": {"data": 1, "model": SHARDS_S},
+              "rules": "DECODE_RULES", "batch": FAMILY_MESH_BATCH,
+              "prompt_len": FAMILY_MESH_PROMPT, "decode_steps": FAMILY_MESH_STEPS,
+              "nvidia_smi": nvidia_smi(), "logits_and_tokens_bit_identical": True,
+              "decode_ms_per_step_meshed_eager_gloo": _mean(r0["decode_ms"]),
+              "decode_ms_per_step_single_device_replayed": _mean(want["decode_ms"][1:]),
+              "launches_rank0": {k: v for k, v in r0["launches"].items() if v},
+              "seconds_rank0": r0["seconds"], "seconds_single_device": want["seconds"]})
+    emit({"phase": "shards_9de", "ranks_seconds": ranks_s,
+          "seconds_single_device": single["moe"]["seconds"] + sum(
+              v["seconds"] for v in single["families"].values()),
+          "seconds_rank0": ranks[0]["moe"]["seconds"] + sum(
+              v["seconds"] for v in ranks[0]["families"].values())})
+    return (_sum_launches(rec["moe"]["launches"] for rec in ranks),
+            _sum_launches(rec["families"][n]["launches"] for rec in ranks
+                          for n, _ in FAMILY_MESH_RUNS))
 
 
 def _halo_bytes(spec, plan, itemsize):
@@ -3105,6 +3507,15 @@ def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
     for numerics, pol in (("float", None), ("grid", grid_policy)):
         single[numerics] = shards_serve(torch, cfg, params, pol, None, None)
     torch.cuda.empty_cache()
+    # (d), (e): the single-device runs on the card, the ranks' references
+    t0 = time.perf_counter()
+    mcfg, _ = family_cfg(MOE_MESH_ARCH, None)
+    mparams = family_params(torch, dev, mcfg)
+    single["moe"] = moe_mesh_serve(torch, mcfg, mparams, None, None)
+    del mparams
+    torch.cuda.empty_cache()
+    single["moe"]["seconds"] = time.perf_counter() - t0
+    single["families"] = family_mesh_single(torch, dev)
 
     # (a, ii) and (b) on two ranks of the card
     t0 = time.perf_counter()
@@ -3180,10 +3591,9 @@ def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
               "launches_rank0": {k: v for k, v in r0["launches"].items()
                                  if v and k.startswith(kernel)}})
 
-    spatial = dict.fromkeys(_build.launches, 0)
-    for rec in ranks:
-        for k, v in rec["spatial_launches"].items():
-            spatial[k] += int(v)
+    moe_launches, steps_launches = _phase_9de(torch, single, ranks, ranks_s)
+
+    spatial = _sum_launches(rec["spatial_launches"] for rec in ranks)
     emit({"phase": "shards_spatial_launches", "ranks": SHARDS_S,
           "both_nets_both_numerics": {k: v for k, v in spatial.items() if v}})
 
@@ -3201,11 +3611,10 @@ def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
           "stdout_tail": res.stdout.strip().splitlines()[-3:]})
     windows = {"shards spatial": spatial}
     for numerics in ("float", "grid"):
-        total = dict.fromkeys(_build.launches, 0)
-        for rec in ranks:
-            for k, v in rec[numerics]["launches"].items():
-                total[k] += int(v)
-        windows[f"shards decode {numerics}"] = total
+        windows[f"shards decode {numerics}"] = _sum_launches(rec[numerics]["launches"]
+                                                             for rec in ranks)
+    windows["shards moe scheduler"] = moe_launches
+    windows["shards families steps"] = steps_launches
     emit({"phase": "shards", "seconds": time.perf_counter() - t_phase,
           "ranks_seconds": ranks_s})
     shutil.rmtree(SHARDS_DIR, ignore_errors=True)
@@ -3225,7 +3634,17 @@ FAMILY_RUNS = (
     # 100 layers are 180 GB of weights: one period of 4 self + 1 gated cross
     # layer, ~13 GB, at full width
     ("llama-3.2-vision-90b", 5, 2, 1024),
+    # (b): the dense configs no earlier phase ran, at full width and depth;
+    # their 4096-token prefills run flash's route wgmma at head dim 128
+    ("internlm2-1.8b", None, 2, 4096),
+    ("mistral-nemo-12b", None, 2, 4096),
 )
+#: phase 10(b)'s configs (their seconds printed apart)
+FAMILY_RUNS_B = ("internlm2-1.8b", "mistral-nemo-12b")
+#: the f32 copy the logit floor reads is made only up to this size (beyond
+#: it, mistral-nemo's 49 GB beside its bf16 weights, only where the 5 %
+#: gate misses)
+FAMILY_F32_MAX_BYTES = 40e9
 FAMILY_GEN = 16
 #: a VLM's cross gates: init_params starts them at 0 (tanh(0) = 0), where the
 #: cross layer runs but adds nothing to the logits
@@ -3246,12 +3665,14 @@ GRANITE_D, GRANITE_FF = 1536, 512
 FAMILY_EXPERT_CAP_PREFILL, FAMILY_EXPERT_CAP_DECODE = 128, 2
 
 
-def family_params(torch, dev, cfg):
+def family_params(torch, dev, cfg, shardings=None):
     """``init_params`` on the card's generator (seed 0) in the config's bf16,
-    with a VLM's cross gates set to ``FAMILY_CROSS_GATE``."""
+    with a VLM's cross gates set to ``FAMILY_CROSS_GATE``; ``shardings``:
+    this rank's shards only, drawn as the whole tree's are."""
     from repro_torch.models import transformer as T
 
-    params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                           shardings=shardings)
     for blk in (*params["blocks"], *params["tail"]):
         if "cross_gate" in blk:
             blk["cross_gate"].fill_(FAMILY_CROSS_GATE)
@@ -3369,9 +3790,13 @@ def phase_families(torch, dev):
     from repro_torch.models import moe
     from repro_torch.models import transformer as T
 
+    from repro_torch.models.attention import CHUNKED_THRESHOLD
+    from repro_torch.optim.tree import tree_leaves
+
     tf, tplain = default_template("cuda"), default_template("torch")
     windows = {}
     t_phase = time.perf_counter()
+    seconds_b = 0.0
     for name, depth, b, s in FAMILY_RUNS:
         t0 = time.perf_counter()
         cfg = get_config(name)
@@ -3409,11 +3834,15 @@ def phase_families(torch, dev):
         # decode steps (generate's, plus the capture's eager warm-up step)
         n = family_gemms(cfg, b, s)
         steps = FAMILY_GEN - 1 + captures
-        flash = cfg.n_layers if cfg.family == "moe" else 0  # granite: 4096 >= threshold
+        # flash once a full-attention layer where the prefill reaches the
+        # chunked route (granite, internlm2, mistral-nemo: 4096 tokens)
+        flash = cfg.n_layers if (cfg.family in ("moe", "dense")
+                                 and s >= CHUNKED_THRESHOLD) else 0
         want = {"matmul_fp.wgmma": n["prefill"]["wgmma"] + steps * n["decode"]["wgmma"],
                 "matmul_fp.splitk": n["prefill"]["splitk"] + steps * n["decode"]["splitk"],
                 "matmul_fp.tile": 0, "matmul_q16": 0, "conv2d": 0, "conv2d_q16": 0,
                 "flash_attention": flash, "flash_attention.wgmma": flash,
+                "flash_attention.wgmma.d128": flash if cfg.head_dim == 128 else 0,
                 "flash_attention.prep": flash, "flash_attention.simt": 0}
         want["matmul_fp"] = want["matmul_fp.wgmma"] + want["matmul_fp.splitk"]
         for key, count in want.items():
@@ -3429,20 +3858,27 @@ def phase_families(torch, dev):
         check = compare_logits(torch, got, plain, rel_tol=FLOAT_REL_TOL,
                                argmax_min=FLOAT_ARGMAX, what=f"{name} vs plain", gate=False)
         # the same weights in f32 on the plain backend: how far each bf16
-        # path sits from the model it rounds
-        p32 = _f32_tree(params)
-        ref = teacher_forced(torch, tplain, cfg, p32, prompts, stream,
-                             ctx=None if ctx is None else ctx.float())
-        scale = float(ref.abs().max())
-        floor = {"kernel_rel_diff": float((got - ref).abs().max()) / scale,
-                 "plain_bf16_rel_diff": float((plain - ref).abs().max()) / scale,
-                 "ratio_max": FAMILY_F32_RATIO}
-        # phase 5's gates; where the plain bf16 path itself sits more than
-        # 5 % of the logit scale from the f32 model, two bf16 paths cannot be
-        # held within 5 % of each other, and the kernel path is held instead
-        # to sit as close to the f32 model as the plain bf16 path does
-        at_floor = (floor["plain_bf16_rel_diff"] > FLOAT_REL_TOL and floor["kernel_rel_diff"]
-                    <= FAMILY_F32_RATIO * floor["plain_bf16_rel_diff"])
+        # path sits from the model it rounds (read where the copy fits, and
+        # always where the 5 % gate misses)
+        floor, at_floor = None, False
+        f32_bytes = 4 * sum(x.numel() for x in tree_leaves(params))
+        if check["rel_diff"] > FLOAT_REL_TOL or f32_bytes <= FAMILY_F32_MAX_BYTES:
+            p32 = _f32_tree(params)
+            ref = teacher_forced(torch, tplain, cfg, p32, prompts, stream,
+                                 ctx=None if ctx is None else ctx.float())
+            scale = float(ref.abs().max())
+            floor = {"kernel_rel_diff": float((got - ref).abs().max()) / scale,
+                     "plain_bf16_rel_diff": float((plain - ref).abs().max()) / scale,
+                     "ratio_max": FAMILY_F32_RATIO}
+            del p32, ref
+            # phase 5's gates; where the plain bf16 path itself sits more
+            # than 5 % of the logit scale from the f32 model, two bf16 paths
+            # cannot be held within 5 % of each other, and the kernel path is
+            # held instead to sit as close to the f32 model as the plain bf16
+            # path does
+            at_floor = (floor["plain_bf16_rel_diff"] > FLOAT_REL_TOL
+                        and floor["kernel_rel_diff"]
+                        <= FAMILY_F32_RATIO * floor["plain_bf16_rel_diff"])
         check["vs_f32_plain"] = floor
         check["rel_gate"] = ("5 % of the logit scale" if check["rel_diff"] <= FLOAT_REL_TOL
                              else "bf16 floor" if at_floor else "missed")
@@ -3450,7 +3886,7 @@ def phase_families(torch, dev):
                 and check["argmax_agreement"] >= FLOAT_ARGMAX
                 and check["decisive_agreement"] in (None, 1.0)):
             raise AssertionError(f"{name}: logits off the plain path: {check}")
-        del got, plain, p32, ref
+        del got, plain
         # two replayed decode steps against two eager ones, bit for bit, in
         # logits and in the whole cache (generate's graph: same signature)
         fns = compiled_steps(tf, cfg, clen, None)
@@ -3491,14 +3927,18 @@ def phase_families(torch, dev):
               "generate_s_host_clock": generate_s, "peak_mem_bytes": peak,
               "sample_tokens": stream[0, :8].tolist(),
               "config_s": time.perf_counter() - t0})
+        if name in FAMILY_RUNS_B:
+            seconds_b += time.perf_counter() - t0
         fns.decode_next.release(None)
         del cache, c_e, c_g, fns, stream, prompts, ctx
         if cfg.family == "moe":
             windows["granite scheduler"] = family_scheduler(torch, cfg, params, tf)
         del params
         torch.cuda.empty_cache()
-    emit({"phase": "families_done", "seconds": time.perf_counter() - t_phase})
+    emit({"phase": "families_done", "seconds": time.perf_counter() - t_phase,
+          "seconds_10b": seconds_b})
     return windows
+
 
 
 def family_scheduler(torch, cfg, params, tpl):
@@ -4161,6 +4601,198 @@ def phase_train_mesh_nccl(torch):
           "seconds": time.perf_counter() - t1})
 
 
+# -- --serve-mesh-nccl: meshed serving over NCCL on four cards ----------------
+
+SERVE_NCCL_CARDS = 4
+#: the scheduler runs' trace: 4 slots (a whole KV cache on every "model"
+#: rank), ladder (256, 512), 6 requests of 64-512 prompt tokens and up to
+#: 16 new ones: qwen2.5-32b's 65.5 GB of bf16 weights plus this cache and
+#: its activations fit one card, which the byte-for-byte gate needs
+SERVE_NCCL_SLOTS = 4
+SERVE_NCCL_LADDER = (256, 512)
+SERVE_NCCL_REQUESTS = 6
+SERVE_NCCL_MAX_NEW = 16
+#: the VLM through compiled_steps(mesh=): 2 x 4096 prompt tokens (its
+#: prefill runs flash at head dim 128) after a 2 x 1600 x 8192 image
+#: context, then 16 greedy decode steps
+SERVE_NCCL_VLM_BATCH = 2
+SERVE_NCCL_VLM_PROMPT = 4096
+SERVE_NCCL_VLM_STEPS = 16
+#: (config, rule overrides on DECODE_RULES, path, depth the one-card
+#: bitwise check cuts it to (None: full depth on one card too)); the
+#: overrides mirror the configs' serve_rule_overrides as far as column
+#: parallelism goes (mesh (1, 4) over ("data", "model"))
+SERVE_NCCL_RUNS = (
+    ("qwen2.5-32b", (), "scheduler", None),
+    ("phi3.5-moe-42b-a6.6b", (("expert_mlp", "model"),), "scheduler", 8),
+    ("llama-3.2-vision-90b", (("embed", "model"),), "steps", 10),
+)
+
+
+def nccl_serve(payload, rank=0, world=1, dev=None):
+    """``payload["runs"]`` of ``SERVE_NCCL_RUNS``' shape, each on this rank's
+    share of a (1, ``world``) mesh (or, with ``payload["meshed"]`` false, on
+    one card): weights drawn as this rank's shards from the seed, then the
+    scheduler's trace or the VLM's steps.  Per run: the streams (and the
+    steps' logits), prefill and decode ms, collectives a decode step by
+    kind, the card's peak memory; an out-of-memory error is raised with the
+    peak."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.scheduler import (SchedulerConfig, ServeScheduler, VirtualClock,
+                                              replay_trace, serve_shardings, synthetic_trace)
+    from repro_torch.core.template import default_template
+    from repro_torch.parallel.sharding import DECODE_RULES
+
+    dev = torch.device(dev or "cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh((1, world), ("data", "model")).init_groups() if payload["meshed"] else None
+    out = {}
+    for name, overrides, path, depth in payload["runs"]:
+        t0 = time.perf_counter()
+        cfg, reduced_line = family_cfg(name, depth)
+        rules = DECODE_RULES.with_overrides(**dict(overrides))
+        torch.cuda.reset_peak_memory_stats(dev)
+        where = "init"
+        try:
+            params = family_params(torch, dev, cfg, shardings=None if mesh is None else
+                                   serve_shardings(cfg, mesh, rules))
+            torch.cuda.synchronize(dev)
+            rec = {"init_s": time.perf_counter() - t0, "reduced": reduced_line,
+                   "weights_bytes_on_card": torch.cuda.memory_allocated(dev)}
+            where = path
+            if path == "scheduler":
+                sched = ServeScheduler(cfg, params, tpl=default_template("cuda"),
+                                       clock=VirtualClock(), mesh=mesh,
+                                       rules=rules if mesh is not None else None,
+                                       sched=SchedulerConfig(ladder=SERVE_NCCL_LADDER,
+                                                             slots=SERVE_NCCL_SLOTS,
+                                                             max_new_limit=SERVE_NCCL_MAX_NEW))
+                sched.warmup()
+                counted = _counted_decode(torch, sched)
+                trace = synthetic_trace(SERVE_NCCL_REQUESTS, seed=SEED, vocab=cfg.vocab,
+                                        ladder=SERVE_NCCL_LADDER, max_new=SERVE_NCCL_MAX_NEW,
+                                        min_len=SHARDS_MIN_LEN)
+                t1 = time.perf_counter()
+                replay_trace(sched, trace, tick=0.0)
+                torch.cuda.synchronize(dev)
+                rec.update(counted, trace_s=time.perf_counter() - t1,
+                           streams=[list(r.generated) for r in trace],
+                           completed=int(sched.counters["completed"]),
+                           decode_steps=int(sched.counters["decode_steps"]),
+                           eager_steps=int(sched.counters["meshed_eager_decode_steps"]))
+                sched.release()
+                del sched
+            else:
+                from repro_torch.data.pipeline import synthetic_batch
+                from repro_torch.launch.serve import draw_context
+
+                b, n = SERVE_NCCL_VLM_BATCH, SERVE_NCCL_VLM_STEPS
+                tokens = synthetic_batch(SEED, 0, b, SERVE_NCCL_VLM_PROMPT, cfg.vocab,
+                                         device=dev)
+                ctx = draw_context(cfg, b, seed=SEED, device=dev,
+                                   dtype=params["embed"].dtype)
+                rec.update(family_mesh_steps(torch, cfg, params, tokens, ctx, mesh,
+                                             rules if mesh is not None else None,
+                                             steps=n), completed=n)
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError("SERVE_NCCL_OOM " + json.dumps({
+                "rank": rank, "arch": name, "where": where,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "error": str(e)[:300]}))
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rec["seconds"] = time.perf_counter() - t0
+        out[(name, depth)] = rec
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _nccl_row(rec) -> dict:
+    """The printed numbers of one run: prefill tokens/s, eager decode ms a
+    step (median), collectives a decode step (the first step's)."""
+    ms = sorted(rec["decode_ms"][1:] or rec["decode_ms"])
+    return {"prefill_tokens_per_s": rec["prefill_tokens"] / (sum(rec["prefill_ms"]) / 1e3),
+            "prefill_ms": rec["prefill_ms"], "decode_ms_per_step_median": ms[len(ms) // 2],
+            "decode_ms_per_step": rec["decode_ms"],
+            "collectives_per_decode_step": rec["collectives"][-1] if rec["collectives"]
+            else None,
+            "peak_mem_bytes": rec["peak_mem_bytes"], "init_s": rec["init_s"],
+            "seconds": rec["seconds"]}
+
+
+def phase_serve_mesh_nccl(torch):
+    """``--serve-mesh-nccl``, run alone: meshed serving over NCCL on four
+    cards, a rank each, mesh (1, 4).  (a) qwen2.5-32b at full width and
+    depth through the meshed scheduler under ``DECODE_RULES`` against the
+    same scheduler on one card: streams byte for byte.  (b) phi3.5-moe
+    (scheduler, expert_mlp over "model") and llama-3.2-vision-90b
+    (``compiled_steps(mesh=)``, embed over "model", cross gates 0.5) at full
+    width and depth on the four cards: gates: every request or step
+    completes, finite logits, each card's peak memory under the card's;
+    then each cut to a depth one card holds (same widths) on four cards
+    and on one: streams (and the VLM's logits) bit for bit.  Printed for
+    each: each card's peak memory, prefill tokens/s, eager meshed decode ms
+    a step, collectives a decode step by kind."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cards = torch.cuda.device_count()
+    if cards < SERVE_NCCL_CARDS:
+        raise AssertionError(f"--serve-mesh-nccl needs {SERVE_NCCL_CARDS} cards, this "
+                             f"machine has {cards}")
+    t0 = time.perf_counter()
+    full = [(n, o, p, None) for n, o, p, _ in SERVE_NCCL_RUNS]
+    cut = [(n, o, p, d) for n, o, p, d in SERVE_NCCL_RUNS if d is not None]
+    ranks = spawn_ranks(functools.partial(nccl_serve, {"runs": full + cut, "meshed": True}),
+                        SERVE_NCCL_CARDS, device="cuda")
+    ranks_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    # one card: the configs it holds whole, and the depth cuts
+    one = nccl_serve({"runs": [(n, o, p, None) for n, o, p, d in SERVE_NCCL_RUNS
+                               if d is None] + cut, "meshed": False})
+    one_s = time.perf_counter() - t1
+    limit = torch.cuda.get_device_properties(0).total_memory
+    for name, overrides, path, depth in full + cut:
+        key = (name, depth)
+        recs = [r[key] for r in ranks]
+        peaks = [r["peak_mem_bytes"] for r in recs]
+        row = {"arch": name, "reduced": recs[0]["reduced"], "path": path,
+               "rules": "DECODE_RULES" + "".join(f" + {a} -> {b}" for a, b in overrides),
+               "mesh": {"data": 1, "model": SERVE_NCCL_CARDS}, "backend": "nccl",
+               "peak_mem_bytes_by_card": peaks, "card_memory_bytes": limit,
+               "weights_bytes_by_card": [r["weights_bytes_on_card"] for r in recs],
+               **_nccl_row(recs[0])}
+        want_done = SERVE_NCCL_REQUESTS if path == "scheduler" else SERVE_NCCL_VLM_STEPS
+        if not (all(r["completed"] == want_done for r in recs) and max(peaks) < limit):
+            raise AssertionError(f"serve nccl {name} ({depth}): completed "
+                                 f"{[r['completed'] for r in recs]} of {want_done}, peaks "
+                                 f"{peaks}")
+        if path == "scheduler" and any(r["eager_steps"] != r["decode_steps"] for r in recs):
+            raise AssertionError(f"serve nccl {name}: a meshed decode step was not eager")
+        if path == "steps" and not all(bool(torch.isfinite(torch.as_tensor(r["logits"])).all())
+                                       for r in recs):
+            raise AssertionError(f"serve nccl {name}: logits not finite")
+        if key in one:
+            single = one[key]
+            if path == "scheduler":
+                same = all(r["streams"] == single["streams"] for r in recs)
+            else:
+                same = all(torch.equal(torch.as_tensor(r["logits"]), single["logits"]) and
+                           torch.equal(torch.as_tensor(r["tokens"]), single["tokens"])
+                           for r in recs)
+            if not same:
+                raise AssertionError(f"serve nccl {name} ({depth}): four cards differ from "
+                                     f"one card")
+            row["bit_identical_to_one_card"] = True
+            row["one_card"] = _nccl_row(single)
+        if path == "scheduler":
+            row["tokens"] = sum(len(x) for x in recs[0]["streams"])
+            row["sample_stream"] = recs[0]["streams"][0][:8]
+        emit({"phase": "serve_mesh_nccl", **row, "nvidia_smi": nvidia_smi()})
+    emit({"phase": "serve_mesh_nccl_done", "ranks_seconds": ranks_s, "one_card_seconds": one_s,
+          "seconds": time.perf_counter() - t0})
+
+
 #: ``--parent-ab``: the trees' order, each run in a process of its own, and
 #: the steps of its single-device run
 AB_ORDER = ("parent", "this", "this", "parent")
@@ -4322,6 +4954,15 @@ def main() -> int:
                     help="run only the study of training over NCCL on four cards (a "
                          "rank each): qwen2-0.5b data-parallel and FSDP at 8 x 4096 "
                          "tokens against one card, recurrentgemma-9b under FSDP")
+    ap.add_argument("--serve-mesh-nccl", action="store_true",
+                    help="run only the study of meshed serving over NCCL on four cards (a "
+                         "rank each): qwen2.5-32b's scheduler against one card, "
+                         "phi3.5-moe and llama-3.2-vision-90b at full depth, each cut to a "
+                         "depth one card holds against one card")
+    ap.add_argument("--family-split-study", action="store_true",
+                    help="run only phase 9(e)'s families on a (2, 1) mesh of two gloo "
+                         "ranks of the card (a row a rank) against one device, printing "
+                         "each step's logit difference (not gated)")
     ap.add_argument("--parent-ab", metavar="DIR",
                     help="run only the A/B of phase 11a's single-device step, phase 9's "
                          "tensor-parallel decode and phase 12's FSDP run: the checkout "
@@ -4350,9 +4991,14 @@ def main() -> int:
         phase_ab_run(torch, dev, args.ab_run)
         return 0
     phase_card(torch, dev)
-    if args.train_mesh_nccl or args.parent_ab:
+    if args.train_mesh_nccl or args.serve_mesh_nccl or args.family_split_study or \
+            args.parent_ab:
         if args.train_mesh_nccl:
             phase_train_mesh_nccl(torch)
+        elif args.serve_mesh_nccl:
+            phase_serve_mesh_nccl(torch)
+        elif args.family_split_study:
+            phase_family_split_study(torch, dev)
         else:
             phase_parent_ab(torch, Path(args.parent_ab).resolve())
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -4431,6 +5077,9 @@ def main() -> int:
                 w[f"{name}.splitk_reduce"] for w in windows.values())
         if key == "matmul_q16.wgmma":
             kernels[-1]["prep_launches"] = sum(w["matmul_q16.prep"] for w in windows.values())
+        if key == "flash_attention.wgmma.d128":
+            kernels[-1]["head_dim"] = 128
+            kernels[-1]["of_launches"] = "flash_attention.wgmma (a part of its launches)"
         if key == "flash_attention.wgmma":
             kernels[-1]["prep_launches"] = sum(
                 w["flash_attention.prep"] for w in windows.values())

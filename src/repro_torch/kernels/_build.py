@@ -62,12 +62,14 @@ KERNELS = ("matmul_fp", "matmul_fp.tile", "matmul_fp.splitk", "matmul_fp.splitk_
            "conv2d.cudacore", "conv2d.tc", "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16",
            "conv2d_q16.cudacore", "conv2d_q16.tc", "conv2d_q16.tc_prep",
            "conv2d_q16.tc_reduce", "flash_attention", "flash_attention.simt",
-           "flash_attention.wgmma", "flash_attention.prep")
+           "flash_attention.wgmma", "flash_attention.wgmma.d128", "flash_attention.prep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel: each wrapper adds one where it launches its kernel
-#: on the card, and nowhere else (never for a CPU tensor's plain version)
+#: on the card, and nowhere else (never for a CPU tensor's plain version);
+#: "flash_attention.wgmma.d128" counts the route wgmma's launches at head
+#: dim 128 among "flash_attention.wgmma"'s
 launches = dict.fromkeys(KERNELS, 0)
 
 _libs: dict = {}

@@ -187,4 +187,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
                stream=stream)
     _build.launches["flash_attention"] += 1
     _build.launches[f"flash_attention.{plan.route}"] += 1
+    if plan.route == "wgmma" and q.shape[-1] == 128:
+        _build.launches["flash_attention.wgmma.d128"] += 1
     return out

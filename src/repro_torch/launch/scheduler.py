@@ -57,7 +57,22 @@ rank keeps its own slots' rows.  A CUDA graph cannot hold a ``gloo``
 collective (the ranks of one card), so a meshed decode step runs eagerly
 and is counted in :data:`MESHED_EAGER_COUNTS`; ``CAPTURE_COUNTS`` stays 0
 for a meshed owner.  Capturing NCCL collectives (several cards) is left
-for later.  The meshed steps run the dense family only.
+for later.
+
+The meshed steps run every family.  An MoE layer's routing groups are the
+logical batch's: where a rank's slots are a part of a group (a decode
+step, a few slots over the data axes) its tokens are gathered over those
+axes, every data rank routes the whole groups as one device does and
+keeps its rows of the combine, so capacity drops are the single device's;
+the rules may cut ``expert_mlp`` (gate / up by columns, the hidden
+gathered before down).  A recurrent layer's state and conv history and a
+cross layer's context k / v shard over slots with the k / v rings
+(:func:`shard_cache`); the SSD and RG-LRU blocks run whole on every
+"model" rank (``ssm_inner``, ``rec`` replicate under ``DECODE_RULES``).
+Under ``embed`` over "model" the embedding table and the residual-width
+columns of wo / down are cut and gathered at the seam that reads them.
+The scheduler serves the meshed dense and MoE families; the others are
+meshed through ``compiled_steps(mesh=)``, as in the reference.
 
 **Admission** is the reference's: padding a prompt is sound only for
 full-attention mixers, so the scheduler serves the dense and MoE families
@@ -107,7 +122,9 @@ __all__ = [
     "request_from_snapshot",
     "sample_tokens",
     "sampler_fn",
+    "serve_shardings",
     "session_snapshot",
+    "shard_cache",
     "synthetic_trace",
     "threefry2x32",
 ]
@@ -557,6 +574,31 @@ class _MeshedSteps:
         return 0  # nothing captured
 
 
+def serve_shardings(cfg, mesh, rules=None):
+    """The column-parallel :class:`~repro_torch.parallel.sharding.NamedSharding`
+    tree of ``init_params(cfg)``'s parameters under ``rules`` (default
+    ``DECODE_RULES``), from their shapes alone: ``init_params(gen, cfg,
+    shardings=...)`` then draws only this rank's shards (a model no single
+    card holds), the shards the meshed scheduler and steps read."""
+    from repro_torch.launch.steps import abstract_params
+
+    return sh.column_parallel_shardings(mesh, rules or DECODE_RULES, abstract_params(cfg),
+                                        T.param_axes(cfg))
+
+
+def shard_cache(cfg, cache, mesh, rules=None):
+    """This rank's rows of a decode cache (:func:`transformer.init_cache`'s
+    tree, per slot or not, or a prefill's): every leaf that holds batch
+    rows (the k / v rings, a recurrent layer's state ``h``, an SSD's
+    ``state``, their conv histories, a cross layer's context k / v) cut to
+    this rank's rows over the data axes of ``rules`` (default
+    ``DECODE_RULES``), a per-slot pos with its rows; positions every row
+    shares stay whole.  A meshed :func:`compiled_steps` decode reads this
+    shard; its prefill runs every row and returns the whole cache."""
+    axes = _slot_pos_axes(cache, T.cache_axes(cfg, cache))
+    return sh.shard_tree(cache, sh.tree_shardings(mesh, rules or DECODE_RULES, cache, axes))
+
+
 def compiled_steps(tpl: Template, cfg, cache_len: int,
                    policy: Optional[NumericsPolicy] = None, *, mesh=None,
                    rules=None) -> StepFns:
@@ -592,7 +634,6 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
     """
     policy = validate_policy(tpl.config, policy)
     if mesh is not None:
-        _check_meshed(cfg)
         rules = rules or DECODE_RULES
         if not mesh.has_groups:
             raise ValueError(f"meshed steps run on ranks (spawn_ranks); {mesh} is a "
@@ -732,15 +773,6 @@ class SchedulerConfig:
 # ---------------------------------------------------------------------------
 
 
-def _check_meshed(cfg) -> None:
-    """The meshed steps run the dense family only: the others' sharding
-    (expert, recurrent and context leaves) is not ported yet."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"meshed serving of the {cfg.family!r} family ({cfg.name}) is not ported yet "
-            f"(ROADMAP queue 1: the meshed serving of the new families)")
-
-
 class ServeScheduler:
     """Continuous-batching scheduler: FIFO queue, one coalesced (B, L)
     prefill launch per bucket rung a tick, chunked long-prompt streaming,
@@ -778,8 +810,6 @@ class ServeScheduler:
             raise ValueError(
                 f"scheduler requires full-attention mixers without context inputs; "
                 f"{cfg.name} ({cfg.family}) has {bad or 'cross-attention'}")
-        if mesh is not None:
-            _check_meshed(cfg)
         self.cfg = cfg
         self.params = params
         self.tpl = tpl or default_template()
@@ -851,8 +881,7 @@ class ServeScheduler:
                              device=self.device)
         if self.mesh is None:
             return cache
-        axes = _slot_pos_axes(cache, T.cache_axes(self.cfg, cache))
-        return sh.shard_tree(cache, sh.tree_shardings(self.mesh, self.rules, cache, axes))
+        return shard_cache(self.cfg, cache, self.mesh, self.rules)
 
     def _local(self, a: np.ndarray) -> np.ndarray:
         """This rank's slot rows of a per-slot host vector."""
@@ -1263,11 +1292,14 @@ class ServeScheduler:
 
 
 def _slot_pos_axes(cache, axes):
-    """``cache_axes`` with each per-slot pos ((B, C), stacked (L, B, C))
-    sharded over "batch" like its k / v rows."""
+    """``cache_axes`` with each per-slot pos ((B, C), stacked (L, B, C): two
+    dims fewer than its k ring) sharded over "batch" like its k / v rows;
+    a pos every row shares ((C,), a cross layer's context positions) stays
+    whole."""
     if isinstance(cache, dict):
         return {k: (((None,) * (v.ndim - 2) + ("batch", None))
-                    if k == "pos" and isinstance(v, torch.Tensor) and v.ndim >= 2
+                    if k == "pos" and isinstance(v, torch.Tensor) and "k" in cache
+                    and v.ndim == cache["k"].ndim - 2
                     else _slot_pos_axes(v, axes[k]))
                 for k, v in cache.items()}
     if isinstance(cache, tuple):

@@ -197,11 +197,10 @@ def run_router(cfg, params, tpl, *, replicas: int, requests: int, prompt_len: in
 
 def _rank_serve(args, rank: int, world: int, device):
     """One rank of ``--shards``: the run on this rank's mesh; only rank 0
-    prints."""
+    prints.  Returns the rank's streams."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out) if rank else contextlib.nullcontext():
-        _serve(args, mesh=shards_mesh(args.shards))
-    return rank
+        return [list(row) for row in _serve(args, mesh=shards_mesh(args.shards))]
 
 
 def main(argv=None):
@@ -234,7 +233,7 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=1,
                     help="with --scheduler: run the decode tensor-parallel over an "
                          "N-way model axis, on N ranks (bitwise the single-device "
-                         "streams)")
+                         "streams; dense and MoE arches)")
     ap.add_argument("--plan-store", default=None,
                     help=f"JSON plan-store path (default: ${PLAN_STORE_ENV})")
     args = ap.parse_args(argv)
@@ -242,8 +241,8 @@ def main(argv=None):
         if not args.scheduler:
             raise SystemExit("--shards N serves through --scheduler (tensor-parallel "
                              "decode)")
-        spawn_ranks(functools.partial(_rank_serve, args), args.shards, device=args.device)
-        return None
+        return spawn_ranks(functools.partial(_rank_serve, args), args.shards,
+                           device=args.device)[0]
     return _serve(args)
 
 

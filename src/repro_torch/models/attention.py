@@ -78,17 +78,23 @@ _BQ, _BK = 1024, 1024
 
 
 def init_attention(gen: torch.Generator, cfg, *, d_model=None, n_heads=None, n_kv=None,
-                   head_dim=None, bias=None, dtype=torch.float32, lead: tuple = ()):
+                   head_dim=None, bias=None, dtype=torch.float32, lead: tuple = (),
+                   shardings=None):
     d = d_model or cfg.d_model
     h = n_heads or cfg.eff_heads
     kv = n_kv or cfg.n_kv_heads
     hd = head_dim or cfg.head_dim
     bias = cfg.qkv_bias if bias is None else bias
+
+    def one(name, d_in, d_out, **kw):
+        return init_dense(gen, d_in, d_out, dtype=dtype, lead=lead,
+                          shardings=sh.subtree(shardings, name), **kw)
+
     return {
-        "wq": init_dense(gen, d, h * hd, bias=bias, dtype=dtype, lead=lead),
-        "wk": init_dense(gen, d, kv * hd, bias=bias, dtype=dtype, lead=lead),
-        "wv": init_dense(gen, d, kv * hd, bias=bias, dtype=dtype, lead=lead),
-        "wo": init_dense(gen, h * hd, d, dtype=dtype, scale=(h * hd) ** -0.5, lead=lead),
+        "wq": one("wq", d, h * hd, bias=bias),
+        "wk": one("wk", d, kv * hd, bias=bias),
+        "wv": one("wv", d, kv * hd, bias=bias),
+        "wo": one("wo", h * hd, d, scale=(h * hd) ** -0.5),
     }
 
 

@@ -19,6 +19,7 @@ whole once, before gate / up.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
@@ -26,10 +27,12 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantization import NumericsPolicy, QTensor
 from repro_torch.core.template import Template
+from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import carry_marks, constrain
 
 __all__ = [
     "init_dense",
+    "init_normal",
     "dense",
     "mlp_islands",
     "rms_norm",
@@ -47,15 +50,45 @@ __all__ = [
 ]
 
 
+def init_normal(gen: torch.Generator, shape: tuple, scale: float, dtype, *,
+                lead: tuple = (), sharding=None) -> torch.Tensor:
+    """(*lead, *shape) drawn N(0, scale²) in f32 and rounded once to
+    ``dtype``, one stacked layer (a ``shape`` draw) at a time, so no more
+    than one layer is ever held in f32.  ``sharding`` (the leaf's
+    :class:`~repro_torch.parallel.sharding.NamedSharding`, its stacked dims
+    whole) cuts each layer to this rank's shard as it is drawn: the rank
+    never holds the whole leaf, and its shard equals the unsharded draw
+    cut (the draws are the same)."""
+    spec = tuple(sharding.spec) if sharding is not None else ()
+    if any(a is not None for a in spec[:len(lead)]):
+        raise ValueError(f"init_normal: stacked dims are drawn whole, got {spec}")
+    inner = None if sharding is None else sh.NamedSharding(
+        sharding.mesh, sh.PartitionSpec(*spec[len(lead):]))
+    # the shard's shape and marks (marks count dims from the end)
+    like = torch.empty(shape, device="meta")
+    like = like if inner is None else sh.shard_tree(like, inner)
+    out = torch.empty((*lead, *like.shape), dtype=dtype, device=gen.device)
+    for idx in itertools.product(*(range(n) for n in lead)):
+        w = torch.randn(shape, generator=gen, device=gen.device)
+        if inner is not None:
+            w = sh.shard_tree(w, inner)  # a contiguous copy of the shard
+        out[idx] = w.mul_(scale).to(dtype)
+    return sh.mark_shard(out, sh.shard_marks(like))
+
+
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
-               dtype=torch.float32, scale: Optional[float] = None, lead: tuple = ()):
+               dtype=torch.float32, scale: Optional[float] = None, lead: tuple = (),
+               shardings=None):
     """{"w": (*lead, d_in, d_out) N(0, scale²) [, "b": zeros]}; ``lead``
-    stacks independent layers (the stacked ``blocks`` layout)."""
+    stacks independent layers (the stacked ``blocks`` layout);
+    ``shardings`` (the subtree's, see :func:`init_normal`) cuts "w" as it
+    is drawn and "b" once made."""
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device) * scale
-    p = {"w": w.to(dtype)}
+    p = {"w": init_normal(gen, (d_in, d_out), scale, dtype, lead=lead,
+                          sharding=sh.subtree(shardings, "w"))}
     if bias:
-        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=gen.device)
+        b = torch.zeros((*lead, d_out), dtype=dtype, device=gen.device)
+        p["b"] = b if shardings is None else sh.shard_tree(b, sh.subtree(shardings, "b"))
     return p
 
 
@@ -113,19 +146,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def init_mlp(gen: torch.Generator, cfg, d_model: Optional[int] = None,
-             d_ff: Optional[int] = None, dtype=torch.float32, *, lead: tuple = ()):
+             d_ff: Optional[int] = None, dtype=torch.float32, *, lead: tuple = (),
+             shardings=None):
     d = d_model or cfg.d_model
     ff = d_ff or cfg.d_ff
-    if cfg.act == "swiglu":
-        return {
-            "gate": init_dense(gen, d, ff, dtype=dtype, lead=lead),
-            "up": init_dense(gen, d, ff, dtype=dtype, lead=lead),
-            "down": init_dense(gen, ff, d, dtype=dtype, scale=ff ** -0.5, lead=lead),
-        }
-    return {
-        "up": init_dense(gen, d, ff, dtype=dtype, lead=lead),
-        "down": init_dense(gen, ff, d, dtype=dtype, scale=ff ** -0.5, lead=lead),
-    }
+
+    def one(name, d_in, d_out, scale=None):
+        return init_dense(gen, d_in, d_out, dtype=dtype, scale=scale, lead=lead,
+                          shardings=sh.subtree(shardings, name))
+
+    p = {"gate": one("gate", d, ff)} if cfg.act == "swiglu" else {}
+    p["up"] = one("up", d, ff)
+    p["down"] = one("down", ff, d, ff ** -0.5)
+    return p
 
 
 def mlp_axes(cfg) -> dict:

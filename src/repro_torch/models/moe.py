@@ -20,10 +20,22 @@ grouped launch over (group, expert) is a later lever).  Routing, dispatch
 and combine are plain tensor ops (the "PS plane").
 
 On a rank whose rows are a part of the logical batch (``sharding.batch_split``
-above 1: a data-parallel training step) the groups are the logical batch's:
-the group size reads the batch's token count, a rank must hold whole
-groups (else a ValueError: a group would span two ranks), and the aux loss
-is this rank's sum over its groups over the batch's group count.
+above 1: a data-parallel training step, a data-split decode step) the
+groups are the logical batch's: the group size reads the batch's token
+count.  A rank that holds whole groups routes them alone, and its aux loss
+is its sum over its groups over the batch's group count.  Where a group
+spans ranks (a decode step: a few slots a rank, one group over the batch)
+the tokens are gathered over the batch axes, every data rank routes and
+dispatches the whole groups as one device does and keeps its own rows of
+the combine, so capacity drops are the single device's; a training step
+(autograd recording) must hold whole groups instead (a ValueError).
+
+Under column-parallel decode rules (``DECODE_RULES``) the expert weights
+are cut by the columns they produce: with ``expert_mlp`` over "model"
+gate / up hold a column shard of the hidden, which is gathered before down
+contracts it, so every contraction stays whole; with ``embed`` over
+"model" down holds a column shard of the output, gathered by the caller's
+seam.
 
 Under tensor-parallel training (``TRAIN_RULES`` with "model" above 1) a
 sequence-parallel input is gathered whole first and the routing runs
@@ -42,23 +54,25 @@ import torch.nn.functional as F
 from repro_torch.core.template import Template
 from repro_torch.parallel import sharding as sh
 
-from .layers import init_dense
+from .layers import init_dense, init_normal
 
 __all__ = ["init_moe", "moe_axes", "moe_ffn", "moe_ffn_dense_ref"]
 
 
-def init_moe(gen: torch.Generator, cfg, dtype=torch.float32, *, lead: tuple = ()):
+def init_moe(gen: torch.Generator, cfg, dtype=torch.float32, *, lead: tuple = (),
+             shardings=None):
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    dev = gen.device
 
-    def experts(shape, scale):
-        return (torch.randn((*lead, *shape), generator=gen, device=dev) * scale).to(dtype)
+    def experts(name, shape, scale):
+        return init_normal(gen, shape, scale, dtype, lead=lead,
+                           sharding=sh.subtree(shardings, name))
 
     return {
-        "router": init_dense(gen, d, e, dtype=torch.float32, lead=lead),
-        "gate": experts((e, d, ff), d ** -0.5),
-        "up": experts((e, d, ff), d ** -0.5),
-        "down": experts((e, ff, d), ff ** -0.5),
+        "router": init_dense(gen, d, e, dtype=torch.float32, lead=lead,
+                             shardings=sh.subtree(shardings, "router")),
+        "gate": experts("gate", (e, d, ff), d ** -0.5),
+        "up": experts("up", (e, d, ff), d ** -0.5),
+        "down": experts("down", (e, ff, d), ff ** -0.5),
     }
 
 
@@ -95,6 +109,11 @@ def _split() -> int:
     return sh.active_batch_split() if sh.active_mesh() is not None else 1
 
 
+def _group_size(cfg, tokens: int) -> int:
+    """The tokens of one routing group, for a logical batch of ``tokens``."""
+    return min(getattr(cfg, "moe_group", 512) or 512, tokens)
+
+
 def _groups(cfg, x):
     """(B, S, d) -> the padded token groups (G, S_g, d), the token count and
     the capacity a group gives each expert.  The group size reads the
@@ -102,13 +121,7 @@ def _groups(cfg, x):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    split = _split()
-    sg = min(getattr(cfg, "moe_group", 512) or 512, t * split)
-    if split > 1 and t % sg:
-        raise ValueError(
-            f"MoE groups of {sg} tokens: this rank holds {t} of the batch's {t * split} "
-            f"tokens ({split} ranks), so a group would span two ranks; give each rank "
-            f"a multiple of {sg} tokens")
+    sg = _group_size(cfg, t * _split())
     xt = x.reshape(t, d)
     pad = (-t) % sg
     if pad:
@@ -131,6 +144,27 @@ def _queue_positions(cfg, idx):
     return (pos * onehot).sum(-1), onehot
 
 
+def _cols(w) -> tuple:
+    """The shard mark of ``w``'s columns (its last dim), which the output of
+    a GEMM by ``w`` takes; marks count dims from the end, so an expert's
+    slice ``w[e]`` keeps it."""
+    return tuple(mk for mk in sh.shard_marks(w) if mk[0] == -1)
+
+
+def _whole_groups(tpl: Template, cfg, p, x: torch.Tensor, split: int):
+    """:func:`moe_ffn` of a rank whose rows are a part of groups that span
+    ranks (a data-split decode step: a few slots a rank, one group over the
+    batch): the tokens are gathered over the batch axes, every data rank
+    routes and dispatches the whole groups as one device does, and keeps
+    its own rows of the combine.  The aux loss is the rank's share."""
+    axes = sh.batch_axes()
+    whole = sh.gather(x, 0, axes)
+    lo, hi = sh.local_rows(whole.shape[0], sh.active_mesh(), axes)
+    with sh.batch_split(1):
+        out, aux = moe_ffn(tpl, cfg, p, whole)
+    return sh.carry_marks(out, out[lo:hi]), aux / split
+
+
 def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
     """x: (B, S, d) -> ((B, S, d), the Switch-style load-balancing aux loss)."""
     # the router and the groups read the logical tokens: a sequence shard is
@@ -138,6 +172,16 @@ def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
     replicas = sh.axis_size(sh.active_mesh(), sh.seq_parallel_axes()) \
         if sh.active_mesh() is not None else 1
     x = sh.constrain(x, "batch", "seq", "act_embed")
+    split = _split()
+    t = x.shape[0] * x.shape[1]
+    sg = _group_size(cfg, t * split)
+    if split > 1 and t % sg:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError(
+                f"MoE groups of {sg} tokens: this rank holds {t} of the batch's "
+                f"{t * split} tokens ({split} ranks), so a group would span two ranks; "
+                f"a training step takes a multiple of {sg} tokens a rank")
+        return _whole_groups(tpl, cfg, p, x, split)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xt, t, cap = _groups(cfg, x)
@@ -164,28 +208,34 @@ def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
     ex_in = sh.constrain(ex_in, "batch", "experts", "expert_cap", None)
     combine = sh.constrain(combine, "batch", None, "experts", "expert_cap")
 
+    # an expert GEMM's output takes the columns its weight holds: under
+    # column-parallel decode rules gate / up hold a column shard of
+    # expert_mlp (and down, under embed over "model", of embed)
     if tpl.config.backend == "torch":
         def bmm(a, w):
-            return torch.einsum("gecd,edf->gecf", a, w.to(a.dtype))
+            return sh.mark_shard(torch.einsum("gecd,edf->gecf", a, w.to(a.dtype)), _cols(w))
     else:
         def bmm(a, w):
-            return torch.stack([torch.stack([tpl.matmul(a[gi, ei], w[ei])
-                                             for ei in range(e)])
-                                for gi in range(g)])
-    h = sh.carry_marks(ex_in, F.silu(bmm(ex_in, p["gate"])) * bmm(ex_in, p["up"]))
+            return sh.mark_shard(
+                torch.stack([torch.stack([tpl.matmul(a[gi, ei], sh.carry_marks(w, w[ei]))
+                                          for ei in range(e)])
+                             for gi in range(g)]), _cols(w))
+    h = F.silu(bmm(ex_in, p["gate"])) * bmm(ex_in, p["up"])
+    h = sh.mark_shard(sh.carry_marks(ex_in, h), sh.shard_marks(ex_in) + _cols(p["up"]))
     h = sh.constrain(h, "batch", "experts", "expert_cap", "expert_mlp")
-    ex_out = bmm(h, p["down"])
+    # a column shard of the hidden is gathered: down contracts it whole
+    ex_out = bmm(sh.replicated(h, dims=(-1,)), p["down"])
 
     # the combine contracts the experts and their slots: over a rank's
     # share of them the output is a partial sum over their axes
-    out = torch.einsum("gsec,gecd->gsd", combine, ex_out).reshape(g * sg, d)[:t]
-    out = sh.mark_partial(out.reshape(b, s, d), sh.mark_axes(ex_in))
+    out = torch.einsum("gsec,gecd->gsd", combine, ex_out)
+    out = out.reshape(g * sg, out.shape[-1])[:t].reshape(b, s, out.shape[-1])
+    out = sh.mark_partial(sh.mark_shard(out, _cols(ex_out)), sh.mark_axes(ex_in))
 
     # Switch-style load-balancing aux loss (mean over the batch's groups)
     density = onehot.to(torch.float32).sum(2).mean(1)  # (G, E) routed fraction
     router_prob = probs.mean(1)  # (G, E)
     per_group = torch.sum(density * router_prob, dim=-1)
-    split = _split()
     aux = e * (torch.mean(per_group) if split == 1 else per_group.sum() / (g * split))
     return sh.carry_marks(out, out.to(x.dtype)), aux / replicas
 

@@ -94,6 +94,7 @@ from .layers import (
     cross_entropy_loss,
     init_mlp,
     init_norm,
+    init_normal,
     mlp,
     mlp_axes,
     mlp_islands,
@@ -175,9 +176,14 @@ def _keeper(shardings):
 def _init_layer(gen, cfg, plan: LayerPlan, dtype, lead: tuple = (), shardings=None):
     dev = gen.device
     keep = _keeper(shardings)
+
+    def sub(name):
+        return sh.subtree(shardings, name)
+
     p = {"norm": keep("norm", init_norm(cfg, dtype, device=dev, lead=lead))}
     if plan.mixer in ("attn", "local", "attn_nc"):
-        p["attn"] = keep("attn", init_attention(gen, cfg, dtype=dtype, lead=lead))
+        p["attn"] = keep("attn", init_attention(gen, cfg, dtype=dtype, lead=lead,
+                                                shardings=sub("attn")))
     elif plan.mixer == "rec":
         p["rec"] = keep("rec", rec_mod.init_rglru(gen, cfg, dtype=dtype, lead=lead))
     elif plan.mixer == "ssm":
@@ -187,13 +193,14 @@ def _init_layer(gen, cfg, plan: LayerPlan, dtype, lead: tuple = (), shardings=No
     if plan.cross:
         p["cross_norm"] = keep("cross_norm", init_norm(cfg, dtype, device=dev, lead=lead))
         p["cross"] = keep("cross", init_attention(gen, cfg, bias=False, dtype=dtype,
-                                                  lead=lead))
+                                                  lead=lead, shardings=sub("cross")))
         if cfg.family == "vlm":
             p["cross_gate"] = keep("cross_gate", torch.zeros(lead, dtype=dtype, device=dev))
     if plan.mixer != "ssm":  # a mamba2 block has no FFN of its own
         p["ffn_norm"] = keep("ffn_norm", init_norm(cfg, dtype, device=dev, lead=lead))
-        p["ffn"] = keep("ffn", moe_mod.init_moe(gen, cfg, dtype=dtype, lead=lead) if plan.moe
-                        else init_mlp(gen, cfg, dtype=dtype, lead=lead))
+        init_ffn = moe_mod.init_moe if plan.moe else init_mlp
+        p["ffn"] = keep("ffn", init_ffn(gen, cfg, dtype=dtype, lead=lead,
+                                        shardings=sub("ffn")))
     return p
 
 
@@ -203,10 +210,13 @@ def init_params(gen: torch.Generator, cfg, dtype=None, *, shardings=None):
     VLM's ``cross_gate`` starts at 0, as there).
 
     ``shardings`` (the params' :class:`~repro_torch.parallel.sharding.NamedSharding`
-    tree on a mesh with ranks, ``launch.steps.state_shardings``): each
-    sub-module (an attention block, an FFN, the embedding table) is cut to
-    this rank's shard as soon as it is drawn, so the whole tree never
-    exists on the rank; the draws are the same as without it."""
+    tree on a mesh with ranks, ``launch.steps.state_shardings`` or
+    ``sharding.column_parallel_shardings``): the GEMM weights, the
+    embedding table and the head are drawn one stacked layer at a time and
+    each layer is cut to this rank's shard as it is drawn
+    (``layers.init_normal``), the rest cut a sub-module at a time, so the
+    whole tree never exists on the rank and its peak holds its shards and
+    one layer's f32 draw; the shards equal the unsharded draw cut."""
     dtype = _dtype(dtype or cfg.dtype)
     pattern, g, r = _split(cfg)
     d, v = cfg.d_model, cfg.vocab
@@ -214,13 +224,14 @@ def init_params(gen: torch.Generator, cfg, dtype=None, *, shardings=None):
     shs = shardings or {}
     keep = _keeper(shardings)
 
-    def table(shape):
-        return (torch.randn(shape, generator=gen, device=dev) * d ** -0.5).to(dtype)
+    def table(shape, sharding):
+        return init_normal(gen, shape, d ** -0.5, dtype, sharding=sharding)
 
-    params = {"embed": keep("embed", table((v, d))),
+    params = {"embed": table((v, d), sh.subtree(shardings, "embed")),
               "final_norm": keep("final_norm", init_norm(cfg, dtype, device=dev))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = keep("lm_head", {"w": table((d, v))})
+        params["lm_head"] = {"w": table((d, v), sh.subtree(
+            sh.subtree(shardings, "lm_head"), "w"))}
     params["blocks"] = tuple(
         _init_layer(gen, cfg, p, dtype, lead=(g,),
                     shardings=shs["blocks"][i] if shardings else None)
@@ -495,7 +506,9 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
                                cache_len=clen, policy=policy)
             if mode == "prefill":
                 newc["attn"] = c
-            out = constrain(out, "batch", "seq_act", "act_embed")
+        # a column shard of the residual width (wo's columns under embed
+        # over "model") is gathered here, in decode too
+        out = constrain(out, "batch", "seq_act", "act_embed")
         h = _add(h, out)
     else:  # the recurrent mixers: RG-LRU ("rec") and Mamba2 SSD ("ssm")
         mod, block, step = ((rec_mod, rec_mod.rglru_block, rec_mod.rglru_decode_step)
@@ -510,8 +523,7 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
             newc[plan.mixer] = c
         else:
             out = block(tpl, cfg, p[plan.mixer], a_in)
-        if mode != "decode":
-            out = constrain(out, "batch", "seq_act", "act_embed")
+        out = constrain(out, "batch", "seq_act", "act_embed")
         h = _add(h, out)
     if part == "mixer":
         return h, (newc or None), aux
@@ -530,8 +542,7 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
                 newc["cross"] = c
         if "cross_gate" in p:
             out = sh.carry_marks(out, torch.tanh(p["cross_gate"]).to(out.dtype) * out)
-        if mode != "decode":
-            out = constrain(out, "batch", "seq_act", "act_embed")
+        out = constrain(out, "batch", "seq_act", "act_embed")
         h = _add(h, out)
 
     if plan.mixer != "ssm":
@@ -542,8 +553,7 @@ def _run_layer(tpl, cfg, plan: LayerPlan, p, h, *, positions, mode, cache=None, 
             out, aux = moe_mod.moe_ffn(tpl, cfg, p["ffn"], f_in)
         else:
             out = mlp(tpl, cfg, p["ffn"], f_in, policy=policy)
-        if mode != "decode":
-            out = constrain(out, "batch", "seq_act", "act_embed")
+        out = constrain(out, "batch", "seq_act", "act_embed")
         h = _add(h, out)
     h = constrain(h, "batch", "seq_act", "act_embed")
     return h, (newc or None), aux
@@ -700,6 +710,8 @@ def _head(tpl, cfg, params, h, *, policy=None):
         # same axis is gathered (a weight gather: backward reduce-scatter)
         w = sh.gather_fsdp(params["embed"] if cfg.tie_embeddings else head)
         w = sh.gather_params(w, sh.mark_axes(h))
+        if cfg.tie_embeddings:  # a table cut along embed: the head contracts it whole
+            w = sh.replicated(w, dims=(-1,))
         logits = tpl.matmul(h, w.T if cfg.tie_embeddings else w)
     # a vocab-sharded head's logits stay sharded at the seam; the entry
     # points gather them whole before they are read.  Only the vocab dim:

@@ -92,6 +92,7 @@ __all__ = [
     "named_sharding",
     "tree_shardings",
     "shard_tree",
+    "subtree",
     "plan_spatial_halo",
     "spatial_shards",
     "halo_exchange",
@@ -825,6 +826,8 @@ def local_rows(n: int, mesh, axes: MeshAxes) -> tuple:
 
 
 def _slice(leaf, spec: PartitionSpec, mesh):
+    if shard_marks(leaf):
+        return leaf  # already this rank's shard (cut as it was drawn)
     marks = []
     t = _raw(leaf)
     nd = t.ndim
@@ -847,8 +850,9 @@ def shard_tree(tree, shardings):
     """``tree`` sliced to the calling rank's shard of each leaf, per a
     parallel :class:`NamedSharding` tree (from :func:`tree_shardings` or
     :func:`column_parallel_shardings`); sliced leaves are contiguous and
-    carry their shard marks (a None sharding leaves its subtree as it is).
-    The mesh must have process groups."""
+    carry their shard marks (a None sharding leaves its subtree as it is,
+    and so does a leaf that already carries marks: it is a shard).  The
+    mesh must have process groups."""
     if shardings is None:
         return tree
     if isinstance(shardings, NamedSharding):
@@ -862,6 +866,15 @@ def shard_tree(tree, shardings):
     if isinstance(shardings, (tuple, list)):
         return _seq(shardings, [shard_tree(t, s) for t, s in zip(tree, shardings)])
     raise TypeError(f"bad shardings node {shardings!r}")
+
+
+def subtree(shardings, key):
+    """The shardings of ``key``'s subtree of a :class:`NamedSharding` tree:
+    a replicated sharding over a whole subtree (a None axes leaf) covers
+    each of its children; None stays None."""
+    if shardings is None or isinstance(shardings, NamedSharding):
+        return shardings
+    return shardings[key]
 
 
 def unshard_leaf(leaf, sharding: NamedSharding, root: bool = False):
@@ -1080,10 +1093,13 @@ def embedding_lookup(table, ids):
     """``table[ids]``; on a rank that holds a vocab shard of the table (its
     dim 0 marked), the masked lookup of this rank's vocab range, marked a
     partial sum over the vocab's axes: each position has exactly one
-    non-zero term, so the summed lookup equals the whole table's."""
+    non-zero term, so the summed lookup equals the whole table's.  A table
+    cut along its embedding dim (``embed`` over a mesh axis) gives rows
+    marked on their last dim, gathered by the seam that reads them."""
     vocab = [mk for mk in shard_marks(table) if mk[0] % table.ndim == 0]
     if not vocab or _CTX.mesh is None:
-        return table[ids]
+        cols = tuple((-1, a, n) for d, a, n in shard_marks(table) if d % table.ndim == 1)
+        return mark_shard(table[ids], cols)
     _, axes, full = vocab[0]
     lo, hi = local_rows(full, _CTX.mesh, axes)
     local = ids - lo

@@ -150,11 +150,9 @@ def _port_cfg(name):
 def test_unsupported_families_and_policies_rejected(setup, case):
     """Padding is unsound for recurrent / SSM state, cross-attention and
     windowed rings, and a quantized policy needs the q16 backend: refused
-    at construction, as the reference refuses them.  The meshed serving of
-    a family other than the dense one (an MoE here) is not ported yet and
-    raises NotImplementedError; a mesh without ranks (a layout only) is
-    refused: the meshed scheduler runs on ranks (the sharded decode
-    tests)."""
+    at construction, as the reference refuses them.  A mesh without ranks
+    (a layout only) is refused, for the dense family and for an MoE alike:
+    the meshed scheduler runs on ranks (the sharded decode tests)."""
     cfg, params, tpl, _, _ = setup
     kw, err = {}, ValueError
     if case in ("mamba2-1.3b", "recurrentgemma-9b", "whisper-medium"):
@@ -170,9 +168,11 @@ def test_unsupported_families_and_policies_rejected(setup, case):
     else:
         from repro_torch.launch.mesh import make_test_mesh
 
-        cfg, err = _port_cfg("granite-moe-3b-a800m"), NotImplementedError
+        cfg = _port_cfg("granite-moe-3b-a800m")
         kw["mesh"] = make_test_mesh()
-    with pytest.raises(err, match="requires the 'q16' backend" if "policy" in kw else None):
+    match = ("requires the 'q16' backend" if "policy" in kw else
+             "runs on ranks" if "mesh" in kw else None)
+    with pytest.raises(err, match=match):
         ServeScheduler(cfg, params, tpl=tpl, clock=VirtualClock(), **kw)
 
 

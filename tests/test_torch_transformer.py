@@ -52,7 +52,7 @@ from repro_torch.kernels import matmul_fp
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.launch.scheduler import ServeScheduler, compiled_steps
+from repro_torch.launch.scheduler import ServeScheduler
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as T
 
@@ -316,8 +316,9 @@ def test_unported_paths_raise(setup):
     """What the port still refuses: training on a kernel template (autograd
     cannot differentiate the kernels; ROADMAP queue 1 item 7 trains on the
     torch template) or over a mesh whose "model" axis does not divide its
-    ranks, and the meshed serving of every family but the dense one
-    (compiled_steps and ServeScheduler on a mesh)."""
+    ranks, and, as the reference does, the scheduler for the families whose
+    layers do not all mix by full attention, meshed or not (they are
+    meshed through ``compiled_steps(mesh=)``)."""
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
 
@@ -328,15 +329,13 @@ def test_unported_paths_raise(setup):
     with pytest.raises(ValueError, match="multiple of model"):
         train.train_mesh(6, False, model=4)
     mesh = make_test_mesh()
-    for name in ("granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-9b",
-                 "whisper-medium", "llama-3.2-vision-90b"):
+    for name in ("mamba2-1.3b", "recurrentgemma-9b", "whisper-medium",
+                 "llama-3.2-vision-90b"):
         other = reduced(get_config(name))
-        with pytest.raises(NotImplementedError, match="meshed serving"):
-            compiled_steps(tpl, other, 32, mesh=mesh)
-    moe = reduced(get_config("granite-moe-3b-a800m"))
-    with pytest.raises(NotImplementedError, match="meshed serving"):
-        ServeScheduler(moe, T.init_params(torch.Generator().manual_seed(0), moe), tpl=tpl,
-                       mesh=mesh)
+        p = T.init_params(torch.Generator().manual_seed(0), other)
+        for m in (None, mesh):
+            with pytest.raises(ValueError, match="scheduler requires full-attention"):
+                ServeScheduler(other, p, tpl=tpl, mesh=m)
 
 
 # ---------------------------------------------------------------------------
