@@ -125,10 +125,11 @@ non-zero without its result line):
    dead incarnation's memory and the peak after the restart stays within
    one replica of the peak before, the store loads; tokens/s of 1 and 2
    replicas and the restart's cost in ticks and seconds are printed;
-   (c) the CLIs in subprocesses at the reduced size: ``serve --backend q16
+   (c) the CLIs in subprocesses at the reduced size, in parallel chains at
+   the end of the run (with phase 9(c)'s): ``serve --backend q16
    --scheduler --replicas 2 --plan-store S`` twice (the second with no
    search), ``scheduler_soak --backend q16`` under ``REPRO_PLAN_ASSERT_WARM=1``
-   on S (after one run that writes S), ``serve --backend q8 --plan-store``
+   on S3 (after one run that writes S3), ``serve --backend q8 --plan-store``
    twice, ``router_soak --backend q16 --workers 2`` with its real kill;
 8. the paper's FPGA plane: the port's Table 1, Table 2 and DSE-sweep
    scripts (``repro_torch.benchmarks``) print their rows; every paper
@@ -145,7 +146,8 @@ non-zero without its result line):
    bit-identical to the unsharded forward, float within 2e-3 (max |Δ|
    printed beside the reference's own 1e-5), a warm forward plans nothing;
    printed: launches by route, the halo bytes against a full gather's, ms a
-   forward.  (b) qwen2-0.5b at full width and depth, tensor-parallel over a
+   forward.  (b) qwen2-0.5b at full width cut to 8 of its 24 layers
+   (drawn apart from phase 5's), tensor-parallel over a
    2-way "model" axis (column shards, activations gathered at the seams,
    decode eager), float and Q4.12, a ``ServeScheduler`` of 4 slots over the
    ladder (256, 512) on a short ``synthetic_trace``: token streams
@@ -153,9 +155,10 @@ non-zero without its result line):
    plan-store round trip a warm restart searches nothing and streams the
    same tokens; printed: eager ms a meshed decode step beside the
    single-device replayed step.  (c) ``serve --scheduler --shards 2`` in a
-   subprocess exits 0.  (d) granite-moe-3b-a800m at full width and depth,
-   bf16, through the meshed ``ServeScheduler`` on the same two ranks as a
-   (1, 2) mesh under ``DECODE_RULES`` with expert_mlp over "model" (gate /
+   subprocess exits 0 (run with phase 7(c)'s CLIs).  (d)
+   granite-moe-3b-a800m at full width cut to 4 of its 32 layers, bf16,
+   through the meshed ``ServeScheduler`` on the same two ranks as a (1, 2)
+   mesh under ``DECODE_RULES`` with expert_mlp over "model" (gate /
    up column shards, the hidden gathered before down; each rank draws only
    its shards, ``scheduler.serve_shardings``), 4 slots over (256, 512), 4
    requests: streams byte-identical to the single-device scheduler on the
@@ -163,7 +166,7 @@ non-zero without its result line):
    ms a meshed decode step beside the replayed single-device step, the
    expert GEMMs a step, launches.  (e) mamba2-1.3b, recurrentgemma-9b,
    whisper-medium and llama-3.2-vision-90b (phase 10's 5 layers; the others
-   at full depth) at full width through ``compiled_steps(mesh=)`` on the
+   a quarter of their layers, whisper's decoder) at full width through ``compiled_steps(mesh=)`` on the
    same (1, 2) mesh (the SSD and RG-LRU blocks whole on both ranks, their
    states uncut; MLPs and attention projections column shards), 2 x 256
    prompt tokens then 8 greedy decode steps: every step's logits and
@@ -172,8 +175,8 @@ non-zero without its result line):
 10. the other model families ("families"): ``generate`` on the ``cuda``
    backend in bf16, ``init_params`` weights from the seed, 16 greedy
    tokens after each prompt:
-   granite-moe-3b-a800m, mamba2-1.3b and recurrentgemma-9b on 2 x 4096
-   tokens, whisper-medium on 2 x 432 after a 2 x 1500 x 1024 frame context,
+   granite-moe-3b-a800m, mamba2-1.3b and recurrentgemma-9b (cut to 8 of
+   32, 12 of 48 and 9 of 38 layers) on 2 x 4096 tokens, whisper-medium on 2 x 432 after a 2 x 1500 x 1024 frame context,
    llama-3.2-vision-90b at full width cut to 5 layers (one period: 4 self +
    1 gated cross; ``reduced``) on 2 x 1024 after a 2 x 1600 x 8192 image
    context; the VLM's cross gates are set to 0.5 (init_params's 0 would
@@ -200,11 +203,11 @@ non-zero without its result line):
    plain tensor ops, as the reference trains on its ``xla`` backend; no
    hand-written kernel has a backward): (a) qwen2-0.5b at full width and
    depth (bf16, remat on, 493,961,216 parameters) through
-   ``launch/train.main``, 8 steps of 8 x 1024 tokens in 2 microbatches,
-   once fault-free and once failing at step 6 with checkpoints every 4
-   (into a directory under ``build/`` that the phase deletes).  Gates:
-   every loss finite, the last two below the first, one failure and a
-   restart at 4, the restarted run's losses equal to the fault-free run's
+   ``launch/train.main``, 6 steps of 8 x 1024 tokens in 2 microbatches,
+   once fault-free without a checkpoint and once failing at step 4 with
+   checkpoints every 3 (into a directory under ``build/`` that the phase
+   deletes).  Gates: every loss finite, the last two below the first, one
+   failure and a restart at 3, the restarted run's losses equal to the fault-free run's
    bit for bit, step 0 within 1 % (loss) and 5 % (grad norm) of the same
    weights and batch in f32, no kernel launched.  Printed: ms a step,
    tokens/s, peak memory, checkpoint save and restore seconds, the share
@@ -222,15 +225,16 @@ non-zero without its result line):
    llama-vision after 1600 image tokens).  Gates: the loss and every grad
    finite, the loss within 1 % and the grad norm within 5 % of the same
    weights' f32 pass.  Printed: ms and peak memory;
-12. training on ranks ("train_mesh"): (a)'s qwen2-0.5b run at full width
-   through ``launch/train.main --mesh single --ranks 2`` (two gloo ranks
-   of the card, collectives staged through pinned host memory), one run
-   after another on the same two rank processes: FSDP for 2 steps,
-   FSDP failing at step 1 with a checkpoint every step, data-parallel
-   (``--no-fsdp``) for 1, and tensor-parallel (``--model 2``: "model" = 2,
-   sequence-parallel activations) for 2.  Gates: finite losses, step 0
-   within 1e-3 (loss) and 1e-2 (grad norm) of 11(a)'s step 0, the
-   restarted run equal to the fault-free one bit for bit.  Printed: ms a
+12. training on ranks ("train_mesh"): (a)'s qwen2-0.5b run at full width,
+   cut to 4 of its 24 layers, through ``launch/train.main --mesh single
+   --ranks 2`` (two gloo ranks of the card, collectives staged through
+   pinned host memory), one run after another on the same two rank
+   processes: FSDP for 2 steps, FSDP failing at step 1 with a checkpoint
+   every step, data-parallel (``--no-fsdp``) for 1, and tensor-parallel
+   (``--model 2``: "model" = 2, sequence-parallel activations) for 2.
+   Gates: finite losses, step 0 within 1e-3 (loss) and 1e-2 (grad norm)
+   of a single-device step 0 at the same depth, the restarted run equal to
+   the fault-free one bit for bit.  Printed: ms a
    step, tokens/s, each rank's peak memory, save and restore seconds, and
    each run's collectives a step by kind and mesh axis.
 
@@ -248,8 +252,12 @@ expert_mlp over "model") and llama-3.2-vision-90b (``compiled_steps``,
 embed over "model", 2 x 4096 prompt tokens, 16 steps) at full depth on
 the four cards (every request or step completes, finite logits, each
 card's peak under its memory), and each cut to a depth one card holds
-(8 and 10 layers) on four cards against one, bit for bit.  Printed: each
-card's peak memory, prefill tokens/s, eager meshed decode ms a step,
+(8 and 10 layers) on four cards against one, bit for bit.  Each meshed
+run serves eager (``capture=False``), then captured (one CUDA graph a
+signature on each rank, the NCCL collectives inside, every decode step a
+replay) on the same weights: the captured streams and logits equal the
+eager ones bit for bit.  Printed: each card's peak memory, prefill
+tokens/s, eager and replayed decode ms a step, captures a rank,
 collectives a decode step by kind.
 ``--family-split-study`` runs, alone, 9(e)'s families on a (2, 1) mesh of
 two gloo ranks (a row a rank: recurrent states, conv histories and cross
@@ -289,6 +297,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -2872,20 +2881,21 @@ def _searches(out: str) -> int:
 
 
 def phase_fleet_cli(torch):
-    """The fleet's CLIs in subprocesses at the reference's reduced size, in
-    three chains at once: ``serve --backend q16 --scheduler --replicas 2
-    --plan-store S`` twice (the second warm, 0 searches), then
-    ``scheduler_soak --backend q16`` once writing S and once under
-    ``REPRO_PLAN_ASSERT_WARM=1`` on S; ``serve --backend q8 --plan-store S2``
-    twice (the second with no search); ``router_soak --backend q16 --workers
-    2``.  Each exits 0; its last line is printed."""
+    """The CLIs in subprocesses at the reference's reduced size, in five
+    chains at once: ``serve --backend q16 --scheduler --replicas 2
+    --plan-store S`` twice (the second warm, 0 searches);
+    ``scheduler_soak --backend q16`` once writing S3 and once under
+    ``REPRO_PLAN_ASSERT_WARM=1`` on S3; ``serve --backend q8 --plan-store
+    S2`` twice (the second with no search); ``router_soak --backend q16
+    --workers 2``; and phase 9(c)'s ``serve --scheduler --shards 2`` (two
+    gloo ranks).  Each exits 0; its last line is printed."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     size = ["--prompts", "4", "--prompt-len", "8", "--gen", "3"]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        store, store2 = f"{tmp}/serve.json", f"{tmp}/q8.json"
+        store, store2, store3 = f"{tmp}/serve.json", f"{tmp}/q8.json", f"{tmp}/soak.json"
         serve = ["repro_torch.launch.serve"]
         soak = ["repro_torch.benchmarks.scheduler_soak", "--backend", "q16"]
 
@@ -2896,13 +2906,16 @@ def phase_fleet_cli(torch):
             if _searches(cold) == 0 or _searches(warm) != 0:
                 raise AssertionError(f"serve --replicas 2: {_searches(cold)} then "
                                      f"{_searches(warm)} DSE searches")
-            env = {"REPRO_TORCH_PLAN_STORE": store}
+            return [("serve q16 --replicas 2 (cold)", cold), ("serve q16 --replicas 2 "
+                    "(warm)", warm)]
+
+        def soak_chain():
+            env = {"REPRO_TORCH_PLAN_STORE": store3}
             _run_cli(soak + ["--save-store"], env)
             gated = _run_cli(soak, dict(env, REPRO_PLAN_ASSERT_WARM="1"))
             if "warm start OK" not in gated:
                 raise AssertionError(f"scheduler_soak warm gate:\n{gated[-2000:]}")
-            return [("serve q16 --replicas 2 (cold)", cold), ("serve q16 --replicas 2 "
-                    "(warm)", warm), ("scheduler_soak q16 (warm gate)", gated)]
+            return [("scheduler_soak q16 (warm gate)", gated)]
 
         def q8_chain():
             argv = serve + ["--backend", "q8", "--precision-budget", "0.5",
@@ -2917,10 +2930,21 @@ def phase_fleet_cli(torch):
                      _run_cli(["repro_torch.benchmarks.router_soak", "--backend", "q16",
                                "--workers", "2"]))]
 
-        with ThreadPoolExecutor(3) as pool:
-            futures = [pool.submit(f) for f in (fleet_chain, q8_chain, router_soak)]
+        def shards_cli():
+            t1 = time.perf_counter()
+            out = _run_cli(["repro_torch.launch.serve", "--scheduler", "--shards",
+                            str(SHARDS_S)] + size)
+            return [("serve --scheduler --shards 2", out, time.perf_counter() - t1)]
+
+        chains = (fleet_chain, soak_chain, q8_chain, router_soak, shards_cli)
+        with ThreadPoolExecutor(len(chains)) as pool:
+            futures = [pool.submit(f) for f in chains]
             outs = [item for fut in futures for item in fut.result()]
-    for name, out in outs:
+    for name, out, *secs in outs:
+        if secs:
+            emit({"phase": "shards_cli", "argv": name, "rc": 0, "seconds": secs[0],
+                  "stdout_tail": out.strip().splitlines()[-3:]})
+            continue
         lines = [ln for ln in out.strip().splitlines() if ln.strip()]
         searches = [ln for ln in lines if "DSE searches" in ln]
         emit({"phase": "fleet_cli", "run": name, "last_line": lines[-1][:600],
@@ -2987,22 +3011,29 @@ SHARDS_SLOTS = 4
 SHARDS_LADDER = (256, 512)
 SHARDS_REQUESTS = 6
 SHARDS_MAX_NEW = 8
+#: (b)'s qwen2-0.5b at full width cut to 8 of its 24 layers (the smoke's
+#: time: four eager scheduler runs a rank)
+SHARDS_QWEN_DEPTH = 8
 SHARDS_MIN_LEN = 64
 SHARDS_FORWARD_REPS = 3
 SHARDS_DIR = ROOT / "build" / "shards_phase"
-#: (d): granite-moe at full width and depth through the meshed scheduler on
-#: a (1, 2) ("data", "model") mesh, expert_mlp over "model" (gate / up
-#: column shards, the hidden gathered before down), 4 slots over (256, 512)
+#: (d): granite-moe at full width, cut to 4 of its 32 layers (the smoke's
+#: time: its eager step took about 1 s at full depth), through the meshed
+#: scheduler on a (1, 2) ("data", "model") mesh, expert_mlp over "model"
+#: (gate / up column shards, the hidden gathered before down), 4 slots over
+#: (256, 512)
 MOE_MESH_ARCH = "granite-moe-3b-a800m"
+MOE_MESH_DEPTH = 4
 MOE_MESH_OVERRIDES = (("expert_mlp", "model"),)
 MOE_MESH_REQUESTS = 4
 #: (e): the non-attention families through compiled_steps(mesh=) on the
 #: same (1, 2) mesh (the SSD and RG-LRU blocks whole on both "model" ranks,
 #: their states uncut; the MLPs and attention projections column shards),
-#: full width, (config, depth cut or None): llama-vision at phase 10's 5
-#: layers; ``--family-split-study`` runs them on (2, 1), a row a rank
-FAMILY_MESH_RUNS = (("mamba2-1.3b", None), ("recurrentgemma-9b", None),
-                    ("whisper-medium", None), ("llama-3.2-vision-90b", 5))
+#: full width, (config, depth cut): a quarter of the layers (the smoke's
+#: time; whisper's decoder, its encoder whole), llama-vision at phase 10's
+#: 5 layers; ``--family-split-study`` runs them on (2, 1), a row a rank
+FAMILY_MESH_RUNS = (("mamba2-1.3b", 12), ("recurrentgemma-9b", 9),
+                    ("whisper-medium", 6), ("llama-3.2-vision-90b", 5))
 FAMILY_MESH_BATCH = 2
 FAMILY_MESH_PROMPT = 256
 FAMILY_MESH_STEPS = 8
@@ -3142,19 +3173,22 @@ def moe_mesh_serve(torch, cfg, params, mesh, rules):
 
 
 def family_mesh_steps(torch, cfg, params, tokens, ctx, mesh=None, rules=None,
-                      steps=FAMILY_MESH_STEPS):
+                      steps=FAMILY_MESH_STEPS, capture=True):
     """``compiled_steps``: the prefill, then ``steps`` greedy decode steps
-    (``mesh``: on this rank's rows of the cache, eager; else replayed
-    graphs); each step's logits (host, f32) and tokens, the prefill's and
-    each decode step's ms, each decode step's collectives by kind, the
-    launches."""
+    (``mesh``: on this rank's rows of the cache, eager under gloo or with
+    ``capture`` False, replayed graphs over NCCL; else replayed graphs);
+    each step's logits (host, f32) and tokens, the prefill's and each
+    decode step's ms, each decode step's collectives by kind, the
+    launches, the captures."""
     from repro_torch.core.template import default_template
     from repro_torch.kernels import _build
-    from repro_torch.launch.scheduler import compiled_steps, shard_cache
+    from repro_torch.launch.scheduler import CAPTURE_COUNTS, compiled_steps, shard_cache
     from repro_torch.parallel import sharding as sh
 
     s = tokens.shape[1]
-    fns = compiled_steps(default_template("cuda"), cfg, s + steps, mesh=mesh, rules=rules)
+    fns = compiled_steps(default_template("cuda"), cfg, s + steps, mesh=mesh, rules=rules,
+                         capture=capture)
+    caps0 = sum(CAPTURE_COUNTS.values())
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3178,11 +3212,11 @@ def family_mesh_steps(torch, cfg, params, tokens, ctx, mesh=None, rules=None,
         out.append(logits.float().cpu())
         tok = tok.clone()
         toks.append(tok.cpu())
-    if mesh is None:
-        fns.decode_next.release(None)
+    fns.decode_next.release(None)
     return {"logits": torch.stack(out), "tokens": torch.stack(toks, 1), "decode_ms": ms,
             "prefill_ms": [prefill_ms], "prefill_tokens": int(tokens.numel()),
-            "collectives": coll, "launches": dict(_build.launches)}
+            "collectives": coll, "launches": dict(_build.launches),
+            "captures": sum(CAPTURE_COUNTS.values()) - caps0}
 
 
 def family_mesh_inputs(torch, dev, cfg):
@@ -3209,7 +3243,7 @@ def shards_rank_families(torch, dev, rank, tp):
 
     out = {}
     t0 = time.perf_counter()
-    cfg, _ = family_cfg(MOE_MESH_ARCH, None)
+    cfg, _ = family_cfg(MOE_MESH_ARCH, MOE_MESH_DEPTH)
     rules = DECODE_RULES.with_overrides(**dict(MOE_MESH_OVERRIDES))
     params = family_params(torch, dev, cfg, shardings=serve_shardings(cfg, tp, rules))
     torch.cuda.synchronize()
@@ -3300,7 +3334,6 @@ def shards_rank(payload, rank, world, dev):
     """One of the phase's two ranks on the card: the spatial forwards with a
     slab each over "data", then tensor-parallel decode over "model"."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.template import default_template
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import Mesh
@@ -3349,7 +3382,7 @@ def shards_rank(payload, rank, world, dev):
             rec["warm_misses"] = warm["misses"]
     del data
     torch.cuda.empty_cache()
-    cfg = get_config(QWEN_ARCH)
+    cfg, _ = family_cfg(QWEN_ARCH, SHARDS_QWEN_DEPTH)
     params = qwen_params(torch, dev, cfg)
     tp = Mesh((1, world), ("data", "model")).init_groups()
     for numerics, pol in (("float", None), ("grid", payload["grid_policy"])):
@@ -3381,8 +3414,6 @@ def _phase_9de(torch, single, ranks, ranks_s) -> tuple:
     complete, every meshed decode step eager; every rank's families' logits
     and tokens bit for bit the single-device ``compiled_steps``'.  Returns
     the two launch windows (summed over the ranks)."""
-    from repro_torch.configs import get_config
-
     ref = single["moe"]
     for r, rec in enumerate(ranks):
         got = rec["moe"]
@@ -3395,9 +3426,9 @@ def _phase_9de(torch, single, ranks, ranks_s) -> tuple:
             raise AssertionError(f"9(d): rank {r}: {got['completed']} of {MOE_MESH_REQUESTS} "
                                  f"completed, {got['meshed_eager_steps']} eager of "
                                  f"{got['decode_steps']} steps")
-    cfg = get_config(MOE_MESH_ARCH)
+    cfg, reduced_line = family_cfg(MOE_MESH_ARCH, MOE_MESH_DEPTH)
     r0 = ranks[0]["moe"]
-    emit({"phase": "shards_moe_decode", "arch": MOE_MESH_ARCH, "reduced": None,
+    emit({"phase": "shards_moe_decode", "arch": MOE_MESH_ARCH, "reduced": reduced_line,
           "mesh": {"data": 1, "model": SHARDS_S}, "rules": "DECODE_RULES + " + ", ".join(
               f"{n} -> {a}" for n, a in MOE_MESH_OVERRIDES), "slots": SHARDS_SLOTS,
           "ladder": SHARDS_LADDER, "requests": MOE_MESH_REQUESTS, "nvidia_smi": nvidia_smi(),
@@ -3460,7 +3491,7 @@ def _halo_bytes(spec, plan, itemsize):
     return halo, gather
 
 
-def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
+def phase_shards(torch, dev, cnn_state, grid_policy):
     """Phase 9 (module docstring).  ``cnn_state``: {net: (float params, x,
     grid policy)} from phase 3.  Returns the launch windows of the ranks'
     main paths (summed over the ranks)."""
@@ -3504,12 +3535,15 @@ def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
 
     # (b): the single-device scheduler on the card, the streams' reference
     single = {}
+    cfg, reduced_line = family_cfg(QWEN_ARCH, SHARDS_QWEN_DEPTH)
+    params = qwen_params(torch, dev, cfg)
     for numerics, pol in (("float", None), ("grid", grid_policy)):
         single[numerics] = shards_serve(torch, cfg, params, pol, None, None)
+    del params
     torch.cuda.empty_cache()
     # (d), (e): the single-device runs on the card, the ranks' references
     t0 = time.perf_counter()
-    mcfg, _ = family_cfg(MOE_MESH_ARCH, None)
+    mcfg, _ = family_cfg(MOE_MESH_ARCH, MOE_MESH_DEPTH)
     mparams = family_params(torch, dev, mcfg)
     single["moe"] = moe_mesh_serve(torch, mcfg, mparams, None, None)
     del mparams
@@ -3578,6 +3612,7 @@ def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
         kernel = "matmul_fp" if numerics == "float" else "matmul_q16"
         r0 = ranks[0][numerics]
         emit({"phase": "shards_decode", "numerics": numerics, "arch": QWEN_ARCH,
+              "reduced": reduced_line,
               "mesh": {"data": 1, "model": SHARDS_S}, "slots": SHARDS_SLOTS,
               "ladder": SHARDS_LADDER, "requests": SHARDS_REQUESTS,
               "nvidia_smi": nvidia_smi(), "streams_byte_identical": True,
@@ -3597,18 +3632,7 @@ def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
     emit({"phase": "shards_spatial_launches", "ranks": SHARDS_S,
           "both_nets_both_numerics": {k: v for k, v in spatial.items() if v}})
 
-    # (c) the CLI
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--scheduler",
-                          "--shards", str(SHARDS_S), "--prompts", "4", "--prompt-len", "8",
-                          "--gen", "3"], capture_output=True, text=True, cwd=ROOT,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300)
-    if res.returncode != 0:
-        raise AssertionError(f"serve --shards {SHARDS_S} exited {res.returncode}:\n"
-                             f"{res.stderr[-3000:]}")
-    emit({"phase": "shards_cli", "argv": f"serve --scheduler --shards {SHARDS_S}",
-          "rc": 0, "seconds": time.perf_counter() - t0,
-          "stdout_tail": res.stdout.strip().splitlines()[-3:]})
+    # (c) the CLI runs with the other CLIs (phase_fleet_cli)
     windows = {"shards spatial": spatial}
     for numerics in ("float", "grid"):
         windows[f"shards decode {numerics}"] = _sum_launches(rec[numerics]["launches"]
@@ -3627,9 +3651,12 @@ def phase_shards(torch, dev, cnn_state, cfg, params, grid_policy):
 
 #: (config, depth cut or None, prompts, prompt length); 16 greedy tokens each
 FAMILY_RUNS = (
-    ("granite-moe-3b-a800m", None, 2, 4096),
-    ("mamba2-1.3b", None, 2, 4096),
-    ("recurrentgemma-9b", None, 2, 4096),
+    # 8 of 32 layers at full width (the smoke's time: the plain path's check
+    # at full depth took half a minute)
+    ("granite-moe-3b-a800m", 8, 2, 4096),
+    # a quarter of the layers (the smoke's time)
+    ("mamba2-1.3b", 12, 2, 4096),
+    ("recurrentgemma-9b", 9, 2, 4096),
     ("whisper-medium", None, 2, 432),  # + 16 = whisper's 448-token decoder context
     # 100 layers are 180 GB of weights: one period of 4 self + 1 gated cross
     # layer, ~13 GB, at full width
@@ -3802,7 +3829,8 @@ def phase_families(torch, dev):
         cfg = get_config(name)
         reduced_line = None
         if depth is not None:
-            reduced_line = f"n_layers {cfg.n_layers} -> {depth} (one cross period)"
+            reduced_line = f"n_layers {cfg.n_layers} -> {depth}" + (
+                " (one cross period)" if cfg.family == "vlm" else "")
             cfg = dataclasses.replace(cfg, n_layers=depth)
         params = family_params(torch, dev, cfg)
         prompts = synthetic_batch(SEED, 0, b, s, cfg.vocab, device=dev)
@@ -4008,13 +4036,13 @@ def family_scheduler(torch, cfg, params, tpl):
 # ---------------------------------------------------------------------------
 
 #: qwen2-0.5b through launch/train.main at full width and depth (bf16, remat
-#: on): 8 steps of 8 x 1024 tokens in 2 microbatches; run B fails at step 6
-#: and resumes from its step-4 checkpoint
+#: on): 6 steps of 8 x 1024 tokens in 2 microbatches; run B fails at step 4
+#: and resumes from its step-3 checkpoint
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_PARAMS = 493_961_216
 TRAIN_ARGV = ("--full", "--batch", "8", "--seq", "1024", "--accum", "2", "--lr", "1e-3",
-              "--steps", "8", "--log-every", "1", "--seed", str(SEED))
-TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 6
+              "--steps", "6", "--log-every", "1", "--seed", str(SEED))
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 3, 4
 #: step 0 of the bf16 run against the same weights and batch in f32 on the card
 TRAIN_F32_LOSS_TOL, TRAIN_F32_GNORM_TOL = 0.01, 0.05
 #: the same gates for phase 11c's one loss_fn forward and backward a family
@@ -4053,10 +4081,10 @@ def _rel(a: float, b: float) -> float:
 
 def phase_train_qwen(torch, dev):
     """qwen2-0.5b through ``launch/train.main`` at full width: run A fault-free
-    (one checkpoint, at the end), run B with checkpoints every 4 steps and a
-    failure at step 6.  Gates: finite losses; A's last two below its first;
-    B one failure, resumed at 4; B's steps 0-5 and, after the restart, 4-7
-    equal to A's bit for bit; A's step 0 within 1 % (loss) and 5 % (grad
+    (no checkpoint), run B with checkpoints every 3 steps and a failure at
+    step 4.  Gates: finite losses; A's last two below its first; B one
+    failure, resumed at 3; B's steps 0-3 and, after the restart, 3-5 equal
+    to A's bit for bit; A's step 0 within 1 % (loss) and 5 % (grad
     norm) of the same weights and batch in f32.  Printed: ms a step,
     tokens/s, peak memory, checkpoint save / restore seconds, the share of
     the bf16 dense peak that 6·N·D reaches, one warm step's device time by
@@ -4089,11 +4117,10 @@ def phase_train_qwen(torch, dev):
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t_a = time.perf_counter()
-        stats_a, loss_a = train.main(argv + ["--ckpt-every", str(steps + 1),
+        stats_a, loss_a = train.main(argv + ["--ckpt-every", "0",
                                              "--ckpt-dir", str(work / "a")])
         a_s = time.perf_counter() - t_a
         peak_a = torch.cuda.max_memory_allocated()
-        shutil.rmtree(work / "a")
         torch.cuda.reset_peak_memory_stats()
         t_b = time.perf_counter()
         stats_b, loss_b = train.main(argv + ["--ckpt-every", str(TRAIN_CKPT_EVERY),
@@ -4113,7 +4140,7 @@ def phase_train_qwen(torch, dev):
         raise AssertionError(f"train: the loss did not fall: {loss_a}")
     if (stats_b["failures"], stats_b["restarts"]) != (1, [TRAIN_CKPT_EVERY]):
         raise AssertionError(f"train: run B {stats_b}")
-    # B: steps 0..5, the failure at 6, steps 4..7 again from the checkpoint
+    # B: steps 0..3, the failure at 4, steps 3..5 again from the checkpoint
     want = loss_a[:TRAIN_FAIL_AT] + loss_a[TRAIN_CKPT_EVERY:]
     if loss_b != want:
         raise AssertionError(f"train: run B's losses {loss_b} are not run A's {loss_a} "
@@ -4327,23 +4354,47 @@ def phase_training(torch, dev):
 # ---------------------------------------------------------------------------
 
 #: qwen2-0.5b at phase 11a's width and batch (TRAIN_ARGV: 8 x 1024 in 2
-#: microbatches) through ``train.main --mesh single`` on two gloo ranks of
-#: the card, one run after another on the same two rank processes: FSDP and
-#: data-parallel (``--no-fsdp``) with no checkpoint, FSDP failing at step 1
-#: with a checkpoint every step, and tensor-parallel ("model" = 2) with no
-#: checkpoint
+#: microbatches), cut to ``MESH_DEPTH`` of its 24 layers (the smoke's time:
+#: a gloo step at full depth took 10-16 s), through ``train.main --mesh
+#: single`` on two gloo ranks of the card, one run after another on the
+#: same two rank processes: FSDP and data-parallel (``--no-fsdp``) with no
+#: checkpoint, FSDP failing at step 1 with a checkpoint every step, and
+#: tensor-parallel ("model" = 2) with no checkpoint
 MESH_RANKS = 2
+MESH_DEPTH = 4
 MESH_STEPS = {"fsdp": 2, "fsdp_restart": 2, "dp": 1, "tp": 2}
 MESH_FAIL_AT = MESH_CKPT_EVERY = 1
-#: step 0 on the ranks against phase 11a's single-device step 0
+#: step 0 on the ranks against the single-device step 0 at the same depth
 MESH_LOSS_TOL, MESH_GNORM_TOL = 1e-3, 1e-2
 
 
-def train_mesh_runs(runs, rank=0, world=1, dev=None):
+@contextlib.contextmanager
+def _train_depth(depth):
+    """``train.main`` builds ``TRAIN_ARCH`` cut to ``depth`` layers (full
+    width) inside (None: whole)."""
+    from repro_torch.launch import train
+
+    inner = train.get_config
+
+    def get_config(name):
+        cfg = inner(name)
+        if depth is None or name != TRAIN_ARCH:
+            return cfg
+        return dataclasses.replace(cfg, n_layers=depth)
+
+    train.get_config = get_config
+    try:
+        yield
+    finally:
+        train.get_config = inner
+
+
+def train_mesh_runs(runs, rank=0, world=1, dev=None, depth=None):
     """Phase 12's rank body: ``train.main(argv)`` of each (name, argv) of
-    ``runs`` in turn on this rank; rank 0 returns each run's stats, losses,
-    seconds and the seams' collectives (``sharding.SEAM_COUNTS``, counted
-    from 0 just before the run) and removes its checkpoints."""
+    ``runs`` in turn on this rank (``depth``: ``TRAIN_ARCH`` cut to it);
+    rank 0 returns each run's stats, losses, seconds and the seams'
+    collectives (``sharding.SEAM_COUNTS``, counted from 0 just before the
+    run) and removes its checkpoints."""
     from repro_torch.launch import train
     from repro_torch.parallel import sharding
 
@@ -4351,7 +4402,8 @@ def train_mesh_runs(runs, rank=0, world=1, dev=None):
     for name, argv in runs:
         t0 = time.perf_counter()
         sharding.SEAM_COUNTS.clear()
-        stats, losses = train.main(argv)
+        with _train_depth(depth):
+            stats, losses = train.main(argv)
         out[name] = {"stats": stats, "losses": list(losses),
                      "seconds": time.perf_counter() - t0,
                      "seams": [[*k, n] for k, n in sorted(sharding.SEAM_COUNTS.items())]}
@@ -4360,27 +4412,28 @@ def train_mesh_runs(runs, rank=0, world=1, dev=None):
     return out if rank == 0 else None
 
 
-def phase_train_mesh(torch, dev, step0):
-    """Phase 12: qwen2-0.5b at full width through ``launch/train.main --mesh
-    single --ranks 2`` (two gloo ranks of the card, collectives staged
-    through the host), four runs, one after another on the same two rank
+def phase_train_mesh(torch, dev):
+    """Phase 12: qwen2-0.5b at full width, cut to ``MESH_DEPTH`` layers,
+    through ``launch/train.main --mesh single --ranks 2`` (two gloo ranks of
+    the card, collectives staged through the host), four runs, one after another on the same two rank
     processes (``main`` called on each rank trains on them), so each run
     has the card alone: FSDP (``TRAIN_RULES``) and data-parallel
     (``--no-fsdp``), both without checkpoints, FSDP with a failure at step
     1 and a checkpoint every step (saved gathered by rank 0, restored onto
     the ranks' shardings), and tensor-parallel (``--model 2``: "model" = 2,
     heads / qkv / mlp / vocab and the residual stream's sequence over it)
-    without checkpoints.  Steps and checkpoints are cut, never the width.
-    Gates: every loss finite; step 0's loss within 1e-3 and its grad norm
-    within 1e-2 (relative) of phase 11a's single-device step 0 on the same
-    weights and batch (``step0``); the restarted run's losses and grad
-    norms equal to the fault-free FSDP run's bit for bit.  Printed: ms a
+    without checkpoints.  Depth, steps and checkpoints are cut, never the
+    width.  Gates: every loss finite; step 0's loss within 1e-3 and its grad
+    norm within 1e-2 (relative) of ``train.main``'s single-device step 0 at
+    the same depth on the same weights and batch; the restarted run's losses
+    and grad norms equal to the fault-free FSDP run's bit for bit.  Printed: ms a
     step, tokens/s and each rank's peak memory a run, the checkpoint's save
     and restore seconds, each run's collectives a step by kind and mesh
     axis, each run's and the phase's seconds.  The ranks run on the torch
     template: no kernel."""
     import tempfile
 
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_ranks
 
     t0 = time.perf_counter()
@@ -4395,11 +4448,17 @@ def phase_train_mesh(torch, dev, step0):
              "tp": ["--model", "2", "--ckpt-every", "0"]}
     work = Path(tempfile.mkdtemp(prefix="train_mesh_phase_", dir=ROOT / "build"))
     try:
+        one = ["--arch", TRAIN_ARCH, *TRAIN_ARGV, "--device", str(dev), "--steps", "1",
+               "--ckpt-every", "0", "--ckpt-dir", str(work / "one")]
+        single = train_mesh_runs([("one", one)], depth=MESH_DEPTH)["one"]
+        step0 = (single["losses"][0], single["stats"]["grad_norms"][0])
+        torch.cuda.empty_cache()
+        t_spawn = time.perf_counter()
         runs = spawn_ranks(functools.partial(train_mesh_runs, [
             (name, argv + extra[name] + ["--steps", str(MESH_STEPS[name]),
                                          "--ckpt-dir", str(work / name)])
-            for name in extra]), MESH_RANKS, device=str(dev))[0]
-        spawned = time.perf_counter() - t0
+            for name in extra], depth=MESH_DEPTH), MESH_RANKS, device=str(dev))[0]
+        spawned = time.perf_counter() - t_spawn
     finally:
         shutil.rmtree(work, ignore_errors=True)
     from repro_torch.parallel.sharding import collective_counts
@@ -4443,6 +4502,8 @@ def phase_train_mesh(torch, dev, step0):
         raise AssertionError(f"train mesh: the restarted run's steps {again['losses']} are "
                              f"not the fault-free run's {free['losses']}")
     emit({"phase": "train_mesh", "arch": TRAIN_ARCH, "argv": argv, "ranks": MESH_RANKS,
+          "reduced": f"n_layers {get_config(TRAIN_ARCH).n_layers} -> {MESH_DEPTH}",
+          "single_device_step0_s": single["seconds"],
           "backend": "gloo (both ranks on the card, host-staged)",
           "mesh": {name: "('data', 'model') = " + ("(1, 2)" if name == "tp" else
                                                    f"({MESH_RANKS}, 1)") for name in runs},
@@ -4629,29 +4690,66 @@ SERVE_NCCL_RUNS = (
 )
 
 
+def _nccl_sched_run(torch, cfg, params, mesh, rules, capture):
+    """One scheduler run of ``--serve-mesh-nccl`` (``mesh`` None: one card):
+    warm-up, the trace; the streams, each picked token's logits row (on the
+    card), each decode step's ms and collectives, the decode steps by kind
+    and the captures warm-up and trace made."""
+    from repro_torch.core.template import default_template
+    from repro_torch.launch.scheduler import (CAPTURE_COUNTS, SchedulerConfig, ServeScheduler,
+                                              VirtualClock, replay_trace, synthetic_trace)
+
+    caps0 = sum(CAPTURE_COUNTS.values())
+    sched = ServeScheduler(cfg, params, tpl=default_template("cuda"), clock=VirtualClock(),
+                           mesh=mesh, rules=rules, capture=capture,
+                           sched=SchedulerConfig(ladder=SERVE_NCCL_LADDER,
+                                                 slots=SERVE_NCCL_SLOTS,
+                                                 max_new_limit=SERVE_NCCL_MAX_NEW))
+    rows = []
+    sched.logit_sink = lambda req, row: rows.append(row.detach().clone())
+    sched.warmup()
+    counted = _counted_decode(torch, sched)
+    trace = synthetic_trace(SERVE_NCCL_REQUESTS, seed=SEED, vocab=cfg.vocab,
+                            ladder=SERVE_NCCL_LADDER, max_new=SERVE_NCCL_MAX_NEW,
+                            min_len=SHARDS_MIN_LEN)
+    t1 = time.perf_counter()
+    replay_trace(sched, trace, tick=0.0)
+    torch.cuda.synchronize()
+    rec = dict(counted, trace_s=time.perf_counter() - t1,
+               streams=[list(r.generated) for r in trace], logit_rows=torch.stack(rows),
+               completed=int(sched.counters["completed"]),
+               decode_steps=int(sched.counters["decode_steps"]),
+               eager_steps=int(sched.counters["meshed_eager_decode_steps"]),
+               replayed_steps=int(sched.counters["meshed_replayed_decode_steps"]),
+               captures=sum(CAPTURE_COUNTS.values()) - caps0)
+    sched.release()
+    return rec
+
+
 def nccl_serve(payload, rank=0, world=1, dev=None):
     """``payload["runs"]`` of ``SERVE_NCCL_RUNS``' shape, each on this rank's
-    share of a (1, ``world``) mesh (or, with ``payload["meshed"]`` false, on
-    one card): weights drawn as this rank's shards from the seed, then the
-    scheduler's trace or the VLM's steps.  Per run: the streams (and the
-    steps' logits), prefill and decode ms, collectives a decode step by
-    kind, the card's peak memory; an out-of-memory error is raised with the
-    peak."""
+    share of a (1, ``world``) mesh, eager (``capture=False``) and then
+    captured (a CUDA graph a signature, replayed), or (``payload["meshed"]``
+    false) on one card: weights drawn as this rank's shards from the seed,
+    then the scheduler's trace or the VLM's steps.  Per run and mode: the
+    streams (and the steps' logits), prefill and decode ms, collectives a
+    decode step by kind, captures; whether the captured logits equal the
+    eager ones bit for bit; the card's peak memory.  An out-of-memory error
+    is raised with the peak."""
     import torch
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.scheduler import (SchedulerConfig, ServeScheduler, VirtualClock,
-                                              replay_trace, serve_shardings, synthetic_trace)
-    from repro_torch.core.template import default_template
+    from repro_torch.launch.scheduler import serve_shardings
     from repro_torch.parallel.sharding import DECODE_RULES
 
     dev = torch.device(dev or "cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = Mesh((1, world), ("data", "model")).init_groups() if payload["meshed"] else None
+    modes = (("eager", False), ("captured", True)) if mesh is not None else (("one", True),)
     out = {}
     for name, overrides, path, depth in payload["runs"]:
         t0 = time.perf_counter()
         cfg, reduced_line = family_cfg(name, depth)
-        rules = DECODE_RULES.with_overrides(**dict(overrides))
+        rules = DECODE_RULES.with_overrides(**dict(overrides)) if mesh is not None else None
         torch.cuda.reset_peak_memory_stats(dev)
         where = "init"
         try:
@@ -4660,41 +4758,33 @@ def nccl_serve(payload, rank=0, world=1, dev=None):
             torch.cuda.synchronize(dev)
             rec = {"init_s": time.perf_counter() - t0, "reduced": reduced_line,
                    "weights_bytes_on_card": torch.cuda.memory_allocated(dev)}
-            where = path
-            if path == "scheduler":
-                sched = ServeScheduler(cfg, params, tpl=default_template("cuda"),
-                                       clock=VirtualClock(), mesh=mesh,
-                                       rules=rules if mesh is not None else None,
-                                       sched=SchedulerConfig(ladder=SERVE_NCCL_LADDER,
-                                                             slots=SERVE_NCCL_SLOTS,
-                                                             max_new_limit=SERVE_NCCL_MAX_NEW))
-                sched.warmup()
-                counted = _counted_decode(torch, sched)
-                trace = synthetic_trace(SERVE_NCCL_REQUESTS, seed=SEED, vocab=cfg.vocab,
-                                        ladder=SERVE_NCCL_LADDER, max_new=SERVE_NCCL_MAX_NEW,
-                                        min_len=SHARDS_MIN_LEN)
-                t1 = time.perf_counter()
-                replay_trace(sched, trace, tick=0.0)
-                torch.cuda.synchronize(dev)
-                rec.update(counted, trace_s=time.perf_counter() - t1,
-                           streams=[list(r.generated) for r in trace],
-                           completed=int(sched.counters["completed"]),
-                           decode_steps=int(sched.counters["decode_steps"]),
-                           eager_steps=int(sched.counters["meshed_eager_decode_steps"]))
-                sched.release()
-                del sched
-            else:
-                from repro_torch.data.pipeline import synthetic_batch
-                from repro_torch.launch.serve import draw_context
+            for mode, capture in modes:
+                where = f"{path} {mode}"
+                if path == "scheduler":
+                    run = _nccl_sched_run(torch, cfg, params, mesh, rules, capture)
+                    logits = run.pop("logit_rows")
+                else:
+                    from repro_torch.data.pipeline import synthetic_batch
+                    from repro_torch.launch.serve import draw_context
 
-                b, n = SERVE_NCCL_VLM_BATCH, SERVE_NCCL_VLM_STEPS
-                tokens = synthetic_batch(SEED, 0, b, SERVE_NCCL_VLM_PROMPT, cfg.vocab,
-                                         device=dev)
-                ctx = draw_context(cfg, b, seed=SEED, device=dev,
-                                   dtype=params["embed"].dtype)
-                rec.update(family_mesh_steps(torch, cfg, params, tokens, ctx, mesh,
-                                             rules if mesh is not None else None,
-                                             steps=n), completed=n)
+                    b, n = SERVE_NCCL_VLM_BATCH, SERVE_NCCL_VLM_STEPS
+                    tokens = synthetic_batch(SEED, 0, b, SERVE_NCCL_VLM_PROMPT, cfg.vocab,
+                                             device=dev)
+                    ctx = draw_context(cfg, b, seed=SEED, device=dev,
+                                       dtype=params["embed"].dtype)
+                    run = family_mesh_steps(torch, cfg, params, tokens, ctx, mesh, rules,
+                                            steps=n, capture=capture)
+                    run["completed"] = n
+                    logits = run["logits"]
+                    del tokens, ctx
+                if mode == "eager":  # kept only to hold the captured run to
+                    eager_logits = logits
+                    run.pop("logits", None)
+                elif mode == "captured":
+                    run["logits_equal_eager"] = bool(torch.equal(logits.to(dev),
+                                                                 eager_logits.to(dev)))
+                rec[mode] = run
+                torch.cuda.empty_cache()
         except torch.cuda.OutOfMemoryError as e:
             raise RuntimeError("SERVE_NCCL_OOM " + json.dumps({
                 "rank": rank, "arch": name, "where": where,
@@ -4709,31 +4799,35 @@ def nccl_serve(payload, rank=0, world=1, dev=None):
 
 
 def _nccl_row(rec) -> dict:
-    """The printed numbers of one run: prefill tokens/s, eager decode ms a
-    step (median), collectives a decode step (the first step's)."""
+    """The printed numbers of one run: prefill tokens/s, decode ms a step
+    (the median after the first step), collectives a decode step (the last
+    step's), captures."""
     ms = sorted(rec["decode_ms"][1:] or rec["decode_ms"])
     return {"prefill_tokens_per_s": rec["prefill_tokens"] / (sum(rec["prefill_ms"]) / 1e3),
             "prefill_ms": rec["prefill_ms"], "decode_ms_per_step_median": ms[len(ms) // 2],
             "decode_ms_per_step": rec["decode_ms"],
             "collectives_per_decode_step": rec["collectives"][-1] if rec["collectives"]
-            else None,
-            "peak_mem_bytes": rec["peak_mem_bytes"], "init_s": rec["init_s"],
-            "seconds": rec["seconds"]}
+            else None, "captures": rec["captures"]}
 
 
 def phase_serve_mesh_nccl(torch):
     """``--serve-mesh-nccl``, run alone: meshed serving over NCCL on four
-    cards, a rank each, mesh (1, 4).  (a) qwen2.5-32b at full width and
-    depth through the meshed scheduler under ``DECODE_RULES`` against the
-    same scheduler on one card: streams byte for byte.  (b) phi3.5-moe
+    cards, a rank each, mesh (1, 4); every meshed run eager
+    (``capture=False``), then captured (one CUDA graph a signature on each
+    rank, the collectives inside, replayed every step), in the same call on
+    the same weights.  (a) qwen2.5-32b at full width and depth through the
+    meshed scheduler under ``DECODE_RULES`` against the same scheduler on
+    one card: streams byte for byte, eager and captured.  (b) phi3.5-moe
     (scheduler, expert_mlp over "model") and llama-3.2-vision-90b
-    (``compiled_steps(mesh=)``, embed over "model", cross gates 0.5) at full
-    width and depth on the four cards: gates: every request or step
-    completes, finite logits, each card's peak memory under the card's;
-    then each cut to a depth one card holds (same widths) on four cards
-    and on one: streams (and the VLM's logits) bit for bit.  Printed for
-    each: each card's peak memory, prefill tokens/s, eager meshed decode ms
-    a step, collectives a decode step by kind."""
+    (``compiled_steps(mesh=)``, embed over "model", cross gates 0.5) at
+    full width and depth on the four cards: every request or step
+    completes, finite logits, the captured logits the eager ones bit for
+    bit, each card's peak memory under the card's; then each cut to a depth
+    one card holds (same widths) on four cards and on one: streams (and the
+    VLM's logits) bit for bit.  Captured: every decode step a replay, one
+    capture a (signature, owner) on each rank.  Printed for each: each
+    card's peak memory, prefill tokens/s, eager and replayed decode ms a
+    step, captures a rank, collectives a replayed decode step by kind."""
     from repro_torch.launch.mesh import spawn_ranks
 
     cards = torch.cuda.device_count()
@@ -4756,39 +4850,60 @@ def phase_serve_mesh_nccl(torch):
         key = (name, depth)
         recs = [r[key] for r in ranks]
         peaks = [r["peak_mem_bytes"] for r in recs]
+        eager, captured = [r["eager"] for r in recs], [r["captured"] for r in recs]
         row = {"arch": name, "reduced": recs[0]["reduced"], "path": path,
                "rules": "DECODE_RULES" + "".join(f" + {a} -> {b}" for a, b in overrides),
                "mesh": {"data": 1, "model": SERVE_NCCL_CARDS}, "backend": "nccl",
                "peak_mem_bytes_by_card": peaks, "card_memory_bytes": limit,
                "weights_bytes_by_card": [r["weights_bytes_on_card"] for r in recs],
-               **_nccl_row(recs[0])}
+               "init_s": recs[0]["init_s"], "seconds": recs[0]["seconds"],
+               "eager": _nccl_row(eager[0]), "captured": _nccl_row(captured[0]),
+               "captures_by_rank": [r["captures"] for r in captured]}
         want_done = SERVE_NCCL_REQUESTS if path == "scheduler" else SERVE_NCCL_VLM_STEPS
-        if not (all(r["completed"] == want_done for r in recs) and max(peaks) < limit):
+        if not (all(r["completed"] == want_done for r in eager + captured)
+                and max(peaks) < limit):
             raise AssertionError(f"serve nccl {name} ({depth}): completed "
-                                 f"{[r['completed'] for r in recs]} of {want_done}, peaks "
-                                 f"{peaks}")
-        if path == "scheduler" and any(r["eager_steps"] != r["decode_steps"] for r in recs):
-            raise AssertionError(f"serve nccl {name}: a meshed decode step was not eager")
-        if path == "steps" and not all(bool(torch.isfinite(torch.as_tensor(r["logits"])).all())
-                                       for r in recs):
-            raise AssertionError(f"serve nccl {name}: logits not finite")
+                                 f"{[r['completed'] for r in eager + captured]} of "
+                                 f"{want_done}, peaks {peaks}")
+        if not all(r["logits_equal_eager"] for r in captured):
+            raise AssertionError(f"serve nccl {name} ({depth}): the captured logits differ "
+                                 f"from the eager meshed step's")
+        if path == "scheduler":
+            # warm-up captures the one decode graph; every trace step replays it
+            if any(r["eager_steps"] != r["decode_steps"] or r["captures"] for r in eager) or \
+                    any(r["replayed_steps"] != r["decode_steps"] or r["eager_steps"] or
+                        r["captures"] != 1 for r in captured):
+                raise AssertionError(f"serve nccl {name}: eager {eager[0]['eager_steps']} / "
+                                     f"replayed {captured[0]['replayed_steps']} of "
+                                     f"{captured[0]['decode_steps']} steps, captures "
+                                     f"{row['captures_by_rank']}")
+            if any(a["streams"] != b["streams"] for a, b in zip(eager, captured)):
+                raise AssertionError(f"serve nccl {name} ({depth}): captured streams differ "
+                                     f"from the eager meshed streams")
+        else:
+            if any(r["captures"] for r in eager) or any(r["captures"] != 1 for r in captured):
+                raise AssertionError(f"serve nccl {name}: captures {row['captures_by_rank']}")
+            if not all(bool(torch.isfinite(torch.as_tensor(r["logits"])).all())
+                       for r in captured):
+                raise AssertionError(f"serve nccl {name}: logits not finite")
         if key in one:
-            single = one[key]
+            single = one[key]["one"]
             if path == "scheduler":
-                same = all(r["streams"] == single["streams"] for r in recs)
+                same = all(r["streams"] == single["streams"] for r in eager + captured)
             else:
                 same = all(torch.equal(torch.as_tensor(r["logits"]), single["logits"]) and
                            torch.equal(torch.as_tensor(r["tokens"]), single["tokens"])
-                           for r in recs)
+                           for r in captured)
             if not same:
                 raise AssertionError(f"serve nccl {name} ({depth}): four cards differ from "
                                      f"one card")
             row["bit_identical_to_one_card"] = True
             row["one_card"] = _nccl_row(single)
         if path == "scheduler":
-            row["tokens"] = sum(len(x) for x in recs[0]["streams"])
-            row["sample_stream"] = recs[0]["streams"][0][:8]
-        emit({"phase": "serve_mesh_nccl", **row, "nvidia_smi": nvidia_smi()})
+            row["tokens"] = sum(len(x) for x in captured[0]["streams"])
+            row["sample_stream"] = captured[0]["streams"][0][:8]
+        emit({"phase": "serve_mesh_nccl", **row, "captured_logits_equal_eager": True,
+              "nvidia_smi": nvidia_smi()})
     emit({"phase": "serve_mesh_nccl_done", "ranks_seconds": ranks_s, "one_card_seconds": one_s,
           "seconds": time.perf_counter() - t0})
 
@@ -4956,9 +5071,9 @@ def main() -> int:
                          "tokens against one card, recurrentgemma-9b under FSDP")
     ap.add_argument("--serve-mesh-nccl", action="store_true",
                     help="run only the study of meshed serving over NCCL on four cards (a "
-                         "rank each): qwen2.5-32b's scheduler against one card, "
-                         "phi3.5-moe and llama-3.2-vision-90b at full depth, each cut to a "
-                         "depth one card holds against one card")
+                         "rank each), eager and then captured: qwen2.5-32b's scheduler "
+                         "against one card, phi3.5-moe and llama-3.2-vision-90b at full "
+                         "depth, each cut to a depth one card holds against one card")
     ap.add_argument("--family-split-study", action="store_true",
                     help="run only phase 9(e)'s families on a (2, 1) mesh of two gloo "
                          "ranks of the card (a row a rank) against one device, printing "
@@ -5037,14 +5152,14 @@ def main() -> int:
     serving_windows["fleet grid"] = phase_fleet(torch, cfg, params, tq, grid_policy)
     if FLOAT_FLEET_STUDY:
         phase_float_fleet_study(torch, cfg, params, serving_runs[0][1])
-    shard_windows = phase_shards(torch, dev, cnn_state, cfg, params, grid_policy)
+    shard_windows = phase_shards(torch, dev, cnn_state, grid_policy)
     del params, serving_runs, tq, grid_policy, cnn_state
     torch.cuda.empty_cache()
     family_windows = phase_families(torch, dev)
     torch.cuda.empty_cache()
-    train_windows, step0 = phase_training(torch, dev)
+    train_windows, _ = phase_training(torch, dev)
     torch.cuda.empty_cache()
-    phase_train_mesh(torch, dev, step0)
+    phase_train_mesh(torch, dev)
     phase_serve_cli(torch)
     phase_fleet_cli(torch)
     phase_fpga_tables()

@@ -53,11 +53,21 @@ model's seams, the slot-indexed KV cache is sharded over slots on the data
 axes, and the tokens (and logits) of a step are gathered over the data
 axes before the host decides anything, so a rank's stream is byte for byte
 the single-device stream.  Prefill runs every row on every data rank; each
-rank keeps its own slots' rows.  A CUDA graph cannot hold a ``gloo``
-collective (the ranks of one card), so a meshed decode step runs eagerly
-and is counted in :data:`MESHED_EAGER_COUNTS`; ``CAPTURE_COUNTS`` stays 0
-for a meshed owner.  Capturing NCCL collectives (several cards) is left
-for later.
+rank keeps its own slots' rows.  The meshed decode step takes the whole
+batch's inputs and does all of that inside its body: this rank's rows,
+``use_mesh`` / ``batch_split``, the step, the gathers of tokens and logits.
+Over NCCL (a card a rank) that body is captured as the single-device step
+is, one CUDA graph per (signature, owner) on each rank, collectives
+inside, and replayed every tick (the reference's jitted meshed step): the
+eager warm-up runs every collective once first (NCCL sets a communicator
+up outside a capture), every rank captures the same collectives in the
+same order (it runs the same loop), and a failed capture or replay raises
+on its rank.  A replay adds the collectives its capture recorded to
+``sharding.SEAM_COUNTS``.  A CUDA graph cannot hold a ``gloo`` collective
+(the ranks of one card, staged through the host), so under gloo and on
+the CPU the meshed step runs eagerly, holds nothing and is counted in
+:data:`MESHED_EAGER_COUNTS`; ``capture=False`` keeps an NCCL step eager
+too.
 
 The meshed steps run every family.  An MoE layer's routing groups are the
 logical batch's: where a rank's slots are a part of a group (a decode
@@ -293,7 +303,7 @@ def _pick(logits, sampling, seed, lanes, positions, temperature):
 CAPTURE_COUNTS: collections.Counter = collections.Counter()
 
 #: (kind, cfg.name, cache_len) -> meshed steps run eagerly (a gloo
-#: collective cannot be captured)
+#: collective cannot be captured; ``capture=False``)
 MESHED_EAGER_COUNTS: collections.Counter = collections.Counter()
 
 _STEP_FNS: dict = {}
@@ -357,6 +367,22 @@ class _Graph(NamedTuple):
     logits: torch.Tensor
     launches: dict
     counters: collections.Counter
+    seams: collections.Counter  # the collectives it runs (``sharding.SEAM_COUNTS``)
+
+
+def _batch_rows(b: int, mesh, batch):
+    """This rank's rows of a ``b``-row step over the data axes ``batch``:
+    (take, the batch split factor, whether the rows are a part of the
+    batch); ``take`` cuts a tensor whose first dim is the batch to the rows
+    and passes anything else through."""
+    lo, hi = sh.local_rows(b, mesh, batch)
+
+    def take(x):
+        if isinstance(x, torch.Tensor) and x.ndim and x.shape[0] == b:
+            return x[lo:hi]
+        return x
+
+    return take, b // (hi - lo), (lo, hi) != (0, b)
 
 
 class _DecodeStep:
@@ -365,14 +391,28 @@ class _DecodeStep:
     setting) and cache owner, replayed per call; on a CPU template, the
     eager step (with the same bookkeeping of what would be captured).
 
+    With ``mesh`` (and ``rules``) it is this rank's tensor-parallel step:
+    it takes the whole batch's inputs, runs this rank's rows of them (the
+    data-axis shard of the slot-indexed cache it holds) under ``use_mesh``
+    and ``batch_split``, and gathers the tokens and logits over the data
+    axes, all inside the step, so a graph holds the collectives too.  It is
+    captured where the mesh runs NCCL on a CUDA template (``capture``
+    False keeps it eager, the baseline a captured step is timed against);
+    under gloo, whose collectives stage through the host, and on the CPU it
+    runs eagerly, holds nothing and is counted in
+    :data:`MESHED_EAGER_COUNTS`.
+
     ``owner`` None is the anonymous caller (``generate``): its graphs adopt
     whatever cache they are handed, copying it in.  Any other owner gets
     graphs of its own, dropped (graph, its memory pool and the cache it
     holds) by :meth:`release` or when the owner is garbage-collected."""
 
-    def __init__(self, tpl: Template, cfg, cache_len: int, policy: NumericsPolicy):
+    def __init__(self, tpl: Template, cfg, cache_len: int, policy: NumericsPolicy,
+                 mesh=None, rules=None, capture: bool = True):
         self.tpl, self.cfg, self.cache_len, self.policy = tpl, cfg, cache_len, policy
-        self.cuda = tpl.engine.device.type == "cuda"
+        self.mesh, self.rules = mesh, rules
+        self.graphed = tpl.engine.device.type == "cuda" and (
+            mesh is None or (capture and mesh.backend == "nccl"))
         self.graphs: dict = {}  # (signature, id(owner) or None) -> _Graph (CPU: None)
         self._owners: dict = {}  # id(owner) -> weakref.finalize
 
@@ -394,9 +434,26 @@ class _DecodeStep:
 
     def eager(self, params, token, t, cache, sampling=None, seed=0, lanes=0, positions=0,
               temperature=1.0):
-        logits, cache = T.decode_step(self.tpl, self.cfg, params, token, t, cache,
-                                      policy=self.policy, inplace=True)
-        return _pick(logits, sampling, seed, lanes, positions, temperature), logits, cache
+        """One step as it comes: the body a capture records."""
+        if self.mesh is None:
+            logits, cache = T.decode_step(self.tpl, self.cfg, params, token, t, cache,
+                                          policy=self.policy, inplace=True)
+            return _pick(logits, sampling, seed, lanes, positions, temperature), logits, cache
+        batch = self.rules.get("batch")
+        take, f, split = _batch_rows(token.shape[0], self.mesh, batch)
+        with sh.use_mesh(self.mesh, self.rules), sh.batch_split(f):
+            logits, cache = T.decode_step(self.tpl, self.cfg, params, take(token), take(t),
+                                          cache, policy=self.policy, inplace=True)
+            toks = _pick(logits, sampling, seed, take(lanes), take(positions), temperature)
+            if split:
+                toks, logits = (sh.gather(x, 0, batch) for x in (toks, logits))
+        return toks, logits, cache
+
+    def _run(self, params, token, t, cache, sampling, seed, lanes, positions):
+        dev = self.tpl.engine.device
+        token, t, lanes, positions = (_on(x, dev) for x in (token, t, lanes, positions))
+        temp = None if sampling is None else sampling.temperature
+        return self.eager(params, token, t, cache, sampling, seed, lanes, positions, temp)
 
     def _signature(self, params, token, t, cache, sampling):
         t_shape = tuple(t.shape) if isinstance(t, (torch.Tensor, np.ndarray)) else ()
@@ -407,6 +464,13 @@ class _DecodeStep:
 
     def __call__(self, params, token, t, cache, sampling=None, lanes=None, positions=None,
                  owner=None):
+        b = token.shape[0]
+        lanes = np.arange(b) if lanes is None else lanes
+        positions = 0 if positions is None else positions
+        seed = 0 if sampling is None else sampling.seed
+        if self.mesh is not None and not self.graphed:
+            MESHED_EAGER_COUNTS["decode", self.cfg.name, self.cache_len] += 1
+            return self._run(params, token, t, cache, sampling, seed, lanes, positions)
         oid = None if owner is None else id(owner)
         key = (self._signature(params, token, t, cache, sampling), oid)
         new = key not in self.graphs
@@ -414,16 +478,9 @@ class _DecodeStep:
             CAPTURE_COUNTS["decode", self.cfg.name, self.cache_len] += 1
             if oid is not None and oid not in self._owners:
                 self._owners[oid] = weakref.finalize(owner, self._drop, oid)
-        b = token.shape[0]
-        lanes = np.arange(b) if lanes is None else lanes
-        positions = 0 if positions is None else positions
-        seed = 0 if sampling is None else sampling.seed
-        if not self.cuda:
+        if not self.graphed:
             self.graphs[key] = None
-            dev = self.tpl.engine.device
-            token, t, lanes, positions = (_on(x, dev) for x in (token, t, lanes, positions))
-            temp = None if sampling is None else sampling.temperature
-            return self.eager(params, token, t, cache, sampling, seed, lanes, positions, temp)
+            return self._run(params, token, t, cache, sampling, seed, lanes, positions)
         if new:
             self.graphs[key] = self._capture(params, token, t, cache, sampling)
         g = self.graphs[key]
@@ -434,10 +491,11 @@ class _DecodeStep:
             T.copy_cache_(g.cache, cache)
         g.graph.replay()
         # the capture ticked the counters once, launching nothing; each
-        # replay launches what it recorded
+        # replay launches (and gathers) what it recorded
         for name, n in g.launches.items():
             _build.launches[name] += n
         self.tpl.engine.counters.update(g.counters)
+        sh.SEAM_COUNTS.update(g.seams)
         return g.tokens, g.logits, g.cache
 
     def _capture(self, params, token, t, cache, sampling) -> _Graph:
@@ -460,8 +518,10 @@ class _DecodeStep:
                               st["lanes"], st["positions"], st["temperature"])
 
         # warm-up: plans, loads the kernels' libraries, sets their shared
-        # memory attributes.  It steps a copy of ``cache``: a recurrent state
-        # stepped here and again by the replay would advance twice
+        # memory attributes, and (meshed) runs every collective of the step
+        # once, so each NCCL communicator is set up before the capture.  It
+        # steps a copy of ``cache``: a recurrent state stepped here and again
+        # by the replay would advance twice
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -469,18 +529,27 @@ class _DecodeStep:
         torch.cuda.current_stream(dev).wait_stream(side)
         eng = self.tpl.engine
         launches0, counters0 = dict(_build.launches), collections.Counter(eng.counters)
+        seams0 = collections.Counter(sh.SEAM_COUNTS)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # every rank captures the same collectives in the same order (every
+        # rank runs the same loop); a meshed capture is thread-local, so the
+        # process group's watchdog thread may query its events meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="global" if self.mesh is None
+                              else "thread_local"):
             tokens, logits, _ = step(cache)
         launches = {k: n - launches0[k] for k, n in _build.launches.items() if n != launches0[k]}
         counters = collections.Counter(
             {k: n - counters0[k] for k, n in eng.counters.items() if n != counters0[k]})
+        seams = collections.Counter(
+            {k: n - seams0[k] for k, n in sh.SEAM_COUNTS.items() if n != seams0[k]})
         _build.launches.update(launches0)
         for k, n in counters.items():
             eng.counters[k] -= n
+        for k, n in seams.items():
+            sh.SEAM_COUNTS[k] -= n
         return _Graph(graph, params, st["token"], st["t"], st["seed"], st["lanes"],
                       st["positions"], st["temperature"], cache, tokens, logits, launches,
-                      counters)
+                      counters, seams)
 
 
 #: activation names whose sharding the port's seams do not carry through
@@ -505,32 +574,17 @@ def _check_rules(mesh, rules) -> None:
 
 
 class _MeshedSteps:
-    """The meshed closures of one setup: each call enters ``use_mesh``; the
-    chunk and decode steps run this rank's rows of the batch (the data-axis
-    shard of the slot-indexed cache it holds) under ``batch_split``, and
-    gather their tokens and logits over the data axes.  Eager: a gloo
-    collective cannot sit inside a CUDA graph."""
+    """The meshed closures of one setup: each enters ``use_mesh``; the chunk
+    step runs this rank's rows of the batch (the data-axis shard of the
+    slot-indexed cache it holds) under ``batch_split`` and gathers its
+    logits over the data axes, eagerly; ``decode_next`` is the meshed
+    :class:`_DecodeStep` (a CUDA graph a signature and owner under NCCL,
+    eager under gloo)."""
 
-    def __init__(self, tpl: Template, cfg, cache_len: int, policy, mesh, rules):
+    def __init__(self, tpl: Template, cfg, cache_len: int, policy, mesh, rules, capture):
         self.tpl, self.cfg, self.cache_len, self.policy = tpl, cfg, cache_len, policy
         self.mesh, self.rules = mesh, rules
-        self.batch = rules.get("batch")
-        self.step = _DecodeStep(tpl, cfg, cache_len, policy)
-
-    def _rows(self, b: int):
-        lo, hi = sh.local_rows(b, self.mesh, self.batch)
-        dev = self.tpl.engine.device
-
-        def take(x):
-            x = _on(x, dev)
-            if isinstance(x, torch.Tensor) and x.ndim and x.shape[0] == b:
-                return x[lo:hi]
-            return x
-
-        return take, b // (hi - lo), (lo, hi) != (0, b)
-
-    def _gather(self, split: bool, *xs):
-        return tuple(sh.gather(x, 0, self.batch) if split else x for x in xs)
+        self.decode_next = _DecodeStep(tpl, cfg, cache_len, policy, mesh, rules, capture)
 
     def prefill(self, params, tokens, ctx, last_pos):
         with sh.use_mesh(self.mesh, self.rules):
@@ -539,39 +593,20 @@ class _MeshedSteps:
                              policy=self.policy)
 
     def chunk(self, params, tokens, t, n_valid, cache):
-        take, f, split = self._rows(tokens.shape[0])
+        dev = self.tpl.engine.device
+        batch = self.rules.get("batch")
+        take, f, split = _batch_rows(tokens.shape[0], self.mesh, batch)
         with sh.use_mesh(self.mesh, self.rules), sh.batch_split(f):
             logits, cache = T.prefill_chunk_step(
-                self.tpl, self.cfg, params, take(tokens), take(t), take(n_valid), cache,
-                policy=self.policy, inplace=True)
-            (logits,) = self._gather(split, logits)
+                self.tpl, self.cfg, params, *(take(_on(x, dev)) for x in (tokens, t, n_valid)),
+                cache, policy=self.policy, inplace=True)
+            if split:
+                logits = sh.gather(logits, 0, batch)
         return logits, cache
-
-    def decode_next(self, params, token, t, cache, sampling=None, lanes=None,
-                    positions=None, owner=None):
-        b = token.shape[0]
-        take, f, split = self._rows(b)
-        lanes = np.arange(b) if lanes is None else lanes
-        positions = 0 if positions is None else positions
-        seed = 0 if sampling is None else sampling.seed
-        temp = None if sampling is None else sampling.temperature
-        MESHED_EAGER_COUNTS["decode", self.cfg.name, self.cache_len] += 1
-        with sh.use_mesh(self.mesh, self.rules), sh.batch_split(f):
-            toks, logits, cache = self.step.eager(
-                params, take(token), take(t), cache, sampling, seed, take(lanes),
-                take(positions), temp)
-            toks, logits = self._gather(split, toks, logits)
-        return toks, logits, cache
-
-    __call__ = decode_next  # the StepFns' decode_next
 
     def decode(self, params, token, t, cache):
         _, logits, cache = self.decode_next(params, token, t, cache)
-        return logits, cache
-
-    @staticmethod
-    def release(owner) -> int:
-        return 0  # nothing captured
+        return logits.clone(), cache  # a graph's buffer is rewritten by its next call
 
 
 def serve_shardings(cfg, mesh, rules=None):
@@ -601,7 +636,7 @@ def shard_cache(cfg, cache, mesh, rules=None):
 
 def compiled_steps(tpl: Template, cfg, cache_len: int,
                    policy: Optional[NumericsPolicy] = None, *, mesh=None,
-                   rules=None) -> StepFns:
+                   rules=None, capture: bool = True) -> StepFns:
     """The memoized :class:`StepFns` of one serving setup.
 
     prefill(params, tokens, ctx, last_pos)   -> (logits (B, V), cache)
@@ -629,8 +664,11 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
     the closures are this rank's tensor-parallel steps
     (:class:`_MeshedSteps`: under ``use_mesh``, the chunk and decode steps
     on this rank's slot rows, tokens and logits gathered over the data
-    axes, decode eager), memoized apart from the unmeshed ones; the params
-    are this rank's shard tree and the cache its slot shard.
+    axes), memoized apart from the unmeshed ones; the params are this
+    rank's shard tree and the cache its slot shard.  The meshed decode step
+    is a captured graph, collectives inside, where the mesh runs NCCL on a
+    CUDA template, and eager elsewhere; ``capture=False`` keeps it eager
+    there too.
     """
     policy = validate_policy(tpl.config, policy)
     if mesh is not None:
@@ -639,14 +677,16 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
             raise ValueError(f"meshed steps run on ranks (spawn_ranks); {mesh} is a "
                              f"layout only")
         _check_rules(mesh, rules)
+    elif not capture:
+        raise ValueError("capture=False keeps a meshed decode step eager; pass mesh=")
     else:
         rules = None
     key = (id(tpl), cfg, int(cache_len), policy, None if mesh is None else id(mesh),
-           rules)
+           rules, capture)
     entry = _STEP_FNS.pop(key, None)
     if entry is None and mesh is not None:
-        m = _MeshedSteps(tpl, cfg, int(cache_len), policy, mesh, rules)
-        entry = ((tpl, mesh), StepFns(m.prefill, m.decode, m.chunk, m))
+        m = _MeshedSteps(tpl, cfg, int(cache_len), policy, mesh, rules, capture)
+        entry = ((tpl, mesh), StepFns(m.prefill, m.decode, m.chunk, m.decode_next))
     if entry is None:
         def _prefill(params, tokens, ctx, last_pos):
             return T.prefill(tpl, cfg, params, tokens, ctx=ctx, cache_len=cache_len,
@@ -792,14 +832,17 @@ class ServeScheduler:
     KV cache (the slots divide over the data axes), every host decision on
     tokens gathered from all ranks (module docstring).  Warm-up then also
     plans every GEMM shape it met at its local extent
-    (``counters["warmup_shard_misses"]``).
+    (``counters["warmup_shard_misses"]``).  Its decode step is a CUDA graph,
+    replayed each tick, where the mesh runs NCCL on a CUDA template
+    (``counters["meshed_replayed_decode_steps"]``; ``capture=False`` keeps
+    it eager) and eager under gloo (``counters["meshed_eager_decode_steps"]``).
     """
 
     def __init__(self, cfg, params, *, sched: Optional[SchedulerConfig] = None,
                  tpl: Optional[Template] = None, clock=None,
                  policy: Optional[NumericsPolicy] = None,
                  sampling: Optional[SamplingParams] = None,
-                 mesh=None, rules=None) -> None:
+                 mesh=None, rules=None, capture: bool = True) -> None:
         pattern = T.plan_pattern(cfg)
         # "local" with a real window is unsound too: its ring is only
         # window-sized, so a padded prefill longer than the window evicts
@@ -854,7 +897,12 @@ class ServeScheduler:
         self.engine = self.tpl.engine
         self.registry = self.engine.plan_cache
         self._prefill, _, self._chunk, self._decode_next = compiled_steps(
-            self.tpl, cfg, self.cache_len, self.policy, mesh=self.mesh, rules=self.rules)
+            self.tpl, cfg, self.cache_len, self.policy, mesh=self.mesh, rules=self.rules,
+            capture=capture)
+        #: the counter a meshed decode step ticks
+        self._meshed_steps = None if mesh is None else (
+            "meshed_replayed_decode_steps" if self._decode_next.graphed
+            else "meshed_eager_decode_steps")
         #: batch sizes a coalesced prefill launch is padded up to
         self._batch_rungs = ((1,) if self.sched.prefill_mode == "sequential"
                              else batch_rungs(self.sched.slots))
@@ -1186,8 +1234,8 @@ class ServeScheduler:
                 np.arange(slots, dtype=np.int64), np.maximum(tvec + 1, 0), owner=self)
             next_tok = toks.cpu().numpy()  # the tick's one read of the device
             self.counters["decode_steps"] += 1
-            if self.mesh is not None:
-                self.counters["meshed_eager_decode_steps"] += 1
+            if self._meshed_steps is not None:
+                self.counters[self._meshed_steps] += 1
             self.counters["slot_steps"] += len(decoding)
             event["decoded"] = len(decoding)
             event["launches"] += 1

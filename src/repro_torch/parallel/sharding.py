@@ -928,8 +928,10 @@ def _gather_many(ts: Sequence[torch.Tensor], dims: Sequence[int], axis: str,
     whole = _buffer((n, flat.numel()), torch.uint8, dev, mesh)
     if root:
         dist.gather(src, list(whole.unbind(0)), dst=mesh.members[axis][0], group=group)
-    else:
+    elif _host_staged(mesh):
         dist.all_gather(list(whole.unbind(0)), src, group=group)
+    else:  # NCCL gathers straight into the one buffer (inside a CUDA graph too)
+        dist.all_gather_into_tensor(whole, src, group=group)
     whole = whole.to(dev)
     out, off = [], 0
     for m, d in zip(moved, dims):
