@@ -146,7 +146,7 @@ non-zero without its result line):
    bit-identical to the unsharded forward, float within 2e-3 (max |Δ|
    printed beside the reference's own 1e-5), a warm forward plans nothing;
    printed: launches by route, the halo bytes against a full gather's, ms a
-   forward.  (b) qwen2-0.5b at full width cut to 8 of its 24 layers
+   forward.  (b) qwen2-0.5b at full width cut to 4 of its 24 layers
    (drawn apart from phase 5's), tensor-parallel over a
    2-way "model" axis (column shards, activations gathered at the seams,
    decode eager), float and Q4.12, a ``ServeScheduler`` of 4 slots over the
@@ -156,7 +156,7 @@ non-zero without its result line):
    same tokens; printed: eager ms a meshed decode step beside the
    single-device replayed step.  (c) ``serve --scheduler --shards 2`` in a
    subprocess exits 0 (run with phase 7(c)'s CLIs).  (d)
-   granite-moe-3b-a800m at full width cut to 4 of its 32 layers, bf16,
+   granite-moe-3b-a800m at full width cut to 2 of its 32 layers, bf16,
    through the meshed ``ServeScheduler`` on the same two ranks as a (1, 2)
    mesh under ``DECODE_RULES`` with expert_mlp over "model" (gate /
    up column shards, the hidden gathered before down; each rank draws only
@@ -168,14 +168,17 @@ non-zero without its result line):
    whisper-medium and llama-3.2-vision-90b (phase 10's 5 layers; the others
    a quarter of their layers, whisper's decoder) at full width through ``compiled_steps(mesh=)`` on the
    same (1, 2) mesh (the SSD and RG-LRU blocks whole on both ranks, their
-   states uncut; MLPs and attention projections column shards), 2 x 256
-   prompt tokens then 8 greedy decode steps: every step's logits and
-   tokens bit for bit the single-device ``compiled_steps``' on the card;
-   printed: eager ms a meshed decode step, launches, each part's seconds;
+   states uncut; MLPs and attention projections column shards) and on a
+   (2, 1) mesh (the data split: a row a rank, the recurrent states, conv
+   histories and cross k / v cut by rows, ``scheduler.shard_cache``), 2 x
+   256 prompt tokens then 8 greedy decode steps: on both meshes every
+   step's logits and tokens bit for bit the single-device
+   ``compiled_steps``' on the card; printed: eager ms a meshed decode step,
+   launches, each part's seconds;
 10. the other model families ("families"): ``generate`` on the ``cuda``
    backend in bf16, ``init_params`` weights from the seed, 16 greedy
    tokens after each prompt:
-   granite-moe-3b-a800m, mamba2-1.3b and recurrentgemma-9b (cut to 8 of
+   granite-moe-3b-a800m, mamba2-1.3b and recurrentgemma-9b (cut to 4 of
    32, 12 of 48 and 9 of 38 layers) on 2 x 4096 tokens, whisper-medium on 2 x 432 after a 2 x 1500 x 1024 frame context,
    llama-3.2-vision-90b at full width cut to 5 layers (one period: 4 self +
    1 gated cross; ``reduced``) on 2 x 1024 after a 2 x 1600 x 8192 image
@@ -236,7 +239,21 @@ non-zero without its result line):
    of a single-device step 0 at the same depth, the restarted run equal to
    the fault-free one bit for bit.  Printed: ms a
    step, tokens/s, each rank's peak memory, save and restore seconds, and
-   each run's collectives a step by kind and mesh axis.
+   each run's collectives a step by kind and mesh axis;
+13. the dry-run cells ("dryrun"): ``python -m repro_torch.launch.dryrun
+   --arch qwen2.5-32b --mesh both`` in a subprocess started before phase
+   2, planning on the host meanwhile (every cell of the arch on the
+   production meshes (16, 16) and (2, 16, 16) planned as layouts, a JSON
+   record a cell; printed: the cells that ran and were skipped, the CLI's
+   own seconds); rank 0's argument shards of the (decode_32k, 16x16) cell
+   allocated on the card at the record's local shapes, their bytes equal
+   to the record's ``argument_size_in_bytes`` exactly (printed beside
+   ``torch.cuda.memory_allocated``'s delta); every planned local GEMM of
+   (decode_32k, 16x16) and (prefill_32k, 16x16) run in bf16 through
+   ``Engine.matmul`` on its plan, gated to launch the plan's route and held
+   to the float GEMM's plain version at phase 2's bf16 tolerance; printed:
+   kernel ms and bound ms.  Their launches are the ``kernels`` line's path
+   "dryrun cells".
 
 ``--train-mesh-nccl`` runs, alone, training over NCCL on four cards (a
 rank each; it fails with fewer): qwen2-0.5b data-parallel, FSDP and
@@ -259,20 +276,25 @@ replay) on the same weights: the captured streams and logits equal the
 eager ones bit for bit.  Printed: each card's peak memory, prefill
 tokens/s, eager and replayed decode ms a step, captures a rank,
 collectives a decode step by kind.
-``--family-split-study`` runs, alone, 9(e)'s families on a (2, 1) mesh of
-two gloo ranks (a row a rank: recurrent states, conv histories and cross
-k / v cut by rows, ``scheduler.shard_cache``) against one device, and
-prints each decode step's max |Δlogit| and whether the tokens agree (not
-gated: the plain ops' cuBLAS kernels are chosen by the rank's rows).
 ``--parent-ab DIR`` runs, alone, phase 11(a)'s single-device run (4
-steps), phase 9's tensor-parallel scheduler runs (float and grid, no plan
-store) and phase 12's FSDP run from the
+steps), the replayed single-card decode of recurrentgemma-9b, whisper-medium
+and mamba2-1.3b at full depth, phase 9's tensor-parallel scheduler runs
+(float and grid, no plan store) and phase 12's FSDP run from the
 checkout at DIR (an earlier commit's tree, unpacked with ``git archive``)
 and from this one, each run in a process of its own on two gloo ranks of
 the card, in the order DIR, this, this, DIR; it prints each run's decode
 ms a step, FSDP ms a step and seconds, and whether the runs' streams and
 losses agree (the kernels' sources must be the same in both trees: DIR
 reuses this checkout's build).
+``--split-decode-study`` runs, alone, the decode step's plain contractions
+at the families' full widths on 8 rows against every (f, 1) data split of
+them (f = 2, 4, 8; each rank under ``sharding.batch_split``): attention
+with its two contractions made four ways (one batched einsum over a rank's
+rows, one einsum a row, products summed by torch, ``layers.split_einsum``),
+the RG-LRU conv and SSD output contractions, the norms and the float GEMMs
+under the split's logical plan; it prints which splits give a rank other
+bits than one device and each attention form's ms at 2, 4 and 8 rows (not
+gated: the design study behind ``split_einsum``).
 ``--gemm-route-study`` adds the float GEMM's design measurements, off by
 default: route "tile" timed beside fc0 and the tied head, and the
 ``wgmma_threshold`` lines (gate / up's n and k at m from 17 to 256 and at
@@ -3011,19 +3033,19 @@ SHARDS_SLOTS = 4
 SHARDS_LADDER = (256, 512)
 SHARDS_REQUESTS = 6
 SHARDS_MAX_NEW = 8
-#: (b)'s qwen2-0.5b at full width cut to 8 of its 24 layers (the smoke's
+#: (b)'s qwen2-0.5b at full width cut to 4 of its 24 layers (the smoke's
 #: time: four eager scheduler runs a rank)
-SHARDS_QWEN_DEPTH = 8
+SHARDS_QWEN_DEPTH = 4
 SHARDS_MIN_LEN = 64
 SHARDS_FORWARD_REPS = 3
 SHARDS_DIR = ROOT / "build" / "shards_phase"
-#: (d): granite-moe at full width, cut to 4 of its 32 layers (the smoke's
+#: (d): granite-moe at full width, cut to 2 of its 32 layers (the smoke's
 #: time: its eager step took about 1 s at full depth), through the meshed
 #: scheduler on a (1, 2) ("data", "model") mesh, expert_mlp over "model"
 #: (gate / up column shards, the hidden gathered before down), 4 slots over
 #: (256, 512)
 MOE_MESH_ARCH = "granite-moe-3b-a800m"
-MOE_MESH_DEPTH = 4
+MOE_MESH_DEPTH = 2
 MOE_MESH_OVERRIDES = (("expert_mlp", "model"),)
 MOE_MESH_REQUESTS = 4
 #: (e): the non-attention families through compiled_steps(mesh=) on the
@@ -3031,9 +3053,12 @@ MOE_MESH_REQUESTS = 4
 #: their states uncut; the MLPs and attention projections column shards),
 #: full width, (config, depth cut): a quarter of the layers (the smoke's
 #: time; whisper's decoder, its encoder whole), llama-vision at phase 10's
-#: 5 layers; ``--family-split-study`` runs them on (2, 1), a row a rank
+#: 5 layers; then on (2, 1), a row a rank (the data split)
 FAMILY_MESH_RUNS = (("mamba2-1.3b", 12), ("recurrentgemma-9b", 9),
                     ("whisper-medium", 6), ("llama-3.2-vision-90b", 5))
+#: (e)'s meshes: (the ranks' record key, the mesh's axes)
+FAMILY_MESHES = (("families", {"data": 1, "model": SHARDS_S}),
+                 ("families_split", {"data": SHARDS_S, "model": 1}))
 FAMILY_MESH_BATCH = 2
 FAMILY_MESH_PROMPT = 256
 FAMILY_MESH_STEPS = 8
@@ -3236,8 +3261,10 @@ def family_mesh_inputs(torch, dev, cfg):
 def shards_rank_families(torch, dev, rank, tp):
     """Phase 9(d) and (e) on this rank: granite through the meshed
     scheduler on ``tp`` ((1, 2), expert_mlp over "model"), then each of
-    ``FAMILY_MESH_RUNS`` through ``compiled_steps(mesh=)`` on ``tp``, the
-    weights drawn as this rank's shards (``serve_shardings``)."""
+    ``FAMILY_MESH_RUNS`` through ``compiled_steps(mesh=)`` on ``tp`` and on
+    the data split (2, 1), the weights drawn as this rank's shards
+    (``serve_shardings``)."""
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.scheduler import serve_shardings
     from repro_torch.parallel.sharding import DECODE_RULES
 
@@ -3254,6 +3281,8 @@ def shards_rank_families(torch, dev, rank, tp):
     del params
     torch.cuda.empty_cache()
     out["families"] = family_mesh_ranks(torch, dev, tp)
+    split = Mesh((tp.size, 1), ("data", "model")).init_groups()
+    out["families_split"] = family_mesh_ranks(torch, dev, split)
     return out
 
 
@@ -3294,40 +3323,125 @@ def family_mesh_single(torch, dev) -> dict:
     return out
 
 
-def family_split_rank(payload, rank, world, dev):
-    """``--family-split-study``'s rank: the families on a (2, 1) mesh."""
-    import torch
+#: ``--split-decode-study``: rows, splits, and the decode attention calls
+#: studied (config, "self" over the 4128-slot ring (a sliding window's
+#: ring where it is shorter) or "cross" over the context)
+SPLIT_STUDY_ROWS = 8
+SPLIT_STUDY_SPLITS = (2, 4, 8)
+SPLIT_STUDY_RING = 4128
+SPLIT_STUDY_ATTENTION = (("qwen2-0.5b", "self"), ("recurrentgemma-9b", "self"),
+                         ("whisper-medium", "self"), ("whisper-medium", "cross"),
+                         ("llama-3.2-vision-90b", "self"), ("llama-3.2-vision-90b", "cross"),
+                         ("mistral-nemo-12b", "self"))
+SPLIT_STUDY_FORMS = ("batched", "rows", "summed", "split")
+
+
+def _study_attention(torch, form, q, kc, vc, mask):
+    """``_sdpa_dense``'s math on a decode call (q (B, 1, H, D), the (B, Hkv,
+    T, D) rings, mask (B, 1, 1, T)) with its two contractions made by
+    ``form``: "batched" (one einsum over the rows given, the parent's),
+    "rows" (one einsum a row), "summed" (products summed by torch over the
+    innermost dim) or "split" (``layers.split_einsum``)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import split_einsum
+
+    b, s, h, d = q.shape
+    hkv = kc.shape[1]
+    qg = q.reshape(b, s, hkv, h // hkv, d).float()
+    k, v = kc.transpose(1, 2).float(), vc.transpose(1, 2).float()
+    if form == "summed":
+        sc = (qg.permute(0, 2, 3, 1, 4)[..., None, :]
+              * k.permute(0, 2, 1, 3)[:, :, None, None]).sum(-1)
+    else:
+        ein = {"batched": torch.einsum, "split": split_einsum,
+               "rows": lambda eq, x, y: torch.cat([torch.einsum(eq, x[i:i + 1], y[i:i + 1])
+                                                   for i in range(x.shape[0])])}[form]
+        sc = ein("bshgd,bthd->bhgst", qg, k)
+    p = torch.softmax(torch.where(mask[:, :, None], sc / (d ** 0.5), A._NEG), dim=-1)
+    if form == "summed":
+        out = (p[..., None, :] * v.permute(0, 2, 3, 1)[:, :, None, None]).sum(-1)
+        out = out.permute(0, 3, 1, 2, 4)
+    else:
+        out = ein("bhgst,bthd->bshgd", p, v)
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _split_ranks_differ(torch, fn, args) -> list:
+    """The (f, rank) pairs of :data:`SPLIT_STUDY_SPLITS` whose rank, under
+    ``batch_split(f)`` on an (f, 1) layout, gets other bits from ``fn`` on
+    its rows than one device on all :data:`SPLIT_STUDY_ROWS`."""
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import sharding as sh
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return family_mesh_ranks(torch, dev, Mesh((world, 1), ("data", "model")).init_groups())
+    full = fn(*args)
+    bad = []
+    for f in SPLIT_STUDY_SPLITS:
+        r = SPLIT_STUDY_ROWS // f
+        for j in range(f):
+            with sh.use_mesh(Mesh((f, 1), ("data", "model")), sh.DECODE_RULES), \
+                    sh.batch_split(f):
+                got = fn(*(a[j * r:(j + 1) * r].clone() for a in args))
+            if not torch.equal(got, full[j * r:(j + 1) * r]):
+                bad.append([f, j])
+    return bad
 
 
-def phase_family_split_study(torch, dev):
-    """``--family-split-study``, run alone: phase 9(e)'s families on a (2, 1)
-    mesh of two gloo ranks of the card (a row a rank: the recurrent states,
-    conv histories and cross k / v cut by rows, each decode step on a
-    rank's row) against the single-device ``compiled_steps``; printed, not
-    gated: each step's max |Δlogit| and whether the tokens agree."""
-    from repro_torch.launch.mesh import spawn_ranks
+def phase_split_decode_study(torch, dev):
+    """``--split-decode-study`` (module docstring): printed, not gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.template import default_template
+    from repro_torch.models import layers as L
 
     t0 = time.perf_counter()
-    single = family_mesh_single(torch, dev)
-    ranks = spawn_ranks(functools.partial(family_split_rank, {}), SHARDS_S, device="cuda")
-    for name, depth in FAMILY_MESH_RUNS:
-        want = single[name]
-        for r, rec in enumerate(ranks):
-            lg = torch.as_tensor(rec[name]["logits"])
-            diff = (lg - want["logits"]).abs().flatten(1).max(1).values
-            emit({"phase": "family_split_study", "arch": name, "rank": r,
-                  "reduced": family_cfg(name, depth)[1], "mesh": {"data": SHARDS_S, "model": 1},
-                  "batch": FAMILY_MESH_BATCH, "prompt_len": FAMILY_MESH_PROMPT,
-                  "max_abs_logit_diff_by_step": [float(x) for x in diff],
-                  "tokens_equal": bool(torch.equal(torch.as_tensor(rec[name]["tokens"]),
-                                                   want["tokens"])),
-                  "decode_ms_per_step_meshed_eager_gloo": _mean(rec[name]["decode_ms"]),
+    n = SPLIT_STUDY_ROWS
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    for name, what in SPLIT_STUDY_ATTENTION:
+        cfg = get_config(name)
+        t = (cfg.n_frames or cfg.n_image_tokens) if what == "cross" else SPLIT_STUDY_RING
+        t = min(cfg.window, t) if cfg.window and what == "self" else t
+        h, hkv, d = cfg.eff_heads, cfg.n_kv_heads, cfg.head_dim
+        args = (draw(n, 1, h, d), draw(n, hkv, t, d), draw(n, hkv, t, d),
+                torch.rand((n, 1, 1, t), generator=g, device=dev) < 0.9)
+        for form in SPLIT_STUDY_FORMS:
+            fn = functools.partial(_study_attention, torch, form)
+            emit({"phase": "split_decode_study", "op": "attention", "arch": name, "call": what,
+                  "heads": h, "kv_heads": hkv, "head_dim": d, "keys": t, "form": form,
+                  "rows": n, "splits_differing": _split_ranks_differ(torch, fn, args),
+                  "ms_by_rows": {r: time_ms(lambda: fn(*(a[:r] for a in args)))
+                                 for r in (2, 4, 8)},
                   "nvidia_smi": nvidia_smi()})
-    emit({"phase": "family_split_study_done", "seconds": time.perf_counter() - t0})
+    rec, ssm = get_config("recurrentgemma-9b"), get_config("mamba2-1.3b")
+    ops = {
+        "rglru_conv": (lambda w_, c_=draw(rec.ssm_conv, rec.d_rec or rec.d_model):
+                       torch.einsum("bwc,wc->bc", w_, c_),
+                       (draw(n, rec.ssm_conv, rec.d_rec or rec.d_model),)),
+        "ssd_out_batched": (lambda a, b: torch.einsum("bhpn,bhn->bhp", a, b),
+                            (draw(n, ssm.ssm_nheads, ssm.ssm_headdim, ssm.ssm_state,
+                                  dtype=torch.float32),
+                             draw(n, ssm.ssm_nheads, ssm.ssm_state, dtype=torch.float32))),
+    }
+    ops["ssd_out_split"] = (functools.partial(L.split_einsum, "bhpn,bhn->bhp"),
+                            ops["ssd_out_batched"][1])
+    for width in (1024, 2048, 4096, 5120, 8192):
+        scale = draw(width)
+        ops[f"rms_norm_{width}"] = (lambda x, sc=scale: L.rms_norm(x, sc), (draw(n, 1, width),))
+        ops[f"layer_norm_{width}"] = (lambda x, sc=scale: L.layer_norm(x, sc, sc),
+                                      (draw(n, 1, width),))
+    tpl = default_template("cuda")
+    for name in ("recurrentgemma-9b", "whisper-medium", "mamba2-1.3b"):
+        cfg = get_config(name)
+        for proj, (k, m) in {"up": (cfg.d_model, cfg.d_ff or 2 * cfg.d_model),
+                             "head": (cfg.d_model, cfg.vocab)}.items():
+            w = draw(k, m)
+            ops[f"gemm_{name}_{proj}"] = (lambda x, w_=w: tpl.linear(x, w_), (draw(n, k),))
+    for op, (fn, args) in ops.items():
+        emit({"phase": "split_decode_study", "op": op, "rows": n,
+              "splits_differing": _split_ranks_differ(torch, fn, args)})
+    emit({"phase": "split_decode_study_done", "seconds": time.perf_counter() - t0})
 
 
 def shards_rank(payload, rank, world, dev):
@@ -3440,35 +3554,36 @@ def _phase_9de(torch, single, ranks, ranks_s) -> tuple:
           "launches_rank0": {k: v for k, v in r0["launches"].items() if v},
           "peak_mem_bytes_rank0": r0["peak_mem_bytes"],
           "seconds_rank0": r0["seconds"], "seconds_single_device": ref["seconds"]})
-    for name, depth in FAMILY_MESH_RUNS:
-        want = single["families"][name]
-        for r, rec in enumerate(ranks):
-            got = rec["families"][name]
-            lg, tk = torch.as_tensor(got["logits"]), torch.as_tensor(got["tokens"])
-            same = torch.equal(lg, want["logits"]) and torch.equal(tk, want["tokens"])
-            if not same or not bool(torch.isfinite(want["logits"]).all()):
-                raise AssertionError(
-                    f"9(e) {name}: rank {r}'s logits / tokens differ from the single-device "
-                    f"compiled_steps: max |Δlogit| "
-                    f"{float((lg - want['logits']).abs().max())}")
-        r0 = ranks[0]["families"][name]
-        emit({"phase": "shards_families_steps", "arch": name,
-              "reduced": family_cfg(name, depth)[1], "mesh": {"data": 1, "model": SHARDS_S},
-              "rules": "DECODE_RULES", "batch": FAMILY_MESH_BATCH,
-              "prompt_len": FAMILY_MESH_PROMPT, "decode_steps": FAMILY_MESH_STEPS,
-              "nvidia_smi": nvidia_smi(), "logits_and_tokens_bit_identical": True,
-              "decode_ms_per_step_meshed_eager_gloo": _mean(r0["decode_ms"]),
-              "decode_ms_per_step_single_device_replayed": _mean(want["decode_ms"][1:]),
-              "launches_rank0": {k: v for k, v in r0["launches"].items() if v},
-              "seconds_rank0": r0["seconds"], "seconds_single_device": want["seconds"]})
+    for key, mesh in FAMILY_MESHES:
+        for name, depth in FAMILY_MESH_RUNS:
+            want = single["families"][name]
+            for r, rec in enumerate(ranks):
+                got = rec[key][name]
+                lg, tk = torch.as_tensor(got["logits"]), torch.as_tensor(got["tokens"])
+                same = torch.equal(lg, want["logits"]) and torch.equal(tk, want["tokens"])
+                if not same or not bool(torch.isfinite(want["logits"]).all()):
+                    raise AssertionError(
+                        f"9(e) {name} on {mesh}: rank {r}'s logits / tokens differ from the "
+                        f"single-device compiled_steps: max |Δlogit| "
+                        f"{float((lg - want['logits']).abs().max())}")
+            r0 = ranks[0][key][name]
+            emit({"phase": "shards_families_steps", "arch": name,
+                  "reduced": family_cfg(name, depth)[1], "mesh": mesh,
+                  "rules": "DECODE_RULES", "batch": FAMILY_MESH_BATCH,
+                  "prompt_len": FAMILY_MESH_PROMPT, "decode_steps": FAMILY_MESH_STEPS,
+                  "nvidia_smi": nvidia_smi(), "logits_and_tokens_bit_identical": True,
+                  "decode_ms_per_step_meshed_eager_gloo": _mean(r0["decode_ms"]),
+                  "decode_ms_per_step_single_device_replayed": _mean(want["decode_ms"][1:]),
+                  "launches_rank0": {k: v for k, v in r0["launches"].items() if v},
+                  "seconds_rank0": r0["seconds"], "seconds_single_device": want["seconds"]})
     emit({"phase": "shards_9de", "ranks_seconds": ranks_s,
           "seconds_single_device": single["moe"]["seconds"] + sum(
               v["seconds"] for v in single["families"].values()),
           "seconds_rank0": ranks[0]["moe"]["seconds"] + sum(
-              v["seconds"] for v in ranks[0]["families"].values())})
+              v["seconds"] for key, _ in FAMILY_MESHES for v in ranks[0][key].values())})
     return (_sum_launches(rec["moe"]["launches"] for rec in ranks),
-            _sum_launches(rec["families"][n]["launches"] for rec in ranks
-                          for n, _ in FAMILY_MESH_RUNS))
+            _sum_launches(rec[key][n]["launches"] for rec in ranks
+                          for key, _ in FAMILY_MESHES for n, _ in FAMILY_MESH_RUNS))
 
 
 def _halo_bytes(spec, plan, itemsize):
@@ -3651,9 +3766,9 @@ def phase_shards(torch, dev, cnn_state, grid_policy):
 
 #: (config, depth cut or None, prompts, prompt length); 16 greedy tokens each
 FAMILY_RUNS = (
-    # 8 of 32 layers at full width (the smoke's time: the plain path's check
+    # 4 of 32 layers at full width (the smoke's time: the plain path's check
     # at full depth took half a minute)
-    ("granite-moe-3b-a800m", 8, 2, 4096),
+    ("granite-moe-3b-a800m", 4, 2, 4096),
     # a quarter of the layers (the smoke's time)
     ("mamba2-1.3b", 12, 2, 4096),
     ("recurrentgemma-9b", 9, 2, 4096),
@@ -4662,6 +4777,130 @@ def phase_train_mesh_nccl(torch):
           "seconds": time.perf_counter() - t1})
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry-run cells
+# ---------------------------------------------------------------------------
+
+#: the dry-run CLI's architecture (both production meshes), the cell whose
+#: rank-0 argument shards are allocated, and the cells whose local GEMMs run
+DRYRUN_ARCH = "qwen2.5-32b"
+DRYRUN_ALLOC = "decode_32k"
+DRYRUN_GEMM_SHAPES = ("decode_32k", "prefill_32k")
+DRYRUN_MESH = "16x16"
+DRYRUN_DIR = ROOT / "build" / "dryrun_phase"
+
+
+def start_dryrun_cli():
+    """Phase 13's CLI run, started early in a process of its own (it plans
+    on the host while the card runs the phases before it; ``phase_dryrun``
+    waits for it).  Killed at exit if it is still running."""
+    import atexit
+    import os
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+            "--mesh", "both", "--out", str(DRYRUN_DIR)]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT)
+    atexit.register(proc.kill)
+    return proc
+
+
+def _dryrun_record(shape: str) -> dict:
+    name = f"{DRYRUN_ARCH}_{shape}_{DRYRUN_MESH}.json"
+    return json.loads((DRYRUN_DIR / name).read_text())
+
+
+def phase_dryrun(torch, dev, book: KernelBook, cli) -> dict:
+    """Phase 13 (module docstring): the dry-run CLI (``cli``, from
+    :func:`start_dryrun_cli`), rank 0's argument shards of one cell
+    allocated at the record's local shapes, and every planned local GEMM of
+    two cells launched through ``Engine.matmul`` on its plan.  Returns the
+    launch window of those GEMMs (one call each)."""
+    from repro_torch.core.engine import GemmPlan
+    from repro_torch.core.template import default_template
+    from repro_torch.core.tiling import MatmulBlock
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul_fp import matmul_fp_plain
+
+    t_phase = time.perf_counter()
+    out, err = cli.communicate(timeout=600)
+    if cli.returncode != 0:
+        raise AssertionError(f"dryrun CLI exited {cli.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("[")]
+    ran = [ln.split("]")[0][1:] for ln in lines if "] ok " in ln]
+    skipped = [ln.split("]")[0][1:] for ln in lines if "] SKIP: " in ln]
+    if len(ran) + len(skipped) != len(lines) or not ran:
+        raise AssertionError(f"dryrun: unexpected CLI output:\n{out[-2000:]}")
+    emit({"phase": "dryrun_cli", "arch": DRYRUN_ARCH, "cells_ran": ran,
+          "cells_skipped": skipped, "summary": out.strip().splitlines()[-1],
+          "waited_s": time.perf_counter() - t_phase})
+
+    # rank 0's argument shards of the cell, allocated at the record's shapes
+    rec = _dryrun_record(DRYRUN_ALLOC)
+    want = rec["memory"]["argument_size_in_bytes"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    shards = [torch.empty(a["local_shape"], dtype=getattr(torch, a["dtype"]), device=dev)
+              for a in rec["arguments"]]
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    got = sum(t.numel() * t.element_size() for t in shards)
+    if got != want:
+        raise AssertionError(f"dryrun {DRYRUN_ALLOC}: rank 0's shards hold {got} bytes, the "
+                             f"record says {want}")
+    emit({"phase": "dryrun_arguments", "arch": DRYRUN_ARCH, "shape": DRYRUN_ALLOC,
+          "mesh": DRYRUN_MESH, "leaves": len(shards), "argument_bytes": got,
+          "argument_size_in_bytes_record": want, "equal": True,
+          "by_argument": rec["memory"]["argument_bytes_by_argument"],
+          "memory_allocated_delta_bytes": delta, "nvidia_smi": nvidia_smi()})
+    del shards
+    torch.cuda.empty_cache()
+
+    # each planned local GEMM on its plan, in bf16, against its plain version
+    eng = default_template("cuda").engine
+    window = dict.fromkeys(_build.launches, 0)
+    for shape in DRYRUN_GEMM_SHAPES:
+        for j, (proj, p) in enumerate(_dryrun_record(shape)["gemm_plans"].items()):
+            if p["route"] is None:
+                raise AssertionError(f"dryrun {shape} {proj}: no plan to run: {p}")
+            m, n, k = p["m"], p["n"], p["k"]
+            plan = GemmPlan(m, n, k, MatmulBlock(*p["tile"], route=p["route"],
+                                                 splits=p["splits"]), tuple(p["logical"]))
+            x = _randn(torch, (m, k), dev, 300 + j).to(torch.bfloat16)
+            w = _randn(torch, (k, n), dev, 310 + j, k ** -0.5).to(torch.bfloat16)
+            before = dict(_build.launches)
+            y = eng.matmul(x, w, plan=plan)
+            torch.cuda.synchronize()
+            ran_here = {key: c - before[key] for key, c in _build.launches.items()
+                        if c != before[key]}
+            routes = {key for key in ran_here if key.startswith("matmul_fp.")
+                      and not key.endswith("_reduce")}
+            if routes != {f"matmul_fp.{p['route']}"}:
+                raise AssertionError(f"dryrun {shape} {proj}: launched {ran_here}, the plan "
+                                     f"names route {p['route']}")
+            for key, c in ran_here.items():
+                window[key] += c
+            case = (f"{DRYRUN_ARCH} {shape} {DRYRUN_MESH} {proj} local ({m},{k})@({k},{n}) "
+                    f"bf16 {_plan(plan.block)}")
+            book.check(f"matmul_fp.{p['route']}", case, y, matmul_fp_plain(x, w),
+                       exact=False, tol=GEMM_TOL_BF16)
+            b_ms, b_by = bound(nbytes(x, w) + m * n * y.element_size(), 2 * m * n * k,
+                               PEAK_BF16)
+            emit({"phase": "dryrun_gemm", "shape": shape, "proj": proj, "m": m, "n": n,
+                  "k": k, "logical": p["logical"], "route": p["route"], "tile": p["tile"],
+                  "splits": p["splits"], "launches": ran_here,
+                  "ms": time_ms(lambda: eng.matmul(x, w, plan=plan)), "bound_ms": b_ms,
+                  "bound_by": b_by, "nvidia_smi": nvidia_smi()})
+            del x, w, y
+    torch.cuda.empty_cache()
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in window.items() if v}})
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    return window
+
+
 # -- --serve-mesh-nccl: meshed serving over NCCL on four cards ----------------
 
 SERVE_NCCL_CARDS = 4
@@ -4908,10 +5147,41 @@ def phase_serve_mesh_nccl(torch):
           "seconds": time.perf_counter() - t0})
 
 
-#: ``--parent-ab``: the trees' order, each run in a process of its own, and
-#: the steps of its single-device run
+#: ``--parent-ab``: the trees' order, each run in a process of its own, the
+#: steps of its single-device run, and its replayed decodes at full depth
+#: (config, rows, prompt length)
 AB_ORDER = ("parent", "this", "this", "parent")
 AB_ONE_DEVICE_STEPS = 4
+AB_DECODE_RUNS = (("recurrentgemma-9b", 2, 4096), ("whisper-medium", 2, 432),
+                  ("mamba2-1.3b", 2, 4096))
+
+
+def ab_replayed_decode(torch, dev) -> dict:
+    """``--parent-ab``'s replayed single-card decode: each of
+    :data:`AB_DECODE_RUNS` at full depth from the seed's weights, prefilled,
+    then one ``compiled_steps`` decode step replayed; {config: ms a step}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.template import default_template
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.scheduler import compiled_steps
+    from repro_torch.launch.serve import draw_context
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for name, b, s in AB_DECODE_RUNS:
+        cfg = get_config(name)
+        tpl = default_template("cuda")
+        params = family_params(torch, dev, cfg)
+        tokens = synthetic_batch(SEED, 0, b, s, cfg.vocab, device=dev)
+        ctx = draw_context(cfg, b, seed=SEED, device=dev, dtype=T._dtype(cfg.dtype))
+        _, cache = T.prefill(tpl, cfg, params, tokens, ctx=ctx, cache_len=s + FAMILY_GEN)
+        fns = compiled_steps(tpl, cfg, s + FAMILY_GEN, None)
+        tok = tokens[:, -1:]
+        out[name] = time_ms(lambda: fns.decode_next(params, tok, s, cache), target_ms=300.0)
+        fns.decode_next.release(None)
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
 
 
 def ab_rank(payload, rank, world, dev):
@@ -4948,9 +5218,9 @@ def ab_rank(payload, rank, world, dev):
 def phase_ab_run(torch, dev, src: str):
     """One run of ``--parent-ab`` on the port at ``src`` (this process's
     ``repro_torch``): phase 11a's single-device run for
-    :data:`AB_ONE_DEVICE_STEPS` steps, the grid policy calibrated as phase
-    5 does, then :func:`ab_rank` on two ranks; prints one ``ab_run``
-    line."""
+    :data:`AB_ONE_DEVICE_STEPS` steps, :func:`ab_replayed_decode`, the grid
+    policy calibrated as phase 5 does, then :func:`ab_rank` on two ranks;
+    prints one ``ab_run`` line."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -4970,6 +5240,7 @@ def phase_ab_run(torch, dev, src: str):
         one = {"step_ms": [x * 1e3 for x in stats["step_seconds"]], "losses": list(losses),
                "seconds": time.perf_counter() - t0}
         torch.cuda.empty_cache()
+        decode = ab_replayed_decode(torch, dev)
         cfg = get_config(QWEN_ARCH)
         params = qwen_params(torch, dev, cfg)
         cal = synthetic_batch(SEED + 1, 7, 2, QWEN_PROMPT_LEN, cfg.vocab, device=dev)
@@ -4985,8 +5256,8 @@ def phase_ab_run(torch, dev, src: str):
         ranks_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    emit({"phase": "ab_run", "src": src, "one_device": one, **out, "ranks_s": ranks_s,
-          "seconds": time.perf_counter() - t0})
+    emit({"phase": "ab_run", "src": src, "one_device": one, "replayed_decode_ms": decode,
+          **out, "ranks_s": ranks_s, "seconds": time.perf_counter() - t0})
 
 
 def _median(xs):
@@ -5029,6 +5300,7 @@ def phase_parent_ab(torch, parent: Path):
              **{f"{n}_decode_steps": len(r[n]["decode_ms"]) for n in ("float", "grid")},
              **{f"{n}_s": r[n]["seconds"] for n in ("float", "grid", "fsdp")},
              "one_device_step_ms": r["one_device"]["step_ms"],
+             "replayed_decode_ms": r["replayed_decode_ms"],
              "one_device_s": r["one_device"]["seconds"],
              "fsdp_step_ms": r["fsdp"]["step_ms"],
              "fsdp_peak_mem_bytes_by_rank": r["fsdp"]["peak_mem_bytes_by_rank"],
@@ -5074,10 +5346,10 @@ def main() -> int:
                          "rank each), eager and then captured: qwen2.5-32b's scheduler "
                          "against one card, phi3.5-moe and llama-3.2-vision-90b at full "
                          "depth, each cut to a depth one card holds against one card")
-    ap.add_argument("--family-split-study", action="store_true",
-                    help="run only phase 9(e)'s families on a (2, 1) mesh of two gloo "
-                         "ranks of the card (a row a rank) against one device, printing "
-                         "each step's logit difference (not gated)")
+    ap.add_argument("--split-decode-study", action="store_true",
+                    help="run only the study of the decode's contractions on the rows of "
+                         "every data split (which forms give a rank one device's bits, "
+                         "and their ms; not gated)")
     ap.add_argument("--parent-ab", metavar="DIR",
                     help="run only the A/B of phase 11a's single-device step, phase 9's "
                          "tensor-parallel decode and phase 12's FSDP run: the checkout "
@@ -5106,14 +5378,14 @@ def main() -> int:
         phase_ab_run(torch, dev, args.ab_run)
         return 0
     phase_card(torch, dev)
-    if args.train_mesh_nccl or args.serve_mesh_nccl or args.family_split_study or \
+    if args.train_mesh_nccl or args.serve_mesh_nccl or args.split_decode_study or \
             args.parent_ab:
         if args.train_mesh_nccl:
             phase_train_mesh_nccl(torch)
         elif args.serve_mesh_nccl:
             phase_serve_mesh_nccl(torch)
-        elif args.family_split_study:
-            phase_family_split_study(torch, dev)
+        elif args.split_decode_study:
+            phase_split_decode_study(torch, dev)
         else:
             phase_parent_ab(torch, Path(args.parent_ab).resolve())
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -5123,6 +5395,7 @@ def main() -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
     book = KernelBook()
+    dryrun_cli = start_dryrun_cli()
     phase_kernels(torch, dev, book)
     phase_kernels_serving(torch, dev, book)
     if ROUTE_STUDY:
@@ -5160,12 +5433,15 @@ def main() -> int:
     train_windows, _ = phase_training(torch, dev)
     torch.cuda.empty_cache()
     phase_train_mesh(torch, dev)
+    torch.cuda.empty_cache()
+    dryrun_window = phase_dryrun(torch, dev, book, dryrun_cli)
     phase_serve_cli(torch)
     phase_fleet_cli(torch)
     phase_fpga_tables()
 
     windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()},
-               **shard_windows, **family_windows, **train_windows}
+               **shard_windows, **family_windows, **train_windows,
+               "dryrun cells": dryrun_window}
     kernels = []
     for key, (name, gemm_route, source, replaces) in KERNEL_META.items():
         row = book.rows[key]

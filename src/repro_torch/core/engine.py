@@ -954,19 +954,26 @@ class Engine:
             device=self.device, **kw)
 
     def plan_gemm(self, m: int, n: int, k: int, *, mesh=None,
-                  partition=None) -> GemmPlan:
+                  partition=None, dtype=torch.float32) -> GemmPlan:
         """Plan one GEMM; with ``mesh`` (and optionally a partition over
         (M, N[, K]); default ``launch.mesh.gemm_partition``) the local
         per-shard shape, with the logical shape's k order (a float plan is
-        keyed by both)."""
+        keyed by both).  A partition that splits K makes the local GEMM a
+        rank's partial sum, whose order no local plan can keep: it is
+        planned at its own shape.  ``dtype``: the float operands' (the cuda
+        backend's route follows it).  Under a GpuSpec an empty GEMM (a zero
+        dim: a projection the model lacks) launches nothing and has no
+        block."""
         logical = ()
         if mesh is not None:
             local = sh.local_gemm_shape(m, n, k, mesh=mesh, partition=partition)
             if local != (m, n, k):
                 logical = (m, n, k)
             m, n, k = local
-        block = (None if self.config.backend == "torch"
-                 else self.block_for(m, n, k, logical=logical))
+        order = logical if logical and logical[2] == k else ()
+        empty = isinstance(self.config.hw, GpuSpec) and not (m and n and k)
+        block = (None if self.config.backend == "torch" or empty
+                 else self.block_for(m, n, k, dtype=dtype, logical=order))
         return GemmPlan(m=m, n=n, k=k, block=block, logical=logical)
 
     def plan_gemm_ladder(self, ladder: Sequence[int], n: int, k: int, *,

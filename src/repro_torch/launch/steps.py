@@ -1,10 +1,16 @@
-"""The training step and the training state's shardings, in the port.
+"""Step functions and abstract input / state specs, in the port: shared by
+the dry-run (``launch/dryrun.py``), the training driver and the serving
+driver.
 
-The port's copy of the train half of ``repro.launch.steps``:
-:func:`make_train_step`, :func:`default_optimizer`, :func:`state_shardings`
-and :func:`batch_shardings`.  (The reference's other abstract specs, its
-cache shardings and per-cell GEMM plans serve its dry-run tooling, ROADMAP
-queue 1 item 8.)
+The port's copy of ``repro.launch.steps``: the train, prefill and decode
+steps; every input, parameter, optimizer-state and cache tree as shapes on
+fake tensors (nothing allocated or drawn: qwen2.5-32b's ``long_500k`` cache
+alone is terabytes); their :class:`~repro_torch.parallel.sharding.NamedSharding`
+trees from the logical-axis rules; a cell's local GEMM plans
+(:func:`cell_gemm_plans`) and the one-call assembly of a dry-run cell
+(:func:`step_and_specs`).  Where the reference hands its cell to
+``jax.jit(...).lower().compile()``, the port's dry-run reads the specs
+directly: the port compiles nothing ahead of a call.
 
 The step differentiates ``models.transformer.loss_fn`` with autograd on the
 ``torch`` template, the port's counterpart of the reference's ``xla``
@@ -31,18 +37,21 @@ axes replicate get ``grad_all_reduce``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch.core.template import Template, default_template
 from repro_torch.models import transformer as T
-from repro_torch.optim import AdamW, OptState, adamw_update, cosine_warmup
+from repro_torch.optim import AdamW, OptState, adamw_init, adamw_update, cosine_warmup
 from repro_torch.optim.tree import tree_flatten, tree_unflatten
 from repro_torch.parallel import sharding as sh
 
-__all__ = ["make_train_step", "default_optimizer", "loss_and_grads", "abstract_params",
-           "state_shardings", "batch_shardings", "check_train_mesh"]
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step", "input_specs",
+           "default_optimizer", "loss_and_grads", "abstract_params", "abstract_opt_state",
+           "abstract_cache", "state_shardings", "batch_shardings", "cache_shardings",
+           "cell_gemm_plans", "CellSpec", "step_and_specs", "check_train_mesh"]
 
 
 def default_optimizer(total_steps: int = 10000) -> AdamW:
@@ -63,44 +72,94 @@ def _check_template(tpl: Template) -> Template:
 
 
 # ---------------------------------------------------------------------------
-# shardings
+# abstract shapes (fake tensors: shapes and dtypes, no storage)
 # ---------------------------------------------------------------------------
+
+
+def _fake():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return FakeTensorMode()
+
+
+def _ctx_shape(cfg, batch: int):
+    if cfg.family == "encdec":
+        return (batch, cfg.n_frames, cfg.d_model)
+    if cfg.family == "vlm":
+        return (batch, cfg.n_image_tokens, cfg.d_model)
+    return None
+
+
+def input_specs(cfg, shape) -> dict:
+    """Fake-tensor stand-ins for every model input of a cell of ``shape`` (a
+    ``ShapeSpec``).  decode: {token (b, 1), t ()} int32; train: {tokens,
+    labels} (b, s) int32; prefill: {tokens}; train and prefill add ``ctx``
+    f32 for an encoder-decoder or a VLM."""
+    b = shape.global_batch
+    with _fake():
+        if shape.kind == "decode":
+            return {"token": torch.empty((b, 1), dtype=torch.int32),
+                    "t": torch.empty((), dtype=torch.int32)}
+        specs = {"tokens": torch.empty((b, shape.seq_len), dtype=torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = torch.empty((b, shape.seq_len), dtype=torch.int32)
+        ctx = _ctx_shape(cfg, b)
+        if ctx is not None:
+            specs["ctx"] = torch.empty(ctx, dtype=torch.float32)
+    return specs
 
 
 def abstract_params(cfg):
     """``init_params``' tree as shapes only: fake tensors, nothing allocated
     or drawn (no generator lives on the "meta" device, and a host
     generator draws a 0.5 B model for seconds)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    with FakeTensorMode():
+    with _fake():
         return T.init_params(torch.Generator(), cfg)
 
 
-def state_shardings(cfg, mesh, rules: sh.ShardingRules):
+def abstract_opt_state(cfg, params=None) -> OptState:
+    """``adamw_init``'s state for :func:`abstract_params` (or the fake
+    ``params`` given), as fake tensors."""
+    params = abstract_params(cfg) if params is None else params
+    with _fake():
+        return adamw_init(params)
+
+
+def abstract_cache(cfg, batch: int, cache_len: int):
+    """``init_cache(cfg, batch, cache_len)`` as fake tensors."""
+    with _fake():
+        return T.init_cache(cfg, batch, cache_len)
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+
+
+def state_shardings(cfg, mesh, rules: sh.ShardingRules, params=None):
     """(param_shardings, opt_shardings) NamedSharding trees: each leaf by
     its ``param_axes`` under ``rules`` and the drop rule; the optimizer's
-    step replicated, its moments as the params."""
-    p_sh = sh.tree_shardings(mesh, rules, abstract_params(cfg), T.param_axes(cfg))
+    step replicated, its moments as the params.  ``params``: the
+    :func:`abstract_params` tree, when the caller has it."""
+    params = abstract_params(cfg) if params is None else params
+    p_sh = sh.tree_shardings(mesh, rules, params, T.param_axes(cfg))
     return p_sh, OptState(step=sh.NamedSharding(mesh, sh.PartitionSpec()), m=p_sh, v=p_sh)
 
 
-def _input_shapes(cfg, shape) -> dict:
-    b, s = shape.global_batch, shape.seq_len
-    out = {"tokens": (b, s), "labels": (b, s)}
-    if cfg.family == "encdec":
-        out["ctx"] = (b, cfg.n_frames, cfg.d_model)
-    elif cfg.family == "vlm":
-        out["ctx"] = (b, cfg.n_image_tokens, cfg.d_model)
-    return out
-
-
 def batch_shardings(cfg, shape, mesh, rules: sh.ShardingRules) -> dict:
-    """NamedShardings of a training batch of ``shape`` (a ``ShapeSpec``):
-    tokens and labels ("batch", None), a context ("batch", "ctx", None)."""
-    shapes = {k: torch.empty(v, device="meta") for k, v in _input_shapes(cfg, shape).items()}
-    axes = {k: ("batch", "ctx", None) if k == "ctx" else ("batch", None) for k in shapes}
-    return sh.tree_shardings(mesh, rules, shapes, axes)
+    """NamedShardings of :func:`input_specs`: tokens, labels and a decode
+    token ("batch", None), a context ("batch", "ctx", None), the decode
+    position replicated."""
+    specs = input_specs(cfg, shape)
+    axes = {k: ("batch", "ctx", None) if k == "ctx" else None if k == "t" else ("batch", None)
+            for k in specs}
+    return sh.tree_shardings(mesh, rules, specs, axes)
+
+
+def cache_shardings(cfg, cache_shapes, mesh, rules: sh.ShardingRules):
+    """NamedShardings of a cache tree (:func:`abstract_cache`) by
+    ``models.transformer.cache_axes``."""
+    return sh.tree_shardings(mesh, rules, cache_shapes, T.cache_axes(cfg, cache_shapes))
 
 
 def check_train_mesh(mesh, rules: sh.ShardingRules) -> None:
@@ -111,6 +170,10 @@ def check_train_mesh(mesh, rules: sh.ShardingRules) -> None:
     if not mesh.has_groups:
         raise ValueError(f"a meshed train step runs on ranks (spawn_ranks); {mesh} is a "
                          f"layout only")
+    _check_train_axes(mesh, rules)
+
+
+def _check_train_axes(mesh, rules: sh.ShardingRules) -> None:
     known = set(sh.loss_axes(mesh, rules))
     wide = [a for a in mesh.axis_names if a not in known and mesh.shape[a] > 1]
     if wide:
@@ -215,18 +278,21 @@ def make_train_step(cfg, tpl: Optional[Template] = None, opt: Optional[AdamW] = 
     "lr", 0-d tensors on the device (nothing is read back to the host).
     ``tpl`` defaults to ``default_template("torch")`` on the card.
 
-    ``mesh`` (a mesh with ranks; ``rules`` default ``TRAIN_RULES``): this
-    rank's step on its shards of the params and optimizer state and its
-    rows of the batch, its microbatch i being its rows of the logical
-    microbatch i (``DataPipeline(accum=)`` lays them out so); the metrics
-    are the global step's on every rank."""
+    ``mesh`` (``rules`` default ``TRAIN_RULES``): this rank's step on its
+    shards of the params and optimizer state and its rows of the batch, its
+    microbatch i being its rows of the logical microbatch i
+    (``DataPipeline(accum=)`` lays them out so); the metrics are the global
+    step's on every rank.  The step runs on a mesh with ranks; a layout
+    (the dry-run's production meshes) builds it, and running it raises."""
     tpl = _check_template(tpl or default_template("torch"))
     opt = opt or default_optimizer()
     if mesh is not None:
         rules = rules or sh.TRAIN_RULES
-        check_train_mesh(mesh, rules)
+        _check_train_axes(mesh, rules)
 
     def train_step(params, opt_state, batch):
+        if mesh is not None:
+            check_train_mesh(mesh, rules)
         with _on_mesh(mesh, rules) as axes:
             loss, metrics, grads = _reduce(axes, *_accumulated(tpl, cfg, params, batch,
                                                                accum))
@@ -234,3 +300,124 @@ def make_train_step(cfg, tpl: Optional[Template] = None, opt: Optional[AdamW] = 
         return new_params, new_opt, {**metrics, **om, "loss": loss}
 
     return train_step
+
+
+def make_prefill_step(cfg, tpl: Optional[Template] = None, cache_len: Optional[int] = None):
+    """(params, batch {tokens [, ctx]}) -> (last-position logits, the filled
+    decode cache) through ``models.transformer.prefill``; ``tpl`` defaults
+    to ``default_template()`` (the card's ``cuda`` backend)."""
+    tpl = tpl or default_template()
+
+    def prefill_step(params, batch):
+        return T.prefill(tpl, cfg, params, batch["tokens"], ctx=batch.get("ctx"),
+                         cache_len=cache_len)
+
+    return prefill_step
+
+
+def make_decode_step(cfg, tpl: Optional[Template] = None):
+    """(params, cache, batch {token, t}) -> (logits, new cache) through
+    ``models.transformer.decode_step``."""
+    tpl = tpl or default_template()
+
+    def decode_step(params, cache, batch):
+        return T.decode_step(tpl, cfg, params, batch["token"], batch["t"], cache)
+
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# sharding-aware GEMM planning for a cell
+# ---------------------------------------------------------------------------
+
+
+def cell_gemm_plans(cfg, shape, mesh, rules: sh.ShardingRules,
+                    tpl: Optional[Template] = None) -> dict:
+    """The cell's dominant GEMMs planned at their local per-shard shapes:
+    {qkv, attn_out, mlp_up, mlp_down, lm_head: GemmPlan}.
+
+    M is the cell's tokens, sharded by the rules' "batch"; N by each
+    projection's own logical axis ("qkv" / "mlp" / "vocab"); attn_out and
+    mlp_down contract over the sharded heads / ff dim.  Each plan is
+    ``Engine.plan_gemm(mesh=, partition=)`` in the config's dtype: under
+    ``H100`` the route and tile a rank runs (with the logical shape's k
+    order), under ``TPU_V5E`` the reference's plans; the ``torch`` backend
+    records the local geometry with no block.  Where a shard cannot take its
+    logical shape's route (a column shard the tensor cores cannot address,
+    which the engine refuses at run time), the projection's entry is the
+    planner's refusal, a string."""
+    tpl = tpl or default_template()
+    eng = tpl.engine
+    m, d = shape.tokens, cfg.d_model
+    dtype = T._dtype(cfg.dtype)
+
+    def plan(n, k, n_axis=None, k_axis=None):
+        part = sh.PartitionSpec(rules.get("batch"), rules.get(n_axis) if n_axis else None,
+                                rules.get(k_axis) if k_axis else None)
+        try:
+            return eng.plan_gemm(m, n, k, mesh=mesh, partition=part, dtype=dtype)
+        except ValueError as e:
+            return str(e)
+
+    return {
+        "qkv": plan((cfg.eff_heads + 2 * cfg.n_kv_heads) * cfg.head_dim, d, n_axis="qkv"),
+        "attn_out": plan(d, cfg.eff_heads * cfg.head_dim, k_axis="qkv"),
+        "mlp_up": plan(cfg.d_ff, d, n_axis="mlp"),
+        "mlp_down": plan(d, cfg.d_ff, k_axis="mlp"),
+        "lm_head": plan(cfg.vocab, d, n_axis="vocab"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# one-call assembly for a dry-run cell
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CellSpec:
+    """Everything one (arch x shape x mesh) cell's step takes: the step, its
+    arguments as fake tensors, in order, and their NamedSharding trees."""
+
+    step_fn: object
+    args: tuple
+    in_shardings: tuple
+    out_shardings: object
+    donate_argnums: tuple
+    kind: str
+    #: local per-shard GemmPlans of the cell's dominant projections
+    #: (qkv / attn_out / mlp_up / mlp_down / lm_head), from cell_gemm_plans
+    gemm_plans: dict = dataclasses.field(default_factory=dict)
+
+
+def step_and_specs(cfg, shape, mesh, rules: sh.ShardingRules, accum: int = 1,
+                   tpl: Optional[Template] = None) -> CellSpec:
+    """One cell's step, abstract arguments and shardings.  ``tpl`` goes to
+    the step and to the cell's GEMM planning; a train cell's step is
+    :func:`make_train_step` on ``mesh`` (built on a layout, run on ranks),
+    whose template must be the ``torch`` backend.  Outputs: a train step's
+    params and optimizer state as its inputs, its metrics replicated; a
+    prefill's or decode's cache by :func:`cache_shardings`, its logits
+    unconstrained (None)."""
+    repl = sh.NamedSharding(mesh, sh.PartitionSpec())
+    specs = input_specs(cfg, shape)
+    b_sh = batch_shardings(cfg, shape, mesh, rules)
+    p_shapes = abstract_params(cfg)
+    p_sh, o_sh = state_shardings(cfg, mesh, rules, p_shapes)
+    plans = cell_gemm_plans(cfg, shape, mesh, rules, tpl)
+    if shape.kind == "train":
+        metrics = dict.fromkeys(("ce", "aux", "grad_norm", "lr", "loss"), repl)
+        return CellSpec(step_fn=make_train_step(cfg, tpl=tpl, accum=accum, mesh=mesh,
+                                                rules=rules),
+                        args=(p_shapes, abstract_opt_state(cfg, p_shapes), specs),
+                        in_shardings=(p_sh, o_sh, b_sh), out_shardings=(p_sh, o_sh, metrics),
+                        donate_argnums=(0, 1), kind="train", gemm_plans=plans)
+    c_shapes = abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    c_sh = cache_shardings(cfg, c_shapes, mesh, rules)
+    if shape.kind == "prefill":
+        return CellSpec(step_fn=make_prefill_step(cfg, tpl=tpl, cache_len=shape.seq_len),
+                        args=(p_shapes, specs), in_shardings=(p_sh, b_sh),
+                        out_shardings=(None, c_sh), donate_argnums=(), kind="prefill",
+                        gemm_plans=plans)
+    return CellSpec(step_fn=make_decode_step(cfg, tpl=tpl), args=(p_shapes, c_shapes, specs),
+                    in_shardings=(p_sh, c_sh, b_sh), out_shardings=(None, c_sh),
+                    donate_argnums=(1,), kind="decode", gemm_plans=plans)

@@ -58,7 +58,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import constrain
 
-from .layers import apply_rope, dense, init_dense
+from .layers import apply_rope, dense, init_dense, split_einsum
 
 __all__ = [
     "init_attention",
@@ -162,17 +162,21 @@ def _pair_kv(q, k, v, n_heads: int):
 
 
 def _sdpa_dense(q, k, v, mask) -> torch.Tensor:
-    """q: (B,S,H,D); k / v: (B,T,Hkv,D); mask: (B,1,S,T) or None -> (B,S,H,D)."""
+    """q: (B,S,H,D); k / v: (B,T,Hkv,D); mask: (B,1,S,T) or None -> (B,S,H,D).
+    A decode step's call (S = 1) on a rank of a data split contracts the
+    logical batch's rows (``layers.split_einsum``): its rows get one
+    device's bits."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
     qg = q.reshape(b, s, hkv, g, d)
-    scores = torch.einsum("bshgd,bthd->bhgst", qg.to(torch.float32), k.to(torch.float32))
+    einsum = split_einsum if s == 1 else torch.einsum
+    scores = einsum("bshgd,bthd->bhgst", qg.to(torch.float32), k.to(torch.float32))
     scores = scores / (d ** 0.5)
     if mask is not None:
         scores = torch.where(mask[:, :, None], scores, _NEG)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", p, v.to(torch.float32))
+    out = einsum("bhgst,bthd->bshgd", p, v.to(torch.float32))
     return out.reshape(b, s, h, d).to(q.dtype)
 
 

@@ -237,6 +237,34 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
+def _padded_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (rows first) in a new tensor of ``n`` rows, its rows first and
+    zeros after, its dims in ``x``'s memory order: the layout an ``n``-row
+    ``x`` has."""
+    order = sorted(range(x.ndim), key=lambda d: (-x.stride(d), d))
+    buf = x.new_zeros([n if d == 0 else x.shape[d] for d in order])
+    buf = buf.permute(*[order.index(d) for d in range(x.ndim)])
+    buf[:x.shape[0]].copy_(x)
+    return buf
+
+
+def split_einsum(eq: str, *operands) -> torch.Tensor:
+    """``torch.einsum`` with a data split's rows: on a rank of a data-split
+    step (``sharding.batch_split``) the operands' rows (dim 0) are padded
+    with zero rows to the logical batch, laid out as the unsplit step lays
+    them out, and the result is cut back to the rank's rows.  A batched
+    contraction's library kernel, and with it the order of its sums, follows
+    the row count; padded, the rank makes the call one device makes, and
+    each of its rows gets the bits it gets there (a batched call computes
+    each batch entry alike wherever it sits).  Without a split it is
+    ``torch.einsum``."""
+    f = sh.active_batch_split() if sh.active_mesh() is not None else 1
+    if f == 1:
+        return torch.einsum(eq, *operands)
+    b = operands[0].shape[0]
+    return torch.einsum(eq, *(_padded_rows(o, b * f) for o in operands))[:b]
+
+
 def causal_conv(x, w, b, state=None):
     """Depthwise causal conv over time (the recurrent blocks' short conv).
     x: (B,S,C), w: (W,C), b: (C,); ``state``: the W-1 inputs before x (zeros

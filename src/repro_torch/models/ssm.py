@@ -39,7 +39,7 @@ from repro_torch.core.template import Template
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import constrain
 
-from .layers import causal_conv, dense, init_dense, rms_norm
+from .layers import causal_conv, dense, init_dense, rms_norm, split_einsum
 
 __all__ = [
     "init_ssm",
@@ -236,7 +236,7 @@ def ssm_decode_step(tpl: Template, cfg, p, u, cache: dict, *, inplace: bool = Fa
     da = torch.exp(dt * A[None, :])  # (B,H)
     upd = torch.einsum("bh,bhp,bhn->bhpn", dt, x.to(torch.float32), Bm.to(torch.float32))
     state = cache["state"] * da[..., None, None] + upd
-    y = torch.einsum("bhpn,bhn->bhp", state, Cm.to(torch.float32)).to(x.dtype)
+    y = split_einsum("bhpn,bhn->bhp", state, Cm.to(torch.float32)).to(x.dtype)
     y = y + x * p["D"][None, :, None].to(x.dtype)
     y = y.reshape(b, 1, cfg.d_inner)
     y = rms_norm(y * F.silu(z), p["norm_scale"])

@@ -272,6 +272,20 @@ class NamedSharding:
     mesh: object
     spec: PartitionSpec
 
+    def shard_shape(self, global_shape) -> tuple:
+        """One device's shard of a tensor of ``global_shape`` under this
+        placement, as ``jax.sharding.NamedSharding.shard_shape``: each dim
+        divided by the size of the mesh axes its spec names (raises where
+        it does not divide)."""
+        out = list(global_shape)
+        for d, axes in enumerate(tuple(self.spec)):
+            n = _axis_size(self.mesh, _present_axes(self.mesh, axes))
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(global_shape)} does not split over "
+                                 f"{axes!r} ({n} ways)")
+            out[d] //= n
+        return tuple(out)
+
 
 class _Ctx(threading.local):
     def __init__(self):

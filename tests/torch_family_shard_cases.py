@@ -197,3 +197,27 @@ def gpu_case(payload, rank, world, device):
                                             mesh, rules)}
         out[shape] = rec
     return out
+
+
+def split_case(payload, rank, world, device):
+    """Two ranks on the card on the data split (2, 1): each of
+    ``payload["names"]`` reduced, in bf16, through ``compiled_steps(mesh=)``
+    on ``payload["rows"]`` rows (half a rank) beside the single-device run
+    on the card."""
+    from repro_torch.launch.serve import draw_context
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tpl = default_template("cuda", device=device)
+    mesh = Mesh((world, 1), ("data", "model")).init_groups()
+    out = {}
+    for name in payload["names"]:
+        cfg = cfg_of(name, (("dtype", "bfloat16"),))
+        params = T.init_params(torch.Generator(device=device).manual_seed(0), cfg)
+        gen = torch.Generator(device=device).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (payload["rows"], 16), generator=gen,
+                               device=device)
+        ctx = draw_context(cfg, payload["rows"], seed=2, device=device, dtype=torch.bfloat16)
+        out[name] = {"single": _stepped(cfg, params, tpl, tokens, ctx, payload["gen"]),
+                     "meshed": _stepped(cfg, params, tpl, tokens, ctx, payload["gen"], mesh,
+                                        sh.DECODE_RULES)}
+    return out
