@@ -243,9 +243,17 @@ non-zero without its result line):
 13. the dry-run cells ("dryrun"): ``python -m repro_torch.launch.dryrun
    --arch qwen2.5-32b --mesh both`` in a subprocess started before phase
    2, planning on the host meanwhile (every cell of the arch on the
-   production meshes (16, 16) and (2, 16, 16) planned as layouts, a JSON
+   production meshes (16, 16) and (2, 16, 16) planned as layouts and
+   counted op by op as rank 0, a recording rank, on fake tensors, a JSON
    record a cell; printed: the cells that ran and were skipped, the CLI's
-   own seconds); rank 0's argument shards of the (decode_32k, 16x16) cell
+   own seconds, and each ran cell's roofline terms at the card's rates,
+   dominant term, useful ratio and roofline fraction, or its recorded
+   ``analysis_refused``: a ran cell with neither fails the phase); the op
+   analyzer's counts of phase 5's float prefill and phase 11a's train step
+   (one card, no mesh; a second subprocess started beside the CLI), bytes
+   and least ms by group beside the device ms by group those phases
+   measured (reported, not gated); rank 0's argument shards of the
+   (decode_32k, 16x16) cell
    allocated on the card at the record's local shapes, their bytes equal
    to the record's ``argument_size_in_bytes`` exactly (printed beside
    ``torch.cuda.memory_allocated``'s delta); every planned local GEMM of
@@ -353,14 +361,12 @@ TC_TOL = 1e-4
 E2E_TOL = 2e-3
 #: the q16 GEMM's library yardstick where none exists
 Q16_NO_LIBRARY = "none: no PyTorch call multiplies int16 matrices on CUDA"
-#: H100 SXM dense peaks (NVIDIA data sheet, 700 W)
-HBM_BW = 3.35e12
-PEAK_F32 = 67e12
-PEAK_INT8 = 1979e12
-PEAK_BF16 = 989e12
+#: H100 SXM dense peaks (NVIDIA data sheet, 700 W): HBM, f32, int8 and bf16
+#: are the port's spec's (``core/tiling.py:H100``), read by :func:`read_peaks`
+HBM_BW = PEAK_F32 = PEAK_INT8 = PEAK_BF16 = None
 PEAK_TF32 = 495e12
 #: int32 multiply-adds on the CUDA cores: IMAD at half the FFMA rate
-PEAK_INT32_CUDA = PEAK_F32 / 2
+PEAK_INT32_CUDA = None
 BATCH = 8
 SEED = 0
 #: He-style weight scale: keeps the activations O(1) through VGG16's ReLU
@@ -418,6 +424,17 @@ Q16_ARGMAX = 0.5
 #: the precision DSE's budget (serve's default): a layer (group) drops to the
 #: int8 rung where its solo-flip argmax agreement is at least this
 DSE_BUDGET = 0.99
+
+
+def read_peaks() -> None:
+    """The card's rates from the port's ``H100`` spec, the one copy of each
+    (the roofline of ``core/roofline.py`` divides by the same)."""
+    global HBM_BW, PEAK_F32, PEAK_INT8, PEAK_BF16, PEAK_INT32_CUDA
+    from repro_torch.core.tiling import H100
+
+    HBM_BW, PEAK_F32 = H100.hbm_bw, H100.peak_f32_flops
+    PEAK_INT8, PEAK_BF16 = H100.peak_int8_ops, H100.peak_bf16_flops
+    PEAK_INT32_CUDA = PEAK_F32 / 2
 
 
 def emit(obj) -> None:
@@ -2157,6 +2174,7 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
 
     s = prompts.shape[1]
     emit({"phase": "clocks_before_serving_timing", "nvidia_smi": smi_clocks()})
+    prefill_profiles = {}
     for numerics, tpl, pol in runs:
         caps0 = sum(CAPTURE_COUNTS.values())
         tree = params if pol is None else T.quantize_params(tpl, cfg, params, pol)
@@ -2208,8 +2226,9 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
 
         _, cache = prefill()
         torch.cuda.synchronize()
+        prefill_profiles[numerics] = profile_window(torch, prefill)
         emit({"phase": "serving_profile", "numerics": numerics, "window": "one prefill",
-              **profile_window(torch, prefill)})
+              **prefill_profiles[numerics]})
 
         def decode4():
             c = cache
@@ -2221,6 +2240,7 @@ def phase_serving_timing(torch, cfg, params, prompts, runs):
                   "window": "4 decode steps", **profile_window(torch, decode4, host_ops=True)})
         del cache
     emit({"phase": "clocks_after_serving_timing", "nvidia_smi": smi_clocks()})
+    return prefill_profiles
 
 
 # ---------------------------------------------------------------------------
@@ -4169,7 +4189,6 @@ FAMILY_TRAIN_RUNS = (
     ("whisper-medium", 432, "one decoder and one encoder layer"),
     ("llama-3.2-vision-90b", 1024, "one self and one gated cross layer"),
 )
-BF16_PEAK = 989e12
 #: device time of a train step by kernel name: cuBLAS's GEMMs ("nvjet",
 #: "gemm"), softmax, reductions, elementwise, indexing and copies
 TRAIN_PROFILE_GROUPS = ("nvjet", "gemm", "softmax", "reduce_kernel", "elementwise_kernel",
@@ -4204,8 +4223,8 @@ def phase_train_qwen(torch, dev):
     tokens/s, peak memory, checkpoint save / restore seconds, the share of
     the bf16 dense peak that 6·N·D reaches, one warm step's device time by
     kernel group (``torch.profiler``).  Returns the launch window (the step
-    runs on the torch template: no kernel) and A's step 0 (loss, grad norm),
-    phase 12's single-device reference."""
+    runs on the torch template: no kernel), A's step 0 (loss, grad norm),
+    phase 12's single-device reference, and the step's profile."""
     import tempfile
 
     from repro_torch.configs import SHAPES, get_config, reduced
@@ -4314,13 +4333,13 @@ def phase_train_qwen(torch, dev):
                                                              stats_a["step_seconds"]],
           "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
           "model_flops_per_step_6ND": 6 * n_params * tokens,
-          "bf16_dense_peak_share_6ND": 6 * n_params * tokens / step_s / BF16_PEAK,
+          "bf16_dense_peak_share_6ND": 6 * n_params * tokens / step_s / PEAK_BF16,
           "peak_mem_bytes_a": peak_a, "peak_mem_bytes_b": peak_b,
           "ckpt_save_s": stats_a["save_seconds"] + stats_b["save_seconds"],
           "ckpt_restore_s": stats_b["restore_seconds"],
           "run_a_s": a_s, "run_b_s": b_s, "profile_one_step": profile,
           "seconds": time.perf_counter() - t0})
-    return launches, (loss_a[0], stats_a["grad_norms"][0])
+    return launches, (loss_a[0], stats_a["grad_norms"][0]), profile
 
 
 def phase_train_lenet(torch, dev):
@@ -4451,17 +4470,17 @@ def phase_train_families(torch, dev):
 
 def phase_training(torch, dev):
     """Phase 11: (a) qwen2-0.5b through the training driver, (b) the LeNet QAT
-    example, (c) one training pass a family.  Returns the launch windows and
-    (a)'s step 0 (loss, grad norm)."""
+    example, (c) one training pass a family.  Returns the launch windows,
+    (a)'s step 0 (loss, grad norm) and (a)'s profile of one step."""
     t0 = time.perf_counter()
-    qwen_launches, step0 = phase_train_qwen(torch, dev)
+    qwen_launches, step0, profile = phase_train_qwen(torch, dev)
     windows = {"train qwen2": qwen_launches}
     torch.cuda.empty_cache()
     windows["train lenet"] = phase_train_lenet(torch, dev)
     windows["train families"] = phase_train_families(torch, dev)
     torch.cuda.empty_cache()
     emit({"phase": "training_done", "seconds": time.perf_counter() - t0})
-    return windows, step0
+    return windows, step0, profile
 
 
 # ---------------------------------------------------------------------------
@@ -4806,17 +4825,163 @@ def start_dryrun_cli():
     return proc
 
 
-def _dryrun_record(shape: str) -> dict:
-    name = f"{DRYRUN_ARCH}_{shape}_{DRYRUN_MESH}.json"
+#: the single-card steps the analyzer counts beside phases 5 and 11a's
+#: profiles, and the file its subprocess writes
+SINGLE_CARD_JSON = ROOT / "build" / "single_card_analysis.json"
+#: the analyzer's groups that run as plain torch ops on every template (the
+#: PS plane: what phase 5's "other" and phase 11a's elementwise kernels time)
+PS_GROUPS = ("norm", "softmax", "rope", "elementwise", "copy")
+
+
+def start_single_card_analysis():
+    """Phase 13(b)'s analyzer run (:func:`analyze_single_card`), started early
+    in a process of its own on the host, as the CLI is; killed at exit if it
+    is still running."""
+    import atexit
+    import os
+
+    SINGLE_CARD_JSON.unlink(missing_ok=True)
+    SINGLE_CARD_JSON.parent.mkdir(parents=True, exist_ok=True)
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--analyze-single-card",
+            str(SINGLE_CARD_JSON)]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=ROOT)
+    atexit.register(proc.kill)
+    return proc
+
+
+def analyze_single_card(out: Path) -> None:
+    """``--analyze-single-card OUT``: the op analyzer (``core/op_analysis.py``)
+    on phase 5's qwen2-0.5b prefill (4 x 4096, no mesh) and phase 11a's
+    train step (8 x 1024 in 2 microbatches), both on the ``torch``
+    template, counted on fake tensors on the host; writes flops, bytes by
+    group, the least ms of each group's bytes at the card's HBM rate and
+    the roofline terms to ``OUT``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.op_analysis import analyze_step
+    from repro_torch.core.roofline import roofline_from_counts
+    from repro_torch.core.template import default_template
+    from repro_torch.launch.steps import abstract_opt_state, abstract_params, \
+        make_prefill_step, make_train_step
+    from repro_torch.optim import AdamW, cosine_warmup
+
+    tpl = default_template("torch", device="cpu")
+    res = {}
+    cfg = get_config(QWEN_ARCH)
+    params = abstract_params(cfg)
+    tokens = torch.zeros((QWEN_PROMPTS, QWEN_PROMPT_LEN), dtype=torch.int64)
+    todo = {"prefill": (make_prefill_step(cfg, tpl, cache_len=QWEN_PROMPT_LEN + QWEN_GEN),
+                        (params, {"tokens": tokens}), QWEN_PROMPTS * QWEN_PROMPT_LEN, False)}
+    tcfg = get_config(TRAIN_ARCH)
+    argv = list(TRAIN_ARGV)
+    batch, seq, accum, steps = (int(argv[argv.index(f) + 1])
+                                for f in ("--batch", "--seq", "--accum", "--steps"))
+    tparams = abstract_params(tcfg)
+    step = make_train_step(tcfg, tpl=tpl, opt=AdamW(lr=cosine_warmup(1e-3, 1, steps)),
+                           accum=accum)
+    todo["train"] = (step, (tparams, abstract_opt_state(tcfg, tparams),
+                            {"tokens": torch.zeros((batch, seq), dtype=torch.int64)}),
+                     batch * seq, True)
+    for name, (fn, args, n_tokens, training) in todo.items():
+        t0 = time.perf_counter()
+        st = analyze_step(fn, *args, tpl=tpl)
+        arch = TRAIN_ARCH if training else QWEN_ARCH
+        rep = roofline_from_counts(arch=arch, shape=name, mesh_name="1", chips=1,
+                                   flops=st.flops, bytes_accessed=st.bytes, collectives=(),
+                                   n_params_active=get_config(arch).n_params_active(),
+                                   tokens=n_tokens, training=training)
+        res[name] = {"flops": st.flops, "bytes": st.bytes, "ops": st.ops,
+                     "bytes_by_group": st.bytes_by_group,
+                     "least_ms_by_group": {g: b / HBM_BW * 1e3
+                                           for g, b in st.bytes_by_group.items()},
+                     "ps_plane_bytes": sum(st.bytes_by_group[g] for g in PS_GROUPS),
+                     "ps_plane_least_ms": sum(st.bytes_by_group[g] for g in PS_GROUPS)
+                     / HBM_BW * 1e3,
+                     "compute_ms": rep.compute_s * 1e3, "memory_ms": rep.memory_s * 1e3,
+                     "bound_ms": rep.bound_s * 1e3, "dominant": rep.dominant,
+                     "useful_ratio": rep.useful_ratio, "top_dots": st.top_dots[:4],
+                     "analyze_s": time.perf_counter() - t0}
+    out.write_text(json.dumps(res))
+
+
+def _dryrun_record(shape: str, mesh: str = "16x16") -> dict:
+    name = f"{DRYRUN_ARCH}_{shape}_{mesh}.json"
     return json.loads((DRYRUN_DIR / name).read_text())
 
 
-def phase_dryrun(torch, dev, book: KernelBook, cli) -> dict:
+#: the fields a dry-run record's analysis writes (the reference's names, with
+#: ``ops`` in place of ``hlo``)
+DRYRUN_ANALYSIS = ("ops", "cost", "roofline", "model_flops", "useful_ratio",
+                   "roofline_fraction")
+
+
+def _dryrun_rooflines(ran: list, summary: str) -> None:
+    """Phase 13(a): each ran cell's roofline terms from its record, or its
+    recorded ``analysis_refused``; fails where a record has neither."""
+    import re
+
+    cells = []
+    for label in ran:
+        arch, shape, mesh = (x.strip() for x in label.split(" x "))
+        rec = _dryrun_record(shape, mesh)
+        if "analysis_refused" in rec:
+            cells.append({"cell": label, "analysis_refused": rec["analysis_refused"]})
+            continue
+        missing = [k for k in DRYRUN_ANALYSIS if k not in rec]
+        if missing:
+            raise AssertionError(f"dryrun {label}: the record lacks {missing} and records "
+                                 f"no analysis_refused")
+        r = rec["roofline"]
+        cells.append({"cell": label, "kind": rec["kind"], "compute_s": r["compute_s"],
+                      "memory_s": r["memory_s"], "collective_s": r["collective_s"],
+                      "dominant": r["dominant"], "useful_ratio": rec["useful_ratio"],
+                      "roofline_fraction": rec["roofline_fraction"],
+                      "op_flops": rec["ops"]["flops"], "op_bytes": rec["ops"]["bytes"],
+                      "wire_bytes": rec["ops"]["wire_bytes"],
+                      "coll_counts": rec["ops"]["coll_counts"],
+                      "bytes_by_group": rec["ops"]["bytes_by_group"],
+                      "analyze_s": rec["analyze_s"], "rules": rec["ops"]["rules"]})
+    took = re.search(r"([0-9.]+)s$", summary)
+    emit({"phase": "dryrun_roofline", "arch": DRYRUN_ARCH, "cells": cells,
+          "rates": {"hw": "h100_sxm (core/tiling.py:H100)", "peak_bf16_flops": PEAK_BF16,
+                    "hbm_bw": HBM_BW},
+          "cli_seconds": float(took.group(1)) if took else "not measured",
+          "nvidia_smi": nvidia_smi()})
+
+
+def _single_card_lines(proc, measured: dict) -> None:
+    """Phase 13(b): the analyzer's counts of phase 5's float prefill and phase
+    11a's train step beside the device ms by group those phases measured
+    (reported, not gated)."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"single-card analysis exited {proc.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-3000:]}")
+    got = json.loads(SINGLE_CARD_JSON.read_text())
+    for name, prof in measured.items():
+        a = got[name]
+        emit({"phase": "dryrun_single_card", "step": name,
+              "what": ("qwen2-0.5b prefill 4 x 4096, phase 5 float (cuda template) measured, "
+                       "torch template counted" if name == "prefill" else
+                       "qwen2-0.5b train step 8 x 1024 in 2 microbatches (phase 11a, torch "
+                       "template)"),
+              "analyzer": a, "measured_wall_ms": prof["wall_ms"],
+              "measured_device_busy_ms": prof["device_busy_ms"],
+              "measured_device_ms_by_group": prof["device_ms_by_group"],
+              "nvidia_smi": nvidia_smi()})
+
+
+def phase_dryrun(torch, dev, book: KernelBook, cli, single, measured: dict) -> dict:
     """Phase 13 (module docstring): the dry-run CLI (``cli``, from
-    :func:`start_dryrun_cli`), rank 0's argument shards of one cell
-    allocated at the record's local shapes, and every planned local GEMM of
-    two cells launched through ``Engine.matmul`` on its plan.  Returns the
-    launch window of those GEMMs (one call each)."""
+    :func:`start_dryrun_cli`) and its cells' roofline terms, the analyzer's
+    single-card counts (``single``, from :func:`start_single_card_analysis`)
+    beside ``measured`` (phase 5's float prefill and phase 11a's step
+    profiles), rank 0's argument shards of one cell allocated at the
+    record's local shapes, and every planned local GEMM of two cells
+    launched through ``Engine.matmul`` on its plan.  Returns the launch
+    window of those GEMMs (one call each)."""
     from repro_torch.core.engine import GemmPlan
     from repro_torch.core.template import default_template
     from repro_torch.core.tiling import MatmulBlock
@@ -4833,9 +4998,12 @@ def phase_dryrun(torch, dev, book: KernelBook, cli) -> dict:
     skipped = [ln.split("]")[0][1:] for ln in lines if "] SKIP: " in ln]
     if len(ran) + len(skipped) != len(lines) or not ran:
         raise AssertionError(f"dryrun: unexpected CLI output:\n{out[-2000:]}")
+    summary = out.strip().splitlines()[-1]
     emit({"phase": "dryrun_cli", "arch": DRYRUN_ARCH, "cells_ran": ran,
-          "cells_skipped": skipped, "summary": out.strip().splitlines()[-1],
+          "cells_skipped": skipped, "summary": summary,
           "waited_s": time.perf_counter() - t_phase})
+    _dryrun_rooflines(ran, summary)
+    _single_card_lines(single, measured)
 
     # rank 0's argument shards of the cell, allocated at the record's shapes
     rec = _dryrun_record(DRYRUN_ALLOC)
@@ -5355,6 +5523,7 @@ def main() -> int:
                          "tensor-parallel decode and phase 12's FSDP run: the checkout "
                          "at DIR against this one, in the order DIR, this, this, DIR")
     ap.add_argument("--ab-run", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--analyze-single-card", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     ROUTE_STUDY, CONV_ROUTE_STUDY = args.gemm_route_study, args.conv_route_study
     FLASH_PV_STUDY, FLOAT_FLEET_STUDY = args.flash_pv_study, args.float_fleet_study
@@ -5377,6 +5546,10 @@ def main() -> int:
     if args.ab_run:
         phase_ab_run(torch, dev, args.ab_run)
         return 0
+    read_peaks()
+    if args.analyze_single_card:
+        analyze_single_card(Path(args.analyze_single_card))
+        return 0
     phase_card(torch, dev)
     if args.train_mesh_nccl or args.serve_mesh_nccl or args.split_decode_study or \
             args.parent_ab:
@@ -5396,6 +5569,7 @@ def main() -> int:
         return 0
     book = KernelBook()
     dryrun_cli = start_dryrun_cli()
+    single_card_analysis = start_single_card_analysis()
     phase_kernels(torch, dev, book)
     phase_kernels_serving(torch, dev, book)
     if ROUTE_STUDY:
@@ -5414,7 +5588,7 @@ def main() -> int:
     del runs
     torch.cuda.empty_cache()
     cfg, params, prompts, serving_runs, serving_windows = phase_serving(torch, dev)
-    phase_serving_timing(torch, cfg, params, prompts, serving_runs)
+    prefill_profiles = phase_serving_timing(torch, cfg, params, prompts, serving_runs)
     torch.cuda.empty_cache()
     # the scheduler phase serves float and the grid (q8 runs through phase 5)
     serving_windows.update(phase_scheduler(
@@ -5430,11 +5604,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_windows = phase_families(torch, dev)
     torch.cuda.empty_cache()
-    train_windows, _ = phase_training(torch, dev)
+    train_windows, _, train_profile = phase_training(torch, dev)
     torch.cuda.empty_cache()
     phase_train_mesh(torch, dev)
     torch.cuda.empty_cache()
-    dryrun_window = phase_dryrun(torch, dev, book, dryrun_cli)
+    dryrun_window = phase_dryrun(torch, dev, book, dryrun_cli, single_card_analysis,
+                                 {"prefill": prefill_profiles["float"], "train": train_profile})
     phase_serve_cli(torch)
     phase_fleet_cli(torch)
     phase_fpga_tables()

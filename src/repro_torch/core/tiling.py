@@ -197,7 +197,12 @@ class GpuSpec:
     for the ``flash_wgmma_head_dims``.
 
     Rates are NVIDIA's dense published peaks for the SXM part at its 700 W
-    limit.
+    limit.  ``peak_bf16_flops`` (dense bf16 on the tensor cores) is the
+    roofline's compute rate, as the reference divides by its TPU's bf16
+    peak; ``link_bw`` (NVLink 4: 18 links x 25 GB/s, one direction) its
+    collective rate.  A production mesh's axis of 16 spans two 8-card
+    nodes, whose links between nodes are slower, so that term is an
+    optimistic bound (``core/roofline.py``).
     """
 
     name: str = "h100_sxm"
@@ -207,6 +212,8 @@ class GpuSpec:
     hbm_bw: float = 3.35e12
     peak_f32_flops: float = 67e12
     peak_int8_ops: float = 1979e12
+    peak_bf16_flops: float = 989e12
+    link_bw: float = 450e9
     gemm_tiles: tuple = ((16, 64, 16), (64, 64, 16), (128, 128, 16))
     gemm_threads: int = 256
     wgmma_tiles: tuple = ((128, 128, 64), (128, 256, 64))

@@ -23,14 +23,26 @@ as the reference names its records:
 * ``gemm_plans``: each dominant projection's local (m, n, k), its logical
   shape, route and tile (``steps.cell_gemm_plans``), planned on the
   template the card runs: the ``cuda`` backend under ``H100`` for serving
-  cells, the ``torch`` backend (plain matmuls, no tile) for training.
+  cells, the ``torch`` backend (plain matmuls, no tile) for training;
+* ``ops``, the counterpart of the reference's ``hlo``: rank 0's step
+  counted op by op (``core/op_analysis.analyze_step``) on its shards of
+  the arguments, as a recording rank of the production mesh
+  (``Mesh.recording``) on the ``torch`` template, under the cell's rules
+  (``use_mesh``, ``batch_split``): ``flops``, ``bytes``, ``wire_bytes``,
+  ``coll_counts``, ``coll_bytes``, ``bytes_by_kind``, ``bytes_by_group``,
+  ``seam_counts``, ``top_dots``, ``top_colls``; ``cost``: its ``flops``
+  and ``bytes_accessed``;
+* ``roofline``: ``compute_s``, ``memory_s``, ``collective_s`` and
+  ``dominant`` at ``H100``'s rates (named under ``rates``), then
+  ``model_flops``, ``useful_ratio`` and ``roofline_fraction`` as the
+  reference computes them (``core/roofline.py``).
 
-What needs a compiled program or an op-level count (the reference's
-``cost``, ``hlo``, ``roofline``, ``model_flops``, ``useful_ratio``,
-``roofline_fraction`` and temporary memory) is left out of the record,
-not zeroed.  A cell that does not apply (``configs.shape_applicable``)
-writes nothing and returns ``{"skipped": why}``; a cell that fails to
-build is a bug: :func:`main` exits 1 with the list of failures.
+What needs a compiled program (the reference's temporary memory and its
+``per_device_total_bytes``, static collective counts) is left out of the
+record, not zeroed.  A cell that does not apply
+(``configs.shape_applicable``) writes nothing and returns ``{"skipped":
+why}``; a cell that fails to build or to run on the recording rank is a
+bug: :func:`main` exits 1 with the list of failures.
 """
 from __future__ import annotations
 
@@ -43,15 +55,21 @@ import sys
 import time
 import traceback
 
+from torch.utils._pytree import tree_leaves
+
 from repro_torch.configs import SHAPES, all_configs, get_config, shape_applicable
+from repro_torch.core.op_analysis import analyze_step
+from repro_torch.core.roofline import roofline_from_counts
 from repro_torch.core.template import default_template
 from repro_torch.core.tiling import H100
 from repro_torch.launch.mesh import make_production_mesh, mesh_chips, mesh_name
-from repro_torch.launch.steps import step_and_specs
+from repro_torch.launch.scheduler import compiled_steps, serve_shardings, shard_cache
+from repro_torch.launch.steps import (abstract_cache, abstract_params, input_specs,
+                                     step_and_specs)
 from repro_torch.parallel import sharding as sh
-from repro_torch.parallel.sharding import SERVE_RULES, TRAIN_RULES
+from repro_torch.parallel.sharding import DECODE_RULES, SERVE_RULES, TRAIN_RULES
 
-__all__ = ["rules_for", "run_cell", "iter_cells", "argument_shards", "main"]
+__all__ = ["rules_for", "run_cell", "iter_cells", "argument_shards", "analyze_cell", "main"]
 
 DEFAULT_OUT = os.path.join("experiments", "dryrun_torch")
 
@@ -120,6 +138,79 @@ def _plan_record(plan, backend: str) -> dict:
             "splits": None if blk is None else blk.splits}
 
 
+def _decode_rules(cfg):
+    """The rules the port's meshed decode runs a decode cell under:
+    ``DECODE_RULES`` (column-parallel weights, whole heads and whole cache
+    rows on every "model" rank, the batch over the data axes) with the
+    config's ``serve_rule_overrides``."""
+    rules = DECODE_RULES
+    if cfg.serve_rule_overrides:
+        rules = rules.with_overrides(**dict(cfg.serve_rule_overrides))
+    return rules
+
+
+def analyze_cell(cfg, shape, mesh, rules, accum: int = 1):
+    """Rank 0's step of a cell counted op by op on the recording rank of
+    ``mesh`` (``Mesh.recording``), on the ``torch`` template, on that rank's
+    shards of the step's arguments; returns (the ``OpStats``, the rules it
+    ran under, the rank's argument bytes).
+
+    A train or prefill cell runs its ``step_and_specs`` step under the
+    cell's ``rules``.  A decode cell runs the port's meshed decode
+    (``launch/scheduler.py:compiled_steps(mesh=)``) under
+    :func:`_decode_rules`: the port's decode keeps each cache row's whole
+    sequence and whole kv heads on a rank, so the reference's
+    ``SERVE_RULES`` decode (the cache's sequence over "model", ``seq_kv``)
+    has no counterpart to count."""
+    rec = mesh.recording()
+    tpl = default_template("torch", hw=H100, device="cpu")
+    if shape.kind != "decode":
+        cell = step_and_specs(cfg, shape, rec, rules, accum=accum, tpl=tpl)
+        args = [sh.shard_tree(a, s) for a, s in zip(cell.args, cell.in_shardings)]
+        st = analyze_step(cell.step_fn, *args, tpl=tpl, mesh=rec, rules=rules)
+        return st, rules, _tree_bytes(args)
+    rules = _decode_rules(cfg)
+    params = sh.shard_tree(abstract_params(cfg), serve_shardings(cfg, rec, rules))
+    cache = shard_cache(cfg, abstract_cache(cfg, shape.global_batch, shape.seq_len), rec, rules)
+    batch = input_specs(cfg, shape)
+    steps = compiled_steps(tpl, cfg, shape.seq_len, mesh=rec, rules=rules)
+    st = analyze_step(steps.decode, params, batch["token"], batch["t"], cache, tpl=tpl,
+                      mesh=rec, rules=rules)
+    return st, rules, _tree_bytes((params, cache))
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if hasattr(t, "element_size"))
+
+
+def _analysis_fields(cfg, shape, record: dict, st) -> dict:
+    """The reference's cost, hlo (here ``ops``) and roofline fields of one
+    counted cell."""
+    rep = roofline_from_counts(arch=record["arch"], shape=record["shape"],
+                               mesh_name=record["mesh"], chips=record["chips"],
+                               flops=st.flops, bytes_accessed=st.bytes,
+                               collectives=st.collectives,
+                               n_params_active=cfg.n_params_active(), tokens=shape.tokens,
+                               training=shape.kind == "train", spec=H100)
+    return {
+        "cost": {"flops": st.flops, "bytes_accessed": st.bytes},
+        "ops": {"flops": st.flops, "bytes": st.bytes, "wire_bytes": st.wire_bytes,
+                "coll_counts": st.coll_counts,
+                "coll_bytes": {k: round(v) for k, v in st.coll_bytes.items()},
+                "bytes_by_kind": st.bytes_by_kind, "bytes_by_group": st.bytes_by_group,
+                "seam_counts": {".".join(k): n for k, n in st.seam_counts.items()},
+                "op_count": st.ops, "top_dots": st.top_dots, "top_colls": st.top_colls},
+        "roofline": {"compute_s": rep.compute_s, "memory_s": rep.memory_s,
+                     "collective_s": rep.collective_s, "dominant": rep.dominant,
+                     "rates": {"hw": H100.name, "peak_bf16_flops": H100.peak_bf16_flops,
+                               "hbm_bw": H100.hbm_bw, "link_bw": H100.link_bw}},
+        "model_flops": rep.model_flops_total,
+        "useful_ratio": rep.useful_ratio,
+        "roofline_fraction": rep.roofline_fraction,
+    }
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str, accum: int = 1,
              rule_overrides: dict | None = None, tag: str = "", pad_heads: int = 0,
              remat_policy: str | None = None, device: str = "cuda") -> dict:
@@ -156,6 +247,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str, accum: i
                         "argument_bytes_by_argument": by_arg}
     record["template"] = {"backend": backend, "hw": tpl.config.hw.name}
     record["gemm_plans"] = {k: _plan_record(p, backend) for k, p in cell.gemm_plans.items()}
+    t0 = time.perf_counter()
+    try:
+        st, ran_rules, arg_bytes = analyze_cell(cfg, shape, mesh, rules, accum=accum)
+    except sh.LayoutRefused as e:
+        record["analysis_refused"] = str(e)
+    else:
+        record.update(_analysis_fields(cfg, shape, record, st))
+        record["ops"]["rules"] = [list(r) for r in ran_rules.rules]
+        record["ops"]["argument_bytes"] = arg_bytes
+    record["analyze_s"] = time.perf_counter() - t0
     record["arguments"] = args
 
     os.makedirs(out_dir, exist_ok=True)
@@ -237,9 +338,19 @@ def main(argv=None):
                     continue
                 ran += 1
                 routes = sorted({str(p["route"]) for p in rec["gemm_plans"].values()})
-                print(f"{head} ok kind={rec['kind']} plan={rec['plan_s']:.3f}s "
-                      f"args/dev={rec['memory']['argument_size_in_bytes'] / 2**30:.3f}GiB "
-                      f"routes={','.join(routes)}", flush=True)
+                line = (f"{head} ok kind={rec['kind']} plan={rec['plan_s']:.3f}s "
+                        f"analyze={rec['analyze_s']:.1f}s "
+                        f"args/dev={rec['memory']['argument_size_in_bytes'] / 2**30:.3f}GiB "
+                        f"routes={','.join(routes)} ")
+                if "analysis_refused" in rec:
+                    line += f"analysis_refused: {rec['analysis_refused']}"
+                else:
+                    r = rec["roofline"]
+                    line += (f"compute={r['compute_s']:.3e}s memory={r['memory_s']:.3e}s "
+                             f"collective={r['collective_s']:.3e}s dominant={r['dominant']} "
+                             f"useful={rec['useful_ratio']:.2f} "
+                             f"roofline_frac={rec['roofline_fraction']:.3f}")
+                print(line, flush=True)
     seconds = time.perf_counter() - t0
     if failures:
         print(f"\n{len(failures)} FAILURES:")

@@ -9,6 +9,9 @@ it also holds one process group per axis and this rank's coordinates.  A
 mesh without groups is a layout only: the planners accept it (that is how
 :func:`make_production_mesh`'s (16, 16) and (2, 16, 16) shapes serve
 ``local_gemm_shape`` without 256 ranks), the collectives do not.
+:meth:`Mesh.recording` makes a layout act as one of its ranks with no
+process group: the op analyzer's recording rank, whose collectives are
+recorded, not issued.
 
 Topology of the reference's production meshes (TPU v5e):
   * single pod: (16, 16)  axes ("data", "model")          = 256 chips
@@ -41,6 +44,9 @@ __all__ = [
     "gemm_partition",
     "spawn_ranks",
 ]
+
+#: the backend name of a recording rank (:meth:`Mesh.recording`)
+RECORDING = "record"
 
 #: seconds to wait for the reports still in flight once a rank has died or
 #: failed (the others may be blocked in a collective it never joins)
@@ -80,6 +86,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         where = "" if self.rank is None else f", rank={self.rank}"
+        if self.is_recording:
+            where += ", recording"
         return f"Mesh({self.shape}{where})"
 
     def init_groups(self) -> "Mesh":
@@ -92,22 +100,45 @@ class Mesh:
         if world != self.size:
             raise ValueError(f"mesh {self.shape} needs {self.size} ranks, the process "
                              f"group has {world}")
+        self._place(dist.get_rank(), dist.get_backend(), dist.new_group)
+        return self
+
+    def recording(self, rank: int = 0) -> "Mesh":
+        """This layout acting as rank ``rank`` with no process group: its
+        coordinates and axis lines are set, so the planners, ``shard_tree``
+        and the train step's checks see a rank, while every collective is
+        recorded instead of issued (backend "record",
+        ``sharding.record_collectives``).  It runs on fake tensors only
+        (``core/op_analysis.py``); nothing of ``torch.distributed`` is
+        initialized."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on mesh {self.shape}")
+        mesh = Mesh([self.shape[a] for a in self.axis_names], self.axis_names)
+        mesh._place(rank, RECORDING, None)
+        return mesh
+
+    @property
+    def is_recording(self) -> bool:
+        return self.backend == RECORDING
+
+    def _place(self, rank: int, backend: str, new_group) -> None:
+        """This rank's coordinates and axis lines; with ``new_group``, one
+        process group per line (every rank creates every group, in one
+        order)."""
         sizes = tuple(self.shape[a] for a in self.axis_names)
         grid = np.arange(self.size).reshape(sizes)
-        self.rank = dist.get_rank()
+        self.rank = rank
         here = np.unravel_index(self.rank, sizes)
         self.coords = {a: int(c) for a, c in zip(self.axis_names, here)}
-        self.backend = dist.get_backend()
+        self.backend = backend
         for i, a in enumerate(self.axis_names):
             lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
             for line in lines:
                 ranks = [int(r) for r in line]
-                # every rank creates every group, in one order
-                group = dist.new_group(ranks) if len(ranks) > 1 else None
+                group = new_group(ranks) if new_group and len(ranks) > 1 else None
                 if self.rank in ranks:
                     self.groups[a] = group
                     self.members[a] = ranks
-        return self
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

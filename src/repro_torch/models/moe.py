@@ -224,6 +224,11 @@ def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
     h = sh.mark_shard(sh.carry_marks(ex_in, h), sh.shard_marks(ex_in) + _cols(p["up"]))
     h = sh.constrain(h, "batch", "experts", "expert_cap", "expert_mlp")
     # a column shard of the hidden is gathered: down contracts it whole
+    if any(mk[0] == -2 for mk in sh.shard_marks(p["down"])):
+        raise sh.LayoutRefused(
+            "the MoE FFN contracts its down projection whole or column-parallel; these "
+            "rules shard its expert_mlp rows (a row-parallel down: SERVE_RULES with "
+            "expert_mlp over 'model'), which it does not run")
     ex_out = bmm(sh.replicated(h, dims=(-1,)), p["down"])
 
     # the combine contracts the experts and their slots: over a rank's

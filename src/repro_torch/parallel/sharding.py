@@ -54,7 +54,12 @@ that holds its own shard, and the collectives are explicit.
 
 Under ``gloo`` the collectives stage CUDA tensors through the host (gloo
 takes no CUDA tensor for send / recv); every collective moves bytes, so
-int16 raws and bf16 go through unchanged.
+int16 raws and bf16 go through unchanged.  On a recording rank
+(``launch/mesh.py:Mesh.recording``, no process group) the helpers that
+call ``torch.distributed`` record each collective instead
+(:func:`record_collectives`: kind, seam, axis, group size, result bytes)
+and return a fake tensor of the result's shape; ``core/op_analysis.py``
+counts a step so.
 """
 from __future__ import annotations
 
@@ -128,9 +133,18 @@ __all__ = [
     "batch_split",
     "active_batch_split",
     "mesh_over",
+    "Collective",
+    "record_collectives",
+    "LayoutRefused",
 ]
 
 MeshAxes = Union[str, tuple, None]
+
+
+class LayoutRefused(ValueError):
+    """A sharding layout that the port's step does not run, by design (each
+    case stands in ROADMAP.md's queue 3, "Differences by design"); the
+    dry-run records it as its cell's ``analysis_refused``."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,6 +306,8 @@ class _Ctx(threading.local):
         self.mesh = None
         self.rules: Optional[ShardingRules] = None
         self.batch_split: int = 1
+        self.recording: Optional[list] = None  # record_collectives' list
+        self.seam: str = ""  # the seam a recording rank's next collectives run
 
 
 _CTX = _Ctx()
@@ -922,13 +938,72 @@ def _buffer(shape, dtype, device, mesh) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=device)
 
 
+def _recording(mesh) -> bool:
+    """Whether ``mesh`` is a recording rank (``Mesh.recording``)."""
+    return getattr(mesh, "is_recording", False)
+
+
+def _group(mesh, axis: str):
+    """The process group of this rank's line over ``axis``; None for an
+    axis of size 1 (nothing to move); on a recording rank, the axis name."""
+    if _recording(mesh):
+        return axis if mesh.shape[axis] > 1 else None
+    return mesh.groups.get(axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective of a recording rank: its kind (the reference's HLO
+    name: "all-gather", "reduce-scatter", "all-reduce",
+    "collective-permute"; "gather" onto one rank), the seam and pass that
+    ran it ("act_gather.fwd"; "halo"), the mesh axis, the group's size and
+    the bytes of its result (what ``core/roofline.py``'s ring model
+    takes)."""
+
+    kind: str
+    seam: str
+    axis: str
+    group: int
+    bytes: int
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yields the list that a recording rank's collectives are appended to,
+    in issue order, while the block runs (:class:`Collective`)."""
+    prev = (_CTX.recording, _CTX.seam)
+    _CTX.recording, _CTX.seam = [], ""
+    try:
+        yield _CTX.recording
+    finally:
+        _CTX.recording, _CTX.seam = prev
+
+
+def _record(kind: str, axis: str, mesh, src, result, seam: Optional[str] = None) -> None:
+    """A recording rank's collective, in place of issuing it: ``src`` is
+    what it would send and ``result`` what it would receive (or the
+    result's bytes), both fake tensors: a real tensor raises, so no step
+    computes on the zeros a recording rank returns."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if not isinstance(src, FakeTensor) or not isinstance(result, (FakeTensor, int)):
+        raise ValueError(f"a recording rank ({mesh}) runs on fake tensors only: its "
+                         f"collectives return made-up data (core/op_analysis.py)")
+    if _CTX.recording is None:
+        raise RuntimeError(f"a recording rank's {kind} over {axis!r} outside "
+                           f"record_collectives()")
+    size = result if isinstance(result, int) else result.numel() * result.element_size()
+    _CTX.recording.append(Collective(kind, _CTX.seam if seam is None else seam, axis,
+                                     mesh.shape[axis], size))
+
+
 def _gather_many(ts: Sequence[torch.Tensor], dims: Sequence[int], axis: str,
                  mesh, root: bool = False) -> list:
     """All-gather each tensor of ``ts`` along its dim of ``dims`` over one
     mesh axis, in coordinate order, as one collective: every rank's shards
     travel as one buffer of bytes (any dtypes).  ``root``: gather onto the
     axis's coordinate 0 only; the other ranks get Nones."""
-    group = mesh.groups.get(axis)
+    group = _group(mesh, axis)
     if group is None:  # a size-1 axis
         return list(ts)
     n = mesh.shape[axis]
@@ -937,10 +1012,15 @@ def _gather_many(ts: Sequence[torch.Tensor], dims: Sequence[int], axis: str,
     flat = torch.cat([m.reshape(-1).view(torch.uint8) for m in moved])
     src = _staged(flat, mesh)
     if root and mesh.coords[axis] != 0:
-        dist.gather(src, None, dst=mesh.members[axis][0], group=group)
+        if _recording(mesh):
+            _record("gather", axis, mesh, src, n * src.numel())
+        else:
+            dist.gather(src, None, dst=mesh.members[axis][0], group=group)
         return [None] * len(moved)
     whole = _buffer((n, flat.numel()), torch.uint8, dev, mesh)
-    if root:
+    if _recording(mesh):
+        _record("gather" if root else "all-gather", axis, mesh, src, whole)
+    elif root:
         dist.gather(src, list(whole.unbind(0)), dst=mesh.members[axis][0], group=group)
     elif _host_staged(mesh):
         dist.all_gather(list(whole.unbind(0)), src, group=group)
@@ -1130,7 +1210,7 @@ def _exchange_rows(v: torch.Tensor, hs: SpatialHalo, mesh, s: int) -> tuple:
     ``dn`` rows of the slab below), zeros at the mesh edges; sends its own
     last ``up`` rows down the axis and first ``dn`` rows up it."""
     members = mesh.members[hs.axis]
-    group = mesh.groups[hs.axis]
+    group = _group(mesh, hs.axis)
     stage = _host_staged(mesh) and v.device.type == "cuda"
     where = torch.device("cpu") if stage else v.device
 
@@ -1138,6 +1218,10 @@ def _exchange_rows(v: torch.Tensor, hs: SpatialHalo, mesh, s: int) -> tuple:
         want = list(v.shape)
         want[2] = rows
         recv = torch.zeros(want, dtype=v.dtype, device=where)
+        if _recording(mesh):
+            if to is not None or frm is not None:  # each rank's halo rows, one step
+                _record("collective-permute", hs.axis, mesh, rows_out, recv, seam="halo")
+            return recv
         ops = []
         if to is not None:
             send = rows_out.to(where).contiguous()  # only the halo rows move
@@ -1234,7 +1318,10 @@ def _all_reduce_f32(t: torch.Tensor, axes: tuple, mesh) -> torch.Tensor:
     if buf is t:
         buf = buf.clone()
     for a in axes:
-        dist.all_reduce(buf, group=mesh.groups[a])
+        if _recording(mesh):
+            _record("all-reduce", a, mesh, buf, buf)
+        else:
+            dist.all_reduce(buf, group=mesh.groups[a])
     return buf.to(t.device)
 
 
@@ -1250,7 +1337,7 @@ def _reduce_scatter_many(gs: Sequence[torch.Tensor], dims: Sequence[int], axis: 
     rank's slice of its dim of ``dims`` (coordinate order, the inverse of
     :func:`_gather_many`), as one collective: rank r's input row holds the
     r-th slice of every tensor."""
-    group = mesh.groups.get(axis)
+    group = _group(mesh, axis)
     if group is None:
         return list(gs)
     n = mesh.shape[axis]
@@ -1262,7 +1349,10 @@ def _reduce_scatter_many(gs: Sequence[torch.Tensor], dims: Sequence[int], axis: 
     src = _staged(torch.cat(parts, dim=1).reshape(-1), mesh)
     dev = gs[0].device
     out = _buffer((src.numel() // n,), src.dtype, dev, mesh)
-    _reduce_scatter(out, src, group=group)
+    if _recording(mesh):
+        _record("reduce-scatter", axis, mesh, src, out)
+    else:
+        _reduce_scatter(out, src, group=group)
     out = out.to(dev)
     pieces = out.split([p.shape[1] for p in parts])
     return [piece.view(m.shape[0] // n, *m.shape[1:]).movedim(0, d).contiguous()
@@ -1289,6 +1379,8 @@ _COLLECTIVE = {("act_gather", "fwd"): "all_gather", ("act_gather", "bwd"): "redu
 def _count(seam: str, phase: str, axes: tuple) -> None:
     for a in axes:
         SEAM_COUNTS[(seam, phase, a)] += 1
+    if _CTX.recording is not None:
+        _CTX.seam = f"{seam}.{phase}"  # names the collectives that follow
 
 
 def collective_counts(counts=None) -> dict:
