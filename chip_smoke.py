@@ -131,10 +131,10 @@ non-zero without its result line):
    search), ``scheduler_soak --backend q16`` under ``REPRO_PLAN_ASSERT_WARM=1``
    on S3 (after one run that writes S3), ``serve --backend q8 --plan-store``
    twice, ``router_soak --backend q16 --workers 2`` with its real kill;
-8. the paper's FPGA plane: the port's Table 1, Table 2 and DSE-sweep
-   scripts (``repro_torch.benchmarks``) print their rows; every paper
-   compute unit fits its board and Table 1's conv GOP/s rise from Ultra96 to
-   ZCU102;
+8. the paper's FPGA plane: phase 14 prints the port's Table 1, Table 2
+   and DSE-sweep rows from ``benchmarks/run.py``'s JSON and checks that
+   every paper compute unit fits its board and Table 1's conv GOP/s rise
+   from Ultra96 to ZCU102;
 9. sharding on ``torch.distributed`` ("shards"): two ranks on the one card
    over ``gloo`` (``launch/mesh.py:spawn_ranks``; gloo takes no CUDA tensor
    for send / recv, so every collective is staged through the host, and
@@ -146,7 +146,7 @@ non-zero without its result line):
    bit-identical to the unsharded forward, float within 2e-3 (max |Δ|
    printed beside the reference's own 1e-5), a warm forward plans nothing;
    printed: launches by route, the halo bytes against a full gather's, ms a
-   forward.  (b) qwen2-0.5b at full width cut to 4 of its 24 layers
+   forward.  (b) qwen2-0.5b at full width cut to 2 of its 24 layers
    (drawn apart from phase 5's), tensor-parallel over a
    2-way "model" axis (column shards, activations gathered at the seams,
    decode eager), float and Q4.12, a ``ServeScheduler`` of 4 slots over the
@@ -229,12 +229,12 @@ non-zero without its result line):
    finite, the loss within 1 % and the grad norm within 5 % of the same
    weights' f32 pass.  Printed: ms and peak memory;
 12. training on ranks ("train_mesh"): (a)'s qwen2-0.5b run at full width,
-   cut to 4 of its 24 layers, through ``launch/train.main --mesh single
+   cut to 2 of its 24 layers, through ``launch/train.main --mesh single
    --ranks 2`` (two gloo ranks of the card, collectives staged through
    pinned host memory), one run after another on the same two rank
    processes: FSDP for 2 steps, FSDP failing at step 1 with a checkpoint
    every step, data-parallel (``--no-fsdp``) for 1, and tensor-parallel
-   (``--model 2``: "model" = 2, sequence-parallel activations) for 2.
+   (``--model 2``: "model" = 2, sequence-parallel activations) for 1.
    Gates: finite losses, step 0 within 1e-3 (loss) and 1e-2 (grad norm)
    of a single-device step 0 at the same depth, the restarted run equal to
    the fault-free one bit for bit.  Printed: ms a
@@ -261,7 +261,18 @@ non-zero without its result line):
    ``Engine.matmul`` on its plan, gated to launch the plan's route and held
    to the float GEMM's plain version at phase 2's bf16 tolerance; printed:
    kernel ms and bound ms.  Their launches are the ``kernels`` line's path
-   "dryrun cells".
+   "dryrun cells";
+14. the benchmark scripts, when nothing else runs on the card:
+   ``python -m repro_torch.benchmarks.run`` in a subprocess (table1,
+   table2, dse_sweep, kernel_table, precision_drift, scheduler_soak,
+   router_soak, then the roofline report of phase 13's records), which must
+   exit 0 (each script's own gates held); printed from its JSON
+   (``build/bench_torch.json``): the H100 ``kernel_table`` rows (each case's
+   float GEMM in bf16 and q16 GEMM in int16 on its planned route, with
+   ``ms``, ``bound_ms`` and ``library_ms``), the correctness pass (the
+   integer kernels exact), the precision gates' verdicts and the roofline
+   rows of the 16x16 cells, each gated equal to phase 13's records field for
+   field.
 
 ``--train-mesh-nccl`` runs, alone, training over NCCL on four cards (a
 rank each; it fails with fewer): qwen2-0.5b data-parallel, FSDP and
@@ -470,31 +481,18 @@ def nvcc_version() -> str:
 
 
 def time_ms(fn, target_ms: float = 150.0) -> float:
-    """Mean device time of ``fn`` over repeated calls, by CUDA events, after
-    a warm-up call."""
-    import torch
+    """Mean device time of ``fn`` by CUDA events (``benchmarks/_timing.py``,
+    the benchmark scripts' timer)."""
+    from repro_torch.benchmarks._timing import time_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    est = max(start.elapsed_time(end), 1e-3)
-    reps = max(3, min(50, math.ceil(target_ms / est)))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return timed(fn, target_ms)
 
 
 def bound(nbytes: int, ops: int, peak: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BW * 1e3
-    t_ops = ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The least time of the work on the card (``benchmarks/_timing.py``)."""
+    from repro_torch.benchmarks._timing import bound as least
+
+    return least(nbytes, ops, peak, HBM_BW)
 
 
 def nbytes(*tensors) -> int:
@@ -2577,27 +2575,6 @@ def phase_serve_cli(torch):
               "precision_pins": st["precision"], "seconds": time.perf_counter() - t0})
 
 
-def phase_fpga_tables():
-    """The paper's FPGA plane on the card machine (pure Python, no JAX): the
-    port's Table 1 / Table 2 / DSE-sweep scripts' rows, with
-    ``tests/test_cnn_fpga.py``'s checks: every paper compute unit fits its
-    board, and Table 1's conv GOP/s rise from Ultra96 to ZCU102."""
-    from repro_torch.benchmarks import dse_sweep, table1, table2
-    from repro_torch.core import fpga_model as fm
-
-    rows = table1.run()
-    for board in table1.PAPER:
-        if not table1.instance_for(board).fits():
-            raise AssertionError(f"the paper's compute unit does not fit {board}")
-    gops = [fm.evaluate_network("alexnet", fm.alexnet_layers(), table1.instance_for(b),
-                                batch=4).conv_gops for b in ("Ultra96", "ZCU104", "ZCU102")]
-    if not gops[0] < gops[1] < gops[2]:
-        raise AssertionError(f"Table 1 conv GOP/s do not rise with the board: {gops}")
-    emit({"phase": "fpga_table1", "rows": rows, "conv_gops": gops})
-    emit({"phase": "fpga_table2", **table2.run()})
-    emit({"phase": "fpga_dse_sweep", "fpga": dse_sweep.run_fpga(), "tpu": dse_sweep.run_tpu()})
-
-
 # ---------------------------------------------------------------------------
 # phase 7: the serving fleet (plan store, measured pins, replica router)
 # ---------------------------------------------------------------------------
@@ -3053,9 +3030,9 @@ SHARDS_SLOTS = 4
 SHARDS_LADDER = (256, 512)
 SHARDS_REQUESTS = 6
 SHARDS_MAX_NEW = 8
-#: (b)'s qwen2-0.5b at full width cut to 4 of its 24 layers (the smoke's
+#: (b)'s qwen2-0.5b at full width cut to 2 of its 24 layers (the smoke's
 #: time: four eager scheduler runs a rank)
-SHARDS_QWEN_DEPTH = 4
+SHARDS_QWEN_DEPTH = 2
 SHARDS_MIN_LEN = 64
 SHARDS_FORWARD_REPS = 3
 SHARDS_DIR = ROOT / "build" / "shards_phase"
@@ -4495,8 +4472,8 @@ def phase_training(torch, dev):
 #: checkpoint, FSDP failing at step 1 with a checkpoint every step, and
 #: tensor-parallel ("model" = 2) with no checkpoint
 MESH_RANKS = 2
-MESH_DEPTH = 4
-MESH_STEPS = {"fsdp": 2, "fsdp_restart": 2, "dp": 1, "tp": 2}
+MESH_DEPTH = 2
+MESH_STEPS = {"fsdp": 2, "fsdp_restart": 2, "dp": 1, "tp": 1}
 MESH_FAIL_AT = MESH_CKPT_EVERY = 1
 #: step 0 on the ranks against the single-device step 0 at the same depth
 MESH_LOSS_TOL, MESH_GNORM_TOL = 1e-3, 1e-2
@@ -5065,8 +5042,106 @@ def phase_dryrun(torch, dev, book: KernelBook, cli, single, measured: dict) -> d
     torch.cuda.empty_cache()
     emit({"phase": "dryrun", "seconds": time.perf_counter() - t_phase,
           "launches": {k: v for k, v in window.items() if v}})
-    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     return window
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the benchmark scripts
+# ---------------------------------------------------------------------------
+
+BENCH_JSON = ROOT / "build" / "bench_torch.json"
+#: the fields of a roofline row that are copied from a dry-run record
+ROOFLINE_TERMS = ("compute_s", "memory_s", "collective_s", "dominant")
+ROOFLINE_RECORD = ("useful_ratio", "roofline_fraction")
+
+
+def _bench_roofline(rows: list) -> list:
+    """Each roofline row of the report held to phase 13's record of its cell,
+    field for field; the rows are exactly the 16x16 records with terms."""
+    want = sorted(p.name for p in DRYRUN_DIR.glob(f"*_{DRYRUN_MESH}.json")
+                  if "analysis_refused" not in json.loads(p.read_text()))
+    got = sorted(f"{r['arch']}_{r['shape']}_{r['mesh']}.json" for r in rows)
+    if got != want:
+        raise AssertionError(f"bench roofline: rows for {got}, phase 13's records {want}")
+    for r in rows:
+        rec = _dryrun_record(r["shape"], r["mesh"])
+        expect = {**{k: rec["roofline"][k] for k in ROOFLINE_TERMS},
+                  **{k: rec[k] for k in ROOFLINE_RECORD},
+                  "argument_bytes": rec["memory"]["argument_size_in_bytes"]}
+        diff = {k: (r[k], v) for k, v in expect.items() if r[k] != v}
+        if diff:
+            raise AssertionError(f"bench roofline {r['shape']}: the row differs from the "
+                                 f"record: {diff}")
+    return rows
+
+
+def _bench_fpga_tables(got: dict) -> None:
+    """Phase 8: the paper's FPGA plane from run.py's Table 1 / Table 2 /
+    DSE-sweep rows, with ``tests/test_cnn_fpga.py``'s checks: every paper
+    compute unit fits its board, and Table 1's conv GOP/s rise from Ultra96
+    to ZCU102."""
+    rows = {r["board"]: r for r in got["table1"]}
+    if not all(r["fits"] for r in rows.values()):
+        raise AssertionError(f"a paper compute unit does not fit its board: {rows}")
+    gops = [rows[b]["gops_model"] for b in ("Ultra96", "ZCU104", "ZCU102")]
+    if not gops[0] < gops[1] < gops[2]:
+        raise AssertionError(f"Table 1 conv GOP/s do not rise with the board: {gops}")
+    emit({"phase": "fpga_table1", "rows": got["table1"], "conv_gops": gops})
+    emit({"phase": "fpga_table2", **got["table2"]})
+    emit({"phase": "fpga_dse_sweep", **got["dse_sweep"]})
+
+
+def phase_bench_scripts(torch):
+    """Phase 14 (module docstring): ``benchmarks/run.py`` in a subprocess on
+    phase 13's dry-run records, then its rows printed and checked."""
+    import os
+
+    t0 = time.perf_counter()
+    BENCH_JSON.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), DRYRUN_OUT=str(DRYRUN_DIR))
+    env.pop("REPRO_TORCH_PLAN_STORE", None)
+    res = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.run",
+                          "--out", str(BENCH_JSON)], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"benchmarks.run exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    got = json.loads(BENCH_JSON.read_text())
+    _bench_fpga_tables(got)
+    kt = got["kernel_table"]
+    rows = kt["structural_h100"]
+    smi = nvidia_smi()
+    if len(rows) != 12 or any(r.get("ms") is None or "library_ms" not in r for r in rows):
+        raise AssertionError(f"bench kernel_table: untimed H100 rows: {rows}")
+    for r in rows:
+        emit({"phase": "bench_kernel_table", **{k: r[k] for k in (
+            "gemm", "numerics", "mnk", "route", "block", "splits", "smem_KiB", "ai", "ms",
+            "bound_ms", "bound_by", "library_ms", "launches")}, "nvidia_smi": smi})
+    corr = kt["correctness"]
+    if any(v != 0 for k, v in corr.items() if k.endswith("_raw")):
+        raise AssertionError(f"bench correctness: an integer kernel is not exact: {corr}")
+    emit({"phase": "bench_correctness", "max_abs_err": corr,
+          "integer_kernels_exact": True})
+    lenet, tfm, lsw, tsw = got["precision_drift"]
+    emit({"phase": "bench_precision", "verdicts": {
+        "lenet_one_quantize_one_dequantize_a_forward":
+            lenet["quantize_calls"] == lenet["dequantize_calls"] == lenet["batches"],
+        "lenet_q16_bytes_ratio": lenet["bytes_ratio"],
+        "qwen2_q16_bytes_ratio": tfm["per_token_bytes_q16"] / tfm["per_token_bytes_float"],
+        "lenet_int8_layers": lsw["int8_layers"],
+        "int8_half_bytes_exact": kt["precision_dse"]["int8_half_bytes_exact"],
+        "lenet_mixed_argmax_agreement": lsw["argmax_agreement"],
+        "qwen2_plan": tsw["plan"], "qwen2_drift": tsw["drift"],
+        "q16_residency_lenet_agreement": kt["q16_residency"]["lenet_argmax_agreement"]},
+        "agreement": {row["bench"]: row["argmax_agreement"]
+                      for row in got["precision_drift"]}})
+    roof = _bench_roofline(got["roofline_report:baseline"]["rows"])
+    for r in roof:
+        emit({"phase": "bench_roofline", **r})
+    emit({"phase": "bench_scripts", "seconds": time.perf_counter() - t0,
+          "modules": sorted(got), "run_tail": res.stdout.strip().splitlines()[-4:],
+          "nvidia_smi": smi})
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
 
 
 # -- --serve-mesh-nccl: meshed serving over NCCL on four cards ----------------
@@ -5612,7 +5687,7 @@ def main() -> int:
                                  {"prefill": prefill_profiles["float"], "train": train_profile})
     phase_serve_cli(torch)
     phase_fleet_cli(torch)
-    phase_fpga_tables()
+    phase_bench_scripts(torch)
 
     windows = {"cnn": cnn_launches, **{f"qwen2 {k}": v for k, v in serving_windows.items()},
                **shard_windows, **family_windows, **train_windows,

@@ -14,6 +14,9 @@ The port's copy of ``benchmarks/dse_sweep.py``: ``explore_board`` of
 """
 from __future__ import annotations
 
+import argparse
+import sys
+
 from repro_torch.core.dse import explore_board, explore_tpu_block
 from repro_torch.core.fpga_model import BOARDS, alexnet_layers
 
@@ -62,7 +65,10 @@ def run_tpu() -> dict:
     return out
 
 
-def main():
+def main(argv=()):
+    """Print the table; ``argv``: this script's flags (it takes none but
+    ``--help``)."""
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(list(argv))
     print("== DSE: FPGA plane (paper §III.E — expect tau ~ 2*mu) ==")
     fpga = run_fpga()
     for board, rows in fpga.items():
@@ -82,4 +88,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -14,6 +14,9 @@ text.
 """
 from __future__ import annotations
 
+import argparse
+import sys
+
 from repro_torch.core.fpga_model import (
     BOARDS,
     TemplateInstance,
@@ -64,7 +67,10 @@ def run(batch: int = 4) -> list[dict]:
     return rows
 
 
-def main():
+def main(argv=()):
+    """Print the table; ``argv``: this script's flags (it takes none but
+    ``--help``)."""
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(list(argv))
     print("== Table 1: resource utilization + performance (AlexNet) ==")
     rows = run()
     hdr = (f"{'board':8s} {'CU':7s} {'DSP m/p':12s} {'BRAM m/p':12s} "
@@ -82,4 +88,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -16,6 +16,9 @@ model:
 """
 from __future__ import annotations
 
+import argparse
+import sys
+
 from repro_torch.core.fpga_model import alexnet_layers, evaluate_network
 from .table1 import instance_for
 
@@ -45,7 +48,10 @@ def run() -> dict:
     }
 
 
-def main():
+def main(argv=()):
+    """Print the table; ``argv``: this script's flags (it takes none but
+    ``--help``)."""
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(list(argv))
     print("== Table 2: benchmark vs Bjerge et al. [10] on Ultra96 ==")
     r = run()
     print(f"paper:   prev {PAPER_PREV['gops']} GOP/s vs proposed "
@@ -60,4 +66,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -214,6 +214,8 @@ class GpuSpec:
     peak_int8_ops: float = 1979e12
     peak_bf16_flops: float = 989e12
     link_bw: float = 450e9
+    #: device memory of one card (the SXM part's published 80 GB)
+    hbm_bytes: int = 80 * 10**9
     gemm_tiles: tuple = ((16, 64, 16), (64, 64, 16), (128, 128, 16))
     gemm_threads: int = 256
     wgmma_tiles: tuple = ((128, 128, 64), (128, 256, 64))

@@ -127,7 +127,8 @@ def conv2d(
     n = x.shape[0]
     kh, kw, _, cout = w.shape
     cols, ho, wo = im2col(_pad(x, padding), kh, kw, stride)
-    out = matmul_fp(cols, conv_gemm_weights(w).contiguous(), bias=bias,
+    # one image's columns are a transposed view; the kernel reads dense rows
+    out = matmul_fp(cols.contiguous(), conv_gemm_weights(w).contiguous(), bias=bias,
                     relu=relu, qout=qout, block=block)
     return out.reshape(n, ho, wo, cout)
 
