@@ -1467,6 +1467,42 @@ def phase_kernels_serving(torch, dev, book: KernelBook):
             nbytes_=nbytes(x, w) + m * n * 2, ops=2 * m * n * k, peak=PEAK_BF16)
         del x, w, got, again, want
 
+    # phase 9(f)'s row-parallel GEMM: one rank's K-half of qwen2.5-32b's MLP
+    # down projection, (m, 13824) @ (13824, 5120) bf16 into the f32
+    # accumulators, no epilogue (a partial sum, counted apart as
+    # "matmul_fp.<route>.partial"), at decode (m = 4, route splitk) and at
+    # the prefill (m = 4 x 512, route wgmma), beside the plain version and
+    # one library call with an f32 output where torch has one
+    for j, (m, route) in enumerate(((SERVE_F_BATCH, "splitk"),
+                                    (SERVE_F_BATCH * SERVE_F_RUNS[0][3], "wgmma"))):
+        k, n = QWEN32_FF // 2, QWEN32_D
+        x = _randn(torch, (m, k), dev, 290 + j).to(torch.bfloat16)
+        w = _randn(torch, (k, n), dev, 295 + j, k ** -0.5).to(torch.bfloat16)
+        blk = plan_for(x, w)
+        assert blk.route == route, (m, blk)
+        got = matmul_fp_cuda(x, w, block=blk, partial=True)
+        again = matmul_fp_cuda(x, w, block=blk, partial=True)
+        want = matmul_fp_plain(x, w, partial=True)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and torch.equal(got, again), \
+            f"row-parallel m={m}: route {route} partial not repeatable"
+        label = (f"qwen2.5-32b mlp_down K-half ({m},{k})@({k},{n}) bf16 -> f32 partial "
+                 f"{_plan(blk)}")
+        book.check(f"matmul_fp.{route}.partial", label, got, want, exact=False, tol=GEMM_TOL)
+        try:
+            torch.mm(x, w, out_dtype=torch.float32)
+            lib_fn, lib = (lambda: torch.mm(x, w, out_dtype=torch.float32),
+                           "torch.mm(out_dtype=float32) (cuBLAS)")
+        except (TypeError, RuntimeError):
+            lib_fn, lib = lambda: torch.matmul(x, w), "torch.matmul (cuBLAS, bf16 out)"
+        book.timing(
+            f"matmul_fp.{route}.partial", label,
+            kernel_fn=lambda: matmul_fp_cuda(x, w, block=blk, partial=True),
+            plain_fn=lambda: matmul_fp_plain(x, w, partial=True),
+            library_fn=lib_fn, library=lib,
+            nbytes_=nbytes(x, w) + m * n * 4, ops=2 * m * n * k, peak=PEAK_BF16)
+        del x, w, got, again, want
+
     # every distinct grid GEMM of a qwen2 layer in int16, at prefill (route
     # wgmma) and at decode (route splitk), and the grid head (m = 4, w
     # (896, 151936) stored row-major); gate / up timed at both m, beside
@@ -3003,6 +3039,14 @@ KERNEL_META = {
     "flash_attention.wgmma": ("flash_attention", "wgmma",
                               "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
                               "src/repro/kernels/flash_attention.py:73"),
+    # a row-parallel GEMM's partial launches of routes wgmma and splitk (f32
+    # out, no epilogue; phase 9(f)), counted apart among their route's
+    "matmul_fp.wgmma.partial": ("matmul_fp", "wgmma",
+                                "src/repro_torch/kernels/csrc/gemm_wgmma.cuh",
+                                "src/repro/kernels/matmul_fp.py:76"),
+    "matmul_fp.splitk.partial": ("matmul_fp", "splitk",
+                                 "src/repro_torch/kernels/csrc/gemm_splitk.cuh",
+                                 "src/repro/kernels/matmul_fp.py:76"),
     # the same route at head dim 128 (mistral-nemo's prefill, phase 10(b)),
     # its launches counted apart ("flash_attention.wgmma.d128")
     "flash_attention.wgmma.d128": ("flash_attention", "wgmma",
@@ -3255,6 +3299,278 @@ def family_mesh_inputs(torch, dev, cfg):
     return tokens, ctx
 
 
+#: phase 9(f), serving under SERVE_RULES (the dry-run's rules,
+#: ``launch/dryrun.py:rules_for``: heads over "model", the KV ring's
+#: sequence over "model", wo and the down projections row-parallel) on two
+#: gloo ranks of the card: (config, depth cut ("reduced": the reduced
+#: config), ring slots, prompt tokens, decode steps).  qwen2.5-32b at full
+#: width with a 32,768-slot ring (16,384 a rank); granite-moe under its
+#: serve overrides (expert_mlp over "model": a row-parallel expert down);
+#: reduced qwen2 on a 64-slot ring for 96 steps, so positions wrap across
+#: the ranks
+SERVE_F_RUNS = (("qwen2.5-32b", 2, 32768, 512, 16),
+                ("granite-moe-3b-a800m", 2, 4096, 512, 8),
+                ("qwen2-0.5b", "reduced", 64, 16, 96))
+SERVE_F_BATCH = 4
+#: each step's max |Δlogit| / max |logit| against the one-device replay
+SERVE_F_TOL = 2e-2
+
+
+def serve_f_cfg(name, depth):
+    """A 9(f) run's config and its ``reduced`` line."""
+    if depth == "reduced":
+        from repro_torch.configs import get_config, reduced
+
+        return reduced(get_config(name)), "the reduced config (2 layers, d 64)"
+    return family_cfg(name, depth)
+
+
+def _ring_bytes(cache) -> int:
+    """The bytes of a decode cache's k / v rings (this rank's share)."""
+    out = 0
+
+    def walk(tree, key=None):
+        nonlocal out
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+        elif isinstance(tree, tuple):
+            for v in tree:
+                walk(v, key)
+        elif key in ("k", "v"):
+            out += tree.numel() * tree.element_size()
+
+    walk(cache)
+    return out
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Record the MoE routing decisions made inside (eager code only: it
+    copies to the host): each ``models/moe.py:_route`` call appends (top-k
+    expert ids (G, S, k), router probabilities (G, S, E)) on the host."""
+    from repro_torch.models import moe
+
+    log, route = [], moe._route
+
+    def recorded(cfg, router_w, xt):
+        gates, idx, probs = route(cfg, router_w, xt)
+        log.append((idx.cpu(), probs.float().cpu()))
+        return gates, idx, probs
+
+    moe._route = recorded
+    try:
+        yield log
+    finally:
+        moe._route = route
+
+
+def _decode_steps(torch, dev, fns, params, logits, cache, prompt, steps, forced, *,
+                  routes=False):
+    """``steps`` decode steps through ``fns.decode_next`` after a prefill's
+    ``logits`` at ``prompt`` tokens: greedy, or teacher-forced with
+    ``forced`` (B, steps + 1); each step timed to the card's sync, its
+    collectives counted (``SEAM_COUNTS``) and, with ``routes``, its MoE
+    routing recorded (:func:`moe_routes`, eager steps only).  Returns the
+    logits (host, f32) and tokens a step, ms, collectives and routing a
+    step, and the cache."""
+    from repro_torch.parallel import sharding as sh
+
+    tok = torch.argmax(logits, -1) if forced is None else forced[:, 0].to(dev)
+    lg, toks, ms, coll, by_step = [logits.float().cpu()], [tok.cpu()], [], [], []
+    for i in range(steps):
+        before = collections.Counter(sh.SEAM_COUNTS)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with moe_routes() if routes else contextlib.nullcontext() as log:
+            nxt, logits, cache = fns.decode_next(params, tok[:, None], prompt + i, cache)
+            torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if routes:
+            by_step.append(log)
+        delta = collections.Counter(sh.SEAM_COUNTS)
+        delta.subtract(before)
+        coll.append(sh.collective_counts(delta))
+        lg.append(logits.float().cpu())
+        tok = nxt.clone() if forced is None else forced[:, i + 1].to(dev)
+        toks.append(tok.cpu())
+    return torch.stack(lg), torch.stack(toks, 1), ms, coll, by_step, cache
+
+
+def serve_rules_steps(torch, dev, run, mesh=None, forced=None):
+    """One 9(f) run through ``compiled_steps``: the prefill of
+    ``SERVE_F_BATCH`` prompts from the seed, then its decode steps (one
+    device: greedy, replayed graphs; ``mesh``: this rank's share under
+    ``rules_for("decode", cfg)``, weights drawn as its shards in the rules'
+    whole layout, eager over gloo, teacher-forced with ``forced``, the
+    one-device run's tokens).  Logits (host, f32) and tokens a step, the
+    ring's bytes, ms, collectives a decode step, launches; for a MoE config
+    each decode step's routing a layer (:func:`moe_routes`: the meshed
+    run's own; one device's from an eager pass with the replay's tokens,
+    whose logits must equal the replay's bit for bit)."""
+    from repro_torch.core.template import default_template
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.scheduler import compiled_steps, serve_shardings, shard_cache
+    from repro_torch.models import transformer as T
+
+    name, depth, ring, prompt, steps = run
+    cfg, _ = serve_f_cfg(name, depth)
+    moe = cfg.family == "moe"
+    rules = None if mesh is None else rules_for("decode", cfg)
+    t_run = time.perf_counter()
+    params = family_params(torch, dev, cfg, shardings=None if mesh is None else
+                           serve_shardings(cfg, mesh, rules, full=True))
+    tokens = synthetic_batch(SEED, 0, SERVE_F_BATCH, prompt, cfg.vocab, device=dev)
+    tpl = default_template("cuda")
+    fns = compiled_steps(tpl, cfg, ring, mesh=mesh, rules=rules)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = fns.prefill(params, tokens, None, None)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    if mesh is not None:
+        cache = shard_cache(cfg, cache, mesh, rules)
+    ring_bytes = _ring_bytes(cache)
+    out, toks, ms, coll, routes, cache = _decode_steps(
+        torch, dev, fns, params, logits, cache, prompt, steps, forced,
+        routes=moe and mesh is not None)
+    launches = dict(_build.launches)
+    fns.decode_next.release(None)
+    del cache
+    torch.cuda.empty_cache()
+    eager_equal = None
+    if moe and mesh is None:  # the replay's routing, from an eager pass on its tokens
+        logits, cache = T.prefill(tpl, cfg, params, tokens, cache_len=ring)
+        eager_equal = bool(torch.equal(logits.float().cpu(), out[0]))
+        for i in range(steps):
+            with moe_routes() as log:
+                logits, cache = T.decode_step(tpl, cfg, params, toks[:, i:i + 1].to(dev),
+                                              prompt + i, cache, inplace=True)
+            routes.append(log)
+            eager_equal &= bool(torch.equal(logits.float().cpu(), out[i + 1]))
+        del cache
+    del params
+    torch.cuda.empty_cache()
+    return {"logits": out, "tokens": toks,
+            "ring_bytes": ring_bytes, "prefill_ms": prefill_ms, "decode_ms": ms,
+            "collectives": coll, "launches": launches, "routes": routes,
+            "eager_equals_replay": eager_equal, "seconds": time.perf_counter() - t_run}
+
+
+def serve_rules_ranks(torch, dev, tp, forced: dict) -> dict:
+    """Phase 9(f) on this rank: each of ``SERVE_F_RUNS`` meshed on ``tp``,
+    teacher-forced with the one-device run's tokens."""
+    return {run[0]: serve_rules_steps(torch, dev, run, tp, forced[run[0]])
+            for run in SERVE_F_RUNS}
+
+
+#: at most this share of a MoE run's (decode step, row) pairs may take
+#: another top-k expert set than the one-device replay (a bf16 near-tie)
+SERVE_F_MAX_FLIP_SHARE = 0.25
+
+
+def _route_flips(cfg, got: list, want: list) -> list:
+    """The (logits index, row, layer, one device's k-th less (k+1)-th router
+    probability, the meshed run's) where a decode step's top-k expert set of
+    a row differs between the meshed run and the one-device replay (one
+    token a row: group row = batch row)."""
+    k = cfg.top_k
+    flips = []
+    for i, (steps_got, steps_want) in enumerate(zip(got, want)):
+        for layer, ((ig, pg), (iw, pw)) in enumerate(zip(steps_got, steps_want)):
+            ig, iw = ig.reshape(-1, k), iw.reshape(-1, k)
+            pg, pw = pg.reshape(ig.shape[0], -1), pw.reshape(iw.shape[0], -1)
+            for row in range(SERVE_F_BATCH):
+                if set(ig[row].tolist()) != set(iw[row].tolist()):
+                    top = [sorted(p[row].tolist(), reverse=True) for p in (pw, pg)]
+                    flips.append((i + 1, row, layer, *(t[k - 1] - t[k] for t in top)))
+    return flips
+
+
+def _phase_9f(torch, single: dict, ranks: list) -> dict:
+    """Phase 9(f)'s gates and lines: every rank's logits within
+    ``SERVE_F_TOL`` (max |Δlogit| / max |logit| of the step) of the
+    one-device replay's, each rank's ring bytes exactly half the one
+    device's, the row-parallel GEMMs' partial launches counted.  A MoE
+    run's bf16 residual stream may tip a router near-tie the other way: a
+    row whose top-k expert set differed from the replay's at a decode step
+    (its logits and, through its cache entries, its later steps) is held to
+    finite logits only, the flips printed with their margins, and at most
+    ``SERVE_F_MAX_FLIP_SHARE`` of the (step, row) pairs may flip.  Returns
+    the launches summed over the ranks."""
+    for run in SERVE_F_RUNS:
+        name, depth, ring, prompt, steps = run
+        want = single[name]
+        cfg, line = serve_f_cfg(name, depth)
+        moe = cfg.family == "moe"
+        if moe and not want["eager_equals_replay"]:
+            raise AssertionError(f"9(f) {name}: the one-device eager pass that records the "
+                                 f"routing differs from the replay")
+        rels, gated, flips = [], [], []
+        for r, rec in enumerate(ranks):
+            got = rec["serve_rules"][name]
+            lg = torch.as_tensor(got["logits"])
+            scale = want["logits"].abs().amax(dim=(1, 2))
+            rel_rows = (lg - want["logits"]).abs().amax(dim=2) / scale[:, None]  # (step, row)
+            held = torch.ones_like(rel_rows, dtype=torch.bool)
+            mine = _route_flips(cfg, got["routes"], want["routes"]) if moe else []
+            for i, row, *_ in mine:
+                held[i:, row] = False
+            worst = float(torch.where(held, rel_rows, 0.0).max())
+            if not (bool(torch.isfinite(lg).all()) and worst <= SERVE_F_TOL):
+                raise AssertionError(f"9(f) {name}: rank {r}'s logits miss the one-device "
+                                     f"replay: max |Δlogit| / max |logit| by step and row "
+                                     f"{rel_rows.tolist()} > {SERVE_F_TOL} (routing flips "
+                                     f"{mine})")
+            pairs = {(i, row) for i, row, *_ in mine}
+            if len(pairs) > SERVE_F_MAX_FLIP_SHARE * steps * SERVE_F_BATCH:
+                raise AssertionError(f"9(f) {name}: rank {r}'s routing differs from the "
+                                     f"replay's at {len(pairs)} (step, row) pairs: {mine}")
+            if 2 * got["ring_bytes"] != want["ring_bytes"]:
+                raise AssertionError(f"9(f) {name}: rank {r} holds {got['ring_bytes']} ring "
+                                     f"bytes, one device {want['ring_bytes']}")
+            partial = {k: v for k, v in got["launches"].items()
+                       if k.endswith(".partial") and v}
+            if not partial:
+                raise AssertionError(f"9(f) {name}: rank {r} launched no row-parallel "
+                                     f"partial GEMM")
+            rels.append([float(x) for x in rel_rows.amax(dim=1)])
+            gated.append(worst)
+            flips.append(mine)
+        r0 = ranks[0]["serve_rules"][name]
+        row = {"phase": "shards_serve_rules", "arch": name, "reduced": line,
+               "mesh": {"data": 1, "model": SHARDS_S}, "backend": "gloo",
+               "rules": "rules_for('decode', cfg): SERVE_RULES" + "".join(
+                   f" + {a} -> {b}" for a, b in (cfg.serve_rule_overrides or ())),
+               "batch": SERVE_F_BATCH, "ring_slots": ring, "ring_slots_a_rank": ring // 2,
+               "prompt_len": prompt, "decode_steps": steps, "nvidia_smi": nvidia_smi(),
+               "max_rel_dlogit_by_step_rank0": rels[0],
+               "max_rel_dlogit": max(max(x) for x in rels),
+               "max_rel_dlogit_gated": max(gated), "tol": SERVE_F_TOL,
+               "ring_bytes_one_device": want["ring_bytes"],
+               "ring_bytes_by_rank": [rec["serve_rules"][name]["ring_bytes"] for rec in ranks],
+               "partial_launches_rank0": {k: v for k, v in r0["launches"].items()
+                                          if k.endswith(".partial") and v},
+               "launches_rank0": {k: v for k, v in r0["launches"].items() if v},
+               "collectives_per_decode_step_rank0": r0["collectives"][-1],
+               "prefill_ms_meshed_eager_gloo": r0["prefill_ms"],
+               "prefill_ms_one_device": want["prefill_ms"],
+               "decode_ms_per_step_meshed_eager_gloo": _mean(r0["decode_ms"]),
+               "decode_ms_per_step_one_device_replayed": _mean(want["decode_ms"][1:]),
+               "seconds_rank0": r0["seconds"], "seconds_one_device": want["seconds"]}
+        if moe:
+            row["routing_flips_by_rank"] = [
+                [{"logits_index": i, "row": b, "layer": l, "one_device_margin": m1,
+                  "meshed_margin": m2} for i, b, l, m1, m2 in mine] for mine in flips]
+            row["routing_decisions_a_rank"] = steps * SERVE_F_BATCH * cfg.n_layers
+        emit(row)
+    return _sum_launches(rec["serve_rules"][run[0]]["launches"] for rec in ranks
+                         for run in SERVE_F_RUNS)
+
+
 def shards_rank_families(torch, dev, rank, tp):
     """Phase 9(d) and (e) on this rank: granite through the meshed
     scheduler on ``tp`` ((1, 2), expert_mlp over "model"), then each of
@@ -3502,6 +3818,7 @@ def shards_rank(payload, rank, world, dev):
     del params
     torch.cuda.empty_cache()
     out.update(shards_rank_families(torch, dev, rank, tp))
+    out["serve_rules"] = serve_rules_ranks(torch, dev, tp, payload["serve_rules_tokens"])
     return out
 
 
@@ -3662,12 +3979,18 @@ def phase_shards(torch, dev, cnn_state, grid_policy):
     torch.cuda.empty_cache()
     single["moe"]["seconds"] = time.perf_counter() - t0
     single["families"] = family_mesh_single(torch, dev)
+    # (f): the one-device runs, the ranks' references and token streams
+    single["serve_rules"] = {run[0]: serve_rules_steps(torch, dev, run)
+                             for run in SERVE_F_RUNS}
 
     # (a, ii) and (b) on two ranks of the card
     t0 = time.perf_counter()
     ranks = spawn_ranks(functools.partial(
         shards_rank, {"path": str(SHARDS_DIR / "payload.pt"), "grid_policy": grid_policy,
-                      "store_dir": str(SHARDS_DIR)}), SHARDS_S, device="cuda")
+                      "store_dir": str(SHARDS_DIR),
+                      "serve_rules_tokens": {k: v["tokens"]
+                                             for k, v in single["serve_rules"].items()}}),
+        SHARDS_S, device="cuda")
     ranks_s = time.perf_counter() - t0
 
     for net in SHARDS_NETS:
@@ -3739,6 +4062,7 @@ def phase_shards(torch, dev, cnn_state, grid_policy):
                                  if v and k.startswith(kernel)}})
 
     moe_launches, steps_launches = _phase_9de(torch, single, ranks, ranks_s)
+    serve_rules_launches = _phase_9f(torch, single["serve_rules"], ranks)
 
     spatial = _sum_launches(rec["spatial_launches"] for rec in ranks)
     emit({"phase": "shards_spatial_launches", "ranks": SHARDS_S,
@@ -3751,6 +4075,7 @@ def phase_shards(torch, dev, cnn_state, grid_policy):
                                                              for rec in ranks)
     windows["shards moe scheduler"] = moe_launches
     windows["shards families steps"] = steps_launches
+    windows["shards serve rules"] = serve_rules_launches
     emit({"phase": "shards", "seconds": time.perf_counter() - t_phase,
           "ranks_seconds": ranks_s})
     shutil.rmtree(SHARDS_DIR, ignore_errors=True)
@@ -3801,6 +4126,8 @@ FAMILY_SCHED_MAX_NEW = 16
 #: 512-token group at prefill (2 x 4096 tokens: 16 groups, capacity 128) and
 #: of the 2-token decode group (capacity 2); phase 10 asserts both
 GRANITE_D, GRANITE_FF = 1536, 512
+#: qwen2.5-32b's width and FFN width (phase 9(f)'s row-parallel GEMM rows)
+QWEN32_D, QWEN32_FF = 5120, 27648
 FAMILY_EXPERT_CAP_PREFILL, FAMILY_EXPERT_CAP_DECODE = 128, 2
 
 
@@ -5292,6 +5619,203 @@ def _nccl_row(rec) -> dict:
             else None, "captures": rec["captures"]}
 
 
+#: ``--serve-mesh-nccl`` (c): qwen2.5-32b at full depth under SERVE_RULES
+#: on four NCCL cards, (1, 4), beside DECODE_RULES at the same shape:
+#: (rules, batch, ring slots); each prefills SERVE_NCCL_F_PROMPT tokens a
+#: row, then SERVE_NCCL_F_STEPS decode steps eager and as many captured.
+#: DECODE_RULES holds the whole ring on every card (32 GiB at batch 4),
+#: SERVE_RULES a quarter; batch 8 is SERVE_RULES' alone
+SERVE_NCCL_F_ARCH = "qwen2.5-32b"
+SERVE_NCCL_F_RUNS = (("DECODE_RULES", 4, 32768), ("SERVE_RULES", 4, 32768),
+                     ("SERVE_RULES", 8, 32768))
+SERVE_NCCL_F_PROMPT = 256
+SERVE_NCCL_F_STEPS = 8
+
+
+def _place_prefill(torch, ring, small):
+    """Write a prefill's cache of P slots (positions 0..P-1, no wrap) into
+    the first P slots of a whole decode ring of the same layers (in place)."""
+    if isinstance(ring, dict):
+        if "k" in ring and "pos" in ring:
+            p = small["k"].shape[-2]
+            for name in ("k", "v"):
+                ring[name][..., :p, :].copy_(small[name])
+            ring["pos"][..., :p].copy_(small["pos"])
+            return
+        for k in ring:
+            _place_prefill(torch, ring[k], small[k])
+    elif isinstance(ring, tuple):
+        for a, b in zip(ring, small):
+            _place_prefill(torch, a, b)
+
+
+def _serve_rules_nccl_run(torch, dev, cfg, params, mesh, rules_name, batch, ring, forced):
+    """One (c) run on this rank: the prefill, then the decode steps eager
+    (``capture=False``), then the prefill again and the same steps captured
+    (one CUDA graph, replayed), both teacher-forced with ``forced`` or, for
+    None, with the eager run's greedy tokens.  Logits (host) a step, ms,
+    collectives a replayed step, captures, the card's peak memory."""
+    from repro_torch.core.template import default_template
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.scheduler import (CAPTURE_COUNTS, compiled_steps, init_local_cache,
+                                              shard_cache)
+    from repro_torch.parallel.sharding import DECODE_RULES
+
+    rules = DECODE_RULES if rules_name == "DECODE_RULES" else rules_for("decode", cfg)
+    tpl = default_template("cuda")
+    prompt = SERVE_NCCL_F_PROMPT
+    tokens = synthetic_batch(SEED, 0, batch, prompt, cfg.vocab, device=dev)
+    out = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mode, capture in (("eager", False), ("captured", True)):
+        caps0 = sum(CAPTURE_COUNTS.values())
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if rules_name == "DECODE_RULES":  # the whole ring: filled in place, never doubled
+            small = compiled_steps(tpl, cfg, prompt, mesh=mesh, rules=rules)
+            logits, part = small.prefill(params, tokens, None, None)
+            cache = init_local_cache(cfg, batch, ring, mesh, rules, device=dev)
+            _place_prefill(torch, cache, part)
+            del part
+        else:  # a rank's slots of the ring only
+            logits, cache = compiled_steps(tpl, cfg, ring, mesh=mesh, rules=rules).prefill(
+                params, tokens, None, None)
+            cache = shard_cache(cfg, cache, mesh, rules)
+        torch.cuda.synchronize(dev)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        fns = compiled_steps(tpl, cfg, ring, mesh=mesh, rules=rules, capture=capture)
+        lg, toks, ms, coll, _, cache = _decode_steps(torch, dev, fns, params, logits, cache,
+                                                     prompt, SERVE_NCCL_F_STEPS, forced)
+        out[mode] = {"logits": lg, "tokens": toks,
+                     "prefill_ms": prefill_ms, "decode_ms": ms, "collectives": coll,
+                     "captures": sum(CAPTURE_COUNTS.values()) - caps0,
+                     "ring_bytes": _ring_bytes(cache)}
+        if forced is None:
+            forced = out[mode]["tokens"]  # the captured run takes the eager run's tokens
+        fns.decode_next.release(None)
+        del cache, logits
+        torch.cuda.empty_cache()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["equal"] = bool(torch.equal(out["eager"]["logits"], out["captured"]["logits"]))
+    return out
+
+
+def nccl_serve_rules(payload, rank=0, world=1, dev=None):
+    """``--serve-mesh-nccl`` (c) on this rank of a (1, ``world``) NCCL mesh:
+    qwen2.5-32b at full width and depth, its weights drawn as this rank's
+    shards, column-parallel for ``DECODE_RULES``, in the rules' whole
+    layout for ``SERVE_RULES``; each of ``SERVE_NCCL_F_RUNS``.  An
+    out-of-memory error is raised with the peak."""
+    import torch
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.scheduler import serve_shardings
+    from repro_torch.parallel.sharding import DECODE_RULES
+
+    dev = torch.device(dev or "cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh((1, world), ("data", "model")).init_groups()
+    cfg, _ = family_cfg(SERVE_NCCL_F_ARCH, None)
+    out, params, forced = {}, None, None
+    for rules_name, batch, ring in SERVE_NCCL_F_RUNS:
+        t0 = time.perf_counter()
+        where = "init"
+        try:
+            if params is None or params[0] != rules_name:
+                params = None
+                torch.cuda.empty_cache()
+                rules = DECODE_RULES if rules_name == "DECODE_RULES" else \
+                    rules_for("decode", cfg)
+                params = (rules_name, family_params(torch, dev, cfg, shardings=serve_shardings(
+                    cfg, mesh, rules, full=rules_name != "DECODE_RULES")))
+                torch.cuda.synchronize(dev)
+            weights = torch.cuda.memory_allocated(dev)
+            where = f"{rules_name} batch {batch}"
+            rec = _serve_rules_nccl_run(torch, dev, cfg, params[1], mesh, rules_name, batch,
+                                        ring, forced if batch == 4 else None)
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError("SERVE_NCCL_OOM " + json.dumps({
+                "rank": rank, "where": where,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "error": str(e)[:300]}))
+        if rules_name == "DECODE_RULES":
+            forced = rec["eager"]["tokens"]
+        rec["weights_bytes_on_card"] = weights
+        rec["seconds"] = time.perf_counter() - t0
+        out[(rules_name, batch)] = rec
+    return out
+
+
+def _phase_serve_rules_nccl(torch) -> None:
+    """(c): qwen2.5-32b at full depth under SERVE_RULES beside DECODE_RULES
+    on four NCCL cards; gates: captured logits equal the eager ones bit for
+    bit on every rank, one capture a rank and run, every decode step a
+    replay; SERVE_RULES' logits at batch 4 within ``SERVE_F_TOL`` (max
+    |Δlogit| / max |logit| a step) of DECODE_RULES', teacher-forced with its
+    tokens; each rank's ring bytes a quarter of DECODE_RULES' whole ring.
+    Printed: each card's peak memory, prefill ms, eager and replayed decode
+    ms a step, collectives a replayed step, and the bytes DECODE_RULES
+    would need at batch 8."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(functools.partial(nccl_serve_rules, {}), SERVE_NCCL_CARDS,
+                        device="cuda")
+    limit = torch.cuda.get_device_properties(0).total_memory
+    ref = [r[("DECODE_RULES", 4)]["captured"]["logits"] for r in ranks]
+    whole_ring = ranks[0][("DECODE_RULES", 4)]["eager"]["ring_bytes"]
+    for rules_name, batch, ring in SERVE_NCCL_F_RUNS:
+        recs = [r[(rules_name, batch)] for r in ranks]
+        if not all(r["equal"] for r in recs):
+            raise AssertionError(f"serve nccl (c) {rules_name} batch {batch}: the captured "
+                                 f"logits differ from the eager meshed step's")
+        if any(r["captured"]["captures"] != 1 or r["eager"]["captures"] for r in recs):
+            raise AssertionError(f"serve nccl (c) {rules_name} batch {batch}: captures "
+                                 f"{[r['captured']['captures'] for r in recs]}")
+        row = {"arch": SERVE_NCCL_F_ARCH, "rules": rules_name, "batch": batch,
+               "ring_slots": ring, "prompt_len": SERVE_NCCL_F_PROMPT,
+               "decode_steps": SERVE_NCCL_F_STEPS,
+               "mesh": {"data": 1, "model": SERVE_NCCL_CARDS}, "backend": "nccl",
+               "peak_mem_bytes_by_card": [r["peak_mem_bytes"] for r in recs],
+               "card_memory_bytes": limit,
+               "weights_bytes_by_card": [r["weights_bytes_on_card"] for r in recs],
+               "ring_bytes_by_card": [r["eager"]["ring_bytes"] for r in recs],
+               "eager": _nccl_row(dict(recs[0]["eager"], prefill_tokens=batch * SERVE_NCCL_F_PROMPT,
+                                       prefill_ms=[recs[0]["eager"]["prefill_ms"]])),
+               "captured": _nccl_row(dict(recs[0]["captured"],
+                                          prefill_tokens=batch * SERVE_NCCL_F_PROMPT,
+                                          prefill_ms=[recs[0]["captured"]["prefill_ms"]])),
+               "captured_logits_equal_eager": True, "seconds_rank0": recs[0]["seconds"]}
+        if rules_name == "SERVE_RULES":
+            if any(SERVE_NCCL_CARDS * r["eager"]["ring_bytes"] != whole_ring * batch // 4
+                   for r in recs):
+                raise AssertionError(f"serve nccl (c) batch {batch}: ring bytes "
+                                     f"{row['ring_bytes_by_card']}, whole {whole_ring}")
+        if rules_name == "SERVE_RULES" and batch == 4:
+            rels = []
+            for r, want in zip(recs, ref):
+                lg, want = torch.as_tensor(r["captured"]["logits"]), torch.as_tensor(want)
+                rel = (lg - want).abs().amax(dim=(1, 2)) / want.abs().amax(dim=(1, 2))
+                if not (bool(torch.isfinite(lg).all()) and float(rel.max()) <= SERVE_F_TOL):
+                    raise AssertionError(f"serve nccl (c): SERVE_RULES' logits miss "
+                                         f"DECODE_RULES' by {rel.tolist()} > {SERVE_F_TOL}")
+                rels.append(float(rel.max()))
+            row["max_rel_dlogit_vs_decode_rules"] = max(rels)
+            row["tol"] = SERVE_F_TOL
+        if batch == 8:  # DECODE_RULES' weights beside the whole ring at batch 8
+            row["decode_rules_would_need_bytes_a_card"] = (
+                ranks[0][("DECODE_RULES", 4)]["weights_bytes_on_card"] + 2 * whole_ring)
+        emit({"phase": "serve_mesh_nccl_rules", **row, "nvidia_smi": nvidia_smi()})
+    emit({"phase": "serve_mesh_nccl_rules_done", "seconds": time.perf_counter() - t0})
+
+
+def _need_cards(torch, n: int, flag: str) -> None:
+    cards = torch.cuda.device_count()
+    if cards < n:
+        raise AssertionError(f"{flag} needs {n} cards, this machine has {cards}")
+
+
 def phase_serve_mesh_nccl(torch):
     """``--serve-mesh-nccl``, run alone: meshed serving over NCCL on four
     cards, a rank each, mesh (1, 4); every meshed run eager
@@ -5312,10 +5836,7 @@ def phase_serve_mesh_nccl(torch):
     step, captures a rank, collectives a replayed decode step by kind."""
     from repro_torch.launch.mesh import spawn_ranks
 
-    cards = torch.cuda.device_count()
-    if cards < SERVE_NCCL_CARDS:
-        raise AssertionError(f"--serve-mesh-nccl needs {SERVE_NCCL_CARDS} cards, this "
-                             f"machine has {cards}")
+    _need_cards(torch, SERVE_NCCL_CARDS, "--serve-mesh-nccl")
     t0 = time.perf_counter()
     full = [(n, o, p, None) for n, o, p, _ in SERVE_NCCL_RUNS]
     cut = [(n, o, p, d) for n, o, p, d in SERVE_NCCL_RUNS if d is not None]
@@ -5388,6 +5909,7 @@ def phase_serve_mesh_nccl(torch):
               "nvidia_smi": nvidia_smi()})
     emit({"phase": "serve_mesh_nccl_done", "ranks_seconds": ranks_s, "one_card_seconds": one_s,
           "seconds": time.perf_counter() - t0})
+    _phase_serve_rules_nccl(torch)
 
 
 #: ``--parent-ab``: the trees' order, each run in a process of its own, the
@@ -5589,6 +6111,10 @@ def main() -> int:
                          "rank each), eager and then captured: qwen2.5-32b's scheduler "
                          "against one card, phi3.5-moe and llama-3.2-vision-90b at full "
                          "depth, each cut to a depth one card holds against one card")
+    ap.add_argument("--serve-rules-nccl", action="store_true",
+                    help="run only part (c) of --serve-mesh-nccl: qwen2.5-32b at full depth "
+                         "under SERVE_RULES (sequence-sharded KV ring, row-parallel GEMMs) "
+                         "beside DECODE_RULES on four NCCL cards, batch 4 and 8 x 32,768")
     ap.add_argument("--split-decode-study", action="store_true",
                     help="run only the study of the decode's contractions on the rows of "
                          "every data split (which forms give a rank one device's bits, "
@@ -5626,12 +6152,15 @@ def main() -> int:
         analyze_single_card(Path(args.analyze_single_card))
         return 0
     phase_card(torch, dev)
-    if args.train_mesh_nccl or args.serve_mesh_nccl or args.split_decode_study or \
-            args.parent_ab:
+    if args.train_mesh_nccl or args.serve_mesh_nccl or args.serve_rules_nccl or \
+            args.split_decode_study or args.parent_ab:
         if args.train_mesh_nccl:
             phase_train_mesh_nccl(torch)
         elif args.serve_mesh_nccl:
             phase_serve_mesh_nccl(torch)
+        elif args.serve_rules_nccl:
+            _need_cards(torch, SERVE_NCCL_CARDS, "--serve-rules-nccl")
+            _phase_serve_rules_nccl(torch)
         elif args.split_decode_study:
             phase_split_decode_study(torch, dev)
         else:
@@ -5718,6 +6247,9 @@ def main() -> int:
                 w[f"{name}.splitk_reduce"] for w in windows.values())
         if key == "matmul_q16.wgmma":
             kernels[-1]["prep_launches"] = sum(w["matmul_q16.prep"] for w in windows.values())
+        if key.endswith(".partial"):
+            kernels[-1]["partial_sum"] = "f32 out, no epilogue (a row-parallel GEMM's term)"
+            kernels[-1]["of_launches"] = f"{key[:-8]} (a part of its launches)"
         if key == "flash_attention.wgmma.d128":
             kernels[-1]["head_dim"] = 128
             kernels[-1]["of_launches"] = "flash_attention.wgmma (a part of its launches)"

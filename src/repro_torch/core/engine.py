@@ -1314,13 +1314,9 @@ class Engine:
         x, marks, partial = self._shard_operands(x, w)
         wn = next((mk for mk in marks if mk[0] == -1), None)
         backend = self.config.backend
-        if partial and backend != "torch":
-            raise ValueError(f"row-parallel GEMM (its contraction sharded over {partial}) on "
-                             f"the {backend!r} template: the kernel templates run "
-                             f"column-parallel shards only")
-        if partial and bias is not None and any(sh.axis_coord(sh.active_mesh(), a)
-                                                for a in partial):
-            bias = None  # a partial sum takes the bias once, on coordinate 0
+        if partial:
+            return self._partial_matmul(x, w, marks, partial, wn, bias=bias, relu=relu,
+                                        qout=qout, plan=plan)
         lead = x.shape[:-1]
         k = x.shape[-1]
         n = w.shape[-1]
@@ -1358,8 +1354,53 @@ class Engine:
             out = dequantize(qres, fmt, dtype=x.dtype)
         else:  # pragma: no cover - config validation
             raise ValueError(f"unknown backend {backend!r}")
-        out = sh.mark_shard(out.reshape(*lead, n), marks)
-        return sh.mark_partial(out, partial)
+        return sh.mark_shard(out.reshape(*lead, n), marks)
+
+    def _partial_matmul(self, x, w, marks, partial, wn, *, bias, relu, qout, plan):
+        """A row-parallel GEMM: this rank's K-shard of ``x @ w``, a partial
+        sum over ``partial``.  On the ``cuda`` template the float GEMM
+        kernel runs the shard, planned at its local shape, and writes its
+        f32 accumulators (``matmul_fp(partial=True)``); on ``torch`` a
+        plain matmul in x's dtype (training's autograd path).  No epilogue
+        runs on a partial: with a bias, ReLU or fake-quant the sum is taken
+        here (an f32 all-reduce over the active mesh) and the epilogue
+        applies once to it; without one the partial is marked (reduced to
+        x's dtype by the seam that reads it)."""
+        backend = self.config.backend
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"row-parallel GEMM (its contraction sharded over {partial}) on "
+                             f"the {backend!r} template: the fixed-point path runs "
+                             f"column-parallel shards only")
+        epilogue = bias is not None or relu or qout is not None
+        if epilogue and sh.active_mesh() is None:
+            raise ValueError(f"row-parallel GEMM (its contraction sharded over {partial}) "
+                             f"with an epilogue needs the active mesh to sum it first")
+        lead, k, n = x.shape[:-1], x.shape[-1], w.shape[-1]
+        x2 = x.reshape(-1, k)
+        m = x2.shape[0]
+        if backend == "torch":
+            out = torch.matmul(x2, w.to(x.dtype))
+        else:
+            from repro_torch.kernels import ops as kops
+
+            self.counters["gemm_cuda"] += 1
+            self.counters["gemm_cuda_partial"] += 1
+            block = plan.block if plan is not None and plan.block is not None else \
+                self.block_for(m, n, k, dtype=x.dtype,
+                               logical=self._logical_gemm(m, n, k, wn))
+            out = kops.matmul_fp(x2.contiguous(), w, block=block, partial=True)
+        out = sh.mark_partial(sh.mark_shard(out.reshape(*lead, n), marks), partial,
+                              torch.float32 if epilogue else x.dtype)
+        if not epilogue:
+            return out
+        out = sh._reduce_partial(out, partial)  # f32, whole on every rank
+        if bias is not None:
+            out = out + bias.to(torch.float32)
+        if relu:
+            out = torch.relu(out)
+        if qout is not None:
+            out = fake_quant_fmt(out, qout)
+        return sh.carry_marks(out, out.to(x.dtype))
 
     def linear(self, x, w, b=None, *, relu: bool = False,
                qout: Optional[QFormat] = None, wide: bool = False,

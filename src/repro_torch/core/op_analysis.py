@@ -155,6 +155,7 @@ def _code_groups() -> dict:
 
     return {layers.rms_norm.__code__: "norm", layers.layer_norm.__code__: "norm",
             layers.apply_rope.__code__: "rope", attention._sdpa_dense.__code__: "attention",
+            attention._sdpa_ring_shard.__code__: "attention",
             attention._online_softmax_chunked.__code__: "attention",
             attention._sdpa_chunked.__code__: "attention"}
 

@@ -55,9 +55,12 @@ SOURCES = {"matmul_fp": "matmul_fp.cu", "matmul_q16": "matmul_q16.cu",
 #: ("conv2d_q16.<route>", "conv2d_q16.tc_prep", "conv2d_q16.tc_reduce");
 #: flash attention counts each call
 #: under its route ("flash_attention.simt" or ".wgmma", ``core.dse.plan_flash``),
-#: and route "wgmma"'s preparation launch as "flash_attention.prep"
+#: and route "wgmma"'s preparation launch as "flash_attention.prep"; a float
+#: GEMM that writes a row-parallel partial sum (f32, no epilogue) counts
+#: under "matmul_fp.<route>.partial" too
 KERNELS = ("matmul_fp", "matmul_fp.tile", "matmul_fp.splitk", "matmul_fp.splitk_reduce",
-           "matmul_fp.wgmma", "matmul_q16", "matmul_q16.tile", "matmul_q16.splitk",
+           "matmul_fp.wgmma", "matmul_fp.tile.partial", "matmul_fp.splitk.partial",
+           "matmul_fp.wgmma.partial", "matmul_q16", "matmul_q16.tile", "matmul_q16.splitk",
            "matmul_q16.splitk_reduce", "matmul_q16.wgmma", "matmul_q16.prep", "conv2d",
            "conv2d.cudacore", "conv2d.tc", "conv2d.tc_prep", "conv2d.tc_reduce", "conv2d_q16",
            "conv2d_q16.cudacore", "conv2d_q16.tc", "conv2d_q16.tc_prep",
@@ -77,7 +80,7 @@ _libs: dict = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "matmul_fp": {
-        "matmul_fp_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        "matmul_fp_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _F, _F, _F, _I, _P],
     },
     "matmul_q16": {

@@ -327,9 +327,9 @@ int launch_rows(const void* x, const void* w, void* out, typename Vec16<TW>::A* 
   const dim3 grid((n + COLS - 1) / COLS, splits);
   const dim3 block(THREADS);
   auto kfn = splitk_kernel<TX, TW, TO, Epi, MT, VEC>;
-  if constexpr (std::is_same<Epi, FloatEpilogue>::value) {
+  if constexpr (std::is_same<Epi, FloatEpilogue>::value && std::is_same<TO, TW>::value) {
     if (trans_b) kfn = splitk_tb_kernel<TW, MT, VEC>;
-  } else if (trans_b) {
+  } else if (trans_b) {  // the transposed layout writes its operands' dtype
     return REPRO_BAD_ARG;
   }
   if (smem > 48 * 1024) {

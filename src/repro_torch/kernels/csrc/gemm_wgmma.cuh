@@ -36,6 +36,9 @@
 //     next tile's loads and math;
 //   * tiles are numbered in groups of 16 m-tiles, so the tiles in flight
 //     at one time share their x rows and w columns in L2.
+// A row-parallel GEMM's partial sum (F32) leaves the accumulators as they
+// are, in f32: the epilogue stages 64 x 32 f32 boxes (128 bytes a row, the
+// same swizzle and the same two buffers) and stores twice as many.
 // TMA needs 16-byte row strides (k and n multiples of 8) and 16-byte
 // aligned bases: the planner sends other shapes to route L, and the wrapper
 // refuses unaligned pointers.  The PTX wrappers (mbarriers, TMA, wgmma
@@ -76,7 +79,22 @@ __host__ __device__ constexpr int stages() {
   return BN == 256 ? 4 : 6;
 }
 
-constexpr int BOX = 64 * 64 * 2;  // one 64 x 64 bf16 output box, 128-byte swizzled
+constexpr int BOX = 64 * 64 * 2;  // one 64 x 64 bf16 (or 64 x 32 f32) output box, 128-byte swizzled
+
+// A rows x cols f32 matrix (row-major), stored in boxes of 64 rows x 32
+// columns (128 bytes) with the 128-byte swizzle: a partial sum's output.
+inline bool make_map_out_f32(CUtensorMap* map, const void* ptr, long long rows, int cols) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {32, 64};
+  const cuuint32_t estride[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims, strides,
+             box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 template <int BN>
 __host__ __device__ constexpr int smem_bytes() {
@@ -99,8 +117,8 @@ __device__ __forceinline__ void tile_origin(int t, int mtiles, int ntiles, int b
 // Persistent: each block walks tiles blockIdx.x, + gridDim.x, ...; the
 // producer runs ahead across tile boundaries, so the next tile's loads
 // overlap this tile's epilogue.  TB: w is an (n, k) row-major matrix
-// (K-major B); otherwise (k, n) row-major (MN-major B).
-template <int BN, bool TB>
+// (K-major B); otherwise (k, n) row-major (MN-major B).  F32: out is f32.
+template <int BN, bool TB, bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
     wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_w,
@@ -211,6 +229,37 @@ __global__ void __launch_bounds__(THREADS, 1)
       // Accumulator layout of m64nN: register 4j + 2h + e holds row
       // 16·warp + lane/4 + 8h, column 8j + 2·(lane%4) + e.
       const int r0 = (t128 / 32) * 16 + (t128 % 32) / 4;
+      if constexpr (F32) {
+        // 64 x 32 f32 boxes: box q holds columns 32q .. 32q + 31, registers
+        // of j = 4q .. 4q + 3; row r's 16-byte chunk (c % 32) / 4 lands at
+        // chunk ^ (r % 8)
+#pragma unroll
+        for (int q = 0; q < BN / 32; ++q) {
+          unsigned char* box = mine + (q % 2) * BOX;
+          if (t128 == 0) asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+          asm volatile("bar.sync %0, 128;" ::"r"(1 + half) : "memory");
+#pragma unroll
+          for (int j = 4 * q; j < 4 * q + 4; ++j) {
+            const int c = 8 * j + 2 * (t128 % 4);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = r0 + 8 * h;
+              float2 v;
+              v.x = epi.template apply<float>(acc[4 * j + 2 * h], min(n0 + c, n - 1));
+              v.y = epi.template apply<float>(acc[4 * j + 2 * h + 1], min(n0 + c + 1, n - 1));
+              const int chunk = ((c % 32) / 4) ^ (r % 8);
+              *reinterpret_cast<float2*>(box + r * 128 + chunk * 16 + (c % 4) * 4) = v;
+            }
+          }
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          asm volatile("bar.sync %0, 128;" ::"r"(1 + half) : "memory");
+          if (t128 == 0) {
+            tma_store(&map_out, box, n0 + 32 * q, m0 + half * 64);
+            asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int q = 0; q < BN / 64; ++q) {
         unsigned char* box = mine + (q % 2) * BOX;
@@ -245,11 +294,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int BN, bool TB>
+template <int BN, bool TB, bool F32>
 int launch_tile(const CUtensorMap& map_x, const CUtensorMap& map_w,
                 const CUtensorMap& map_out, int m, int n, int k, int sms,
                 const FloatEpilogue& epi, cudaStream_t stream) {
-  auto kfn = wgmma_kernel<BN, TB>;
+  auto kfn = wgmma_kernel<BN, TB, F32>;
   constexpr int smem = smem_bytes<BN>();
   static bool configured = false;
   if (!configured) {
@@ -265,13 +314,28 @@ int launch_tile(const CUtensorMap& map_x, const CUtensorMap& map_w,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool F32>
+int launch_bn(const CUtensorMap& map_x, const CUtensorMap& map_w, const CUtensorMap& map_out,
+              int m, int n, int k, int trans_b, int bn, int sms, const FloatEpilogue& epi,
+              cudaStream_t stream) {
+  if (bn == 128)
+    return trans_b ? launch_tile<128, true, F32>(map_x, map_w, map_out, m, n, k, sms, epi,
+                                                 stream)
+                   : launch_tile<128, false, F32>(map_x, map_w, map_out, m, n, k, sms, epi,
+                                                  stream);
+  return trans_b ? launch_tile<256, true, F32>(map_x, map_w, map_out, m, n, k, sms, epi, stream)
+                 : launch_tile<256, false, F32>(map_x, map_w, map_out, m, n, k, sms, epi,
+                                                stream);
+}
+
 }  // namespace wgmma
 
 // Route W on bf16 x (m, k) and w: (k, n) row-major, or (n, k) row-major
-// when trans_b; tile (bm, bn, bk) one of (128, 128, 64), (128, 256, 64).
+// when trans_b; tile (bm, bn, bk) one of (128, 128, 64), (128, 256, 64);
+// out bf16, or f32 with out_f32 (a partial sum).
 inline int launch_wgmma(const void* x, const void* w, void* out, int m, int n, int k,
-                        int trans_b, int bm, int bn, int bk, const FloatEpilogue& epi,
-                        cudaStream_t stream) {
+                        int trans_b, int bm, int bn, int bk, int out_f32,
+                        const FloatEpilogue& epi, cudaStream_t stream) {
   using namespace wgmma;
   if (bm != BM || bk != BK || (bn != 128 && bn != 256)) return REPRO_BAD_ARG;
   if (k % 8 != 0 || n % 8 != 0) return REPRO_BAD_ARG;
@@ -279,7 +343,8 @@ inline int launch_wgmma(const void* x, const void* w, void* out, int m, int n, i
     return REPRO_BAD_ARG;
   if (reinterpret_cast<uintptr_t>(out) % 16) return REPRO_BAD_ARG;
   CUtensorMap map_x, map_w, map_out;
-  if (!make_map_2d(&map_x, x, m, k, BM) || !make_map_2d(&map_out, out, m, n, 64))
+  if (!make_map_2d(&map_x, x, m, k, BM) ||
+      !(out_f32 ? make_map_out_f32(&map_out, out, m, n) : make_map_2d(&map_out, out, m, n, 64)))
     return REPRO_BAD_ARG;
   const bool ok =
       trans_b ? make_map_2d(&map_w, w, n, k, bn) : make_map_2d(&map_w, w, k, n, BK);
@@ -294,11 +359,9 @@ inline int launch_wgmma(const void* x, const void* w, void* out, int m, int n, i
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int sms = sms_of[device];
-  if (bn == 128)
-    return trans_b ? launch_tile<128, true>(map_x, map_w, map_out, m, n, k, sms, epi, stream)
-                   : launch_tile<128, false>(map_x, map_w, map_out, m, n, k, sms, epi, stream);
-  return trans_b ? launch_tile<256, true>(map_x, map_w, map_out, m, n, k, sms, epi, stream)
-                 : launch_tile<256, false>(map_x, map_w, map_out, m, n, k, sms, epi, stream);
+  return out_f32 ? launch_bn<true>(map_x, map_w, map_out, m, n, k, trans_b, bn, sms, epi, stream)
+                 : launch_bn<false>(map_x, map_w, map_out, m, n, k, trans_b, bn, sms, epi,
+                                    stream);
 }
 
 }  // namespace repro

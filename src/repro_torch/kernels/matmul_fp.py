@@ -12,7 +12,11 @@ the plan (a :class:`MatmulBlock`) names, each described where it lives:
   the q16 kernel (f32 with larger m, bf16 that TMA cannot address).
 
 ``matmul_fp_cuda`` launches the kernel for CUDA tensors and runs
-:func:`matmul_fp_plain` for CPU tensors, and only for those.  A ``w`` that
+:func:`matmul_fp_plain` for CPU tensors, and only for those.  With
+``partial=True`` (a row-parallel GEMM: this rank's K-shard of a product
+summed over ranks) every route writes the f32 accumulators as they are, no
+epilogue, whatever the operands' dtype; such a launch is also counted as
+"matmul_fp.<route>.partial".  A ``w`` that
 is the transposed view of a contiguous (n, k) matrix (``embed.T``, the tied
 LM head) is read in place on every route, never copied.
 """
@@ -37,9 +41,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def matmul_fp_plain(x, w, bias=None, *, relu: bool = False,
-                    qout: Optional[QFormat] = None) -> torch.Tensor:
+                    qout: Optional[QFormat] = None, partial: bool = False) -> torch.Tensor:
     """x (m, k) @ w (k, n) in f32, then bias -> ReLU -> fake-quant, cast to
-    x's dtype (the reference's ``matmul_fused_ref``)."""
+    x's dtype (the reference's ``matmul_fused_ref``); ``partial``: the f32
+    product alone."""
+    if partial:
+        return torch.matmul(x.to(torch.float32), w.to(torch.float32))
     return matmul_fused_ref(x, w, bias, relu=relu, qout=qout)
 
 
@@ -66,14 +73,16 @@ def launch(lib, x, w, bias, out, block: MatmulBlock, relu: bool,
            qout: Optional[QFormat], device: int, stream, workspace=None) -> None:
     """One call of the C entry point on prepared, checked operands (``w``
     contiguous, or the transposed view of a contiguous matrix;
-    ``workspace`` from :func:`workspace_for`)."""
+    ``workspace`` from :func:`workspace_for`); ``out`` in x's dtype, or f32
+    (the accumulators as they are)."""
     m, k = x.shape
     n = w.shape[1]
     rc = lib.matmul_fp_launch(
         ptr(x), ptr(w), ptr(bias), ptr(out), ptr(workspace), m, n, k, _DTYPES[x.dtype],
-        int(transposed(w)), FP_ROUTES.index(block.route), block.bm, block.bn, block.bk,
-        block.splits, int(relu), int(qout is not None), qout.scale if qout else 1.0,
-        qout.min_val if qout else 0.0, qout.max_val if qout else 0.0, device, stream,
+        int(out.dtype == torch.float32), int(transposed(w)), FP_ROUTES.index(block.route),
+        block.bm, block.bn, block.bk, block.splits, int(relu), int(qout is not None),
+        qout.scale if qout else 1.0, qout.min_val if qout else 0.0,
+        qout.max_val if qout else 0.0, device, stream,
     )
     _build.check(lib, rc, "matmul_fp")
 
@@ -86,6 +95,7 @@ def matmul_fp_cuda(
     block: Optional[MatmulBlock] = None,
     relu: bool = False,
     qout: Optional[QFormat] = None,
+    partial: bool = False,
 ) -> torch.Tensor:
     """x: (m, k) @ w: (k, n) -> (m, n) in x's dtype (f32 or bf16).
 
@@ -93,7 +103,11 @@ def matmul_fp_cuda(
     fused nonlinearity and fake-quantization, applied after the bias.
     ``block``: the route and tile (default: the H100 planner's choice for
     the shape, dtype and layout); one the kernel does not take raises.
+    ``partial``: a row-parallel GEMM's term (see the module docstring): f32
+    out, and no epilogue, which runs once on the sum.
     """
+    if partial and (bias is not None or relu or qout is not None):
+        raise ValueError("a partial product takes no epilogue: it applies once, to the sum")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul_fp wants (m, k) @ (k, n), got {tuple(x.shape)} "
                          f"@ {tuple(w.shape)}")
@@ -110,18 +124,20 @@ def matmul_fp_cuda(
                          f"({m},{k})@({k},{n}) {x.dtype}"
                          f"{' (w transposed)' if transposed(w) else ''}")
     if on_cpu(x, w, bias):
-        return matmul_fp_plain(x, w, bias, relu=relu, qout=qout)
+        return matmul_fp_plain(x, w, bias, relu=relu, qout=qout, partial=partial)
     bias32 = None if bias is None else bias.to(torch.float32).contiguous()
     require_contiguous(x=x)
     if not transposed(w):
         require_contiguous(w=w)
     if block.route == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("matmul_fp route wgmma: TMA needs 16-byte aligned x and w")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32 if partial else x.dtype, device=x.device)
     launch(_build.library("matmul_fp"), x, w, bias32, out, block, relu, qout,
            x.device.index, stream_of(x), workspace_for(block, m, n, x.device))
     _build.launches["matmul_fp"] += 1
     _build.launches[f"matmul_fp.{block.route}"] += 1
+    if partial:
+        _build.launches[f"matmul_fp.{block.route}.partial"] += 1
     if block.route == "splitk" and block.splits > 1:
         _build.launches["matmul_fp.splitk_reduce"] += 1
     return out

@@ -73,8 +73,8 @@ def _pad(x: torch.Tensor, padding: int) -> torch.Tensor:
 
 def matmul_fp(x, w, *, bias=None, relu: bool = False,
               qout: Optional[QFormat] = None,
-              block: Optional[MatmulBlock] = None) -> torch.Tensor:
-    return matmul_fp_cuda(x, w, bias, block=block, relu=relu, qout=qout)
+              block: Optional[MatmulBlock] = None, partial: bool = False) -> torch.Tensor:
+    return matmul_fp_cuda(x, w, bias, block=block, relu=relu, qout=qout, partial=partial)
 
 
 def matmul_q16(xq, wq, *, bias=None, relu: bool = False, fmt: QFormat = Q2_14,

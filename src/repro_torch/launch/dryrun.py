@@ -139,7 +139,9 @@ def _plan_record(plan, backend: str) -> dict:
 
 
 def _decode_rules(cfg):
-    """The rules the port's meshed decode runs a decode cell under:
+    """The rules the port's meshed decode runs a decode cell of a family
+    that serves column-parallel rules only (SSM, RG-LRU, enc-dec, VLM:
+    ``scheduler.SERVE_RULES_FAMILIES`` excludes them) under:
     ``DECODE_RULES`` (column-parallel weights, whole heads and whole cache
     rows on every "model" rank, the batch over the data axes) with the
     config's ``serve_rule_overrides``."""
@@ -157,11 +159,16 @@ def analyze_cell(cfg, shape, mesh, rules, accum: int = 1):
 
     A train or prefill cell runs its ``step_and_specs`` step under the
     cell's ``rules``.  A decode cell runs the port's meshed decode
-    (``launch/scheduler.py:compiled_steps(mesh=)``) under
-    :func:`_decode_rules`: the port's decode keeps each cache row's whole
-    sequence and whole kv heads on a rank, so the reference's
-    ``SERVE_RULES`` decode (the cache's sequence over "model", ``seq_kv``)
-    has no counterpart to count."""
+    (``launch/scheduler.py:compiled_steps(mesh=)``).  For the dense and MoE
+    families that is the reference's program: the cell's own rules
+    (``SERVE_RULES`` with the config's overrides), the weights in their
+    whole layout (``serve_shardings(full=True)``: wo and the down
+    projections row-parallel), the KV ring's sequence over "model"
+    (``seq_kv``) with the ranks' partial softmaxes combined.  The other
+    families serve column-parallel rules only, so their decode cells run
+    :func:`_decode_rules`, and ``ops.rules`` says which."""
+    from repro_torch.launch.scheduler import SERVE_RULES_FAMILIES
+
     rec = mesh.recording()
     tpl = default_template("torch", hw=H100, device="cpu")
     if shape.kind != "decode":
@@ -169,8 +176,10 @@ def analyze_cell(cfg, shape, mesh, rules, accum: int = 1):
         args = [sh.shard_tree(a, s) for a, s in zip(cell.args, cell.in_shardings)]
         st = analyze_step(cell.step_fn, *args, tpl=tpl, mesh=rec, rules=rules)
         return st, rules, _tree_bytes(args)
-    rules = _decode_rules(cfg)
-    params = sh.shard_tree(abstract_params(cfg), serve_shardings(cfg, rec, rules))
+    full = cfg.family in SERVE_RULES_FAMILIES
+    if not full:
+        rules = _decode_rules(cfg)
+    params = sh.shard_tree(abstract_params(cfg), serve_shardings(cfg, rec, rules, full=full))
     cache = shard_cache(cfg, abstract_cache(cfg, shape.global_batch, shape.seq_len), rec, rules)
     batch = input_specs(cfg, shape)
     steps = compiled_steps(tpl, cfg, shape.seq_len, mesh=rec, rules=rules)

@@ -385,6 +385,17 @@ def _batch_rows(b: int, mesh, batch):
     return take, b // (hi - lo), (lo, hi) != (0, b)
 
 
+def _warmup_cache(tree, key=None):
+    """A capture warm-up's cache: the k / v rings and pos of ``tree``
+    themselves, a copy of every other leaf (recurrent states, conv
+    histories), marks kept."""
+    if isinstance(tree, dict):
+        return {k: _warmup_cache(v, k) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_warmup_cache(v, key) for v in tree)
+    return tree if key in ("k", "v", "pos") else sh.carry_marks(tree, tree.clone())
+
+
 class _DecodeStep:
     """``decode_next`` of one setup: on a CUDA template, one CUDA graph per
     input signature (params tree, token / t shapes, cache shapes, sampling
@@ -520,12 +531,14 @@ class _DecodeStep:
         # warm-up: plans, loads the kernels' libraries, sets their shared
         # memory attributes, and (meshed) runs every collective of the step
         # once, so each NCCL communicator is set up before the capture.  It
-        # steps a copy of ``cache``: a recurrent state stepped here and again
-        # by the replay would advance twice
+        # steps a copy of every recurrent leaf of ``cache``: a state stepped
+        # here and again by the replay would advance twice.  The k / v rings
+        # and their pos are stepped in place: the replay writes the same
+        # entries at the same slots again (a long ring is never held twice)
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            step(T._map_leaves(lambda leaf, _: leaf.clone(), cache, cache))
+            step(_warmup_cache(cache))
         torch.cuda.current_stream(dev).wait_stream(side)
         eng = self.tpl.engine
         launches0, counters0 = dict(_build.launches), collections.Counter(eng.counters)
@@ -552,25 +565,49 @@ class _DecodeStep:
                       counters, seams)
 
 
-#: activation names whose sharding the port's seams do not carry through
-#: (they would hand attention a shard of its heads or its keys)
-_SHARDED_ACTIVATIONS = ("act_heads", "kv_heads", "heads", "seq_kv", "seq_act",
-                        "act_embed")
+#: activation names whose sharding the port's decode does not run: the
+#: residual stream's (training's sequence-parallel ``seq_act``, a column
+#: shard of ``act_embed``)
+_SHARDED_ACTIVATIONS = ("seq_act", "act_embed")
+#: what ``SERVE_RULES`` shards over "model" in serving: the heads and the
+#: decode ring's sequence (flash-decoding style)
+_SERVE_SHARDED = ("act_heads", "kv_heads", "heads", "seq_kv")
+#: the families whose decode runs ``SERVE_RULES``' heads and sequence-sharded
+#: ring (the recurrent, enc-dec and VLM families are column-parallel only)
+SERVE_RULES_FAMILIES = ("dense", "moe")
 
 
-def _check_rules(mesh, rules) -> None:
-    """The port's meshed decode steps run column-parallel rules: every
-    activation but the batch whole (``DECODE_RULES`` and its data-axis
-    variants).  Rules that shard activations over a "model" axis above 1
-    (``TRAIN_RULES``' sequence-parallel ``seq_act`` and its head axes) are
-    refused here: decode keeps its own rules; training runs ``TRAIN_RULES``
-    on every axis through ``launch.steps.make_train_step(mesh=)``."""
+def _check_rules(mesh, rules, cfg=None, tpl: Optional[Template] = None,
+                 policy: Optional[NumericsPolicy] = None) -> None:
+    """The rules a meshed decode step runs: column-parallel rules (every
+    activation but the batch whole: ``DECODE_RULES`` and its variants), or,
+    for the dense and MoE families on the ``torch`` and ``cuda`` templates
+    in float, ``SERVE_RULES`` (heads over "model" and the KV ring's
+    sequence over "model", per-config overrides included).  Rules that
+    shard the residual stream (``TRAIN_RULES``' sequence-parallel
+    ``seq_act``) are training's (``launch.steps.make_train_step(mesh=)``);
+    the other families, the fixed-point template and quantized policies
+    run column-parallel rules only."""
     bad = [n for n in _SHARDED_ACTIVATIONS if sh.axis_size(mesh, rules.get(n)) > 1]
     if bad:
-        raise ValueError(f"the port's meshed decode runs column-parallel rules "
-                         f"(DECODE_RULES): these rules shard {bad}; decode does not "
-                         f"shard activations (TRAIN_RULES' sequence-parallel activations "
-                         f"are for training: launch.steps.make_train_step(mesh=))")
+        raise ValueError(f"the port's meshed decode does not shard the residual stream: "
+                         f"these rules shard {bad} (TRAIN_RULES' sequence-parallel "
+                         f"activations are for training: launch.steps.make_train_step(mesh=))")
+    heads = [n for n in _SERVE_SHARDED if sh.axis_size(mesh, rules.get(n)) > 1]
+    if not heads:
+        return
+    why = None
+    if cfg is not None and cfg.family not in SERVE_RULES_FAMILIES:
+        why = (f"{cfg.name} ({cfg.family}): the recurrent, enc-dec and VLM families serve "
+               f"column-parallel rules (DECODE_RULES) until ROADMAP 9b")
+    elif tpl is not None and tpl.config.backend not in ("torch", "cuda"):
+        why = (f"the {tpl.config.backend!r} template runs column-parallel rules only "
+               f"(its row-parallel route is ROADMAP 9c)")
+    elif policy is not None and policy.quantized:
+        why = "a quantized policy runs column-parallel rules only (ROADMAP 9c)"
+    if why:
+        raise ValueError(f"these rules shard {heads} over the mesh (SERVE_RULES' heads and "
+                         f"sequence-sharded KV ring): {why}")
 
 
 class _MeshedSteps:
@@ -609,29 +646,61 @@ class _MeshedSteps:
         return logits.clone(), cache  # a graph's buffer is rewritten by its next call
 
 
-def serve_shardings(cfg, mesh, rules=None):
+def serve_shardings(cfg, mesh, rules=None, *, full: bool = False):
     """The column-parallel :class:`~repro_torch.parallel.sharding.NamedSharding`
     tree of ``init_params(cfg)``'s parameters under ``rules`` (default
     ``DECODE_RULES``), from their shapes alone: ``init_params(gen, cfg,
     shardings=...)`` then draws only this rank's shards (a model no single
-    card holds), the shards the meshed scheduler and steps read."""
+    card holds), the shards the meshed scheduler and steps read.  ``full``:
+    the rules' whole layout instead (``tree_shardings``, the dry-run's
+    ``in_shardings``): under ``SERVE_RULES`` wo and the MLP's down
+    projection (and granite's expert down) hold their rows' shard, so their
+    GEMMs are row-parallel."""
     from repro_torch.launch.steps import abstract_params
 
-    return sh.column_parallel_shardings(mesh, rules or DECODE_RULES, abstract_params(cfg),
-                                        T.param_axes(cfg))
+    place = sh.tree_shardings if full else sh.column_parallel_shardings
+    return place(mesh, rules or DECODE_RULES, abstract_params(cfg), T.param_axes(cfg))
 
 
 def shard_cache(cfg, cache, mesh, rules=None):
-    """This rank's rows of a decode cache (:func:`transformer.init_cache`'s
+    """This rank's share of a decode cache (:func:`transformer.init_cache`'s
     tree, per slot or not, or a prefill's): every leaf that holds batch
     rows (the k / v rings, a recurrent layer's state ``h``, an SSD's
     ``state``, their conv histories, a cross layer's context k / v) cut to
     this rank's rows over the data axes of ``rules`` (default
-    ``DECODE_RULES``), a per-slot pos with its rows; positions every row
-    shares stay whole.  A meshed :func:`compiled_steps` decode reads this
-    shard; its prefill runs every row and returns the whole cache."""
+    ``DECODE_RULES``), a per-slot pos with its rows; under rules that shard
+    the ring's sequence (``seq_kv``, ``SERVE_RULES``) each k / v ring and
+    its pos cut to this rank's slots too.  Positions every row shares stay
+    whole over the rows.  A dim that already holds its shard (a meshed
+    prefill fills only its rank's slots) is left as it is.  A meshed
+    :func:`compiled_steps` decode reads this shard; its prefill runs every
+    row and returns every row's cache."""
     axes = _slot_pos_axes(cache, T.cache_axes(cfg, cache))
     return sh.shard_tree(cache, sh.tree_shardings(mesh, rules or DECODE_RULES, cache, axes))
+
+
+def init_local_cache(cfg, batch: int, cache_len: int, mesh, rules=None, *,
+                     per_slot: bool = False, policy=None, dtype=None, device="cpu"):
+    """This rank's share of ``transformer.init_cache(...)`` (see
+    :func:`shard_cache`), allocated at its local shapes only: a sequence-
+    sharded ring of a long context never exists whole on a rank.  Zeros,
+    and -1 in every self-attention pos; the leaves carry their marks."""
+    meta = shard_cache(cfg, T.init_cache(cfg, batch, cache_len, dtype, per_slot=per_slot,
+                                         policy=policy, device="meta"), mesh, rules)
+
+    def real(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: real(v, k) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(real(v, key) for v in tree)
+        if key == "cross":
+            raise ValueError("init_local_cache: a cross layer's context cache comes from "
+                             "its prefill")
+        fill = -1 if key == "pos" else 0
+        return sh.carry_marks(tree, torch.full(tuple(tree.shape), fill, dtype=tree.dtype,
+                                               device=device))
+
+    return real(meta)
 
 
 def compiled_steps(tpl: Template, cfg, cache_len: int,
@@ -676,7 +745,7 @@ def compiled_steps(tpl: Template, cfg, cache_len: int,
         if not mesh.has_groups:
             raise ValueError(f"meshed steps run on ranks (spawn_ranks); {mesh} is a "
                              f"layout only")
-        _check_rules(mesh, rules)
+        _check_rules(mesh, rules, cfg, tpl, policy)
     elif not capture:
         raise ValueError("capture=False keeps a meshed decode step eager; pass mesh=")
     else:
@@ -924,12 +993,12 @@ class ServeScheduler:
         """A fresh slot-indexed KV cache on the template's device; under a
         mesh this rank's slots of it (``cache_axes``, with the per-slot pos
         rows sharded with their slots: a rank holds only its slots' rows)."""
-        cache = T.init_cache(self.cfg, self.sched.slots, self.cache_len, per_slot=True,
-                             policy=self.policy if self.policy.quantized else None,
-                             device=self.device)
+        policy = self.policy if self.policy.quantized else None
         if self.mesh is None:
-            return cache
-        return shard_cache(self.cfg, cache, self.mesh, self.rules)
+            return T.init_cache(self.cfg, self.sched.slots, self.cache_len, per_slot=True,
+                                policy=policy, device=self.device)
+        return init_local_cache(self.cfg, self.sched.slots, self.cache_len, self.mesh,
+                                self.rules, per_slot=True, policy=policy, device=self.device)
 
     def _local(self, a: np.ndarray) -> np.ndarray:
         """This rank's slot rows of a per-slot host vector."""
@@ -1339,19 +1408,23 @@ class ServeScheduler:
 # ---------------------------------------------------------------------------
 
 
-def _slot_pos_axes(cache, axes):
-    """``cache_axes`` with each per-slot pos ((B, C), stacked (L, B, C): two
-    dims fewer than its k ring) sharded over "batch" like its k / v rows;
-    a pos every row shares ((C,), a cross layer's context positions) stays
-    whole."""
+def _slot_pos_axes(cache, axes, ring: bool = False):
+    """``cache_axes`` with each self-attention ring's pos sharded like its k
+    / v: a per-slot pos ((B, C), stacked (L, B, C): two dims fewer than its
+    k ring) over ("batch", "seq_kv"), a pos every row shares ((C,), (L, C))
+    over "seq_kv"; a cross layer's context positions stay whole."""
     if isinstance(cache, dict):
-        return {k: (((None,) * (v.ndim - 2) + ("batch", None))
-                    if k == "pos" and isinstance(v, torch.Tensor) and "k" in cache
-                    and v.ndim == cache["k"].ndim - 2
-                    else _slot_pos_axes(v, axes[k]))
-                for k, v in cache.items()}
+        out = {}
+        for k, v in cache.items():
+            if k == "pos" and ring and isinstance(v, torch.Tensor) and "k" in cache:
+                lead = v.ndim - (2 if v.ndim == cache["k"].ndim - 2 else 1)
+                out[k] = (None,) * lead + (("batch", "seq_kv") if v.ndim - lead == 2
+                                           else ("seq_kv",))
+            else:
+                out[k] = _slot_pos_axes(v, axes[k], ring or k == "attn")
+        return out
     if isinstance(cache, tuple):
-        return tuple(_slot_pos_axes(c, a) for c, a in zip(cache, axes))
+        return tuple(_slot_pos_axes(c, a, ring) for c, a in zip(cache, axes))
     return axes
 
 

@@ -45,6 +45,20 @@ each rank pairs its q heads with the kv heads their GQA groups read.  The
 output projection is then row-parallel: its output is a partial sum that
 the caller's seam reduce-scatters onto the sequence.  Without a mesh every
 seam is a no-op.
+
+Under ``SERVE_RULES`` (heads over "model", the ring's sequence over
+"model": ``seq_kv``) a rank holds slots [r·C/M, (r+1)·C/M) of every decode
+ring, all kv heads of each (the ring is the long axis; GQA's few kv heads
+need not divide the axis).  The prefill computes its heads' k / v over
+every position, gathers the heads and fills only the rank's slots; a
+decode step gathers q and the new k / v over their heads (they are small
+at decode), writes each position on the rank that owns its slot
+(``sharding.ring_owner``), attends over the rank's slots and merges the
+ranks' partial softmaxes (``sharding.softmax_combine``).  wo then takes
+its layout from the rules: a row-parallel cut of the whole output, whose
+partial sum the caller's seam reduces, or the whole output.  The ring's
+shard rides on the cache tensors as a shard mark on the slot dim (pos's
+too); a ring without one is whole.
 """
 from __future__ import annotations
 
@@ -178,6 +192,29 @@ def _sdpa_dense(q, k, v, mask) -> torch.Tensor:
     p = torch.softmax(scores, dim=-1)
     out = einsum("bhgst,bthd->bshgd", p, v.to(torch.float32))
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _sdpa_ring_shard(q, k, v, mask, axes) -> torch.Tensor:
+    """:func:`_sdpa_dense` over a ring whose slots shard over ``axes``: the
+    scores and PV of this rank's slots (T of them) as a partial softmax (row
+    max, denominator, unnormalised accumulator in f32; a row whose slots
+    are all masked gives max -1e30, denominator 0), merged over the ranks
+    by ``sharding.softmax_combine``.  q: (B,S,H,D) whole; k / v:
+    (B,T,Hkv,D); mask: (B,1,S,T) -> (B,S,H,D)."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, s, hkv, g, d)
+    einsum = split_einsum if s == 1 else torch.einsum
+    scores = einsum("bshgd,bthd->bhgst", qg.to(torch.float32), k.to(torch.float32))
+    scores = scores / (d ** 0.5)
+    live = mask[:, :, None]  # (B,1,1,S,T)
+    scores = torch.where(live, scores, _NEG)
+    m = scores.amax(-1)  # (B,Hkv,G,S)
+    p = torch.where(live, torch.exp(scores - m[..., None]), 0.0)
+    acc = einsum("bhgst,bthd->bhgsd", p, v.to(torch.float32))
+    out = sh.softmax_combine(m, p.sum(-1), acc, axes)  # (B,Hkv,G,S,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
 def _online_softmax_chunked(q, k, v, *, causal: bool, window: int, q_offset: int,
@@ -348,6 +385,11 @@ def attention(
         # self-attention caches query positions; cross-attention the static
         # context positions 0..T-1
         fill_pos = positions if kv_source is None else torch.arange(st, device=x.device)
+        if not q16:  # the cache holds every kv head: a rank's heads are gathered
+            k, v = (sh.replicated(t, dims=(-2,)) for t in (k, v))
+        ring = _ring_axes(cache_len) if kv_source is None and not q16 else None
+        if ring is not None:  # only this rank's slots of the ring are filled
+            return out, _fill_ring_shard(k, v, fill_pos, cache_len, ring)
         if q16:
             # raw cache: v straight off the GEMM grid (never roped); k
             # re-enters the grid after the RoPE island
@@ -384,6 +426,52 @@ def _fill_cache(k, v, positions, cache_len: int) -> dict:
             "pos": torch.roll(pos, shift).contiguous()}
 
 
+def _ring_axes(c: int):
+    """The mesh axes the active rules shard a ``c``-slot ring's sequence
+    over (``seq_kv``), or None: off a mesh, under rules that keep it whole,
+    or where the drop rule does (``c`` does not divide)."""
+    mesh = sh.active_mesh()
+    if mesh is None or sh.active_rules() is None:
+        return None
+    spec = tuple(sh.logical_to_spec(("seq_kv",), dim_sizes=(c,)))
+    axes = spec[0] if spec else None
+    return axes if axes is not None and sh.axis_size(mesh, axes) > 1 else None
+
+
+def _ring_shard(k):
+    """(axes, logical slot count) of a k ring whose slot dim holds this
+    rank's shard (its mark), or None for a whole ring."""
+    mk = [m for m in sh.shard_marks(k) if m[0] == -2]
+    if not mk:
+        return None
+    if sh.active_mesh() is None:
+        raise ValueError("a sequence-sharded KV ring (its slot dim marked) is read under "
+                         "the mesh that cut it (use_mesh)")
+    return mk[0][1], mk[0][2]
+
+
+def _fill_ring_shard(k, v, positions, cache_len: int, axes) -> dict:
+    """:func:`_fill_cache`'s ring, only this rank's slots of it (``axes``
+    shard the slots): slot j holds the last position p < S with p % C == j,
+    or nothing (zeros, pos -1).  k / v (B,S,Hkv,D) whole over the heads;
+    the ring (B,Hkv,C/M,D) and pos (C/M,) carry the slot dim's mark."""
+    lo, hi = sh.local_rows(cache_len, sh.active_mesh(), axes)
+    s = k.shape[1]
+    dev = k.device
+    slots = torch.arange(lo, hi, device=dev)
+    last = slots + cache_len * torch.div(s - 1 - slots, cache_len, rounding_mode="floor")
+    valid = last >= 0
+    idx = torch.clamp(last, min=0)
+    pos = (positions if positions.ndim == 1 else positions[0]).to(torch.int32).expand(s)
+    keep = valid[None, None, :, None]
+    kt = torch.where(keep, k.transpose(1, 2)[:, :, idx], 0).contiguous()
+    vt = torch.where(keep, v.transpose(1, 2)[:, :, idx], 0).contiguous()
+    pr = torch.where(valid, pos[idx], -1).contiguous()
+    return {"k": sh.mark_shard(kt, ((-2, axes, cache_len),)),
+            "v": sh.mark_shard(vt, ((-2, axes, cache_len),)),
+            "pos": sh.mark_shard(pr, ((-1, axes, cache_len),))}
+
+
 def attention_islands(cfg, *, mode: str, cached: bool = False) -> dict:
     """Designated float islands of one quantized attention sublayer, as
     (quantize, dequantize) call counts.
@@ -402,6 +490,55 @@ def attention_islands(cfg, *, mode: str, cached: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 # decode (ring cache; one token, or a chunk per slot)
 # ---------------------------------------------------------------------------
+
+
+def _write_owned(k, v, pos, k_new, v_new, q_positions, tpos, steps, n_valid, *,
+                 per_slot: bool, c: int, axes) -> None:
+    """Write the new entries into this rank's slots [lo, lo + T) of a
+    ``c``-slot ring whose slots shard over ``axes``, in place: a position
+    goes to slot pos % c on the rank that owns it (``sharding.ring_owner``)
+    and nowhere else.  Per slot (k /
+    v (B,Hkv,T,D), pos (B,T)) each row gathers the incumbents and scatters
+    back as :func:`decode_attention` does; a token this rank does not write
+    (another rank's slot, an inactive lane, a pad token) is pointed at the
+    row's first written slot with that slot's new value, or at slot 0 with
+    its incumbent, so duplicate indices always carry equal values.  Shared
+    (pos (T,), one token): the one slot if this rank owns it."""
+    mesh = sh.active_mesh()
+    me = sh.axis_coord(mesh, axes)
+    t_loc = k.shape[2]
+    lo = me * t_loc
+    b, s = k_new.shape[:2]
+    dev = k.device
+    if not per_slot:
+        slot = torch.remainder(tpos, c).reshape(1)
+        own = sh.ring_owner(slot, c, mesh, axes) == me
+        li = torch.where(own, slot - lo, 0)
+        for ring, new in ((k, k_new), (v, v_new)):
+            new = new.transpose(1, 2).to(ring.dtype)
+            ring.index_copy_(2, li, torch.where(own, new, ring.index_select(2, li)))
+        pos.index_copy_(0, li, torch.where(own, q_positions.to(pos.dtype),
+                                           pos.index_select(0, li)))
+        return
+    nv = (torch.full((b,), s, dtype=torch.int64, device=dev) if n_valid is None
+          else torch.as_tensor(n_valid, device=dev).reshape(-1).expand(b))
+    slot = torch.remainder(q_positions, c)  # (B, S)
+    local = slot - lo
+    write = ((tpos >= 0)[:, None] & (steps[None, :] < nv[:, None])
+             & (sh.ring_owner(slot, c, mesh, axes) == me))
+    first = torch.argmax(write.to(torch.int8), dim=1)  # (B,): 0 when none
+    has = write.any(dim=1)
+    rows1 = torch.arange(b, device=dev)
+    anchor = torch.where(has, local[rows1, first], 0)  # (B,)
+    li = torch.where(write, local, anchor[:, None])
+    rows = rows1[:, None]
+    wm = write[:, :, None, None]
+    for ring, new in ((k, k_new), (v, v_new)):
+        new = new.to(ring.dtype)
+        fill = torch.where(has[:, None, None], new[rows1, first], ring[rows1, :, anchor])
+        ring[rows, :, li] = torch.where(wm, new, fill[:, None])
+    pfill = torch.where(has, q_positions[rows1, first].to(pos.dtype), pos[rows1, anchor])
+    pos[rows, li] = torch.where(write, q_positions.to(pos.dtype), pfill[:, None])
 
 
 def decode_positions(t, device) -> torch.Tensor:
@@ -477,7 +614,9 @@ def decode_attention(
         q_positions = tpos.reshape(1)  # (1,)
     xin = eng.quant(x, policy.fmt) if q16 else x
     q = _proj(tpl, p["wq"], xin, "act_heads")
-    q = _split_heads(eng.dequant(q) if q16 else q, h)
+    # every head of q on every rank: a column shard (heads over "model") is
+    # gathered, small at decode
+    q = _split_heads(eng.dequant(q) if q16 else sh.replicated(q, dims=(-1,)), h)
     if rope:
         q = apply_rope(q, q_positions, cfg.rope_theta)
 
@@ -485,9 +624,13 @@ def decode_attention(
     if cross:
         k, v = cache["k"], cache["v"]  # (B,Hkv,T,D) static
         valid = cache["pos"] >= 0
-        new_cache = cache
+        new_cache, ring = cache, None
     else:
-        c = cache["k"].shape[2]
+        ring = _ring_shard(cache["k"])
+        if ring is not None and q16:
+            raise ValueError("a sequence-sharded KV ring takes float decode; the "
+                             "fixed-point path runs column-parallel rules")
+        c = cache["k"].shape[2] if ring is None else ring[1]
         kq = _proj(tpl, p["wk"], xin, "kv_heads")
         vq = _proj(tpl, p["wv"], xin, "kv_heads")
         if q16:
@@ -500,12 +643,16 @@ def decode_attention(
             else:
                 k_new = kq.reshape(b, s, kvh, hd).raw
         else:
-            k_new = _split_heads(kq, kvh)
-            v_new = _split_heads(vq, kvh)
+            k_new = _split_heads(sh.replicated(kq, dims=(-1,)), kvh)
+            v_new = _split_heads(sh.replicated(vq, dims=(-1,)), kvh)
             if rope:
                 k_new = apply_rope(k_new, q_positions, cfg.rope_theta)
-        k, v, pos = ((cache[n] if inplace else cache[n].clone()) for n in ("k", "v", "pos"))
-        if per_slot:
+        k, v, pos = ((cache[n] if inplace else sh.carry_marks(cache[n], cache[n].clone()))
+                     for n in ("k", "v", "pos"))
+        if ring is not None:
+            _write_owned(k, v, pos, k_new, v_new, q_positions, tpos, steps, n_valid,
+                         per_slot=per_slot, c=c, axes=ring[0])
+        elif per_slot:
             # each row writes its own ring slots (qpos % C, distinct within a
             # row as S <= C): gather the incumbents, select, scatter back
             nv = (torch.full((b,), s, dtype=torch.int64, device=x.device) if n_valid is None
@@ -517,16 +664,18 @@ def decode_attention(
             k[rows, :, slots] = torch.where(wm, k_new.to(k.dtype), k[rows, :, slots])
             v[rows, :, slots] = torch.where(wm, v_new.to(v.dtype), v[rows, :, slots])
             pos[rows, slots] = torch.where(write, q_positions.to(pos.dtype), pos[rows, slots])
-            # causal block mask against the whole ring: (B, S, C)
-            valid = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_positions[:, :, None])
-            if window:
-                valid &= pos[:, None, :] > q_positions[:, :, None] - window
-            mask = valid[:, None]  # (B, 1, S, C)
         else:
             slot = torch.remainder(tpos, c).reshape(1)
             k.index_copy_(2, slot, k_new.transpose(1, 2).to(k.dtype))
             v.index_copy_(2, slot, v_new.transpose(1, 2).to(v.dtype))
             pos.index_copy_(0, slot, q_positions.to(pos.dtype))
+        if per_slot:
+            # causal block mask against the (rank's) ring: (B, S, C)
+            valid = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_positions[:, :, None])
+            if window:
+                valid &= pos[:, None, :] > q_positions[:, :, None] - window
+            mask = valid[:, None]  # (B, 1, S, C)
+        else:
             valid = (pos >= 0) & (pos <= tpos)
             if window:
                 valid &= pos > tpos - window
@@ -540,7 +689,10 @@ def decode_attention(
         if valid.ndim == 1:
             valid = valid[None]
         mask = valid[:, None, None, :].expand(b, 1, s, k.shape[2])
-    out = _sdpa_dense(q, k.transpose(1, 2), v.transpose(1, 2), mask)
+    if ring is not None:
+        out = _sdpa_ring_shard(q, k.transpose(1, 2), v.transpose(1, 2), mask, ring[0])
+    else:
+        out = _sdpa_dense(q, k.transpose(1, 2), v.transpose(1, 2), mask)
     out = out.reshape(b, s, h * hd)
     if q16:
         out = eng.dequant(dense(tpl, p["wo"], eng.quant(out, policy.fmt)))

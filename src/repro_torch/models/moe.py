@@ -35,7 +35,13 @@ are cut by the columns they produce: with ``expert_mlp`` over "model"
 gate / up hold a column shard of the hidden, which is gathered before down
 contracts it, so every contraction stays whole; with ``embed`` over
 "model" down holds a column shard of the output, gathered by the caller's
-seam.
+seam.  Under ``SERVE_RULES`` with granite-moe's serve overrides
+(``expert_mlp`` over "model") the rules' own layout cuts down's rows too:
+the hidden's shard contracts against the rank's rows (a row-parallel
+down), and the combine's output is a partial sum over "model", reduced by
+the caller's seam.  With experts over "model" (phi3.5-moe) and the weights
+in the rules' layout a rank runs its experts: the dispatched inputs and
+the combine weights are cut to them, and the combine is a partial sum.
 
 Under tensor-parallel training (``TRAIN_RULES`` with "model" above 1) a
 sequence-parallel input is gathered whole first and the routing runs
@@ -207,42 +213,59 @@ def moe_ffn(tpl: Template, cfg, p, x: torch.Tensor):
     ex_in = torch.einsum("gsec,gsd->gecd", dispatch, xt)
     ex_in = sh.constrain(ex_in, "batch", "experts", "expert_cap", None)
     combine = sh.constrain(combine, "batch", None, "experts", "expert_cap")
+    # weights cut to this rank's experts (the rules' layout under
+    # SERVE_RULES, whose activations the seams do not cut) take its share
+    cut = [mk for mk in sh.shard_marks(p["gate"]) if mk[0] == -3]
+    if cut and not any(mk[0] == -3 for mk in sh.shard_marks(ex_in)):
+        ex_in = sh.take_shard(ex_in, 1, cut[0][1])
+        combine = sh.take_shard(combine, 2, cut[0][1])
 
     # an expert GEMM's output takes the columns its weight holds: under
     # column-parallel decode rules gate / up hold a column shard of
-    # expert_mlp (and down, under embed over "model", of embed)
-    if tpl.config.backend == "torch":
-        def bmm(a, w):
-            return sh.mark_shard(torch.einsum("gecd,edf->gecf", a, w.to(a.dtype)), _cols(w))
-    else:
-        def bmm(a, w):
-            return sh.mark_shard(
-                torch.stack([torch.stack([tpl.matmul(a[gi, ei], sh.carry_marks(w, w[ei]))
-                                          for ei in range(e)])
-                             for gi in range(g)]), _cols(w))
+    # expert_mlp (and down, under embed over "model", of embed); a hidden
+    # that holds the expert_mlp rows a row-parallel down holds contracts
+    # them into a partial sum over their axis (f32 on a kernel template)
+    def bmm(a, w):
+        rows = [mk for mk in sh.shard_marks(w) if mk[0] == -2]
+        part = () if not rows else (rows[0][1],) if isinstance(rows[0][1], str) else rows[0][1]
+        if tpl.config.backend == "torch":
+            y = torch.einsum("gecd,edf->gecf", a, w.to(a.dtype))
+        else:
+            k_mark = tuple(mk for mk in sh.shard_marks(a) if mk[0] == -1)
+            y = torch.stack([torch.stack([
+                tpl.matmul(sh.mark_shard(a[gi, ei], k_mark), sh.carry_marks(w, w[ei]))
+                for ei in range(a.shape[1])]) for gi in range(g)])
+        return sh.mark_partial(sh.mark_shard(y, _cols(w)), part, a.dtype)
+
     h = F.silu(bmm(ex_in, p["gate"])) * bmm(ex_in, p["up"])
     h = sh.mark_shard(sh.carry_marks(ex_in, h), sh.shard_marks(ex_in) + _cols(p["up"]))
     h = sh.constrain(h, "batch", "experts", "expert_cap", "expert_mlp")
-    # a column shard of the hidden is gathered: down contracts it whole
-    if any(mk[0] == -2 for mk in sh.shard_marks(p["down"])):
-        raise sh.LayoutRefused(
-            "the MoE FFN contracts its down projection whole or column-parallel; these "
-            "rules shard its expert_mlp rows (a row-parallel down: SERVE_RULES with "
-            "expert_mlp over 'model'), which it does not run")
-    ex_out = bmm(sh.replicated(h, dims=(-1,)), p["down"])
+    down_rows = [mk for mk in sh.shard_marks(p["down"]) if mk[0] == -2]
+    if down_rows:  # row-parallel down: the hidden on its expert_mlp shard
+        hk = [mk for mk in sh.shard_marks(h) if mk[0] == -1]
+        if not hk or hk[0][1] != down_rows[0][1]:
+            h = sh.take_shard(sh.replicated(h, dims=(-1,)), -1, down_rows[0][1])
+    else:  # a column shard of the hidden is gathered: down contracts it whole
+        h = sh.replicated(h, dims=(-1,))
+    ex_out = bmm(h, p["down"])
 
     # the combine contracts the experts and their slots: over a rank's
-    # share of them the output is a partial sum over their axes
-    out = torch.einsum("gsec,gecd->gsd", combine, ex_out)
+    # share of them the output is a partial sum over their axes (and over
+    # a row-parallel down's)
+    out = torch.einsum("gsec,gecd->gsd", combine.to(ex_out.dtype), ex_out)
     out = out.reshape(g * sg, out.shape[-1])[:t].reshape(b, s, out.shape[-1])
-    out = sh.mark_partial(sh.mark_shard(out, _cols(ex_out)), sh.mark_axes(ex_in))
+    part = sh.mark_axes(ex_in) + tuple(a for a in sh.partial_axes(ex_out)
+                                       if a not in sh.mark_axes(ex_in))
+    out = sh.mark_partial(sh.mark_shard(out, _cols(ex_out)), part, x.dtype)
 
     # Switch-style load-balancing aux loss (mean over the batch's groups)
     density = onehot.to(torch.float32).sum(2).mean(1)  # (G, E) routed fraction
     router_prob = probs.mean(1)  # (G, E)
     per_group = torch.sum(density * router_prob, dim=-1)
     aux = e * (torch.mean(per_group) if split == 1 else per_group.sum() / (g * split))
-    return sh.carry_marks(out, out.to(x.dtype)), aux / replicas
+    if not sh.partial_axes(out):
+        out = sh.carry_marks(out, out.to(x.dtype))
+    return out, aux / replicas  # a partial sum takes x's dtype once reduced
 
 
 def moe_ffn_dense_ref(cfg, p, x: torch.Tensor):

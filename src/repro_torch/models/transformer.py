@@ -300,11 +300,12 @@ def _at(tree, j: int):
 
 
 def _stack(trees: list):
-    """The stacked tree of per-layer trees (inverse of :func:`_at`)."""
+    """The stacked tree of per-layer trees (inverse of :func:`_at`; a
+    shard keeps its marks, which count dims from the end)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+    return sh.carry_marks(first, torch.stack(trees))
 
 
 def _depth(tree) -> int:
@@ -712,7 +713,10 @@ def _head(tpl, cfg, params, h, *, policy=None):
         w = sh.gather_params(w, sh.mark_axes(h))
         if cfg.tie_embeddings:  # a table cut along embed: the head contracts it whole
             w = sh.replicated(w, dims=(-1,))
-        logits = tpl.matmul(h, w.T if cfg.tie_embeddings else w)
+            # its vocab shard (the rules' layout) makes column-parallel logits
+            w = sh.mark_shard(w.T, tuple((-1, a, n) for d, a, n in sh.shard_marks(w)
+                                         if d % 2 == 0))
+        logits = tpl.matmul(h, w)
     # a vocab-sharded head's logits stay sharded at the seam; the entry
     # points gather them whole before they are read.  Only the vocab dim:
     # a rank's batch rows stay its own (gathered, every rank would take the

@@ -45,6 +45,14 @@ that holds its own shard, and the collectives are explicit.
   inputs were the rank's part); :func:`psum` sums a value that carries no
   gradient (a mask count, a metric).  Reductions run in f32.
   :data:`SEAM_COUNTS` counts every seam's collectives by (seam, pass, axis).
+* **Serving seams** (``SERVE_RULES``: heads over "model", the decode KV
+  ring's sequence over "model", ``seq_kv``).  :func:`ring_owner` says which
+  rank holds a ring slot (a rank holds its :func:`local_rows` of the
+  slots); a decode step attends over its own slots and merges the ranks'
+  partial softmaxes with :func:`softmax_combine` (an all-reduce max of the
+  row maxima, a rescale, one all-reduce sum of denominators and
+  accumulators packed together).  A row-parallel projection's partial sum
+  (``mark_partial``, in f32) is reduced by the seam that reads it.
 * **Spatial seams.** :func:`halo_exchange` and :func:`mask_slab_rows` take
   the slab-major layout ``(S, N, lx, W, C)``.  With ``axis=None`` they run
   the reference's slab-major simulation on one device (``torch.roll`` and
@@ -136,6 +144,9 @@ __all__ = [
     "Collective",
     "record_collectives",
     "LayoutRefused",
+    "partial_dtype",
+    "ring_owner",
+    "softmax_combine",
 ]
 
 MeshAxes = Union[str, tuple, None]
@@ -771,6 +782,7 @@ def column_parallel_shardings(mesh, rules: ShardingRules, params_tree, axes_tree
 
 _MARK = "_repro_shard"
 _PARTIAL = "_repro_partial"
+_PARTIAL_DTYPE = "_repro_partial_dtype"
 
 
 def _raw(x):
@@ -800,13 +812,25 @@ def partial_axes(x) -> tuple:
     return getattr(_raw(x), _PARTIAL, ())
 
 
-def mark_partial(x, axes: tuple):
-    """Record that ``x`` is a partial sum over ``axes``; returns ``x``."""
+def partial_dtype(x):
+    """The dtype ``x``'s partial sum takes once reduced (``x``'s own unless
+    :func:`mark_partial` named another: a kernel's f32 partial of a bf16
+    product)."""
+    return getattr(_raw(x), _PARTIAL_DTYPE, None) or _raw(x).dtype
+
+
+def mark_partial(x, axes: tuple, dtype=None):
+    """Record that ``x`` is a partial sum over ``axes`` (reduced, it is cast
+    to ``dtype``, default its own); returns ``x``."""
     t = _raw(x)
     if axes:
         setattr(t, _PARTIAL, tuple(axes))
-    elif hasattr(t, _PARTIAL):
-        delattr(t, _PARTIAL)
+        if dtype is not None and dtype != t.dtype:
+            setattr(t, _PARTIAL_DTYPE, dtype)
+    else:
+        for name in (_PARTIAL, _PARTIAL_DTYPE):
+            if hasattr(t, name):
+                delattr(t, name)
     return x
 
 
@@ -820,7 +844,7 @@ def carry_marks(src, dst):
     if marks:
         mark_shard(dst, marks)
     if part:
-        mark_partial(dst, part)
+        mark_partial(dst, part, partial_dtype(src))
     return dst
 
 
@@ -856,13 +880,14 @@ def local_rows(n: int, mesh, axes: MeshAxes) -> tuple:
 
 
 def _slice(leaf, spec: PartitionSpec, mesh):
-    if shard_marks(leaf):
-        return leaf  # already this rank's shard (cut as it was drawn)
-    marks = []
     t = _raw(leaf)
     nd = t.ndim
+    # a marked dim is already this rank's shard (cut as it was drawn, or a
+    # prefill's ring filled on its own slots); the others are cut here
+    done = {d % nd for d, _, _ in shard_marks(leaf)}
+    marks = list(shard_marks(leaf))
     for d, axes in enumerate(tuple(spec)):
-        if axes is None:
+        if axes is None or d in done:
             continue
         n = t.shape[d]
         lo, hi = local_rows(n, mesh, axes)
@@ -870,9 +895,10 @@ def _slice(leaf, spec: PartitionSpec, mesh):
             continue
         t = t.narrow(d, lo, hi - lo)
         marks.append((d - nd, axes, n))
+    if t is _raw(leaf):
+        return leaf
     t = t.contiguous()
-    out = type(leaf)(t, leaf.fmt) if t is not _raw(leaf) and hasattr(leaf, "fmt") else (
-        leaf if t is _raw(leaf) else t)
+    out = type(leaf)(t, leaf.fmt) if hasattr(leaf, "fmt") else t
     return mark_shard(out, tuple(marks))
 
 
@@ -1309,9 +1335,9 @@ def _staged(t: torch.Tensor, mesh) -> torch.Tensor:
     return buf
 
 
-def _all_reduce_f32(t: torch.Tensor, axes: tuple, mesh) -> torch.Tensor:
+def _all_reduce_f32(t: torch.Tensor, axes: tuple, mesh, op=None) -> torch.Tensor:
     """The sum of ``t`` over ``axes`` (one all-reduce an axis), in f32, on
-    ``t``'s device."""
+    ``t``'s device; ``op`` another reduction (``dist.ReduceOp.MAX``)."""
     if not axes:
         return t.to(torch.float32)
     buf = _staged(t.to(torch.float32), mesh).contiguous()
@@ -1320,9 +1346,48 @@ def _all_reduce_f32(t: torch.Tensor, axes: tuple, mesh) -> torch.Tensor:
     for a in axes:
         if _recording(mesh):
             _record("all-reduce", a, mesh, buf, buf)
-        else:
+        elif op is None:
             dist.all_reduce(buf, group=mesh.groups[a])
+        else:
+            dist.all_reduce(buf, op=op, group=mesh.groups[a])
     return buf.to(t.device)
+
+
+def ring_owner(slot: torch.Tensor, c: int, mesh, axes: MeshAxes) -> torch.Tensor:
+    """The shard index over ``axes`` of the rank that holds ring slot
+    ``slot`` (slot = pos % ``c``, a tensor) of a ``c``-slot ring whose
+    sequence shards over ``axes`` (``seq_kv``: a rank holds the slots
+    :func:`local_rows` gives it); 0 where the ring is whole (the drop rule).
+    A position is written only by its owner."""
+    lo, hi = local_rows(c, mesh, axes)
+    if (lo, hi) == (0, c):
+        return torch.zeros_like(slot)
+    return torch.div(slot, hi - lo, rounding_mode="floor")
+
+
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, axes: MeshAxes,
+                    mesh=None) -> torch.Tensor:
+    """The softmax-weighted sum of rows split over the ranks of ``axes``
+    (flash-decoding's merge): each rank gives its row maxima ``m`` (-1e30
+    where it holds no unmasked entry), its denominators ``l`` (sum of
+    exp(s - m) over its unmasked entries, 0 where none) and its unnormalised
+    accumulators ``acc`` (``l``'s shape + (D,)), in f32.  One all-reduce max
+    of ``m``, a rescale by exp(m - max) (0 for a rank whose entries are all
+    masked, never NaN), one all-reduce sum of (``l``, ``acc``) packed in one
+    buffer; returns acc / max(l, 1e-30) in f32.  Counted in
+    :data:`SEAM_COUNTS` as ("kv_max", "fwd") and ("kv_sum", "fwd") an axis."""
+    mesh = mesh or _CTX.mesh
+    live = () if mesh is None else _axes_tuple(mesh, axes)
+    m, l, acc = (t.to(torch.float32) for t in (m, l, acc))
+    if live:
+        _count("kv_max", "fwd", live)
+        top = _all_reduce_f32(m, live, mesh, op=dist.ReduceOp.MAX)
+        scale = torch.exp(m - top)
+        packed = torch.cat([(l * scale).reshape(-1), (acc * scale[..., None]).reshape(-1)])
+        _count("kv_sum", "fwd", live)
+        packed = _all_reduce_f32(packed, live, mesh)
+        l, acc = packed[:l.numel()].view(l.shape), packed[l.numel():].view(acc.shape)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
 #: the reduce-scatter collective (gloo and NCCL): ``reduce_scatter_single``
@@ -1364,7 +1429,9 @@ def _reduce_scatter_many(gs: Sequence[torch.Tensor], dims: Sequence[int], axis: 
 #: reduce-scattered onto a shard), "act_all_reduce", "act_slice" (a whole
 #: activation cut to its shard: no collective), "param_gather" (a weight's
 #: shards gathered at the point of use), "grad_all_reduce", "psum"; pass
-#: "fwd" or "bwd" (an all-gather's backward is a reduce-scatter, and so on)
+#: "fwd" or "bwd" (an all-gather's backward is a reduce-scatter, and so on);
+#: a decode step over a sequence-sharded ring adds "kv_max" and "kv_sum"
+#: (:func:`softmax_combine`'s two all-reduces)
 SEAM_COUNTS: collections.Counter = collections.Counter()
 
 #: the collective each (seam, pass) runs (act_slice runs none)
@@ -1373,7 +1440,8 @@ _COLLECTIVE = {("act_gather", "fwd"): "all_gather", ("act_gather", "bwd"): "redu
                ("param_gather", "bwd"): "reduce_scatter",
                ("act_scatter", "fwd"): "reduce_scatter", ("act_scatter", "bwd"): "all_gather",
                ("act_all_reduce", "fwd"): "all_reduce", ("act_all_reduce", "bwd"): "all_reduce",
-               ("grad_all_reduce", "fwd"): "all_reduce", ("psum", "fwd"): "all_reduce"}
+               ("grad_all_reduce", "fwd"): "all_reduce", ("psum", "fwd"): "all_reduce",
+               ("kv_max", "fwd"): "all_reduce", ("kv_sum", "fwd"): "all_reduce"}
 
 
 def _count(seam: str, phase: str, axes: tuple) -> None:
@@ -1468,15 +1536,21 @@ def _scatter_partial(x, dim: int, axis: str):
     d = dim % nd
     n = x.shape[d]
     out = _ReduceScatter.apply(d, _axes_tuple(mesh, axis), mesh, x)
-    mark_partial(out, tuple(a for a in partial_axes(x) if a != axis))
+    rest = tuple(a for a in partial_axes(x) if a != axis)
+    out = out if rest else out.to(partial_dtype(x))  # summed whole: its own dtype
+    mark_partial(out, rest, partial_dtype(x))
     return mark_shard(out, shard_marks(x) + ((d - nd, axis, n),))
 
 
-def _reduce_partial(x, axes: tuple):
-    """The partial sum ``x`` all-reduced over ``axes`` (its marks kept)."""
-    mesh = _CTX.mesh
+def _reduce_partial(x, axes: tuple, mesh=None):
+    """The partial sum ``x`` all-reduced over ``axes`` (its marks kept; in
+    f32, then in the dtype :func:`partial_dtype` names once no partial axis
+    is left)."""
+    mesh = mesh or _CTX.mesh
     out = _AllReduce.apply(_axes_tuple(mesh, axes), mesh, x)
-    mark_partial(out, tuple(a for a in partial_axes(x) if a not in axes))
+    rest = tuple(a for a in partial_axes(x) if a not in axes)
+    out = out if rest else out.to(partial_dtype(x))
+    mark_partial(out, rest, partial_dtype(x))
     return mark_shard(out, shard_marks(x))
 
 

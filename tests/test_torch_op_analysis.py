@@ -3,8 +3,10 @@ dry-run records it fills (``launch/dryrun.py``), on the CPU.
 
 * A recording rank (``Mesh.recording``, no process group) running reduced
   qwen2-0.5b's train step on (2, 2) under ``TRAIN_RULES``, and one meshed
-  decode step on (1, 2) under ``DECODE_RULES`` through
-  ``compiled_steps(mesh=)``, records the seam counts and the ordered list
+  decode step on (1, 2) through ``compiled_steps(mesh=)`` under
+  ``DECODE_RULES`` and under ``SERVE_RULES`` (the sequence-sharded ring's
+  combine, the row-parallel projections' partial sums), records the seam
+  counts and the ordered list
   of (collective, axis, group size, result bytes) that gloo rank 0 counts
   and hands to ``torch.distributed`` for the same step
   (``tests/torch_analysis_cases.py``).
@@ -55,7 +57,8 @@ def _world(spec) -> int:
 def gloo():
     """Rank 0's seam counts and logged collectives of both cases, from two
     ``spawn_ranks`` calls run at once."""
-    cases = {"train": (C.train_case, C.TRAIN), "decode": (C.decode_case, C.DECODE)}
+    cases = {"train": (C.train_case, C.TRAIN), "decode": (C.decode_case, C.DECODE),
+             "serve_decode": (C.serve_decode_case, C.DECODE)}
     with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
         futures = {name: pool.submit(spawn_ranks, functools.partial(fn, {}), _world(spec),
                                      device="cpu", timeout=240)
@@ -69,9 +72,10 @@ def _recorded(setup, spec):
     return analyze_step(fn, *args, tpl=tpl, mesh=rec, rules=rules)
 
 
-@pytest.mark.parametrize("case", ["train", "decode"])
+@pytest.mark.parametrize("case", ["train", "decode", "serve_decode"])
 def test_recording_rank_issues_what_gloo_rank_0_issues(gloo, case):
-    setup, spec = {"train": (C.train_setup, C.TRAIN), "decode": (C.decode_setup, C.DECODE)}[case]
+    setup, spec = {"train": (C.train_setup, C.TRAIN), "decode": (C.decode_setup, C.DECODE),
+                   "serve_decode": (C.serve_decode_setup, C.DECODE)}[case]
     st = _recorded(setup, spec)
     want = gloo[case]
     assert st.seam_counts == want["counts"]
@@ -82,6 +86,14 @@ def test_recording_rank_issues_what_gloo_rank_0_issues(gloo, case):
         assert {c.kind for c in st.collectives} == {"all-gather", "reduce-scatter",
                                                     "all-reduce"}
         assert {c.axis for c in st.collectives} == {"data", "model"}
+    elif case == "serve_decode":
+        # q / k / v and the logits gathered; the combine's max and sum and the
+        # row-parallel partial sums all-reduced, all over "model"
+        assert {(c.kind, c.axis) for c in st.collectives} == {("all-gather", "model"),
+                                                             ("all-reduce", "model")}
+        cfg = C.cfg()
+        assert st.seam_counts[("kv_max", "fwd", "model")] == cfg.n_layers
+        assert st.seam_counts[("kv_sum", "fwd", "model")] == cfg.n_layers
     else:
         assert {(c.kind, c.axis, c.group) for c in st.collectives} == {("all-gather", "model",
                                                                         2)}
@@ -194,16 +206,19 @@ def test_plan_store_without_roofline_rates_loads(tmp_path):
 
 
 def test_granite_prefill_cells_record_their_refusal(tmp_path, reduced_cells):
-    """granite-moe's prefill under ``SERVE_RULES`` shards the experts'
-    ``expert_mlp`` over "model", so its down projection would be
-    row-parallel, which the port's MoE FFN does not run (ROADMAP queue 3):
-    the record holds the refusal and no terms; its decode cell (the port's
-    column-parallel decode) carries them."""
+    """granite-moe's serving cells under the reference's own rules
+    (``SERVE_RULES`` with its serve overrides: ``expert_mlp`` over "model",
+    so the expert down projection is row-parallel) run and carry their
+    terms: no cell records a refusal, and each record's ``ops.rules`` is
+    ``rules_for(kind, cfg)``, the decode cell's too (its ring's sequence
+    over "model", no substitute rules)."""
+    cfg = reduced(get_config("granite-moe-3b-a800m"))
     for shape in ("prefill_32k", "decode_32k"):
         rec = dryrun.run_cell("granite-moe-3b-a800m", shape, False, str(tmp_path),
                               device="cpu")
-        if shape == "prefill_32k":
-            assert "row-parallel" in rec["analysis_refused"]
-            assert not set(rec) & {"ops", "cost", "roofline", "model_flops"}
-        else:
-            assert "analysis_refused" not in rec and rec["roofline"]["dominant"]
+        assert "analysis_refused" not in rec and rec["roofline"]["dominant"]
+        assert rec["ops"]["flops"] > 0 and rec["ops"]["wire_bytes"] > 0
+        want = dryrun.rules_for(rec["kind"], cfg)
+        assert rec["ops"]["rules"] == [list(r) for r in want.rules]
+        if rec["kind"] == "decode":
+            assert rec["ops"]["seam_counts"]["kv_max.fwd.model"] == cfg.n_layers

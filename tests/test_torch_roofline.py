@@ -37,7 +37,9 @@ from repro_torch.core.op_analysis import analyze_step
 from repro_torch.core.template import default_template
 from repro_torch.core.tiling import H100
 from repro_torch.launch import dryrun, steps
-from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch import scheduler as S
+from repro_torch.launch.mesh import Mesh, make_test_mesh
+from repro_torch.parallel import sharding as sh
 
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
 DTYPES = {"f32": 4, "bf16": 2, "s8": 1}
@@ -231,3 +233,36 @@ def test_reduced_qwen2_flops_are_the_analytic_dot_count():
     assert _port_flops("qwen2-0.5b", "decode") == BATCH * proj + attn + BATCH * head == 344_064
     assert _port_flops("qwen2-0.5b", "train") == \
         3 * (BATCH * SEQ * (proj + head) + SEQ * attn) == 66_060_288
+
+
+def _ranks_decode_flops(arch: str) -> list:
+    """Each recording rank's flops of a decode step on (1, 2) under the
+    dry-run's decode rules (``SERVE_RULES``: the ring's sequence over
+    "model", wo and down row-parallel), as ``dryrun.analyze_cell`` counts
+    a decode cell."""
+    cfg = reduced(get_config(arch))
+    tpl = _tpl()
+    rules = dryrun.rules_for("decode", cfg)
+    batch = steps.input_specs(cfg, ShapeSpec("decode", SEQ, BATCH, "decode"))
+    out = []
+    for rank in range(2):
+        rec = Mesh((1, 2), ("data", "model")).recording(rank)
+        params = sh.shard_tree(steps.abstract_params(cfg),
+                               S.serve_shardings(cfg, rec, rules, full=True))
+        cache = S.shard_cache(cfg, steps.abstract_cache(cfg, BATCH, SEQ), rec, rules)
+        fns = S.compiled_steps(tpl, cfg, SEQ, mesh=rec, rules=rules)
+        out.append(analyze_step(fns.decode, params, batch["token"], batch["t"], cache,
+                                tpl=tpl, mesh=rec, rules=rules).flops)
+    return out
+
+
+def test_serve_rules_decode_flops_sum_to_one_device():
+    """Reduced qwen2's decode under ``SERVE_RULES`` on (1, 2): each rank
+    counts half the matmul-class flops (its heads' columns, its rows of wo
+    and down, its half of the ring's slots for every head, its vocab half),
+    and the two ranks' counts sum exactly to the single-device count and to
+    ``analyze_hlo``'s count of the reference's jitted decode."""
+    ranks = _ranks_decode_flops("qwen2-0.5b")
+    assert ranks[0] == ranks[1]
+    assert sum(ranks) == _port_flops("qwen2-0.5b", "decode") == \
+        _reference_flops("qwen2-0.5b", "decode")

@@ -211,13 +211,26 @@ def test_phi_drops_tokens_at_the_default_capacity(monkeypatch):
 @pytest.mark.parametrize("backend", ["cuda", "q16"])
 def test_a_row_parallel_gemm_needs_the_torch_template(backend):
     """A GEMM whose contraction holds a shard on both operands (a
-    row-parallel weight) runs on the torch template only: the kernel
-    templates plan and run column-parallel shards, so ``matmul`` raises
-    before it plans a block for the local k."""
-    x = sh.mark_shard(torch.ones(4, 8), ((-1, "model", 16),))
-    w = sh.mark_shard(torch.ones(8, 6), ((-2, "model", 16),))
-    with pytest.raises(ValueError, match="row-parallel GEMM"):
-        default_template(backend, device="cpu").matmul(x, w)
+    row-parallel weight): on the ``cuda`` template each rank's K-shard runs
+    the float GEMM (here its plain version) into an f32 partial sum, marked
+    so, with no epilogue, and the two ranks' partials sum to the whole
+    product; the fixed-point template runs column-parallel shards only and
+    raises before it plans a block for the local k."""
+    gen = torch.Generator().manual_seed(11)
+    x, w = torch.randn(4, 16, generator=gen), torch.randn(16, 6, generator=gen)
+    tpl = default_template(backend, device="cpu")
+    halves = []
+    for lo in (0, 8):
+        xs = sh.mark_shard(x[:, lo:lo + 8].contiguous(), ((-1, "model", 16),))
+        ws = sh.mark_shard(w[lo:lo + 8].contiguous(), ((-2, "model", 16),))
+        if backend == "q16":
+            with pytest.raises(ValueError, match="row-parallel GEMM"):
+                tpl.matmul(xs, ws)
+            return
+        part = tpl.matmul(xs, ws)
+        assert sh.partial_axes(part) == ("model",) and part.dtype == torch.float32
+        halves.append(part)
+    torch.testing.assert_close(halves[0] + halves[1], x @ w, rtol=1e-5, atol=1e-5)
 
 
 def test_restart_on_a_tp_mesh_resumes_bit_for_bit(runs):

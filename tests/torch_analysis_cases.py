@@ -57,16 +57,18 @@ def train_setup(mesh, real: bool):
     return step, (params, opt, batch), tpl, rules
 
 
-def decode_setup(mesh, real: bool):
+def decode_setup(mesh, real: bool, serve: bool = False):
     """(decode, (params, token, t, cache)) of rank ``mesh.rank``'s meshed
     decode step of reduced qwen2 under ``DECODE_RULES``, through
     ``compiled_steps(mesh=)`` as the meshed scheduler runs it, at position
-    ``prompt`` of a cache of ``cache_len``."""
+    ``prompt`` of a cache of ``cache_len``; ``serve``: under the dry-run's
+    decode rules (``SERVE_RULES``: the ring's sequence over "model", the
+    weights in their whole layout, wo and down row-parallel) instead."""
     c = cfg()
-    rules = sh.DECODE_RULES
+    rules = sh.SERVE_RULES if serve else sh.DECODE_RULES
     tpl = default_template("torch", device="cpu")
     _, rows, prompt, cache_len = DECODE
-    p_sh = S.serve_shardings(c, mesh, rules)
+    p_sh = S.serve_shardings(c, mesh, rules, full=serve)
     if real:
         params = T.init_params(torch.Generator().manual_seed(4), c, shardings=p_sh)
         cache = T.init_cache(c, rows, cache_len)
@@ -149,3 +151,14 @@ def decode_case(payload, rank, world, device):
     """The decode case on ``world`` gloo ranks, as :func:`train_case`."""
     mesh = Mesh(*DECODE[0]).init_groups()
     return _run_logged(mesh, decode_setup)
+
+
+def serve_decode_setup(mesh, real: bool):
+    """:func:`decode_setup` under ``SERVE_RULES``."""
+    return decode_setup(mesh, real, serve=True)
+
+
+def serve_decode_case(payload, rank, world, device):
+    """The ``SERVE_RULES`` decode case on ``world`` gloo ranks."""
+    mesh = Mesh(*DECODE[0]).init_groups()
+    return _run_logged(mesh, serve_decode_setup)
